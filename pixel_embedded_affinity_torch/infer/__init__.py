@@ -1,0 +1,2 @@
+from .inference2d import (build_model, forward_affinities, run_inference_2d,
+                          run_cvppp_test, write_cvppp_submission)

@@ -1,0 +1,173 @@
+"""2D serving (CVPPP).
+
+Batches of images go through the model, the fused embedding->affinity
+kernel and a ReLU on the device, the convolutions in full float32 (TF32
+off); the host then runs mutex watershed (with
+the GT / given FG mask), small-object merging and relabelling, and scores
+SBD/|DiC|/VOI/ARAND. Samples are dicts of HWC numpy arrays as
+:mod:`..data.cvppp` produces them (``image``, and ``seg`` or ``fg``).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import Config, resolve_compute_dtype
+from ..device import float32_convs, resolve_device
+from ..metrics import abs_diff_fg_labels, adapted_rand_error, symmetric_best_dice, voi
+from ..models import ResidualUNet2DDeep
+from ..ops import fused_affinity_2d, multi_offset, relabel
+from ..postproc import merge_func, seg_mutex
+
+# images per device call when the caller does not choose: at 544x544 on an
+# H100, batch 4 costs less device time per image than batch 1 (PERF.md)
+SERVE_BATCH = 4
+
+
+def build_model(cfg: Config, state_dict: dict | None = None,
+                device=None) -> ResidualUNet2DDeep:
+    """The serving model in eval mode on ``device``, weights from
+    ``state_dict`` when given."""
+    if cfg.model.arch != "resunet2d_deep":
+        raise NotImplementedError(f"arch {cfg.model.arch!r} is not ported")
+    if resolve_compute_dtype(cfg.model) != "float32":
+        raise NotImplementedError("only float32 serving is ported")
+    dev = resolve_device(device)
+    with dev:
+        model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
+                                   tuple(cfg.model.filters), cfg.model.emd)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return model.eval()
+
+
+@torch.no_grad()
+def forward_affinities(model: torch.nn.Module, x_nchw: torch.Tensor,
+                       offsets) -> torch.Tensor:
+    """(B, 3, H, W) images -> (B, K, H, W) ReLU'd affinities, on x's device."""
+    with float32_convs():
+        embedding = model(x_nchw)[4]
+    return fused_affinity_2d(embedding.permute(0, 2, 3, 1), offsets).relu_()
+
+
+def _served(cfg: Config, state_dict: dict, dataset, batch_size: int, device,
+            clock: dict):
+    """Yield (sample, (K, H, W) affinities) in dataset order. Adds the wall
+    time of the model build to clock['setup_s'], and that of upload,
+    forward, affinity and fetch to clock['forward_s']."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    model = build_model(cfg, state_dict, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    clock["setup_s"] += time.perf_counter() - t0
+    offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
+    for start in range(0, len(dataset), batch_size):
+        samples = [dataset[i]
+                   for i in range(start, min(start + batch_size, len(dataset)))]
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.stack([s["image"] for s in samples]))
+        x = x.to(dev).permute(0, 3, 1, 2).contiguous()
+        affs = forward_affinities(model, x, offsets).cpu().numpy()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        clock["forward_s"] += time.perf_counter() - t0
+        yield from zip(samples, affs)
+
+
+def run_inference_2d(cfg: Config, state_dict: dict, dataset,
+                     out_dir: str | None = None, timing: dict | None = None,
+                     batch_size: int = SERVE_BATCH, device=None):
+    """Serve and score a labelled set. Returns (per-image metric dicts,
+    their means). With ``out_dir``, the segmentations and affinities are
+    written there as seg.hdf / affs.hdf.
+
+    ``timing``, when given, receives the run's split in seconds
+    (total / setup / forward / decode / metrics; setup is the model build)
+    and n_images. ``device``: CUDA unless "cpu" is asked for.
+    """
+    if cfg.train.mask_weight:
+        raise NotImplementedError("the predicted-mask (BBBC) decode is not ported")
+    offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
+    t_start = time.perf_counter()
+    clock = {"setup_s": 0.0, "forward_s": 0.0}
+    t_dec = t_met = 0.0
+    results, segs, all_affs = [], [], []
+    for s, affs in _served(cfg, state_dict, dataset, batch_size, device, clock):
+        gt = s["seg"].astype(np.uint16)
+        t0 = time.perf_counter()
+        fg = (gt > 0).astype(np.uint8)
+        seg = seg_mutex(affs, offsets=offsets, strides=list(cfg.data.strides),
+                        mask=fg)
+        seg = merge_func(seg.astype(np.uint16))
+        seg = relabel(seg).astype(np.uint16)
+        segs.append(seg)
+        if out_dir:
+            all_affs.append(affs)
+        t_dec += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        m = {"SBD": symmetric_best_dice(seg, gt),
+             "DiC": abs_diff_fg_labels(seg, gt)}
+        vs, vm = voi(gt, seg)
+        m["VOI"] = vs + vm
+        m["ARAND"] = adapted_rand_error(gt, seg)[0]
+        t_met += time.perf_counter() - t0
+        results.append(m)
+
+    agg = ({k: float(np.mean([r[k] for r in results])) for k in results[0]}
+           if results else {})
+    if timing is not None:
+        timing.update(total_s=time.perf_counter() - t_start, **clock,
+                      decode_s=t_dec, metrics_s=t_met, n_images=len(dataset))
+    if out_dir:
+        import h5py
+
+        os.makedirs(out_dir, exist_ok=True)
+        with h5py.File(os.path.join(out_dir, "seg.hdf"), "w") as f:
+            f.create_dataset("main", data=np.stack(segs), compression="gzip")
+        with h5py.File(os.path.join(out_dir, "affs.hdf"), "w") as f:
+            f.create_dataset("main", data=np.stack(all_affs), compression="gzip")
+    return results, agg
+
+
+def run_cvppp_test(cfg: Config, state_dict: dict, dataset, out_path: str,
+                   timing: dict | None = None, batch_size: int = SERVE_BATCH,
+                   device=None):
+    """CVPPP test protocol: FG mask given, no labels; decode and write the
+    CodaLab submission.h5. Returns (segmentations, names)."""
+    offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
+    t_start = time.perf_counter()
+    clock = {"setup_s": 0.0, "forward_s": 0.0}
+    t_dec = 0.0
+    segs, names = [], []
+    for s, affs in _served(cfg, state_dict, dataset, batch_size, device, clock):
+        t0 = time.perf_counter()
+        seg = seg_mutex(affs, offsets=offsets, strides=list(cfg.data.strides),
+                        mask=s["fg"]).astype(np.uint16)
+        seg = merge_func(seg)
+        seg = relabel(seg).astype(np.uint16)
+        t_dec += time.perf_counter() - t0
+        segs.append(seg)
+        names.append(s["name"])
+    write_cvppp_submission(segs, names, out_path,
+                           pad=(7, 22) if cfg.data.padding else (0, 0))
+    if timing is not None:
+        timing.update(total_s=time.perf_counter() - t_start, **clock,
+                      decode_s=t_dec, n_images=len(dataset))
+    return segs, names
+
+
+def write_cvppp_submission(segs: list[np.ndarray], names: list[str],
+                           out_path: str, pad=(7, 22)):
+    """CodaLab submission.h5: A1/plantXXX/label datasets, padding stripped."""
+    import h5py
+
+    with h5py.File(out_path, "w") as f:
+        for seg, name in zip(segs, names):
+            s = seg[pad[0]:-pad[0], pad[1]:-pad[1]] if pad[0] else seg
+            f.create_dataset(f"A1/{name}/label", data=s.astype(np.uint8))

@@ -1,0 +1,162 @@
+"""The port's CVPPP serving path vs the JAX package's, end to end on the CPU.
+
+Both packages get the same sample list (built by the JAX package's
+``synthesize`` + ``CVPPPValidation``) and the same weights (Flax variables
+carried across by ``resunet2d_deep_from_flax``), at narrow widths.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+h5py = pytest.importorskip("h5py")
+
+import jax
+
+from pixel_embedded_affinity_tpu.config import load_config as jax_load_config
+from pixel_embedded_affinity_tpu.data.cvppp import (
+    CVPPPTest as JaxCVPPPTest, CVPPPValidation as JaxCVPPPValidation, synthesize)
+from pixel_embedded_affinity_tpu.infer.inference2d import (
+    run_cvppp_test as jax_run_cvppp_test, run_inference_2d as jax_run_inference_2d)
+from pixel_embedded_affinity_tpu.train.checkpoint import save_checkpoint
+from pixel_embedded_affinity_tpu.train.loop import build_model as jax_build_model
+
+from pixel_embedded_affinity_torch import inference as cli
+from pixel_embedded_affinity_torch.checkpoint import load_jax_checkpoint
+from pixel_embedded_affinity_torch.config import load_config
+from pixel_embedded_affinity_torch.convert import resunet2d_deep_from_flax
+from pixel_embedded_affinity_torch.data import CVPPPTest, CVPPPValidation
+from pixel_embedded_affinity_torch.infer import run_cvppp_test, run_inference_2d
+
+FILTERS = (4, 6, 8, 12, 16)
+# Metric tolerance. The affinities agree to ~1e-6 (f32 convs summed in
+# another order); mutex watershed sorts edges by weight, so a difference
+# that large can swap two nearly tied edges and move single pixels between
+# segments. Measured at these widths on 15 synthetic images (3 seeds of
+# this set): affinities within 1.6e-6, segmentations bit-equal, every
+# metric equal (max difference 0). The bound allows a handful of moved
+# pixels out of 144*160, which shift SBD/ARAND by ~1e-4 each and VOI by a
+# few 1e-4, but no change in the number of segments (DiC is an integer).
+METRIC_ATOL = 5e-3
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cvppp")
+    folder = str(root / "CVPPP")
+    synthesize(folder, n_train=4, n_valid=3, n_test=2, h=130, w=116)
+    jcfg = jax_load_config("cvppp", overrides={"data": {"data_folder": folder}})
+    jcfg.model.filters = FILTERS
+    jcfg.model.s2d_train = False
+    jcfg.model.dtype = "float32"
+    valid = JaxCVPPPValidation(folder, shifts=tuple(jcfg.data.shifts),
+                               neighbor=jcfg.data.neighbor)
+    samples = [valid[i] for i in range(len(valid))]
+    h, w = samples[0]["image"].shape[:2]
+    rng = np.random.default_rng(0)
+    shapes = jax.eval_shape(lambda: jax_build_model(jcfg).init(
+        jax.random.PRNGKey(0), np.zeros((1, h, w, 3), np.float32), train=False))
+
+    def draw(path, leaf):
+        if "'var'" in jax.tree_util.keystr(path):
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        return (rng.normal(size=leaf.shape) * 0.3).astype(np.float32)
+
+    variables = jax.tree_util.tree_map_with_path(draw, shapes)
+    cfg = load_config("cvppp", overrides={"data": {"data_folder": folder},
+                                          "model": {"filters": FILTERS}})
+    return dict(root=root, folder=folder, jcfg=jcfg, cfg=cfg, samples=samples,
+                variables=variables, sd=resunet2d_deep_from_flax(variables))
+
+
+@pytest.fixture(scope="module")
+def jax_run(case):
+    out = case["root"] / "jax"
+    per, agg = jax_run_inference_2d(case["jcfg"], case["variables"],
+                                    case["samples"], out_dir=str(out),
+                                    save_h5=True, use_pallas=False,
+                                    one_dispatch=False)
+    return out, per, agg
+
+
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_serving_matches_jax(case, jax_run, batch_size):
+    jout, jper, jagg = jax_run
+    out = case["root"] / f"torch_b{batch_size}"
+    timing = {}
+    per, agg = run_inference_2d(case["cfg"], case["sd"], case["samples"],
+                                out_dir=str(out), timing=timing,
+                                batch_size=batch_size, device="cpu")
+    with h5py.File(out / "affs.hdf") as ft, h5py.File(jout / "affs.hdf") as fj:
+        np.testing.assert_allclose(ft["main"][:], fj["main"][:], atol=1e-4)
+    assert len(per) == len(jper) == 3
+    for t, j in zip(per, jper):
+        assert set(t) == set(j)
+        for k in j:
+            np.testing.assert_allclose(t[k], j[k], atol=METRIC_ATOL, err_msg=k)
+    for k in jagg:
+        np.testing.assert_allclose(agg[k], jagg[k], atol=METRIC_ATOL, err_msg=k)
+    assert timing["n_images"] == 3
+    assert {"total_s", "setup_s", "forward_s", "decode_s", "metrics_s"} <= set(timing)
+    assert timing["setup_s"] + timing["forward_s"] <= timing["total_s"]
+
+
+def test_port_dataset_matches_jax(case):
+    ours = CVPPPValidation(case["folder"])
+    assert len(ours) == len(case["samples"])
+    for i, s in enumerate(case["samples"]):
+        np.testing.assert_array_equal(ours[i]["image"], s["image"])
+        np.testing.assert_array_equal(ours[i]["seg"], s["seg"])
+    theirs = JaxCVPPPTest(case["folder"])
+    for i, s in enumerate(CVPPPTest(case["folder"])):
+        if i == len(theirs):
+            break
+        np.testing.assert_array_equal(s["image"], theirs[i]["image"])
+        np.testing.assert_array_equal(s["fg"], theirs[i]["fg"])
+        assert s["name"] == theirs[i]["name"]
+
+
+def test_cvppp_submission_matches_jax(case):
+    jpath = str(case["root"] / "sub_jax.h5")
+    tpath = str(case["root"] / "sub_torch.h5")
+    jax_run_cvppp_test(case["jcfg"], case["variables"],
+                       JaxCVPPPTest(case["folder"]), jpath, use_pallas=False,
+                       one_dispatch=False)
+    _, names = run_cvppp_test(case["cfg"], case["sd"], CVPPPTest(case["folder"]),
+                              tpath, device="cpu")
+    assert len(names) == 2
+    with h5py.File(tpath) as ft, h5py.File(jpath) as fj:
+        keys = []
+        fj.visit(keys.append)
+        got = []
+        ft.visit(got.append)
+        assert got == keys
+        for name in names:
+            a, b = ft[f"A1/{name}/label"], fj[f"A1/{name}/label"]
+            assert a.dtype == b.dtype and a.shape == b.shape == (130, 116)
+            assert a[:].tobytes() == b[:].tobytes()
+
+
+def test_load_jax_checkpoint_and_cli(case, jax_run, capsys):
+    ck_dir = str(case["root"] / "models")
+    state = {"params": case["variables"]["params"],
+             "batch_stats": case["variables"]["batch_stats"], "step": 7}
+    fname = save_checkpoint(ck_dir, state, 7)
+    restored = load_jax_checkpoint(fname)
+    assert int(restored["step"]) == 7
+    flat_a = jax.tree_util.tree_leaves_with_path(case["variables"])
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(
+        {"params": restored["params"], "batch_stats": restored["batch_stats"]}))
+    for path, a in flat_a:
+        np.testing.assert_array_equal(flat_b[path], a)
+
+    cli.main(["-c", "cvppp", "-ck", fname, "--device", "cpu", "-o",
+              f"data.data_folder={case['folder']}",
+              f"model.filters={FILTERS}"])
+    import json
+
+    agg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k, v in jax_run[2].items():
+        np.testing.assert_allclose(agg[k], v, atol=METRIC_ATOL, err_msg=k)
