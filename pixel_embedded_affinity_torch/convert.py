@@ -3,8 +3,10 @@
 ``resunet2d_deep_from_flax`` is the inverse of the JAX package's
 ``train/convert_torch.py::convert_resunet2d_deep``: Flax conv kernels
 (kh, kw, I, O) become (O, I, kh, kw); BatchNorm scale/bias/mean/var become
-weight/bias/running_mean/running_var. ``load_torch_state_dict`` reads a
-reference ``.ckpt`` file.
+weight/bias/running_mean/running_var. ``train_state_from_flax`` carries a
+JAX train state (parameters, BatchNorm statistics, the AMSGrad moments and
+the step) into the port's model and optimizer. ``load_torch_state_dict``
+reads a reference ``.ckpt`` file.
 """
 
 from __future__ import annotations
@@ -25,43 +27,84 @@ def _conv(sd: dict, key: str, p: dict):
         sd[f"{key}.bias"] = _t(p["bias"])
 
 
-def _bn(sd: dict, key: str, p: dict, s: dict):
+def _bn_params(sd: dict, key: str, p: dict):
     sd[f"{key}.weight"] = _t(p["scale"])
     sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _bn_stats(sd: dict, key: str, s: dict):
     sd[f"{key}.running_mean"] = _t(s["mean"])
     sd[f"{key}.running_var"] = _t(s["var"])
     sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def _residual_block(sd: dict, prefix: str, p: dict, s: dict):
-    _conv(sd, f"{prefix}.conv.0", p["conv1"])
-    _bn(sd, f"{prefix}.conv.1", p["bn1"], s["bn1"])
-    _conv(sd, f"{prefix}.conv.3", p["conv2"])
-    _bn(sd, f"{prefix}.conv.4", p["bn2"], s["bn2"])
-    _conv(sd, f"{prefix}.project.0", p["project_conv"])
-    _bn(sd, f"{prefix}.project.1", p["project_bn"], s["project_bn"])
+_BLOCK = [("conv.0", "conv1", "conv"), ("conv.1", "bn1", "bn"),
+          ("conv.3", "conv2", "conv"), ("conv.4", "bn2", "bn"),
+          ("project.0", "project_conv", "conv"), ("project.1", "project_bn", "bn")]
+
+
+def _layout():
+    """(torch module key, Flax path, kind) of every conv and BatchNorm."""
+    blocks = [("inconv.conv", ("inconv",))]
+    blocks += [(f"down{i}.block", (f"down{i}", "block")) for i in range(1, 5)]
+    blocks += [(f"up{i}_emb.block", (f"up{i}", "block")) for i in range(1, 5)]
+    for key, path in blocks:
+        for sub, name, kind in _BLOCK:
+            yield f"{key}.{sub}", path + (name,), kind
+    for i in range(1, 5):
+        yield f"outconv{i}.conv", (f"outconv{i}",), "conv"
+    yield "outconv_emb.conv", ("outconv_emb",), "conv"
+    yield "binary_seg.0", ("binary_seg", "conv1"), "conv"
+    yield "binary_seg.1", ("binary_seg", "bn"), "bn"
+    yield "binary_seg.3", ("binary_seg", "conv2"), "conv"
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def resunet2d_deep_params_from_flax(params: dict) -> dict:
+    """A Flax ``params`` tree of ResidualUNet2DDeep -> {torch parameter
+    name: tensor}. Any tree of the same structure maps the same way, so
+    optax's moment trees (mu, nu, nu_max) do too."""
+    sd: dict = {}
+    for key, path, kind in _layout():
+        (_conv if kind == "conv" else _bn_params)(sd, key, _at(params, path))
+    return sd
 
 
 def resunet2d_deep_from_flax(variables: dict) -> dict:
     """Flax ``{'params', 'batch_stats'}`` of ResidualUNet2DDeep (numpy or
     array leaves) -> state dict of :class:`models.ResidualUNet2DDeep`."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd: dict = {}
-    _residual_block(sd, "inconv.conv", params["inconv"], stats["inconv"])
-    for i in range(1, 5):
-        _residual_block(sd, f"down{i}.block", params[f"down{i}"]["block"],
-                        stats[f"down{i}"]["block"])
-    for i in range(1, 5):
-        _residual_block(sd, f"up{i}_emb.block", params[f"up{i}"]["block"],
-                        stats[f"up{i}"]["block"])
-    for i in range(1, 5):
-        _conv(sd, f"outconv{i}.conv", params[f"outconv{i}"])
-    _conv(sd, "outconv_emb.conv", params["outconv_emb"])
-    seg_p, seg_s = params["binary_seg"], stats["binary_seg"]
-    _conv(sd, "binary_seg.0", seg_p["conv1"])
-    _bn(sd, "binary_seg.1", seg_p["bn"], seg_s["bn"])
-    _conv(sd, "binary_seg.3", seg_p["conv2"])
+    sd = resunet2d_deep_params_from_flax(variables["params"])
+    for key, path, kind in _layout():
+        if kind == "bn":
+            _bn_stats(sd, key, _at(variables["batch_stats"], path))
     return sd
+
+
+def train_state_from_flax(state, model: torch.nn.Module, optimizer) -> int:
+    """Load a JAX ``TrainState`` (params, batch_stats, opt_state, step;
+    numpy leaves) into the port's model and :class:`train.optim.AMSGrad`;
+    returns the step. The optimizer chain must be the JAX
+    ``make_optimizer``'s (decayed weights, AMSGrad, lr), whose one stateful
+    link is optax's ``ScaleByAmsgradState(count, mu, nu, nu_max)``."""
+    model.load_state_dict(resunet2d_deep_from_flax(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    ams = next(s for s in state.opt_state if hasattr(s, "nu_max"))
+    moments = {k: resunet2d_deep_params_from_flax(getattr(ams, k))
+               for k in ("mu", "nu", "nu_max")}
+    count = int(np.asarray(ams.count))
+    dev = next(model.parameters()).device
+    per_param = {}
+    for i, (name, _) in enumerate(model.named_parameters()):
+        per_param[i] = {"count": count,
+                        **{k: moments[k][name].to(dev) for k in moments}}
+    sd = optimizer.state_dict()
+    optimizer.load_state_dict({"state": per_param, "param_groups": sd["param_groups"]})
+    return int(np.asarray(state.step))
 
 
 def strip_module_prefix(sd: dict) -> dict:

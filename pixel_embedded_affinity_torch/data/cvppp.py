@@ -13,8 +13,8 @@ import os
 
 import numpy as np
 
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
+from .consistency import IMAGENET_MEAN, IMAGENET_STD
+
 PAD = ((7, 7), (22, 22))
 
 

@@ -3,7 +3,8 @@
 Residual conv-BN-ReLU blocks with a conv-BN projection skip, a maxpool
 encoder over 5 scales, a bilinear (align_corners=True) decoder with concat
 skips, five 1x1 embedding heads (1/16, 1/8, 1/4, 1/2, 1/1) and a binary
-mask head. Parameter names follow the reference implementation
+mask head. BatchNorm keeps Flax's running statistics in train mode
+(:class:`.common.BatchNorm2d`). Parameter names follow the reference implementation
 (``inconv.conv.conv.0.weight``, ``up1_emb.block...``, ``binary_seg.{0,1,3}``),
 so its checkpoints load as they are.
 """
@@ -16,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import replication_pad_to, upsample_align_corners
+from .common import BatchNorm2d, replication_pad_to, upsample_align_corners
 
 
 class ResidualBlock(nn.Module):
@@ -25,11 +26,11 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.BatchNorm2d(out_ch),
+            nn.Conv2d(in_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch),
             nn.ReLU(inplace=True),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1), nn.BatchNorm2d(out_ch))
+            nn.Conv2d(out_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch))
         self.project = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.BatchNorm2d(out_ch))
+            nn.Conv2d(in_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch))
 
     def forward(self, x):
         return F.relu(self.conv(x) + self.project(x))
@@ -75,7 +76,7 @@ class MaskHead(nn.Sequential):
     """1x1 conv - BN - ReLU - 1x1 conv binary segmentation head."""
 
     def __init__(self, in_ch: int, hidden: int, out_ch: int):
-        super().__init__(nn.Conv2d(in_ch, hidden, 1), nn.BatchNorm2d(hidden),
+        super().__init__(nn.Conv2d(in_ch, hidden, 1), BatchNorm2d(hidden),
                          nn.ReLU(inplace=True), nn.Conv2d(hidden, out_ch, 1))
 
 

@@ -47,7 +47,9 @@ def fused_affinity_2d(embedding: torch.Tensor, offsets) -> torch.Tensor:
     """(B, H, W, C) embedding -> (B, K, H, W) 'valid' affinities.
 
     Takes any strided view, e.g. ``emb_nchw.permute(0, 2, 3, 1)`` without a
-    copy. ``fused_affinity_2d.launches`` counts kernel launches.
+    copy. ``fused_affinity_2d.launches`` counts kernel launches. Forward
+    only on CUDA: an input that requires grad raises there (the plain
+    version on the CPU is differentiable).
     """
     if embedding.dim() != 4:
         raise ValueError(f"embedding must be (B, H, W, C), got {tuple(embedding.shape)}")
@@ -55,6 +57,13 @@ def fused_affinity_2d(embedding: torch.Tensor, offsets) -> torch.Tensor:
         return affinity_2d_plain(embedding, offsets)
     if embedding.device.type != "cuda":
         raise ValueError(f"unsupported device {embedding.device}")
+    if torch.is_grad_enabled() and embedding.requires_grad:
+        # the output would carry no grad_fn and cut the graph silently
+        raise NotImplementedError(
+            "fused_affinity_2d has no gradient on CUDA: its backward kernel "
+            "(K1b, emb2aff_pallas.py::_fused_affinity_2d_bwd_impl) is not "
+            "ported; call it under torch.no_grad() or use "
+            "embedding_to_affinity_2d")
     if embedding.dtype not in _DTYPES:
         raise TypeError(f"dtype {embedding.dtype} not supported (float32, bfloat16)")
     b, h, w, c = embedding.shape

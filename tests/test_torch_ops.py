@@ -117,17 +117,26 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """The port and its serving path import with jax, flax, the JAX package
-    and the lazily-imported optional modules all blocked."""
+    """The port, its serving path and its training path import with jax,
+    flax, optax, the JAX package and the lazily-imported optional modules
+    all blocked."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'pixel_embedded_affinity_tpu', 'msgpack',\n"
-        "          'h5py', 'cv2', 'yaml'):\n"
+        "for m in ('jax', 'flax', 'optax', 'pixel_embedded_affinity_tpu',\n"
+        "          'msgpack', 'h5py', 'cv2', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import pixel_embedded_affinity_torch.inference\n"
         "import pixel_embedded_affinity_torch.infer\n"
         "import pixel_embedded_affinity_torch.checkpoint\n"
         "import pixel_embedded_affinity_torch.data\n"
+        "import pixel_embedded_affinity_torch.convert\n"
+        "import pixel_embedded_affinity_torch.train\n"
+        "import pixel_embedded_affinity_torch.utils\n"
+        "import pixel_embedded_affinity_torch.ops.losses\n"
+        "import pixel_embedded_affinity_torch.ops.targets\n"
+        "import pixel_embedded_affinity_torch.data.consistency\n"
+        "import pixel_embedded_affinity_torch.data.device_aug\n"
+        "import pixel_embedded_affinity_torch.data.provider\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -138,7 +147,7 @@ def test_port_imports_without_jax():
 def test_port_sources_do_not_import_jax():
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|pixel_embedded_affinity_tpu)\b")
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|pixel_embedded_affinity_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pixel_embedded_affinity_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
