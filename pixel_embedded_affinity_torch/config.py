@@ -60,7 +60,6 @@ class TrainConfig:
 @dataclass
 class DataConfig:
     data_folder: str = "./data/CVPPP"
-    size: int = 544
     shifts: tuple = (1, 3, 5, 9, 27)
     neighbor: int = 4
     strides: tuple = (5, 5)
@@ -75,8 +74,8 @@ class DataConfig:
     # clean image; the port has no host-side path for either
     device_gt: bool = False
     device_ema: bool = False
-    # the whole training set resident on the device: not ported; as in the
-    # JAX package it takes effect only without data_override
+    # the whole training set resident on the device: not ported, and True
+    # raises (the JAX preset's True is left out of the port's)
     device_resident: bool = False
 
 
@@ -110,9 +109,8 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "filters": (16, 32, 64, 128, 256)},
         "train": {"mask_weight": 0.0, "ct_weight": 0.0, "lr_mode": "fixed",
                   "base_lr": 1e-4, "batch_size": 2},
-        "data": {"size": 544, "shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
-                 "device_gt": True, "device_ema": True,
-                 "device_resident": True},
+        "data": {"shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
+                 "device_gt": True, "device_ema": True},
     },
 }
 

@@ -10,7 +10,8 @@
 // Python wrapper: ops/emb2aff_wmse_cuda.py.
 //
 // What it computes. Embeddings a, b: (B, H, W, C) float32 with arbitrary
-// element strides (the self loss passes a == b). With
+// element strides (the self loss passes a == b); C = 16, the emd of the
+// cvppp preset, the only width training runs. With
 //     n = e / max(sqrt(|e|^2 + 1e-36), 1e-12)
 // and offsets o_k that look up and left, the affinity is
 //     a_k(p) = <n_a(p), n_b(p + o_k)>,  0 where p + o_k lies outside the image.
@@ -50,6 +51,7 @@
 
 namespace {
 
+constexpr int C = 16;  // embedding channels
 constexpr int kMaxOffsets = 16;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
@@ -74,7 +76,6 @@ __device__ __forceinline__ bool inside(int y, int x, int H, int W) {
 }
 
 // n[c] = v[c] / max(sqrt(sum v^2 + 1e-36), 1e-12); returns the sqrt
-template <int C>
 __device__ __forceinline__ float load_normalized(const float* __restrict__ v, int64_t sC, float* n) {
     float ss = 0.f;
 #pragma unroll
@@ -89,7 +90,6 @@ __device__ __forceinline__ float load_normalized(const float* __restrict__ v, in
     return norm;
 }
 
-template <int C>
 __device__ __forceinline__ float dot(const float* u, const float* v) {
     float s = 0.f;
 #pragma unroll
@@ -104,16 +104,14 @@ __device__ __forceinline__ float wmse_grad(float gs, float a, float t, float w, 
 
 // de[c] = (dn[c] - n[c] <n, dn> [norm >= eps]) / max(norm, eps), written
 // to a contiguous (B, C, H, W) buffer at out + c * plane
-template <int C>
 __device__ __forceinline__ void store_normalize_vjp(const float* n, float norm, const float* dn,
                                                     float* __restrict__ out, int64_t plane) {
     const float mm = fmaxf(norm, 1e-12f);
-    const float proj = norm >= 1e-12f ? dot<C>(n, dn) : 0.f;
+    const float proj = norm >= 1e-12f ? dot(n, dn) : 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) out[c * plane] = (dn[c] - n[c] * proj) / mm;
 }
 
-template <int C>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __restrict__ w,
                 const float* __restrict__ m, float* __restrict__ affs, float* __restrict__ partial,
@@ -128,7 +126,7 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
     float na[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) na[c] = 0.f;
-    if (in_img) load_normalized<C>(a.at(bi, y, x), a.sC, na);
+    if (in_img) load_normalized(a.at(bi, y, x), a.sC, na);
 
     const int64_t plane = (int64_t)H * W;
     const int64_t pix = (int64_t)bi * K * plane + (int64_t)y * W + x;
@@ -142,8 +140,8 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
             float v = 0.f;
             if (inside(yy, xx, H, W)) {
                 float nb[C];
-                load_normalized<C>(b.at(bi, yy, xx), b.sC, nb);
-                v = dot<C>(na, nb);
+                load_normalized(b.at(bi, yy, xx), b.sC, nb);
+                v = dot(na, nb);
             }
             const int64_t i = pix + k * plane;
             affs[i] = v;
@@ -166,7 +164,7 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
 }
 
 // kSelf: a == b, one output de = VJP(dn_a + dn_b); else da and db
-template <int C, bool kSelf>
+template <bool kSelf>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __restrict__ w,
                 const float* __restrict__ m, const float* __restrict__ gs,
@@ -178,7 +176,7 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
     if (x >= W || y >= H) return;
 
     float na[C], nb[C], dna[C], dnb[C];
-    const float norm_a = load_normalized<C>(a.at(bi, y, x), a.sC, na);
+    const float norm_a = load_normalized(a.at(bi, y, x), a.sC, na);
     float norm_b = norm_a;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -186,7 +184,7 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         dna[c] = 0.f;
         dnb[c] = 0.f;
     }
-    if (!kSelf) norm_b = load_normalized<C>(b.at(bi, y, x), b.sC, nb);
+    if (!kSelf) norm_b = load_normalized(b.at(bi, y, x), b.sC, nb);
 
     const int64_t plane = (int64_t)H * W;
     for (int k = 0; k < K; ++k) {
@@ -197,9 +195,9 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         int xx = x + off.dx[k];
         if (inside(yy, xx, H, W)) {
             float nq[C];
-            load_normalized<C>(b.at(bi, yy, xx), b.sC, nq);
+            load_normalized(b.at(bi, yy, xx), b.sC, nq);
             const int64_t i = ik + (int64_t)y * W + x;
-            const float g = wmse_grad(gsk, dot<C>(na, nq), t[i], w[i], m[i]);
+            const float g = wmse_grad(gsk, dot(na, nq), t[i], w[i], m[i]);
 #pragma unroll
             for (int c = 0; c < C; ++c) dna[c] += g * nq[c];
         }
@@ -208,9 +206,9 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         xx = x - off.dx[k];
         if (inside(yy, xx, H, W)) {
             float nr[C];
-            load_normalized<C>(a.at(bi, yy, xx), a.sC, nr);
+            load_normalized(a.at(bi, yy, xx), a.sC, nr);
             const int64_t i = ik + (int64_t)yy * W + xx;
-            const float g = wmse_grad(gsk, dot<C>(nr, nb), t[i], w[i], m[i]);
+            const float g = wmse_grad(gsk, dot(nr, nb), t[i], w[i], m[i]);
 #pragma unroll
             for (int c = 0; c < C; ++c) {
                 if (kSelf)
@@ -221,16 +219,16 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         }
     }
     const int64_t out = (int64_t)bi * C * plane + (int64_t)y * W + x;
-    store_normalize_vjp<C>(na, norm_a, dna, da + out, plane);
-    if (!kSelf) store_normalize_vjp<C>(nb, norm_b, dnb, db + out, plane);
+    store_normalize_vjp(na, norm_a, dna, da + out, plane);
+    if (!kSelf) store_normalize_vjp(nb, norm_b, dnb, db + out, plane);
 }
 
 dim3 grid_of(int B, int H, int W) {
     return dim3((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY, B);
 }
 
-bool bad_shape(int B, int H, int W, int C, int K) {
-    return K < 1 || K > kMaxOffsets || B < 1 || H < 1 || W < 1 || B > 65535 || (C != 8 && C != 16);
+bool bad_shape(int B, int H, int W, int c, int K) {
+    return K < 1 || K > kMaxOffsets || B < 1 || H < 1 || W < 1 || B > 65535 || c != C;
 }
 
 Offsets to_offsets(const int32_t* offsets, int K) {
@@ -243,32 +241,25 @@ Offsets to_offsets(const int32_t* offsets, int K) {
 }
 
 int fwd(View a, View b, const float* t, const float* w, const float* m, float* affs,
-        float* partial, int B, int H, int W, int C, const int32_t* offsets, int K, void* stream) {
-    if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
+        float* partial, int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
+    if (bad_shape(B, H, W, c, K)) return (int)cudaErrorInvalidValue;
     const Offsets off = to_offsets(offsets, K);
     const dim3 block(kBlockX, kBlockY);
-    const dim3 grid = grid_of(B, H, W);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 8)
-        wmse_fwd_kernel<8><<<grid, block, 0, s>>>(a, b, t, w, m, affs, partial, H, W, K, off);
-    else
-        wmse_fwd_kernel<16><<<grid, block, 0, s>>>(a, b, t, w, m, affs, partial, H, W, K, off);
+    wmse_fwd_kernel<<<grid_of(B, H, W), block, 0, s>>>(a, b, t, w, m, affs, partial, H, W, K, off);
     return (int)cudaGetLastError();
 }
 
 template <bool kSelf>
 int bwd(View a, View b, const float* t, const float* w, const float* m, const float* gs,
-        float* da, float* db, int B, int H, int W, int C, const int32_t* offsets, int K,
+        float* da, float* db, int B, int H, int W, int c, const int32_t* offsets, int K,
         void* stream) {
-    if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
+    if (bad_shape(B, H, W, c, K)) return (int)cudaErrorInvalidValue;
     const Offsets off = to_offsets(offsets, K);
     const dim3 block(kBlockX, kBlockY);
-    const dim3 grid = grid_of(B, H, W);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 8)
-        wmse_bwd_kernel<8, kSelf><<<grid, block, 0, s>>>(a, b, t, w, m, gs, da, db, H, W, K, off);
-    else
-        wmse_bwd_kernel<16, kSelf><<<grid, block, 0, s>>>(a, b, t, w, m, gs, da, db, H, W, K, off);
+    wmse_bwd_kernel<kSelf><<<grid_of(B, H, W), block, 0, s>>>(a, b, t, w, m, gs, da, db, H, W, K,
+                                                              off);
     return (int)cudaGetLastError();
 }
 
@@ -286,33 +277,33 @@ int64_t wmse2d_partial_rows(int B, int H, int W) {
 // offsets: host array of K (dy, dx) pairs; gs: device pointer to K floats.
 int wmse2d_fwd(const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
                const float* t, const float* w, const float* m, float* affs, float* partial,
-               int B, int H, int W, int C, const int32_t* offsets, int K, void* stream) {
+               int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
     const View v{e, sB, sH, sW, sC};
-    return fwd(v, v, t, w, m, affs, partial, B, H, W, C, offsets, K, stream);
+    return fwd(v, v, t, w, m, affs, partial, B, H, W, c, offsets, K, stream);
 }
 
 int cross_wmse2d_fwd(const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
                      const float* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
                      const float* t, const float* w, const float* m, float* affs, float* partial,
-                     int B, int H, int W, int C, const int32_t* offsets, int K, void* stream) {
+                     int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
     return fwd(View{a, saB, saH, saW, saC}, View{b, sbB, sbH, sbW, sbC}, t, w, m, affs, partial,
-               B, H, W, C, offsets, K, stream);
+               B, H, W, c, offsets, K, stream);
 }
 
 int wmse2d_bwd(const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
                const float* t, const float* w, const float* m, const float* gs, float* de,
-               int B, int H, int W, int C, const int32_t* offsets, int K, void* stream) {
+               int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
     const View v{e, sB, sH, sW, sC};
-    return bwd<true>(v, v, t, w, m, gs, de, nullptr, B, H, W, C, offsets, K, stream);
+    return bwd<true>(v, v, t, w, m, gs, de, nullptr, B, H, W, c, offsets, K, stream);
 }
 
 int cross_wmse2d_bwd(const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
                      const float* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
                      const float* t, const float* w, const float* m, const float* gs,
                      float* da, float* db,
-                     int B, int H, int W, int C, const int32_t* offsets, int K, void* stream) {
+                     int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
     return bwd<false>(View{a, saB, saH, saW, saC}, View{b, sbB, sbH, sbW, sbC}, t, w, m, gs,
-                      da, db, B, H, W, C, offsets, K, stream);
+                      da, db, B, H, W, c, offsets, K, stream);
 }
 
 }  // extern "C"

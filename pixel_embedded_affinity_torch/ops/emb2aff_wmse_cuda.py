@@ -29,7 +29,7 @@ import torch
 from .emb2aff import cross_affinity_2d, embedding_to_affinity_2d
 
 SOURCE = "affinity_wmse2d.cu"
-SUPPORTED_C = (8, 16)
+SUPPORTED_C = (16,)  # the cvppp preset's emd, the one width training runs
 MAX_OFFSETS = 16
 
 

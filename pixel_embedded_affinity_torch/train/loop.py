@@ -61,6 +61,8 @@ def check_train_config(cfg: Config):
         not_ported.append("host-built targets or EMA views (data.device_gt/device_ema)")
     if cfg.data.if_ema_noise or cfg.data.if_ema_blur:
         not_ported.append("the EMA view's noise/blur (data.if_ema_noise/if_ema_blur)")
+    if cfg.data.device_resident:
+        not_ported.append("the device-resident sampler (data.device_resident)")
     if not_ported:
         raise NotImplementedError("not ported: " + "; ".join(not_ported))
 
@@ -141,8 +143,7 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     check_train_config(cfg)
     if data_override is None:
         raise NotImplementedError(
-            "the CVPPP disk sampler (cv2) and the device-resident sampler "
-            "(data.device_resident) are not ported; pass "
+            "the CVPPP disk sampler (cv2) is not ported; pass "
             "data_override=(train_dataset, valid_samples)")
     dev = resolve_device(device)
     train_ds, valid_ds = data_override

@@ -11,9 +11,10 @@ step 2, so :class:`AMSGrad` writes optax's update out:
     g = grad + wd * p
     mu = (1 - b1) g + b1 mu;   nu = (1 - b2) g^2 + b2 nu;   count += 1
     nu_max = max(nu_max, nu / (1 - b2^count))
-    p += -lr * (mu / (1 - b1^count)) / (sqrt(nu_max + eps_root) + eps)
+    p += -lr * (mu / (1 - b1^count)) / (sqrt(nu_max) + eps)
 
 The bias corrections are computed in float32, as optax computes them.
+optax's ``eps_root`` is 0 in the JAX package's chain, so it is left out.
 """
 
 from __future__ import annotations
@@ -28,10 +29,8 @@ class AMSGrad(torch.optim.Optimizer):
     ``ScaleByAmsgradState`` fields)."""
 
     def __init__(self, params, lr: float = 1e-4, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 0.01, eps_root: float = 0.0,
-                 weight_decay: float = 1e-6):
+                 b2: float = 0.999, eps: float = 0.01, weight_decay: float = 1e-6):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
-                                      eps_root=eps_root,
                                       weight_decay=weight_decay))
 
     @torch.no_grad()
@@ -67,7 +66,7 @@ class AMSGrad(torch.optim.Optimizer):
             bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
             bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
             torch._foreach_maximum_(nu_max, torch._foreach_div(nu, bc2))
-            denom = torch._foreach_sqrt(torch._foreach_add(nu_max, group["eps_root"]))
+            denom = torch._foreach_sqrt(nu_max)
             torch._foreach_add_(denom, group["eps"])
             upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
             torch._foreach_add_(params, torch._foreach_mul(upd, -group["lr"]))

@@ -55,8 +55,8 @@ def _bhwc(x_nchw: torch.Tensor) -> torch.Tensor:
 class TrainStep2D:
     """``step(state, batch) -> (pred, metrics)`` updates ``state`` in place.
 
-    ``batch``: tensors on one device, ``image`` (B, H, W, 3) (ImageNet-
-    normalised when ``imagenet_norm``), ``seg`` (B, H, W) integer labels,
+    ``batch``: tensors on one device, ``image`` (B, H, W, 3) ImageNet-
+    normalised (the cvppp pipeline's), ``seg`` (B, H, W) integer labels,
     and, when ``device_ema`` is False, ``ema_image`` and ``rules`` (B, 3).
     ``pred`` is relu of the full-scale affinities (monitoring); ``metrics``
     holds 0-d tensors (loss, loss_embedding, loss_cross[, loss_ct]).
@@ -74,7 +74,7 @@ class TrainStep2D:
                  device_ema: bool = True, ema_seed: int = 0,
                  ema_noise: bool = False, ema_blur: bool = False,
                  ema_intensity: bool = True, ema_mask: bool = True,
-                 ema_flip: bool = True, imagenet_norm: bool = True):
+                 ema_flip: bool = True):
         self.offsets = [tuple(map(int, o)) for o in offsets]
         self.neighbor = neighbor
         self.criterion = criterion
@@ -85,7 +85,6 @@ class TrainStep2D:
         self.device_ema, self.ema_seed = device_ema, ema_seed
         self.ema_flags = dict(noise=ema_noise, blur=ema_blur, intensity=ema_intensity,
                               mask=ema_mask, flip=ema_flip)
-        self.imagenet_norm = imagenet_norm
         self._mean_std: dict = {}
 
     def _imagenet(self, like: torch.Tensor):
@@ -98,16 +97,13 @@ class TrainStep2D:
         return self._mean_std[key]
 
     def ema_batch(self, batch: dict, step: int) -> dict:
-        """``batch`` with the EMA view and its rules drawn for ``step``."""
+        """``batch`` with the EMA view and its rules drawn for ``step``: the
+        view is drawn from the un-normalised image and normalised again."""
         img = batch["image"]
         gen = ema_generator(self.ema_seed, step, img.device)
-        if self.imagenet_norm:
-            mean, std = self._imagenet(img)
-            img = img * std + mean
-        ema, rules = ema_view_2d(img, batch["seg"] > 0, gen, **self.ema_flags)
-        if self.imagenet_norm:
-            ema = (ema - mean) / std
-        return dict(batch, ema_image=ema, rules=rules)
+        mean, std = self._imagenet(img)
+        ema, rules = ema_view_2d(img * std + mean, batch["seg"] > 0, gen, **self.ema_flags)
+        return dict(batch, ema_image=(ema - mean) / std, rules=rules)
 
     def loss(self, model, batch: dict):
         """(loss, pred, metrics) of a batch that carries ``ema_image`` and
