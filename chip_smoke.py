@@ -26,8 +26,22 @@ Phases, each of which exits nonzero when it fails:
      checkpoint's next-step loss; the unfused kernel path must refuse to
      run; the device time of one step by kernel; one step's parameter
      gradients against the same step in float64 through the plain path;
-  7. one JSON line listing each kernel: launches, error, times, bound;
-  8. the last line: {"ok": true, "device": {...}}.
+  7. 3D kernel: K5f against its plain version at the serving tile batch
+     (4 tiles of 18x160x160, C=16, on the permuted NCDHW view) in float32
+     and bfloat16, and at two odd shapes with a zero vector; its time with
+     L2 flushed; it must refuse an input that requires grad;
+  8. 3D fixture: the port's UNetPNIEmbeddingDeep on the reference golden
+     (tests/fixtures/unet_pni_deep.npz) with TF32 off;
+  9. 3D serving: AC3/AC4 serving at full width (ac3ac4 preset, filters
+     28..80, emd 16, seeded random weights) on a synthetic 20x1024x1024
+     volume (the AC4 validation geometry: 338 tiles, 85 batches), through
+     run_inference_3d with the three decoders and K5f's launch count read
+     around the run; device time per tile batch and a profile of a few
+     batches; one batch's affinities against float64; the canvas against
+     the same run through the plain affinity; the decoders' time on a noisy
+     label-derived canvas of the first 20x512x512;
+ 10. one JSON line listing each kernel: launches, error, times, bound;
+ 11. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -87,6 +101,21 @@ TRAIN_STEPS = 8
 F64_GRAD_RTOL = 0.1
 KERNEL_EXCESS = 1.5
 BIAS_BEFORE_BN = re.compile(r"(conv\.[03]|project\.0)\.bias$")
+K5_SOURCE = "pixel_embedded_affinity_torch/csrc/affinity3d.cu"
+K5_REPLACES = "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:543"
+K5_F32_ATOL = 1e-6
+# the reference golden's outputs reach 255; tighter than the JAX test's
+# atol 1.5e-3 / rtol 1e-2 for the same golden
+FIXTURE3D_TOL = dict(atol=1e-3, rtol=1e-4)
+# the canvas through K5f against the same run through the plain affinity:
+# the two differ by f32 rounding of the dot, blended
+CANVAS_ATOL = 1e-5
+# the AC4 validation volume: 20 slices of 1024x1024, padded (4, 48, 48) to
+# 28x1120x1120, a (2, 13, 13) grid of 18x160x160 tiles in batches of 4
+VOLUME_3D = (20, 1024, 1024)
+VOLUME_CELLS = 300
+TILES_3D = 338
+K5_LAUNCHES = 85
 
 
 class SmokeFailure(RuntimeError):
@@ -129,13 +158,15 @@ def timed_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
     return float(np.median(times))
 
 
-def k1_bound(shape, k: int, itemsize: int):
-    """Least time for K1 on these inputs: each input read and each output
-    written once over HBM, vs normalising every pixel once (3C flops) and
-    one C-dot per offset (2C flops) at the float32 rate."""
-    b, h, w, c = shape
-    nbytes = b * h * w * (c + k) * itemsize
-    flops = b * h * w * (3 * c + 2 * c * k)
+def affinity_bound(shape, k: int, itemsize: int):
+    """Least time for K1 or K5 on a (..., C) embedding with K output
+    channels: each input read and each output written once over HBM, vs
+    normalising every pixel or voxel once (3C flops) and one C-dot per
+    channel (2C flops) at the float32 rate."""
+    c = shape[-1]
+    n = int(np.prod(shape[:-1]))
+    nbytes = n * (c + k) * itemsize
+    flops = n * (3 * c + 2 * c * k)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -174,10 +205,11 @@ def synthetic_leaves(n: int, h: int, w: int, seed: int):
 
 def phase_build() -> float:
     from pixel_embedded_affinity_torch import cuda_build
-    from pixel_embedded_affinity_torch.ops import emb2aff_cuda, emb2aff_wmse_cuda
+    from pixel_embedded_affinity_torch.ops import (
+        emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
-    sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE]
+    sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -254,8 +286,8 @@ def phase_kernels(main_embedding) -> dict:
                  ("nhwc", fused_affinity_2d, nhwc),
                  ("bf16_view", fused_affinity_2d, view.to(torch.bfloat16)),
                  ("bf16_nhwc", fused_affinity_2d, nhwc.to(torch.bfloat16))]}
-        t["bound_ms"], t["bound_by"] = k1_bound(view.shape, len(offsets), 4)
-        t["bf16_bound_ms"] = k1_bound(view.shape, len(offsets), 2)[0]
+        t["bound_ms"], t["bound_by"] = affinity_bound(view.shape, len(offsets), 4)
+        t["bf16_bound_ms"] = affinity_bound(view.shape, len(offsets), 2)[0]
         times[b] = t
         print(f"[kernels] K1 time B={b} 544x544 C=16 K=10 (ms, L2 flushed): "
               f"{json.dumps(t)}")
@@ -747,6 +779,241 @@ def train_precision(model, batch, offsets):
     check(z64 <= 1e-9 and z32 <= 1e-4, "bias-before-BatchNorm gradient not ~0")
 
 
+def model_gflop(cfg, shape) -> float:
+    """GFLOP of one forward of the 3D model at this input shape, as PyTorch's
+    FlopCounterMode counts them (convolutions and matmuls), on the meta
+    device: no data, no card time."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pixel_embedded_affinity_torch.models import UNetPNIEmbeddingDeep
+
+    with torch.device("meta"):
+        model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
+                                     cfg.model.emd).eval()
+        x = torch.empty(shape)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        model(x)
+    return counter.get_total_flops() / 1e9
+
+
+def phase_kernels_3d() -> dict:
+    """K5f against its plain version on the card; returns its error and
+    times at the serving tile batch."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops import (
+        SHIFTS_3D, affinity_3d_plain, fused_affinity_3d)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    max_err = 0.0
+    # the serving tile batch as the model's NCDHW output permuted, no copy;
+    # then odd shapes: D < 4 and H, W < 27 put whole channels out of bounds
+    cases = [((4, 18, 160, 160, 16), True), ((2, 5, 37, 41, 8), False),
+             ((2, 3, 20, 25, 16), False)]
+    for shape, as_view in cases:
+        b, d, h, w, c = shape
+        if as_view:
+            nc = torch.randn((b, c, d, h, w), generator=gen, device="cuda")
+            e, eb = nc.permute(0, 2, 3, 4, 1), nc.to(torch.bfloat16).permute(0, 2, 3, 4, 1)
+        else:
+            e = torch.randn(shape, generator=gen, device="cuda")
+            e[0, 1, 3, 5] = 0.0  # a zero vector must give zero affinities
+            eb = e.to(torch.bfloat16)
+        got, ref = fused_affinity_3d(e), affinity_3d_plain(e)
+        got_b, ref_b = fused_affinity_3d(eb), affinity_3d_plain(eb)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        err_b = (got_b.float() - ref_b.float()).abs().max().item()
+        print(f"[kernels3d] K5 {shape} {'NCDHW view' if as_view else 'contiguous'}: "
+              f"f32 {err:.3e}, bf16 {err_b:.3e}")
+        check(got.shape == (b, len(SHIFTS_3D), d, h, w), "K5 shape")
+        check(got_b.dtype == torch.bfloat16, "K5 bf16 output dtype")
+        check(err <= K5_F32_ATOL, f"K5 f32 error {err}")
+        check(err_b <= BF16_ATOL, f"K5 bf16 error {err_b}")
+        if not as_view:
+            check(bool((got[0, :, 1, 3, 5] == 0).all()), "K5 nonzero affinity at a zero vector")
+            for k, s in enumerate(SHIFTS_3D):
+                lo = [slice(None)] * 3
+                lo[k % 3] = slice(0, min(s, (d, h, w)[k % 3]))
+                check(bool((got[:, k][(slice(None),) + tuple(lo)] == 0).all()),
+                      f"K5 channel {k}: nonzero where the neighbour is outside")
+        max_err = max(max_err, err)
+
+    e = torch.randn((1, 4, 16, 16, 16), device="cuda", requires_grad=True)
+    try:
+        fused_affinity_3d(e)
+    except NotImplementedError as err:
+        print(f"[kernels3d] K5 refuses an input that requires grad: {str(err)[:80]}...")
+    else:
+        raise SmokeFailure("K5 returned a result for an input that requires grad")
+
+    flush = 64 << 20  # beyond the 50 MB L2
+    view = torch.randn((4, 16, 18, 160, 160), generator=gen,
+                       device="cuda").permute(0, 2, 3, 4, 1)
+    t = {"ms": timed_ms(lambda: fused_affinity_3d(view), flush_bytes=flush),
+         "plain_ms": timed_ms(lambda: affinity_3d_plain(view), flush_bytes=flush),
+         "bf16_ms": timed_ms(lambda: fused_affinity_3d(view.to(torch.bfloat16)),
+                             flush_bytes=flush)}
+    t["bound_ms"], t["bound_by"] = affinity_bound(view.shape, len(SHIFTS_3D), 4)
+    t["bf16_bound_ms"] = affinity_bound(view.shape, len(SHIFTS_3D), 2)[0]
+    print(f"[kernels3d] K5 time B=4 18x160x160 C=16 K=12, NCDHW view (ms, L2 flushed, "
+          f"median of 20; bf16_ms includes the cast): {json.dumps(t)}, {card_line()}")
+    return {"max_abs_err": max_err, **t}
+
+
+def phase_fixture_3d():
+    import torch
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.models import UNetPNIEmbeddingDeep
+
+    data = np.load(os.path.join(REPO, "tests", "fixtures", "unet_pni_deep.npz"))
+    sd = {k[3:]: torch.from_numpy(data[k]) for k in data.files if k.startswith("sd/")}
+    model = UNetPNIEmbeddingDeep(1, (8, 12, 16, 24, 32), 8)
+    model.load_state_dict(sd)
+    model = model.cuda().eval()
+    with torch.no_grad(), float32_convs():
+        outs = model(torch.from_numpy(data["input"]).cuda())
+    for i, o in enumerate(outs):
+        ref = data[f"out/{i}"]
+        got = o.cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        check(got.shape == ref.shape and np.isfinite(got).all(), f"3D fixture out/{i} shape")
+        check(np.allclose(got, ref, **FIXTURE3D_TOL), f"3D fixture out/{i} max error {err}")
+        print(f"[fixture3d] out/{i} {got.shape}: max error {err:.3e} of max |ref| "
+              f"{np.abs(ref).max():.1f} (bound atol {FIXTURE3D_TOL['atol']}, "
+              f"rtol {FIXTURE3D_TOL['rtol']})")
+
+
+def phase_serving_3d() -> dict:
+    """The 3D serving main path; returns K5f's launches in it and its error
+    against the plain version on a served embedding."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import synthesize_volume
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.infer import (
+        build_model, build_tiled_predictor, run_inference_3d)
+    from pixel_embedded_affinity_torch.ops import (
+        SHIFTS_3D, affinity_3d_plain, embedding_to_affinity_3d, fused_affinity_3d)
+    from pixel_embedded_affinity_torch.parallel import TiledInference3D, tile_grid
+
+    cfg = load_config("ac3ac4")
+    torch.manual_seed(SEED)
+    sd = build_model(cfg, device="cpu").state_dict()
+    t0 = time.perf_counter()
+    raw, label = synthesize_volume(*VOLUME_3D, n_cells=VOLUME_CELLS, seed=SEED)
+    vol = raw.astype(np.float32) / 255.0
+    print(f"[serve3d] ac3ac4 UNetPNIEmbeddingDeep filters {cfg.model.filters} emd "
+          f"{cfg.model.emd}; synthetic volume {vol.shape}, {VOLUME_CELLS} cells, made in "
+          f"{time.perf_counter() - t0:.2f} s; tiles {cfg.data.crop_size}, stride (10, 80, 80), "
+          f"padding (4, 48, 48), batch 4; convs in float32 (TF32 off)")
+
+    model = build_model(cfg, sd, device="cuda")
+    predict = build_tiled_predictor(model)
+    # warm-up (cuDNN picks its algorithms at the first call of a shape) and
+    # profile on a sub-volume whose 18 tiles end in a short batch of 2, as
+    # the full volume's 338 do
+    sub = np.ascontiguousarray(vol[:, :224, :224])
+    engine = TiledInference3D(crop_size=cfg.data.crop_size, batch_size=4)
+    engine.run(sub, predict, len(SHIFTS_3D), device="cuda")
+    device_breakdown(lambda: engine.run(sub, predict, len(SHIFTS_3D), device="cuda"), 5,
+                     iters=2, label="3D engine, 18 tiles in 5 batches", unit="batch")
+
+    timing: dict = {}
+    fused_affinity_3d.launches = 0
+    affs, results = run_inference_3d(cfg, sd, vol, gt=label, timing=timing, device="cuda")
+    launches = fused_affinity_3d.launches
+    print(f"[serve3d] K5f launches {launches} (expected {K5_LAUNCHES}); timing "
+          f"{json.dumps(timing)}; {card_line()}")
+    rest = (timing["total_s"] - timing["forward_s"] - sum(timing["decode_s"].values())
+            - sum(timing["metrics_s"].values()))
+    print(f"[serve3d] wall {timing['total_s']:.4f} s = forward {timing['forward_s']:.4f} + "
+          + " + ".join(f"{d} decode {timing['decode_s'][d]:.4f} + metrics "
+                       f"{timing['metrics_s'][d]:.4f}" for d in timing["decode_s"])
+          + f" + rest {rest:.4f}; setup {timing['setup_s']:.4f}")
+    check(launches == K5_LAUNCHES, f"K5f launched {launches} times")
+    check(affs.shape == (len(SHIFTS_3D),) + VOLUME_3D and affs.dtype == np.float32,
+          f"canvas {affs.shape} {affs.dtype}")
+    check(bool(np.isfinite(affs).all()) and affs.min() >= 0 and affs.max() <= 1 + 1e-5,
+          "canvas values outside [0, 1]")
+    for dec, (seg, m) in results.items():
+        print(f"[serve3d] {dec}: {len(np.unique(seg))} segments; {json.dumps(m)}")
+        check(seg.shape == VOLUME_3D, f"{dec} segmentation shape")
+        check(len(m) == 4 and all(np.isfinite(v) for v in m.values()), f"{dec} metrics {m}")
+
+    # one tile batch: device time, K5f on its embedding, float64
+    volp = F.pad(torch.from_numpy(vol).cuda()[None, None], (48, 48, 48, 48, 4, 4),
+                 mode="reflect")[0, 0]
+    pos = tile_grid(tuple(volp.shape), cfg.data.crop_size, (10, 80, 80))
+    check(len(pos) == TILES_3D, f"{len(pos)} tiles")
+    cz, cy, cx = cfg.data.crop_size
+    tiles = torch.stack([volp[z:z + cz, y:y + cy, x:x + cx] for z, y, x in pos[:4]])[:, None]
+    ms = timed_ms(lambda: predict(tiles), n=20)
+
+    def predict_tf32():
+        with torch.no_grad():
+            emb = tf32_convs(lambda: model(tiles)[4])()
+            return fused_affinity_3d(emb.permute(0, 2, 3, 4, 1)).relu_()
+
+    tf32_ms = timed_ms(predict_tf32, n=20)
+    gflop = model_gflop(cfg, tuple(tiles.shape))
+    print(f"[serve3d] device ms per tile batch (4 tiles, model + K5f + ReLU, warm median of "
+          f"20): {ms:.4f} float32, {tf32_ms:.4f} with TF32 convs (for reference); the model "
+          f"is {gflop:.4f} GFLOP a batch: {gflop / ms:.4f} and {gflop / tf32_ms:.4f} TFLOP/s; "
+          f"{card_line()}")
+    with torch.no_grad(), float32_convs():
+        emb = model(tiles)[4].permute(0, 2, 3, 4, 1)
+        err_k = (fused_affinity_3d(emb) - affinity_3d_plain(emb)).abs().max().item()
+        emb64 = copy.deepcopy(model).double()(tiles.double())[4]
+        ref = embedding_to_affinity_3d(emb64.permute(0, 2, 3, 4, 1)).relu()
+    err = (predict(tiles).double() - ref).abs().max().item()
+    err_tf32 = (predict_tf32().double() - ref).abs().max().item()
+    print(f"[serve3d] K5f on a served embedding vs plain: {err_k:.3e}; served affinities vs "
+          f"float64, one batch: {err:.3e} (a TF32 run: {err_tf32:.3e})")
+    check(err_k <= K5_F32_ATOL, f"K5f off its plain version by {err_k} on the main path")
+    check(err <= AFF_ATOL, f"served 3D affinities off the float64 run by {err}")
+
+    @torch.no_grad()
+    def predict_plain(t):
+        with float32_convs():
+            return affinity_3d_plain(model(t)[4].permute(0, 2, 3, 4, 1)).relu_()
+
+    plain = TiledInference3D(crop_size=cfg.data.crop_size, batch_size=4).run(
+        vol, predict_plain, len(SHIFTS_3D), device="cuda")
+    err_c = float(np.abs(affs - plain).max())
+    print(f"[serve3d] canvas vs the same run through the plain affinity: {err_c:.3e}")
+    check(err_c <= CANVAS_ATOL, f"canvas off the plain run by {err_c}")
+    decode_labels_canvas(label)
+    return {"launches": launches, "max_abs_err": err_k}
+
+
+def decode_labels_canvas(label: np.ndarray):
+    """The decoders' host time on a canvas with the synthetic volume's cells
+    in it (random weights give a near-uniform one): noisy label-derived
+    affinities of the first 512x512 in y, x."""
+    from pixel_embedded_affinity_torch.data import label_affinities
+    from pixel_embedded_affinity_torch.infer import decode
+    from pixel_embedded_affinity_torch.metrics import adapted_rand_error, voi
+
+    gt = np.ascontiguousarray(label[:, :512, :512])
+    affs = label_affinities(gt, SEED)
+    for dec in ("mutex", "waterz", "lmc"):
+        t0 = time.perf_counter()
+        seg = decode(affs, dec)
+        t_dec = time.perf_counter() - t0
+        vs, vm = voi(gt, seg)
+        are = adapted_rand_error(gt, seg)[0]
+        print(f"[serve3d] labels canvas {gt.shape}, {dec}: decode {t_dec:.4f} s, "
+              f"{len(np.unique(seg))} segments ({len(np.unique(gt))} cells), VOI "
+              f"{vs + vm:.4f}, ARAND {are:.4f}")
+        check(np.isfinite(vs + vm + are), f"{dec} metrics on the labels canvas")
+
+
 def main() -> int:
     import torch
 
@@ -767,7 +1034,11 @@ def main() -> int:
     phase_fixture()
     launches = phase_main_path(cfg, sd, samples)
     train_launches = phase_train(samples)
-    # 7. kernels line, card, 8. last line
+    # 7. 3D kernel, 8. 3D fixture, 9. 3D serving
+    k5 = phase_kernels_3d()
+    phase_fixture_3d()
+    serve3d = phase_serving_3d()
+    # 10. kernels line, card, 11. last line
     t1 = k1["times"][1]
     kernels = [{
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
@@ -783,6 +1054,12 @@ def main() -> int:
             "replaces": WMSE_REPLACES[k], "launches": train_launches[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "affinity3d_fwd", "route": "cuda", "source": K5_SOURCE,
+        "replaces": K5_REPLACES, "launches": serve3d["launches"],
+        "max_abs_err": max(k5["max_abs_err"], serve3d["max_abs_err"]), "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

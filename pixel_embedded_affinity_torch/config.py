@@ -1,5 +1,5 @@
-"""Config: the fields and the ``cvppp`` preset the serving and training
-paths read.
+"""Config: the fields and the presets the serving and training paths read:
+``cvppp`` (2D serving and training) and ``ac3ac4`` (3D serving).
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
@@ -25,6 +25,12 @@ class ModelConfig:
     # "auto" resolves to float32 (resolve_compute_dtype); bf16 serving is
     # not ported yet
     dtype: str = "auto"
+    # the JAX package's TPU serving choices for the tiled 3D predictor
+    # (bf16 compute; the folded-BN z-concat graph of fast_forward3d.py),
+    # both on there by default. Not ported: the port serves the dense
+    # model in float32, and True raises (ROADMAP.md item 8)
+    bf16_tiled_infer: bool = False
+    fast_tiled_infer: bool = False
 
 
 @dataclass
@@ -77,6 +83,10 @@ class DataConfig:
     # the whole training set resident on the device: not ported, and True
     # raises (the JAX preset's True is left out of the port's)
     device_resident: bool = False
+    # 3D (AC3/AC4): the volume served ("ac4"; the CLI's -m test serves
+    # "ac3") and the tile the tiled engine runs the model on
+    dataset_name: str = "ac4"
+    crop_size: tuple = (18, 160, 160)
 
 
 @dataclass
@@ -111,6 +121,14 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "base_lr": 1e-4, "batch_size": 2},
         "data": {"shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
                  "device_gt": True, "device_ema": True},
+    },
+    # the JAX package's ac3ac4 preset (scripts_ac3ac4/config/ac3ac4.yaml),
+    # its serving fields
+    "ac3ac4": {
+        "name": "ac3ac4",
+        "model": {"arch": "unet_pni_deep", "input_nc": 1, "output_nc": 12,
+                  "filters": (28, 36, 48, 64, 80)},
+        "data": {"dataset_name": "ac4", "crop_size": (18, 160, 160)},
     },
 }
 

@@ -1,9 +1,10 @@
 """Weight carry-across between the Flax parameter tree and torch state dicts.
 
-``resunet2d_deep_from_flax`` is the inverse of the JAX package's
-``train/convert_torch.py::convert_resunet2d_deep``: Flax conv kernels
-(kh, kw, I, O) become (O, I, kh, kw); BatchNorm scale/bias/mean/var become
-weight/bias/running_mean/running_var. ``train_state_from_flax`` carries a
+``resunet2d_deep_from_flax`` and ``unet_pni_deep_from_flax`` are the
+inverses of the JAX package's ``train/convert_torch.py::convert_resunet2d_deep``
+and ``convert_unet_pni_deep``: Flax conv kernels (kh, kw, I, O) or
+(kd, kh, kw, I, O) become (O, I, kh, kw) or (O, I, kd, kh, kw); BatchNorm
+scale/bias/mean/var become weight/bias/running_mean/running_var. ``train_state_from_flax`` carries a
 JAX train state (parameters, BatchNorm statistics, the AMSGrad moments and
 the step) into the port's model and optimizer. ``load_torch_state_dict``
 reads a reference ``.ckpt`` file.
@@ -22,7 +23,8 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv(sd: dict, key: str, p: dict):
-    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    k = np.asarray(p["kernel"])
+    sd[f"{key}.weight"] = _t(np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))))
     if "bias" in p:
         sd[f"{key}.bias"] = _t(p["bias"])
 
@@ -81,6 +83,40 @@ def resunet2d_deep_from_flax(variables: dict) -> dict:
     sd = resunet2d_deep_params_from_flax(variables["params"])
     for key, path, kind in _layout():
         if kind == "bn":
+            _bn_stats(sd, key, _at(variables["batch_stats"], path))
+    return sd
+
+
+_PNI_BLOCK = [("block1.0", "conv_in", "conv"), ("block1.1", "bn_in", "bn"),
+              ("block2.0", "conv1", "conv"), ("block2.1", "bn1", "bn"),
+              ("block2.3", "conv2", "conv"), ("block3", "bn_out", "bn")]
+
+
+def _pni_layout():
+    """(torch module key, Flax path, kind) of every conv and BatchNorm of
+    UNetPNIEmbeddingDeep."""
+    yield "embed_in.0", ("embed_in",), "conv"
+    yield "embed_out.0", ("embed_out",), "conv"
+    for name in ("conv0", "conv1", "conv2", "conv3", "center",
+                 "conv4", "conv5", "conv6", "conv7"):
+        for sub, flax_name, kind in _PNI_BLOCK:
+            yield f"{name}.{sub}", (name, flax_name), kind
+    for i in range(4):
+        yield f"up{i}.1", (f"up{i}", "conv"), "conv"
+        yield f"cat{i}.0", (f"cat{i}", "bn"), "bn"
+    for name in ("out_put", "out_put1", "out_put2", "out_put3", "out_put4"):
+        yield f"{name}.0", (name,), "conv"
+
+
+def unet_pni_deep_from_flax(variables: dict) -> dict:
+    """Flax ``{'params', 'batch_stats'}`` of UNetPNIEmbeddingDeep (numpy or
+    array leaves) -> state dict of :class:`models.UNetPNIEmbeddingDeep`."""
+    sd: dict = {}
+    for key, path, kind in _pni_layout():
+        if kind == "conv":
+            _conv(sd, key, _at(variables["params"], path))
+        else:
+            _bn_params(sd, key, _at(variables["params"], path))
             _bn_stats(sd, key, _at(variables["batch_stats"], path))
     return sd
 

@@ -19,7 +19,7 @@ import torch
 from ..config import Config, resolve_compute_dtype
 from ..device import float32_convs, resolve_device
 from ..metrics import abs_diff_fg_labels, adapted_rand_error, symmetric_best_dice, voi
-from ..models import ResidualUNet2DDeep
+from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
 from ..ops import fused_affinity_2d, multi_offset, relabel
 from ..postproc import merge_func, seg_mutex
 
@@ -29,17 +29,22 @@ SERVE_BATCH = 4
 
 
 def build_model(cfg: Config, state_dict: dict | None = None,
-                device=None) -> ResidualUNet2DDeep:
-    """The serving model in eval mode on ``device``, weights from
+                device=None) -> torch.nn.Module:
+    """The serving model of ``cfg.model.arch`` (``resunet2d_deep`` or
+    ``unet_pni_deep``) in eval mode on ``device``, weights from
     ``state_dict`` when given."""
-    if cfg.model.arch != "resunet2d_deep":
+    if cfg.model.arch not in ("resunet2d_deep", "unet_pni_deep"):
         raise NotImplementedError(f"arch {cfg.model.arch!r} is not ported")
     if resolve_compute_dtype(cfg.model) != "float32":
         raise NotImplementedError("only float32 serving is ported")
     dev = resolve_device(device)
     with dev:
-        model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
-                                   tuple(cfg.model.filters), cfg.model.emd)
+        if cfg.model.arch == "unet_pni_deep":
+            model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
+                                         cfg.model.emd)
+        else:
+            model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
+                                       tuple(cfg.model.filters), cfg.model.emd)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model.eval()

@@ -1,12 +1,18 @@
-"""Serving CLI (2D, CVPPP):
+"""Serving CLI, 2D (CVPPP) and 3D (AC3/AC4):
 
     python -m pixel_embedded_affinity_torch.inference -c cvppp -ck <ckpt> \
         [--torch-ckpt] [-m validation|test] [--out PATH] [--device cuda|cpu] \
         [-o data.data_folder=...]
+    python -m pixel_embedded_affinity_torch.inference -c ac3ac4 -ck <ckpt> \
+        [--torch-ckpt] [-m validation|valid|test] [--decoders mutex,waterz,lmc] \
+        [--device cuda|cpu] [-o data.data_folder=...]
 
 The checkpoint is the JAX package's msgpack file, or with ``--torch-ckpt``
-a reference torch ``.ckpt``. Validation mode prints SBD/DiC/VOI/ARAND;
-test mode writes the CodaLab submission.h5.
+a reference torch ``.ckpt``. 2D validation mode prints SBD/DiC/VOI/ARAND;
+test mode writes the CodaLab submission.h5. 3D runs the tiled engine on one
+volume (as the JAX CLI selects it: ``-m test`` the first 100 slices of AC3,
+``-m valid`` the last 20 of AC4, any other mode all of AC4) and prints
+VOI/ARAND per decoder and the timing split.
 """
 
 from __future__ import annotations
@@ -15,25 +21,26 @@ import argparse
 import json
 
 
-def load_state_dict(path: str, torch_ckpt: bool) -> dict:
-    """State dict for :class:`models.ResidualUNet2DDeep` from either
-    checkpoint format."""
-    from .convert import load_torch_state_dict, resunet2d_deep_from_flax
+def load_state_dict(path: str, torch_ckpt: bool, arch: str = "resunet2d_deep") -> dict:
+    """State dict of the ``arch`` model from either checkpoint format."""
+    from .convert import (load_torch_state_dict, resunet2d_deep_from_flax,
+                          unet_pni_deep_from_flax)
 
     if torch_ckpt:
         return load_torch_state_dict(path)
     from .checkpoint import load_jax_checkpoint
 
     restored = load_jax_checkpoint(path)
-    return resunet2d_deep_from_flax({"params": restored["params"],
-                                     "batch_stats": restored.get("batch_stats", {})})
+    convert = unet_pni_deep_from_flax if arch == "unet_pni_deep" else resunet2d_deep_from_flax
+    return convert({"params": restored["params"],
+                    "batch_stats": restored.get("batch_stats", {})})
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--cfg", type=str, default="cvppp")
     parser.add_argument("-ck", "--checkpoint", type=str, required=True)
-    parser.add_argument("-m", "--mode", choices=("validation", "test"),
+    parser.add_argument("-m", "--mode", choices=("validation", "valid", "test"),
                         default="validation")
     parser.add_argument("--out", type=str, default=None)
     parser.add_argument("--torch-ckpt", action="store_true",
@@ -41,6 +48,8 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("-o", "--override", nargs="*", default=None,
                         help="dotted key=value overrides")
+    parser.add_argument("--decoders", type=str, default="mutex,waterz,lmc",
+                        help="3D decoders to run (comma-separated)")
     args = parser.parse_args(argv)
 
     from .config import load_config, parse_overrides
@@ -48,9 +57,23 @@ def main(argv=None):
     from .infer import run_cvppp_test, run_inference_2d
 
     cfg = load_config(args.cfg, overrides=parse_overrides(args.override))
-    sd = load_state_dict(args.checkpoint, args.torch_ckpt)
+    sd = load_state_dict(args.checkpoint, args.torch_ckpt, cfg.model.arch)
     timing: dict = {}
-    if args.mode == "test":
+    if cfg.model.arch == "unet_pni_deep":
+        from .data.ac3ac4 import AC3AC4ValidVolume
+        from .infer import run_inference_3d
+
+        vol = AC3AC4ValidVolume(
+            cfg.data.data_folder,
+            dataset_name="ac3" if args.mode == "test" else cfg.data.dataset_name,
+            mode=args.mode)
+        _, results = run_inference_3d(cfg, sd, vol.raw, gt=vol.label,
+                                      decoders=tuple(args.decoders.split(",")),
+                                      timing=timing, device=args.device)
+        for dec, (_, m) in results.items():
+            print(dec, json.dumps(m))
+        print("COST TIME:", json.dumps(timing))
+    elif args.mode == "test":
         ds = CVPPPTest(cfg.data.data_folder, padding=cfg.data.padding)
         out = args.out or "submission.h5"
         _, names = run_cvppp_test(cfg, sd, ds, out, timing=timing,

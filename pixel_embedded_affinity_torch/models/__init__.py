@@ -1,1 +1,2 @@
 from .resunet2d import ResidualUNet2DDeep
+from .unet3d_pni import UNetPNIEmbeddingDeep

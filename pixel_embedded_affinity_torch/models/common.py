@@ -1,5 +1,5 @@
-"""Shared model utilities (NCHW): align-corners upsampling, edge padding,
-and a BatchNorm whose running statistics follow Flax's."""
+"""Shared model utilities (NCHW, NCDHW): align-corners upsampling, edge
+padding, and a BatchNorm whose running statistics follow Flax's."""
 
 from __future__ import annotations
 
@@ -39,6 +39,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Bilinear upsampling with align_corners=True (nn.Upsample semantics)."""
     return F.interpolate(x, scale_factor=factor, mode="bilinear",
+                         align_corners=True)
+
+
+def upsample_xy_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """x2 linear upsampling of an NCDHW tensor along y and x only, with
+    align_corners=True (the reference's ``nn.Upsample(scale_factor=(1, 2, 2),
+    mode='trilinear', align_corners=True)``). At a z scale of 1 the
+    align-corners source of slice z is exactly z, so z is copied as is."""
+    return F.interpolate(x, scale_factor=(1, 2, 2), mode="trilinear",
                          align_corners=True)
 
 

@@ -1,8 +1,9 @@
 """Embedding -> multi-offset affinity, plain PyTorch.
 
-Embeddings are channels-last (B, H, W, C); affinities are channels-first
-(B, K, H, W), one channel per offset. Channel k at pixel p is the dot
-product of the L2-normalized embeddings at p and p + offsets[k].
+Embeddings are channels-last (B, H, W, C) or (B, D, H, W, C); affinities
+are channels-first (B, K, H, W) or (B, K, D, H, W), one channel per offset.
+Channel k at pixel p is the dot product of the L2-normalized embeddings at
+p and p + offsets[k].
 
 Border modes:
 * ``'valid'``: the affinity is 0 where p + offset lies outside the image.
@@ -15,6 +16,8 @@ Border modes:
 from __future__ import annotations
 
 import torch
+
+from .offsets import SHIFTS_3D
 
 
 def normalize_embedding(e: torch.Tensor, dim: int = -1,
@@ -79,4 +82,25 @@ def cross_affinity_2d(embedding: torch.Tensor, other: torch.Tensor, offsets,
         if padding == "valid":
             a = a * _valid_mask_2d(h, w, oy, ox, a)[None]
         chans.append(a)
+    return torch.stack(chans, dim=1)
+
+
+def embedding_to_affinity_3d(embedding: torch.Tensor, shifts=SHIFTS_3D) -> torch.Tensor:
+    """(B, D, H, W, C) embeddings -> (B, K, D, H, W) affinities.
+
+    Channel i dots each voxel with its neighbour ``shifts[i]`` back along
+    axis i % 3 of (z, y, x); where that neighbour lies outside the volume
+    the affinity is 0. The oracle of the 3D kernel (:mod:`.emb2aff3d_cuda`).
+    """
+    n = normalize_embedding(embedding)
+    dims = n.shape[1:4]
+    chans = []
+    for i, s in enumerate(shifts):
+        axis = 1 + i % 3
+        s = min(int(s), dims[i % 3])
+        a = torch.sum(n.narrow(axis, s, dims[i % 3] - s)
+                      * n.narrow(axis, 0, dims[i % 3] - s), dim=-1)
+        pad = [0, 0, 0, 0, 0, 0]
+        pad[2 * (3 - i % 3) - 2] = s  # F.pad lists the last axis first
+        chans.append(torch.nn.functional.pad(a, pad))
     return torch.stack(chans, dim=1)

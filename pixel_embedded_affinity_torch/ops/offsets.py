@@ -1,9 +1,10 @@
 """Offset geometry for multi-offset affinities.
 
-For each shift s, neighbor=4 contributes offsets [-s,0], [0,-s] (vertical
-then horizontal); neighbor=8 additionally [-s,-s], [-s,s]. An offset vector
-``o`` means: the channel value at pixel ``p`` is the affinity between ``p``
-and ``p + o``.
+2D: for each shift s, neighbor=4 contributes offsets [-s,0], [0,-s]
+(vertical then horizontal); neighbor=8 additionally [-s,-s], [-s,s].
+3D: the fixed 12-channel table ``SHIFTS_3D``, channel i along axis i % 3 of
+(z, y, x), in the negative direction. An offset vector ``o`` means: the
+channel value at voxel ``p`` is the affinity between ``p`` and ``p + o``.
 """
 
 from __future__ import annotations
@@ -23,4 +24,19 @@ def multi_offset(shifts, neighbor: int = 4) -> list[list[int]]:
     out: list[list[int]] = []
     for s in shifts:
         out += gen_offsets(s, neighbor=neighbor)
+    return out
+
+
+#: The 3D shift table: channel i shifts along axis i % 3 of (z, y, x).
+SHIFTS_3D: tuple[int, ...] = (1, 1, 1, 2, 3, 3, 3, 9, 9, 4, 27, 27)
+
+
+def offsets_3d(shifts=SHIFTS_3D) -> list[list[int]]:
+    """The interleaved 3D shift table as explicit (dz, dy, dx) offsets:
+    channel i shifts axis i % 3 by -shifts[i]."""
+    out = []
+    for i, s in enumerate(shifts):
+        off = [0, 0, 0]
+        off[i % 3] = -s
+        out.append(off)
     return out

@@ -45,14 +45,27 @@ def get_lib() -> ctypes.CDLL:
         if _lib:
             return _lib[0]
         lib = ctypes.CDLL(build())
-        i32 = ctypes.c_int32
+        i32, i64 = ctypes.c_int32, ctypes.c_int64
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
-        lib.mws_segmentation.restype = ctypes.c_int64
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        lib.mws_segmentation.restype = i64
         lib.mws_segmentation.argtypes = [
             f32p, i32p, i32, i32, i64p, i32, i32p, i32, ctypes.c_uint64,
             ctypes.c_void_p, u32p]
+        # the 3D decoders' entry points (watershed, agglomerate, multicut)
+        lib.seeded_watershed_2d.restype = None
+        lib.seeded_watershed_2d.argtypes = [f32p, i32p, i64, i64, i32p]
+        lib.agglomerate_scored.restype = i64
+        lib.agglomerate_scored.argtypes = [f32p, u64p, i64, i64, i64, ctypes.c_double,
+                                           i32, i32, u64p]
+        lib.rag_mean_affinity.restype = i64
+        lib.rag_mean_affinity.argtypes = [u64p, f32p, i64, i64, i64, ctypes.c_void_p,
+                                          ctypes.c_void_p, ctypes.c_void_p]
+        lib.gaec_multicut.restype = i64
+        lib.gaec_multicut.argtypes = [i64, i64, u64p, f64p, i32, u64p]
         _lib.append(lib)
         return lib

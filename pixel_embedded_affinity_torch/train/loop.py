@@ -46,6 +46,11 @@ log = logging.getLogger("pea")
 
 def check_train_config(cfg: Config):
     """Raise NotImplementedError for the options whose code is not ported."""
+    if cfg.model.arch == "unet_pni_deep":
+        raise NotImplementedError(
+            "3D training (AC3/AC4, model.arch='unet_pni_deep') is not ported: it "
+            "is the next slice of the port, with the kernels K6f and the K5/K6 "
+            "backwards (K1b, K4b); the port serves 3D (infer.run_inference_3d)")
     not_ported = []
     if cfg.model.arch != "resunet2d_deep":
         not_ported.append(f"model.arch={cfg.model.arch!r}")

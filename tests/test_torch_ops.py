@@ -117,7 +117,7 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """The port, its serving path and its training path import with jax,
+    """The port, its serving paths (2D and 3D) and its training path import with jax,
     flax, optax, the JAX package and the lazily-imported optional modules
     all blocked."""
     code = (
@@ -137,6 +137,14 @@ def test_port_imports_without_jax():
         "import pixel_embedded_affinity_torch.data.consistency\n"
         "import pixel_embedded_affinity_torch.data.device_aug\n"
         "import pixel_embedded_affinity_torch.data.provider\n"
+        "import pixel_embedded_affinity_torch.data.ac3ac4\n"
+        "import pixel_embedded_affinity_torch.infer.inference3d\n"
+        "import pixel_embedded_affinity_torch.parallel.tiling\n"
+        "import pixel_embedded_affinity_torch.models.unet3d_pni\n"
+        "import pixel_embedded_affinity_torch.ops.emb2aff3d_cuda\n"
+        "import pixel_embedded_affinity_torch.postproc.watershed\n"
+        "import pixel_embedded_affinity_torch.postproc.agglomerate\n"
+        "import pixel_embedded_affinity_torch.postproc.multicut\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -319,7 +319,9 @@ def test_cvppp_preset_matches_jax():
         for k in vars(p):
             if k == "dtype":  # "auto": float32 in the port, bfloat16 on a TPU
                 continue
-            if k == "device_resident":  # not ported: the port's preset leaves it off
+            # not ported, off in the port (the JAX defaults are on): the
+            # device-resident sampler and the TPU's 3D serving choices
+            if k in ("device_resident", "bf16_tiled_infer", "fast_tiled_infer"):
                 assert not getattr(p, k) and getattr(r, k)
                 continue
             assert getattr(p, k) == getattr(r, k), f"{sec}.{k}"
