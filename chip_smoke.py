@@ -9,9 +9,10 @@ Phases, each of which exits nonzero when it fails:
      post-processing library, all in parallel, from the sources here;
   3. kernels: each kernel against its plain PyTorch version on the card:
      K1f at the serving shapes, in float32 and bfloat16 and on a permuted
-     NCHW view (and it must refuse an input that requires grad: its
-     backward is not ported); K2f/K2b at the five training scales and
-     K3f/K3b at full scale, on the NCHW view, with a zero vector;
+     NCHW view; K1's backward (the self-affinity backward kernel at D = 1)
+     through autograd at B=2 544x544, neighbor 8 and 4; K2f/K2b at the five
+     training scales and K3f/K3b at full scale, on the NCHW view, with a
+     zero vector;
   4. fixture: the port's model on the reference golden
      (tests/fixtures/resunet2d_deep.npz) with TF32 off, and the kernel's
      affinities against the golden's circular ones outside the wrap band;
@@ -24,12 +25,18 @@ Phases, each of which exits nonzero when it fails:
      synthetic 544x544 leaves, validation on 2 images and a checkpoint,
      with every kernel's launch count read around the run; the reloaded
      checkpoint's next-step loss; the unfused kernel path must refuse to
-     run; the device time of one step by kernel; one step's parameter
-     gradients against the same step in float64 through the plain path;
-  7. 3D kernel: K5f against its plain version at the serving tile batch
+     run (K4f is not ported); the device time of one step by kernel; one
+     step's parameter gradients against the same step in float64 through
+     the plain path;
+  7. 3D kernels: K5f against its plain version at the serving tile batch
      (4 tiles of 18x160x160, C=16, on the permuted NCDHW view) in float32
-     and bfloat16, and at two odd shapes with a zero vector; its time with
-     L2 flushed; it must refuse an input that requires grad;
+     and bfloat16, at two odd shapes with a zero vector, and through
+     autograd (its backward kernel); its time with L2 flushed. The 3D
+     training kernels, the self-affinity backward (K5b), the cross forward
+     (K6f) and the cross backward (K6b), against their plain versions at the
+     training shape (B=2, 18x160x160, C=16, NCDHW view) and two odd shapes,
+     float32 and bfloat16, with a zero vector and a random cotangent; their
+     raw (normalized) forms; their times with L2 flushed;
   8. 3D fixture: the port's UNetPNIEmbeddingDeep on the reference golden
      (tests/fixtures/unet_pni_deep.npz) with TF32 off;
   9. 3D serving: AC3/AC4 serving at full width (ac3ac4 preset, filters
@@ -40,8 +47,15 @@ Phases, each of which exits nonzero when it fails:
      batches; one batch's affinities against float64; the canvas against
      the same run through the plain affinity; the decoders' time on a noisy
      label-derived canvas of the first 20x512x512;
- 10. one JSON line listing each kernel: launches, error, times, bound;
- 11. the last line: {"ok": true, "device": {...}}.
+ 10. 3D training: train() on the full-width ac3ac4 preset, B=2 crops of
+     18x160x160 from a synthetic 36x320x320 volume, 8 steps, validation
+     with waterz on a synthetic 20x256x256 volume (cut from AC4's
+     20x1024x1024) and a checkpoint, each kernel's launch count read around
+     the run; the reloaded checkpoint's next-step loss; one step's peak
+     device memory and device time by kernel; one step's parameter
+     gradients against float64;
+ 11. one JSON line listing each kernel: launches, error, times, bound;
+ 12. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -65,6 +79,9 @@ SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
 F32_ATOL = 1e-5
 BF16_ATOL = 8e-3  # bf16 output rounding is ~2^-8 at |a| <= 1
+# bf16 gradients against the plain version on the same bf16 inputs, both
+# rounded to bf16 at the end: 2^-8 of the largest, twice over
+BF16_GRAD_RTOL = 8e-3
 FIXTURE_TOL = dict(atol=2e-4, rtol=1e-3)
 AFF_ATOL = 1e-4  # served f32 affinities vs a float64 run, as the CPU parity tests hold them
 K1_REPLACES = "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:120"
@@ -116,6 +133,17 @@ VOLUME_3D = (20, 1024, 1024)
 VOLUME_CELLS = 300
 TILES_3D = 338
 K5_LAUNCHES = 85
+# 3D training: B=2 crops of 18x160x160 from a synthetic 36x320x320 volume;
+# validation on a synthetic 20x256x256 one (AC4's is 20x1024x1024)
+TRAIN3D_VOLUME, TRAIN3D_CELLS = (36, 320, 320), 80
+VALID3D_VOLUME, VALID3D_CELLS = (20, 256, 256), 30
+# the 1x1x1 convs of the up-paths add to the skip in front of BatchNorm
+BIAS_BEFORE_BN_3D = re.compile(r"^up\d\.1\.bias$")
+GRAD_SOURCE = "pixel_embedded_affinity_torch/csrc/affinity_grad.cu"
+GRAD_REPLACES = {"K5b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:255",
+                 "K6f": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:692",
+                 "K6b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:431"}
+GRAD_NAMES = {"K5b": "affinity_bwd", "K6f": "cross_affinity_fwd", "K6b": "cross_affinity_bwd"}
 
 
 class SmokeFailure(RuntimeError):
@@ -209,7 +237,8 @@ def phase_build() -> float:
         emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
-    sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE]
+    sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE,
+               emb2aff3d_cuda.GRAD_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -454,10 +483,11 @@ def served_precision(cfg, sd, model, x, offsets):
 
 
 def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
-                     unit: str = "img"):
+                     unit: str = "img", ours: tuple = ()):
     """Device time of fn() by kernel (torch.profiler), per image (or per
     ``unit``, ``images`` of them per call), and the device's idle share of
-    the host-clock wall time of the same calls."""
+    the host-clock wall time of the same calls; also the rows whose kernel
+    name holds one of ``ours``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -488,22 +518,46 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
           f"{max(0.0, 1 - busy / per_img_wall):.3f}); top kernels:")
     for ms, calls, name in rows[:12]:
         print(f"[profile]   {ms:.4f} ms/{unit}  {ms / busy:6.1%}  x{calls}  {name[:110]}")
+    mine = [r for r in rows if any(o in r[2] for o in ours)]
+    if mine:
+        tot = sum(r[0] for r in mine)
+        print(f"[profile] {label}: the port's kernels {tot:.4f} ms/{unit}, {tot / busy:.2%}:")
+        for ms, calls, name in mine:
+            print(f"[profile]   {ms:.4f} ms/{unit}  {ms / busy:6.2%}  x{calls}  {name[:110]}")
 
-def phase_k1_grad_guard():
-    """K1 has no backward on the card: an input that requires grad raises."""
+
+def phase_k1_grad() -> float:
+    """K1's backward (the self-affinity backward kernel at D = 1) against
+    its plain version through autograd, at B=2 544x544 with neighbor=8 (and
+    4), a zero vector and a random cotangent over the whole output, the
+    band where the neighbour is outside included; returns the largest
+    absolute gradient error."""
     import torch
 
-    from pixel_embedded_affinity_torch.ops import fused_affinity_2d, multi_offset
+    from pixel_embedded_affinity_torch.ops import (
+        affinity_2d_plain, affinity_bwd, fused_affinity_2d, multi_offset)
 
-    e = torch.randn((1, 16, 16, 16), device="cuda", requires_grad=True)
-    try:
-        fused_affinity_2d(e, multi_offset([1, 3], 4))
-    except NotImplementedError as err:
-        print(f"[kernels] K1 refuses an input that requires grad: {str(err)[:80]}...")
-    else:
-        raise SmokeFailure("K1 returned a result for an input that requires grad")
-    with torch.no_grad():
-        fused_affinity_2d(e, multi_offset([1, 3], 4))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    zero_px = (1, 3, 5)
+    max_err = 0.0
+    for neighbor in (8, 4):
+        offsets = multi_offset([1, 3, 5, 9, 27], neighbor)
+        nchw = torch.randn((2, 16, 544, 544), generator=gen, device="cuda")
+        nchw[zero_px[0], :, zero_px[1], zero_px[2]] = 0.0
+        x = nchw.requires_grad_()
+        g = torch.randn((2, len(offsets), 544, 544), generator=gen, device="cuda")
+        before = affinity_bwd.launches
+        (got,) = torch.autograd.grad(fused_affinity_2d(x.permute(0, 2, 3, 1), offsets), x, g)
+        check(affinity_bwd.launches == before + 1, "K1's backward did not launch its kernel")
+        (ref,) = torch.autograd.grad(affinity_2d_plain(x.permute(0, 2, 3, 1), offsets), x, g)
+        torch.cuda.synchronize()
+        rest, at_zero, err = _grad_err(got.permute(0, 2, 3, 1), ref.permute(0, 2, 3, 1), zero_px)
+        print(f"[kernels] K1 backward B=2 544x544 C=16 neighbor {neighbor}: gradient rel "
+              f"(rest, zero-vector pixel, abs) ({rest:.3e}, {at_zero:.3e}, {err:.3e})")
+        check(got.is_contiguous(), "K1's gradient is not in the NCHW layout")
+        check(rest <= GRAD_RTOL and at_zero <= GRAD_RTOL, f"K1 gradient error {rest}, {at_zero}")
+        max_err = max(max_err, err)
+    return max_err
 
 
 def wmse_bound(b: int, side: int, c: int, k: int, n_in: int, n_out: int):
@@ -528,13 +582,14 @@ def wmse_bound(b: int, side: int, c: int, k: int, n_in: int, n_out: int):
 
 def _grad_err(got, ref, zero_px):
     """max |got - ref| / max |ref| over all pixels but the zero vector's,
-    and the same at that pixel alone; tensors (B, H, W, C)."""
-    b, y, x = zero_px
-    keep = ref.new_ones(ref.shape[:3], dtype=bool)
-    keep[b, y, x] = False
+    and the same at that pixel alone; tensors (B, ..., C), compared in
+    float32, zero_px the index of the zero vector's pixel or voxel."""
+    got, ref = got.float(), ref.float()
+    keep = ref.new_ones(ref.shape[:-1], dtype=bool)
+    keep[tuple(zero_px)] = False
     d = (got - ref).abs()
     rest = (d[keep].max() / ref[keep].abs().max()).item()
-    at_zero = (d[b, y, x].max() / ref[b, y, x].abs().max().clamp(min=1e-30)).item()
+    at_zero = (d[tuple(zero_px)].max() / ref[tuple(zero_px)].abs().max().clamp(min=1e-30)).item()
     return rest, at_zero, d[keep].max().item()
 
 
@@ -730,23 +785,29 @@ def phase_train(samples) -> dict:
 
     device_breakdown(lambda: step(loaded, batch), 1, iters=3,
                      label="train step B=2 544x544", unit="step")
-    train_precision(state.model, batch, offsets)
+    train_precision(state.model, batch,
+                    lambda use_pallas: TrainStep2D(offsets, use_pallas=use_pallas,
+                                                   device_ema=False), BIAS_BEFORE_BN)
     return launches
 
 
-def train_precision(model, batch, offsets):
+def train_precision(model, batch, make_step, zero_bias, label="train"):
     """One step's parameter gradients through the kernels in float32, and
     through the plain path in float32, each against the plain path in
-    float64, on the same batch and EMA view."""
-    from pixel_embedded_affinity_torch.train import TrainStep2D
+    float64, on the same batch and EMA view. ``make_step(use_pallas)``
+    gives the train step; ``zero_bias`` matches the biases whose true
+    gradient is 0 (a conv's in front of train-mode BatchNorm)."""
+    import torch
 
-    runs = {}
+    runs, secs = {}, {}
     b64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     for name, use_pallas, f64 in [("kernels", True, False), ("plain", False, False),
                                   ("f64", False, True)]:
         m = copy.deepcopy(model).double() if f64 else copy.deepcopy(model)
-        TrainStep2D(offsets, use_pallas=use_pallas, device_ema=False).grads(
-            m, b64 if f64 else batch)
+        t0 = time.perf_counter()
+        make_step(use_pallas).grads(m, b64 if f64 else batch)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
         runs[name] = {n: p.grad for n, p in m.named_parameters() if p.grad is not None}
     # the mask head is off the cvppp loss: no gradient in any run
     check(len({frozenset(r) for r in runs.values()}) == 1,
@@ -755,20 +816,21 @@ def train_precision(model, batch, offsets):
     errs, zero = [], []
     for name, g64 in runs["f64"].items():
         gk, gp = runs["kernels"][name].double(), runs["plain"][name].double()
-        if BIAS_BEFORE_BN.search(name):
+        if zero_bias.search(name):
             zero.append((g64.abs().max().item() / top, gk.abs().max().item() / top))
             continue
         scale = g64.abs().max().item()
         errs.append((name, (gk - g64).abs().max().item() / scale,
                      (gp - g64).abs().max().item() / scale))
-    print(f"[train] parameter gradients against float64, max error relative to each "
-          f"tensor's largest, float32 kernels / float32 plain ({len(errs)} tensors):")
+    print(f"[{label}] parameter gradients against float64, max error relative to each "
+          f"tensor's largest, float32 kernels / float32 plain ({len(errs)} tensors; host s "
+          f"of the three steps: {json.dumps(secs)}):")
     for i in range(0, len(errs), 3):
-        print("[train]   " + "  ".join(f"{n} {e:.2e}/{p:.2e}" for n, e, p in errs[i:i + 3]))
+        print(f"[{label}]   " + "  ".join(f"{n} {e:.2e}/{p:.2e}" for n, e, p in errs[i:i + 3]))
     worst = max(errs, key=lambda t: t[1])
     excess = max(errs, key=lambda t: t[1] - KERNEL_EXCESS * t[2])
     z64, z32 = max(z[0] for z in zero), max(z[1] for z in zero)
-    print(f"[train] worst {worst[0]} {worst[1]:.3e} with the kernels, {worst[2]:.3e} plain "
+    print(f"[{label}] worst {worst[0]} {worst[1]:.3e} with the kernels, {worst[2]:.3e} plain "
           f"(bound {F64_GRAD_RTOL}); the kernels' largest excess over the plain path: "
           f"{excess[0]} {excess[1]:.3e} vs {excess[2]:.3e} (bound {KERNEL_EXCESS}x + 1e-4); "
           f"the {len(zero)} conv biases in front of BatchNorm (true gradient 0): largest "
@@ -841,13 +903,24 @@ def phase_kernels_3d() -> dict:
                       f"K5 channel {k}: nonzero where the neighbour is outside")
         max_err = max(max_err, err)
 
-    e = torch.randn((1, 4, 16, 16, 16), device="cuda", requires_grad=True)
-    try:
-        fused_affinity_3d(e)
-    except NotImplementedError as err:
-        print(f"[kernels3d] K5 refuses an input that requires grad: {str(err)[:80]}...")
-    else:
-        raise SmokeFailure("K5 returned a result for an input that requires grad")
+    # differentiable through its backward kernel: the gradient through
+    # autograd against the plain version's, at a shape with a zero vector
+    from pixel_embedded_affinity_torch.ops import affinity_bwd
+
+    x = torch.randn((2, 16, 5, 37, 41), generator=gen, device="cuda")
+    x[1, :, 2, 3, 5] = 0.0
+    x.requires_grad_()
+    g = torch.randn((2, len(SHIFTS_3D), 5, 37, 41), generator=gen, device="cuda")
+    before = affinity_bwd.launches
+    (got,) = torch.autograd.grad(fused_affinity_3d(x.permute(0, 2, 3, 4, 1)), x, g)
+    check(affinity_bwd.launches == before + 1, "K5's backward did not launch its kernel")
+    (ref,) = torch.autograd.grad(affinity_3d_plain(x.permute(0, 2, 3, 4, 1)), x, g)
+    torch.cuda.synchronize()
+    rest, at_zero, _ = _grad_err(got.permute(0, 2, 3, 4, 1), ref.permute(0, 2, 3, 4, 1),
+                                 (1, 2, 3, 5))
+    print(f"[kernels3d] K5 through autograd: gradient rel (rest, zero-vector voxel) "
+          f"({rest:.3e}, {at_zero:.3e})")
+    check(rest <= GRAD_RTOL and at_zero <= GRAD_RTOL, f"K5 gradient error {rest}, {at_zero}")
 
     flush = 64 << 20  # beyond the 50 MB L2
     view = torch.randn((4, 16, 18, 160, 160), generator=gen,
@@ -861,6 +934,132 @@ def phase_kernels_3d() -> dict:
     print(f"[kernels3d] K5 time B=4 18x160x160 C=16 K=12, NCDHW view (ms, L2 flushed, "
           f"median of 20; bf16_ms includes the cast): {json.dumps(t)}, {card_line()}")
     return {"max_abs_err": max_err, **t}
+
+
+def train3d_bound(n: int, c: int, k: int, n_read: int, n_write: int, kind: str,
+                  itemsize: int = 4):
+    """Least time for the 3D training kernels on n voxels: each embedding
+    read once (n_read of them), the cotangent g read once by the backwards,
+    and the affinities (forward) or n_write gradients written once.
+    Operations: normalising each input vector once (3C); per channel a dot
+    (2C) forward, or one C-wide multiply-add (2C) per gradient and term
+    backward; the normalisation's VJP (5C) per gradient; at the float32
+    rate."""
+    if kind == "fwd":
+        elems = n * (c * n_read + k)
+        ops = n * (3 * c * n_read + 2 * c * k)
+    else:
+        elems = n * (c * n_read + k + c * n_write)
+        ops = n * (3 * c * n_read + 4 * c * k * n_write + 5 * c * n_write)
+    t_bytes = elems * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_train_kernels_3d() -> dict:
+    """The self-affinity backward, the cross forward and the cross backward
+    against their plain versions on the card: at the training shape (B=2,
+    18x160x160, C=16) on the model's permuted NCDHW view, and at two odd
+    shapes (D < 4, H and W < 27: whole channels out of the volume), in
+    float32 and bfloat16, each with a zero vector and a random cotangent
+    over the whole output; the raw (normalized) forms once. Times at the
+    training shape with L2 flushed."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops import (
+        SHIFTS_3D, affinity_bwd, affinity_bwd_plain, cross_affinity_3d_plain,
+        cross_affinity_bwd, cross_affinity_bwd_plain, cross_affinity_fwd, offsets_3d)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    offs = offsets_3d(SHIFTS_3D)
+    k = len(offs)
+    res = {name: {"max_abs_err": 0.0} for name in ("K5b", "K6f", "K6b")}
+    zero = (0, 1, 3, 5)
+
+    def views(shape, dtype):
+        b, d, h, w, c = shape
+        out = []
+        for _ in range(2):
+            nc = torch.randn((b, c, d, h, w), generator=gen, device="cuda")
+            nc[zero[0], :, zero[1], zero[2], zero[3]] = 0.0
+            out.append(nc.to(dtype).permute(0, 2, 3, 4, 1))
+        g = torch.randn((b, k, d, h, w), generator=gen, device="cuda").to(dtype)
+        return out[0], out[1], g
+
+    for shape in [(2, 18, 160, 160, 16), (2, 5, 37, 41, 8), (2, 3, 20, 25, 16)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, g = views(shape, dtype)
+            f32 = dtype == torch.float32
+            got = {"K5b": [affinity_bwd(a, g, offs)],
+                   "K6f": cross_affinity_fwd(a, b, offs),
+                   "K6b": list(cross_affinity_bwd(a, b, g, offs))}
+            da_only, none = cross_affinity_bwd(a, b, g, offs, need_db=False)
+            ref = {"K5b": [affinity_bwd_plain(a, g, offs)],
+                   "K6f": cross_affinity_3d_plain(a, b),
+                   "K6b": list(cross_affinity_bwd_plain(a, b, g, offs))}
+            torch.cuda.synchronize()
+            errs = {"K6f": (got["K6f"].float() - ref["K6f"].float()).abs().max().item()}
+            for name in ("K5b", "K6b"):
+                errs[name] = [_grad_err(x, r, zero) for x, r in zip(got[name], ref[name])]
+            skip = (da_only.float() - got["K6b"][0].float()).abs().max().item()
+            tol, gtol = (F32_ATOL, GRAD_RTOL) if f32 else (BF16_ATOL, BF16_GRAD_RTOL)
+            print(f"[kernels3d-train] {shape} {str(dtype)[6:]} NCDHW view: K6f {errs['K6f']:.3e}; "
+                  f"grads rel (rest, zero-vector voxel, abs): K5b "
+                  + ", ".join(f"({x:.3e}, {z:.3e}, {m:.3e})" for x, z, m in errs["K5b"])
+                  + "; K6b da, db "
+                  + ", ".join(f"({x:.3e}, {z:.3e}, {m:.3e})" for x, z, m in errs["K6b"])
+                  + f"; K6b without db: da {skip:.3e} off")
+            check(got["K6f"].shape == (shape[0], k) + shape[1:4] and got["K6f"].dtype == dtype,
+                  "K6f shape or dtype")
+            check(bool((got["K6f"][zero[0], :, zero[1], zero[2], zero[3]] == 0).all()),
+                  "K6f nonzero affinity at a zero vector")
+            check(errs["K6f"] <= tol, f"K6f error {errs['K6f']}")
+            for name in ("K5b", "K6b"):
+                for x, z, _ in errs[name]:
+                    check(x <= gtol and z <= gtol, f"{name} gradient error {x}, {z}")
+            check(none is None and skip == 0.0, "K6b without db differs")
+            for x in got["K5b"] + got["K6b"]:
+                check(x.dtype == dtype and x.permute(0, 4, 1, 2, 3).is_contiguous(),
+                      "gradient not in the NCDHW layout")
+            if f32:
+                res["K6f"]["max_abs_err"] = max(res["K6f"]["max_abs_err"], errs["K6f"])
+                for name in ("K5b", "K6b"):
+                    res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                                   *(m for _, _, m in errs[name]))
+
+    # the raw forms (inputs taken as unit vectors, dn written), as the TPU
+    # kernels' normalized=True
+    a, b, g = views((2, 5, 37, 41, 8), torch.float32)
+    raw = [(affinity_bwd(a, g, offs, normalized=True),
+            affinity_bwd_plain(a, g, offs, normalized=True))]
+    raw += list(zip(cross_affinity_bwd(a, b, g, offs, normalized=True),
+                    cross_affinity_bwd_plain(a, b, g, offs, normalized=True)))
+    rel = max((x - r).abs().max().item() / r.abs().max().item() for x, r in raw)
+    print(f"[kernels3d-train] raw (normalized) forms: dn rel {rel:.3e}")
+    check(rel <= GRAD_RTOL, f"raw-form gradient error {rel}")
+
+    flush = 64 << 20  # beyond the 50 MB L2
+    a, b, g = views((2, 18, 160, 160, 16), torch.float32)
+    n = 2 * 18 * 160 * 160
+    timings = {
+        "K5b": (lambda: affinity_bwd(a, g, offs), lambda: affinity_bwd_plain(a, g, offs),
+                (1, 1, "bwd")),
+        "K6f": (lambda: cross_affinity_fwd(a, b, offs), lambda: cross_affinity_3d_plain(a, b),
+                (2, 0, "fwd")),
+        # the main path's call: the teacher is detached, so no db
+        "K6b": (lambda: cross_affinity_bwd(a, b, g, offs, need_db=False),
+                lambda: cross_affinity_bwd_plain(a, b, g, offs), (2, 1, "bwd"))}
+    for name, (fn, plain, (n_read, n_write, kind)) in timings.items():
+        t, p = timed_ms(fn, flush_bytes=flush), timed_ms(plain, flush_bytes=flush)
+        bound, by = train3d_bound(n, 16, k, n_read, n_write, kind)
+        res[name].update(ms=t, plain_ms=p, bound_ms=bound, bound_by=by)
+        print(f"[kernels3d-train] {name} time B=2 18x160x160 C=16 K=12 NCDHW view (ms, L2 "
+              f"flushed, median of 20): kernel {t:.4f}, plain {p:.4f}, bound {bound:.4f} ({by}), "
+              f"{card_line()}")
+    t_db = timed_ms(lambda: cross_affinity_bwd(a, b, g, offs), flush_bytes=flush)
+    print(f"[kernels3d-train] K6b with db: {t_db:.4f} ms, bound "
+          f"{train3d_bound(n, 16, k, 2, 2, 'bwd')[0]:.4f}; the plain version computes both")
+    return res
 
 
 def phase_fixture_3d():
@@ -992,6 +1191,132 @@ def phase_serving_3d() -> dict:
     return {"launches": launches, "max_abs_err": err_k}
 
 
+class VolumeCrops:
+    """The 3D smoke run's training set: random crops of a synthetic volume,
+    (image (D, H, W, 1) in [0, 1], seg (D, H, W)), each flipped along z, y
+    and x at random."""
+
+    def __init__(self, raw: np.ndarray, label: np.ndarray, crop):
+        self.raw, self.label, self.crop = raw, label, tuple(crop)
+
+    def sample(self, rng):
+        sl = tuple(slice(o, o + c) for o, c in
+                   zip((int(rng.integers(n - c + 1)) for n, c in zip(self.raw.shape, self.crop)),
+                       self.crop))
+        img, seg = self.raw[sl].astype(np.float32) / 255.0, self.label[sl]
+        for axis in range(3):
+            if rng.random() < 0.5:
+                img, seg = np.flip(img, axis), np.flip(seg, axis)
+        return {"image": np.ascontiguousarray(img[..., None]), "seg": np.ascontiguousarray(seg)}
+
+
+def _train3d_launchers():
+    from pixel_embedded_affinity_torch.ops import (
+        affinity_bwd, cross_affinity_bwd, cross_affinity_fwd, fused_affinity_3d)
+
+    return {"K5f": fused_affinity_3d, "K5b": affinity_bwd, "K6f": cross_affinity_fwd,
+            "K6b": cross_affinity_bwd}
+
+
+def phase_train_3d() -> dict:
+    """The 3D training main path; returns each kernel's launches in it."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import AC3AC4ValidVolume, synthesize_volume
+    from pixel_embedded_affinity_torch.data.provider import collate, to_device
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.parallel import tile_grid
+    from pixel_embedded_affinity_torch.train import (
+        TrainStep3D, init_state, latest_checkpoint, load_checkpoint, restore, train,
+        valid_geometry_3d)
+
+    out = os.path.join(REPO, "build", "chip_smoke_train3d")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config("ac3ac4", {
+        "train": {"display_freq": 1, "valid_freq": TRAIN_STEPS, "save_freq": 10 ** 6},
+        "save_path": os.path.join(out, "models")})
+    t0 = time.perf_counter()
+    raw, label = synthesize_volume(*TRAIN3D_VOLUME, n_cells=TRAIN3D_CELLS, seed=SEED + 3)
+    valid = AC3AC4ValidVolume("", arrays=synthesize_volume(*VALID3D_VOLUME,
+                                                           n_cells=VALID3D_CELLS, seed=SEED + 4))
+    train_ds = VolumeCrops(raw, label, cfg.data.crop_size)
+    stride, pad = valid_geometry_3d(cfg.data.crop_size)
+    n_tiles = len(tile_grid(tuple(np.add(VALID3D_VOLUME, np.multiply(pad, 2))),
+                            cfg.data.crop_size, stride))
+    valid_batches = -(-n_tiles // 4)
+    print(f"[train3d] ac3ac4 UNetPNIEmbeddingDeep filters {cfg.model.filters} emd "
+          f"{cfg.model.emd}, B={cfg.train.batch_size} crops {cfg.data.crop_size} of a synthetic "
+          f"{TRAIN3D_VOLUME} volume, {TRAIN_STEPS} steps; validation on a synthetic "
+          f"{VALID3D_VOLUME} volume (AC4's is 20x1024x1024): {n_tiles} tiles, "
+          f"{valid_batches} batches, decoders {cfg.train.valid_decoders}; volumes made in "
+          f"{time.perf_counter() - t0:.2f} s; convs in float32 (TF32 off)")
+
+    launchers = _train3d_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    timing: dict = {}
+    t0 = time.perf_counter()
+    state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(train_ds, valid),
+                           device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in launchers.items()}
+    print(f"[train3d] {wall:.2f} s for {TRAIN_STEPS} steps + validation + checkpoint; "
+          f"launches {json.dumps(launches)}")
+    for k, n in [("K5f", TRAIN_STEPS + valid_batches), ("K5b", TRAIN_STEPS),
+                 ("K6f", TRAIN_STEPS), ("K6b", TRAIN_STEPS)]:
+        check(launches[k] == n, f"{k} launched {launches[k]} times, expected {n}")
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    print(f"[train3d] loss per step: {losses}")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "a non-finite loss")
+    check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values()),
+          f"validation {history}")
+    print(f"[train3d] validation ({timing['valid_s'][0]:.4f} s wall): {json.dumps(history[0])}")
+    data_ms = [1e3 * t for t in timing["data_s"][1:]]
+    step_ms = [1e3 * t for t in timing["step_s"][1:]]
+    print(f"[train3d] warm ms/step (steps 2..{TRAIN_STEPS}, median): data "
+          f"{np.median(data_ms):.4f} + step {np.median(step_ms):.4f} = "
+          f"{np.median(np.add(data_ms, step_ms)):.4f}; first step "
+          f"{1e3 * (timing['data_s'][0] + timing['step_s'][0]):.4f}; {card_line()}")
+
+    # the checkpoint gives the trained state's next-step loss, bit for bit
+    ck = latest_checkpoint(os.path.join(cfg.save_path, cfg.name))
+    check(ck is not None and ck.endswith(f"model-{TRAIN_STEPS:06d}.ckpt"), f"checkpoint {ck}")
+    loaded = restore(init_state(cfg, "cuda"), load_checkpoint(ck))
+    step = TrainStep3D(ema_seed=cfg.train.random_seed)
+    rng = np.random.default_rng(SEED)
+    batch = step.ema_batch(to_device(collate([train_ds.sample(rng) for _ in range(2)]),
+                                     "cuda"), loaded.step)
+
+    def next_loss(model):
+        model = copy.deepcopy(model).train()
+        with torch.no_grad(), float32_convs():
+            return step.loss(model, batch)[0].item()
+
+    la, lb = next_loss(state.model), next_loss(loaded.model)
+    print(f"[train3d] next-step loss: trained state {la!r}, reloaded checkpoint {lb!r}")
+    check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(loaded, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train3d] device memory of one step: peak {peak / 2 ** 30:.4f} GiB allocated "
+          f"({(peak - base) / 2 ** 30:.4f} GiB above the {base / 2 ** 30:.4f} GiB held before "
+          f"it), {card_line()}")
+    device_breakdown(lambda: step(loaded, batch), 1, iters=3,
+                     label="train3d step B=2 18x160x160", unit="step",
+                     ours=("affinity3d_fwd_kernel", "affinity_bwd_kernel",
+                           "cross_affinity_fwd_kernel", "cross_affinity_bwd_kernel"))
+    train_precision(state.model, batch,
+                    lambda use_pallas: TrainStep3D(use_pallas=use_pallas, device_ema=False),
+                    BIAS_BEFORE_BN_3D, label="train3d")
+    return launches
+
+
 def decode_labels_canvas(label: np.ndarray):
     """The decoders' host time on a canvas with the synthetic volume's cells
     in it (random weights give a near-uniform one): noisy label-derived
@@ -1029,16 +1354,18 @@ def main() -> int:
     cfg, sd, samples = serving_setup()
     # 3. kernels vs plain, 4. fixture, 5. serving, 6. training
     k1 = phase_kernels(main_path_embedding(cfg, sd, samples))
-    phase_k1_grad_guard()
+    k1b_err = phase_k1_grad()
     wmse = phase_wmse_kernels()
     phase_fixture()
     launches = phase_main_path(cfg, sd, samples)
     train_launches = phase_train(samples)
-    # 7. 3D kernel, 8. 3D fixture, 9. 3D serving
+    # 7. 3D kernels, 8. 3D fixture, 9. 3D serving, 10. 3D training
     k5 = phase_kernels_3d()
+    grad = phase_train_kernels_3d()
     phase_fixture_3d()
     serve3d = phase_serving_3d()
-    # 10. kernels line, card, 11. last line
+    train3d_launches = phase_train_3d()
+    # 11. kernels line, card, 12. last line
     t1 = k1["times"][1]
     kernels = [{
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
@@ -1056,10 +1383,18 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     kernels.append({
         "name": "affinity3d_fwd", "route": "cuda", "source": K5_SOURCE,
-        "replaces": K5_REPLACES, "launches": serve3d["launches"],
+        "replaces": K5_REPLACES, "launches": serve3d["launches"] + train3d_launches["K5f"],
         "max_abs_err": max(k5["max_abs_err"], serve3d["max_abs_err"]), "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None})
+    grad["K5b"]["max_abs_err"] = max(grad["K5b"]["max_abs_err"], k1b_err)
+    for k, name in GRAD_NAMES.items():
+        r = grad[k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": GRAD_SOURCE, "replaces": GRAD_REPLACES[k],
+            "launches": train3d_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

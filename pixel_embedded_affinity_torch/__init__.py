@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of pixel-embedded-affinity, beside the JAX package.
 
-Serving slice: CVPPP 2D inference (``infer.run_inference_2d``,
-``infer.run_cvppp_test``, the ``inference`` CLI) with the fused
-embedding->affinity kernel written in CUDA for Hopper
-(``ops.emb2aff_cuda``, ``csrc/affinity2d.cu``).
+Slices: CVPPP 2D serving (``infer.run_inference_2d``, ``infer.run_cvppp_test``,
+the ``inference`` CLI) and training (``train.train`` with the ``cvppp``
+preset), AC3/AC4 3D tiled serving (``infer.run_inference_3d``) and training
+(``train.train`` with the ``ac3ac4`` preset). The TPU kernels on those paths
+are written in CUDA for Hopper (``csrc/``, wrapped in ``ops/*_cuda.py``).
 """

@@ -1,5 +1,6 @@
 """Config: the fields and the presets the serving and training paths read:
-``cvppp`` (2D serving and training) and ``ac3ac4`` (3D serving).
+``cvppp`` (2D serving and training) and ``ac3ac4`` (3D serving and
+training).
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
@@ -44,6 +45,9 @@ class TrainConfig:
     # decode, not ported yet
     mask_weight: float = 0.0
     ct_weight: float = 0.0
+    # 3D: the full-scale loss, norm5 (the shift table) at 5, norm1 (unit
+    # shifts) at any other value
+    embedding_mode: int = 5
     # only "fixed" is ported
     lr_mode: str = "fixed"
     base_lr: float = 1e-4
@@ -61,6 +65,8 @@ class TrainConfig:
     # autograd), and the WeightedMSE criterion folded into them
     use_pallas: bool = True
     fuse_loss: bool = True
+    # 3D: the decoders of the in-loop validation ("waterz", "mutex", "lmc")
+    valid_decoders: tuple = ("waterz",)
 
 
 @dataclass
@@ -123,12 +129,15 @@ PRESETS: dict[str, dict[str, Any]] = {
                  "device_gt": True, "device_ema": True},
     },
     # the JAX package's ac3ac4 preset (scripts_ac3ac4/config/ac3ac4.yaml),
-    # its serving fields
+    # the fields the port reads
     "ac3ac4": {
         "name": "ac3ac4",
         "model": {"arch": "unet_pni_deep", "input_nc": 1, "output_nc": 12,
                   "filters": (28, 36, 48, 64, 80)},
-        "data": {"dataset_name": "ac4", "crop_size": (18, 160, 160)},
+        "train": {"embedding_mode": 5, "lr_mode": "fixed", "base_lr": 1e-4,
+                  "batch_size": 2, "valid_decoders": ("waterz",)},
+        "data": {"dataset_name": "ac4", "crop_size": (18, 160, 160),
+                 "device_gt": True, "device_ema": True},
     },
 }
 

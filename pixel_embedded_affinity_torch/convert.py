@@ -4,10 +4,11 @@
 inverses of the JAX package's ``train/convert_torch.py::convert_resunet2d_deep``
 and ``convert_unet_pni_deep``: Flax conv kernels (kh, kw, I, O) or
 (kd, kh, kw, I, O) become (O, I, kh, kw) or (O, I, kd, kh, kw); BatchNorm
-scale/bias/mean/var become weight/bias/running_mean/running_var. ``train_state_from_flax`` carries a
-JAX train state (parameters, BatchNorm statistics, the AMSGrad moments and
-the step) into the port's model and optimizer. ``load_torch_state_dict``
-reads a reference ``.ckpt`` file.
+scale/bias/mean/var become weight/bias/running_mean/running_var.
+``train_state_from_flax`` carries a JAX train state (parameters, BatchNorm
+statistics, the AMSGrad moments and the step) of either model into the
+port's model and optimizer. ``load_torch_state_dict`` reads a reference
+``.ckpt`` file.
 """
 
 from __future__ import annotations
@@ -67,24 +68,32 @@ def _at(tree, path):
     return tree
 
 
+def _params_from_flax(layout, params: dict) -> dict:
+    sd: dict = {}
+    for key, path, kind in layout:
+        (_conv if kind == "conv" else _bn_params)(sd, key, _at(params, path))
+    return sd
+
+
+def _with_stats(layout, variables: dict) -> dict:
+    sd = _params_from_flax(layout, variables["params"])
+    for key, path, kind in layout:
+        if kind == "bn":
+            _bn_stats(sd, key, _at(variables["batch_stats"], path))
+    return sd
+
+
 def resunet2d_deep_params_from_flax(params: dict) -> dict:
     """A Flax ``params`` tree of ResidualUNet2DDeep -> {torch parameter
     name: tensor}. Any tree of the same structure maps the same way, so
     optax's moment trees (mu, nu, nu_max) do too."""
-    sd: dict = {}
-    for key, path, kind in _layout():
-        (_conv if kind == "conv" else _bn_params)(sd, key, _at(params, path))
-    return sd
+    return _params_from_flax(list(_layout()), params)
 
 
 def resunet2d_deep_from_flax(variables: dict) -> dict:
     """Flax ``{'params', 'batch_stats'}`` of ResidualUNet2DDeep (numpy or
     array leaves) -> state dict of :class:`models.ResidualUNet2DDeep`."""
-    sd = resunet2d_deep_params_from_flax(variables["params"])
-    for key, path, kind in _layout():
-        if kind == "bn":
-            _bn_stats(sd, key, _at(variables["batch_stats"], path))
-    return sd
+    return _with_stats(list(_layout()), variables)
 
 
 _PNI_BLOCK = [("block1.0", "conv_in", "conv"), ("block1.1", "bn_in", "bn"),
@@ -111,27 +120,23 @@ def _pni_layout():
 def unet_pni_deep_from_flax(variables: dict) -> dict:
     """Flax ``{'params', 'batch_stats'}`` of UNetPNIEmbeddingDeep (numpy or
     array leaves) -> state dict of :class:`models.UNetPNIEmbeddingDeep`."""
-    sd: dict = {}
-    for key, path, kind in _pni_layout():
-        if kind == "conv":
-            _conv(sd, key, _at(variables["params"], path))
-        else:
-            _bn_params(sd, key, _at(variables["params"], path))
-            _bn_stats(sd, key, _at(variables["batch_stats"], path))
-    return sd
+    return _with_stats(list(_pni_layout()), variables)
 
 
 def train_state_from_flax(state, model: torch.nn.Module, optimizer) -> int:
     """Load a JAX ``TrainState`` (params, batch_stats, opt_state, step;
-    numpy leaves) into the port's model and :class:`train.optim.AMSGrad`;
-    returns the step. The optimizer chain must be the JAX
-    ``make_optimizer``'s (decayed weights, AMSGrad, lr), whose one stateful
-    link is optax's ``ScaleByAmsgradState(count, mu, nu, nu_max)``."""
-    model.load_state_dict(resunet2d_deep_from_flax(
-        {"params": state.params, "batch_stats": state.batch_stats}))
+    numpy leaves) of ResidualUNet2DDeep or UNetPNIEmbeddingDeep into the
+    port's model of the same kind and :class:`train.optim.AMSGrad`; returns
+    the step. The optimizer chain must be the JAX ``make_optimizer``'s
+    (decayed weights, AMSGrad, lr), whose one stateful link is optax's
+    ``ScaleByAmsgradState(count, mu, nu, nu_max)``."""
+    from .models import UNetPNIEmbeddingDeep
+
+    layout = list(_pni_layout() if isinstance(model, UNetPNIEmbeddingDeep) else _layout())
+    model.load_state_dict(_with_stats(layout, {"params": state.params,
+                                               "batch_stats": state.batch_stats}))
     ams = next(s for s in state.opt_state if hasattr(s, "nu_max"))
-    moments = {k: resunet2d_deep_params_from_flax(getattr(ams, k))
-               for k in ("mu", "nu", "nu_max")}
+    moments = {k: _params_from_flax(layout, getattr(ams, k)) for k in ("mu", "nu", "nu_max")}
     count = int(np.asarray(ams.count))
     dev = next(model.parameters()).device
     per_param = {}

@@ -1,6 +1,7 @@
 """AC3/AC4 EM volumes for tiled serving, the JAX package's ``data/ac3ac4.py``
-(``AC3AC4ValidVolume``, ``synthesize_volume``), and ``label_affinities``, a
-synthetic canvas for the decoders. Volumes are HDF5 files with
+(``AC3AC4ValidVolume``, ``synthesize_volume``, the inverse of the EMA
+view's 4-bit flip ``convert_consistency_flip_3d_rule4``), and
+``label_affinities``, a synthetic canvas for the decoders. Volumes are HDF5 files with
 one dataset ``main``: ``AC4_inputs.h5``/``AC4_labels.h5`` and
 ``AC3_inputs.h5``/``AC3_labels.h5`` in one folder."""
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 _FILES = {"ac4": ("AC4_inputs.h5", "AC4_labels.h5"),
           "ac3": ("AC3_inputs.h5", "AC3_labels.h5")}
@@ -42,6 +44,22 @@ class AC3AC4ValidVolume:
             raw, label = raw[-20:], label[-20:]
         self.raw = raw.astype(np.float32) / 255.0
         self.label = label.astype(np.int64)
+
+
+def convert_consistency_flip_3d_rule4(emb_bdhwc: torch.Tensor,
+                                      rules_b4: torch.Tensor) -> torch.Tensor:
+    """Un-flip per-sample EMA embeddings (B, D, H, W, C) by their 4-bit rules
+    (z, x, y, xy-transpose; H == W): the transpose, then the y-, x- and
+    z-flips, each where the sample's bit is set."""
+    r = rules_b4.bool()
+
+    def bit(i):
+        return r[:, i, None, None, None, None]
+
+    e = torch.where(bit(3), emb_bdhwc.transpose(2, 3), emb_bdhwc)
+    e = torch.where(bit(2), e.flip(2), e)
+    e = torch.where(bit(1), e.flip(3), e)
+    return torch.where(bit(0), e.flip(1), e)
 
 
 def synthesize_volume(d=40, h=256, w=256, n_cells=40, seed=0):

@@ -1,10 +1,13 @@
-"""The EMA view, generated on the device (2D).
+"""The EMA view, generated on the device (2D and 3D).
 
-The port of the JAX package's ``data/device_aug.py`` (2D part). From the
-clean [0, 1] image (B, H, W, C) and its foreground (B, H, W), the EMA view
-gets, in this order: an intensity jitter, up to 20 squares inside the
+The port of the JAX package's ``data/device_aug.py``. 2D: from the clean
+[0, 1] image (B, H, W, C) and its foreground (B, H, W), the EMA view gets,
+in this order: an intensity jitter, up to 20 squares inside the
 foreground's bounding box filled with the per-channel foreground mean, and
-the 3-bit flip rule. Every draw comes from the ``torch.Generator`` the
+the 3-bit flip rule. 3D: from the clean [0, 1] volume (B, D, H, W, 1), a
+per-slice contrast/brightness/gamma jitter applied to half the samples, up
+to 60 zeroed boxes, and the 4-bit flip rule. Every draw comes from the
+``torch.Generator`` the
 caller passes, so a run seeded from (seed, step) draws the same views when
 it resumes (:func:`ema_generator`). The draws are not the JAX package's
 bits: tests compare behaviour and distributions.
@@ -111,4 +114,87 @@ def ema_view_2d(img, fg_bhw, gen, *, noise=False, blur=False, intensity=True,
         ema = flip_2d(ema, rules)
     else:
         rules = torch.zeros((b, 3), dtype=img.dtype, device=img.device)
+    return ema, rules
+
+
+def ema_intensity_params_3d(gen, b: int, d: int, like: torch.Tensor, contrast_factor=0.1,
+                            brightness_factor=0.1, exec_ratio=0.5):
+    """The 3D intensity jitter's draws: (do (B, 1, 1, 1, 1) bool gate with
+    p = exec_ratio, and per slice (B, D, 1, 1, 1) the contrast
+    1 + (u - 0.5) cf, the brightness (u - 0.5) bf and the gamma 2^(2u - 1),
+    log-uniform in [0.5, 2])."""
+    do = _uniform(gen, (b, 1, 1, 1, 1), like) < exec_ratio
+    shape = (b, d, 1, 1, 1)
+    c = 1.0 + (_uniform(gen, shape, like) - 0.5) * contrast_factor
+    br = (_uniform(gen, shape, like) - 0.5) * brightness_factor
+    g = 2.0 ** (_uniform(gen, shape, like) * 2 - 1)
+    return do, c, br, g
+
+
+def intensity_3d(img, gen, contrast_factor=0.1, brightness_factor=0.1, exec_ratio=0.5):
+    """Per sample with p = exec_ratio, per slice: clip(img * c + br), then
+    clip(. ** g), both to [0, 1]; the reference's parameters are always
+    per slice (its 3D mode can never be drawn)."""
+    do, c, br, g = ema_intensity_params_3d(gen, img.shape[0], img.shape[1], img,
+                                           contrast_factor, brightness_factor, exec_ratio)
+    out = torch.clamp(img * c + br, 0, 1)
+    out = torch.clamp(out ** g, 0, 1)
+    return torch.where(do, out, img)
+
+
+def cutout_3d(img, gen, max_counts=60, min_size=(5, 10, 10), max_size=(10, 20, 20)):
+    """Zero ``counts`` ~ U{0..60} boxes of one (sz, sxy) size pair per
+    sample, sz ~ U{5..10}, sxy ~ U{10..20}, each box's corner uniform in
+    [0, max(dim - size, 1)) per axis."""
+    b, d, h, w = img.shape[:4]
+    dev = img.device
+    zero = torch.zeros(b, dtype=torch.long, device=dev)
+    counts = _randint(gen, zero, zero + max_counts + 1, (b,))
+    sz = _randint(gen, zero + min_size[0], zero + max_size[0] + 1, (b,))
+    sxy = _randint(gen, zero + min_size[1], zero + max_size[1] + 1, (b,))
+    one = torch.ones_like(zero)
+    mz = _randint(gen, zero[:, None], torch.maximum(d - sz, one)[:, None], (b, max_counts))
+    my = _randint(gen, zero[:, None], torch.maximum(h - sxy, one)[:, None], (b, max_counts))
+    mx = _randint(gen, zero[:, None], torch.maximum(w - sxy, one)[:, None], (b, max_counts))
+    active = torch.arange(max_counts, device=dev)[None] < counts[:, None]
+
+    def span(start, size, n):  # (B, n_boxes, n): inside the box along one axis
+        i = torch.arange(n, device=dev)[None, None]
+        return (i >= start[..., None]) & (i < (start + size[:, None])[..., None])
+
+    zy = (span(mz, sz, d) & active[..., None])[..., :, None] & span(my, sxy, h)[..., None, :]
+    # a voxel is zeroed when one active box holds its (z, y) and its x
+    covered = torch.bmm(zy.reshape(b, max_counts, d * h).transpose(1, 2).to(img.dtype),
+                        span(mx, sxy, w).to(img.dtype)) > 0
+    return img * (~covered).reshape(b, d, h, w, 1).to(img.dtype)
+
+
+def flip_3d_rule4(img, rules_b4):
+    """The forward 4-bit flip (z, x, y, xy-transpose) on (B, D, H, W, C); H
+    == W for the transpose. Inverse of
+    ``ac3ac4.convert_consistency_flip_3d_rule4``."""
+    r = rules_b4.bool()
+
+    def bit(i):
+        return r[:, i, None, None, None, None]
+
+    e = torch.where(bit(0), img.flip(1), img)
+    e = torch.where(bit(1), e.flip(3), e)
+    e = torch.where(bit(2), e.flip(2), e)
+    return torch.where(bit(3), e.transpose(2, 3), e)
+
+
+def ema_view_3d(img, gen, *, intensity=True, mask=True, flip=True):
+    """Clean [0, 1] volume (B, D, H, W, 1) -> (ema_image, rules (B, 4))."""
+    ema = img
+    if intensity:
+        ema = intensity_3d(ema, gen)
+    if mask:
+        ema = cutout_3d(ema, gen)
+    b = img.shape[0]
+    if flip:
+        rules = (_uniform(gen, (b, 4), img) < 0.5).to(img.dtype)
+        ema = flip_3d_rule4(ema, rules)
+    else:
+        rules = torch.zeros((b, 4), dtype=img.dtype, device=img.device)
     return ema, rules

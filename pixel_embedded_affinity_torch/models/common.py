@@ -1,5 +1,5 @@
 """Shared model utilities (NCHW, NCDHW): align-corners upsampling, edge
-padding, and a BatchNorm whose running statistics follow Flax's."""
+padding, and BatchNorms (2D and 3D) whose running statistics follow Flax's."""
 
 from __future__ import annotations
 
@@ -8,12 +8,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train-mode running variance takes the
+class _FlaxRunningStats:
+    """A torch BatchNorm whose train-mode running variance takes the
     biased batch variance, as Flax's ``BatchNorm`` does; torch's takes the
-    unbiased one (n / (n - 1) larger). Flax's ``momentum=0.9`` is torch's
-    default ``momentum=0.1``. The parameters and buffers are torch's, so
-    state dicts load unchanged.
+    unbiased one (n / (n - 1) larger). Flax's ``momentum=m`` is torch's
+    ``momentum=1 - m``. The parameters and buffers are torch's, so state
+    dicts load unchanged.
 
     Torch's op writes rv' = (1 - m) rv + m c v with c = n / (n - 1), here
     into a copy of the buffer (autograd keeps the tensor it was given, so
@@ -34,6 +34,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1 - inv_c) * (1 - self.momentum)).add_(rv, alpha=inv_c)
         return y
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's running statistics; Flax's default
+    ``momentum=0.9`` is torch's default 0.1."""
+
+
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with Flax's running statistics."""
 
 
 def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

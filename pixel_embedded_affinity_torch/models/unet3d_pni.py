@@ -7,7 +7,9 @@ two added, BN, ELU); (1, 2, 2) trilinear align-corners upsampling with a
 embedding heads. The port of the JAX package's ``models/unet3d_pni.py``.
 Parameter names are the reference implementation's (``embed_in.0``,
 ``conv0.block1.0``, ``up0.1``, ``cat0.0``, ``out_put.0``, ...), so its
-checkpoints load as they are. BatchNorm momentum is the reference's 0.001.
+checkpoints load as they are. BatchNorm momentum is the reference's 0.001
+(Flax's 0.999), and in train mode the running statistics follow Flax's
+(:class:`.common.BatchNorm3d`).
 """
 
 from __future__ import annotations
@@ -17,13 +19,13 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import upsample_xy_align_corners
+from .common import BatchNorm3d, upsample_xy_align_corners
 
 BN_MOMENTUM = 0.001
 
 
-def _bn(ch: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(ch, eps=1e-5, momentum=BN_MOMENTUM)
+def _bn(ch: int) -> BatchNorm3d:
+    return BatchNorm3d(ch, eps=1e-5, momentum=BN_MOMENTUM)
 
 
 class ResBlockPNI(nn.Module):

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .offsets import SHIFTS_3D
+from .offsets import SHIFTS_3D, offsets_3d
 
 
 def normalize_embedding(e: torch.Tensor, dim: int = -1,
@@ -85,22 +85,37 @@ def cross_affinity_2d(embedding: torch.Tensor, other: torch.Tensor, offsets,
     return torch.stack(chans, dim=1)
 
 
+def _neighbour(x: torch.Tensor, off) -> torch.Tensor:
+    """(B, D, H, W, C) -> the same shape, whose value at p is x[p + off],
+    0 where p + off lies outside the volume."""
+    if any(abs(int(o)) >= n for o, n in zip(off, x.shape[1:4])):
+        return torch.zeros_like(x)
+    oz, oy, ox = (int(o) for o in off)
+    # a negative pad crops: F.pad lists the last axis first
+    return torch.nn.functional.pad(x, (0, 0, -ox, ox, -oy, oy, -oz, oz))
+
+
+def offset_affinity_3d(n_a: torch.Tensor, n_b: torch.Tensor, offsets) -> torch.Tensor:
+    """(B, K, D, H, W): channel k at p is <n_a(p), n_b(p + offsets[k])>, 0
+    where p + offsets[k] lies outside; ``offsets`` are (dz, dy, dx). The
+    vectors are dotted as given: the callers normalise them."""
+    return torch.stack([torch.sum(n_a * _neighbour(n_b, o), dim=-1) for o in offsets], dim=1)
+
+
 def embedding_to_affinity_3d(embedding: torch.Tensor, shifts=SHIFTS_3D) -> torch.Tensor:
     """(B, D, H, W, C) embeddings -> (B, K, D, H, W) affinities.
 
     Channel i dots each voxel with its neighbour ``shifts[i]`` back along
     axis i % 3 of (z, y, x); where that neighbour lies outside the volume
-    the affinity is 0. The oracle of the 3D kernel (:mod:`.emb2aff3d_cuda`).
+    the affinity is 0. The oracle of the 3D kernels (:mod:`.emb2aff3d_cuda`).
     """
     n = normalize_embedding(embedding)
-    dims = n.shape[1:4]
-    chans = []
-    for i, s in enumerate(shifts):
-        axis = 1 + i % 3
-        s = min(int(s), dims[i % 3])
-        a = torch.sum(n.narrow(axis, s, dims[i % 3] - s)
-                      * n.narrow(axis, 0, dims[i % 3] - s), dim=-1)
-        pad = [0, 0, 0, 0, 0, 0]
-        pad[2 * (3 - i % 3) - 2] = s  # F.pad lists the last axis first
-        chans.append(torch.nn.functional.pad(a, pad))
-    return torch.stack(chans, dim=1)
+    return offset_affinity_3d(n, n, offsets_3d(shifts))
+
+
+def cross_affinity_3d(a: torch.Tensor, b: torch.Tensor, shifts=SHIFTS_3D) -> torch.Tensor:
+    """Cross-view 3D affinities (B, K, D, H, W): <n_a(p), n_b(p - s_k e_{k%3})>,
+    0 where the neighbour lies outside. The norm5 EMA-consistency loss dots
+    the student embedding ``a`` against the shifted teacher ``b``. Plain
+    and differentiable: the oracle of the cross-view kernels."""
+    return offset_affinity_3d(normalize_embedding(a), normalize_embedding(b), offsets_3d(shifts))

@@ -1,11 +1,14 @@
 """Fused embedding -> multi-offset affinity: the Hopper kernel and its wrapper.
 
 ``fused_affinity_2d`` is the port of the TPU kernel
-``pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py::fused_affinity_2d``
-(forward). On a CUDA tensor it launches ``csrc/affinity2d.cu`` (built with
-nvcc at first use, see :mod:`..cuda_build`); on a CPU tensor it runs the
-plain version, :func:`affinity_2d_plain`. Design notes and the kernel's
-bound are in the CUDA source.
+``pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py::fused_affinity_2d``,
+forward and backward. On a CUDA tensor it is a ``torch.autograd.Function``:
+the forward launches ``csrc/affinity2d.cu`` (built with nvcc at first use,
+see :mod:`..cuda_build`), the backward the self-affinity backward kernel of
+``csrc/affinity_grad.cu`` at D = 1 (:func:`.emb2aff3d_cuda.affinity_bwd`).
+On a CPU tensor it runs the plain version, :func:`affinity_2d_plain`,
+differentiated by autograd. Design notes and the kernels' bounds are in
+the CUDA sources.
 """
 
 from __future__ import annotations
@@ -43,27 +46,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_affinity_2d(embedding: torch.Tensor, offsets) -> torch.Tensor:
-    """(B, H, W, C) embedding -> (B, K, H, W) 'valid' affinities.
-
-    Takes any strided view, e.g. ``emb_nchw.permute(0, 2, 3, 1)`` without a
-    copy. ``fused_affinity_2d.launches`` counts kernel launches. Forward
-    only on CUDA: an input that requires grad raises there (the plain
-    version on the CPU is differentiable).
-    """
-    if embedding.dim() != 4:
-        raise ValueError(f"embedding must be (B, H, W, C), got {tuple(embedding.shape)}")
-    if embedding.device.type == "cpu":
-        return affinity_2d_plain(embedding, offsets)
-    if embedding.device.type != "cuda":
-        raise ValueError(f"unsupported device {embedding.device}")
-    if torch.is_grad_enabled() and embedding.requires_grad:
-        # the output would carry no grad_fn and cut the graph silently
-        raise NotImplementedError(
-            "fused_affinity_2d has no gradient on CUDA: its backward kernel "
-            "(K1b, emb2aff_pallas.py::_fused_affinity_2d_bwd_impl) is not "
-            "ported; call it under torch.no_grad() or use "
-            "embedding_to_affinity_2d")
+def _affinity_2d_fwd(embedding: torch.Tensor, offsets) -> torch.Tensor:
+    """K1f on a CUDA (B, H, W, C) view."""
     if embedding.dtype not in _DTYPES:
         raise TypeError(f"dtype {embedding.dtype} not supported (float32, bfloat16)")
     b, h, w, c = embedding.shape
@@ -87,6 +71,41 @@ def fused_affinity_2d(embedding: torch.Tensor, offsets) -> torch.Tensor:
         raise RuntimeError(f"affinity2d_fwd launch failed: cudaError {err}")
     fused_affinity_2d.launches += 1
     return out
+
+
+class _Affinity2D(torch.autograd.Function):
+    """Forward K1f; backward the 3D self-affinity backward kernel at D = 1,
+    the offsets (dy, dx) taken as (0, dy, dx)."""
+
+    @staticmethod
+    def forward(ctx, e, offsets):
+        ctx.save_for_backward(e)
+        ctx.offsets = offsets
+        return _affinity_2d_fwd(e, offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .emb2aff3d_cuda import affinity_bwd
+
+        (e,) = ctx.saved_tensors
+        offs = [(0, dy, dx) for dy, dx in ctx.offsets]
+        return affinity_bwd(e[:, None], g[:, :, None], offs)[:, 0], None
+
+
+def fused_affinity_2d(embedding: torch.Tensor, offsets) -> torch.Tensor:
+    """(B, H, W, C) embedding -> (B, K, H, W) 'valid' affinities.
+
+    Takes any strided view, e.g. ``emb_nchw.permute(0, 2, 3, 1)`` without a
+    copy; the gradient comes back in the NCHW layout.
+    ``fused_affinity_2d.launches`` counts K1f's launches.
+    """
+    if embedding.dim() != 4:
+        raise ValueError(f"embedding must be (B, H, W, C), got {tuple(embedding.shape)}")
+    if embedding.device.type == "cpu":
+        return affinity_2d_plain(embedding, offsets)
+    if embedding.device.type != "cuda":
+        raise ValueError(f"unsupported device {embedding.device}")
+    return _Affinity2D.apply(embedding, tuple((int(o[0]), int(o[1])) for o in offsets))
 
 
 fused_affinity_2d.launches = 0

@@ -1,4 +1,4 @@
-"""Embedding -> affinity losses and criteria (2D).
+"""Embedding -> affinity losses and criteria (2D and 3D).
 
 The formulas are the JAX package's ``ops/losses.py``, quirks included:
 
@@ -9,12 +9,19 @@ The formulas are the JAX package's ``ops/losses.py``, quirks included:
 * ``ema_embedding_loss_2d`` scales the first two offsets by
   ``affs0_weight``.
 
+* the 3D losses (``embedding_loss_norm1``, ``embedding_loss_norm5``)
+  apply the criterion to each channel's sliced slab, the part of the
+  volume where the neighbour lies inside, so its normaliser is
+  B * D' * H' * W' of that slab; channels 0..2 are scaled by
+  ``affs0_weight``.
+
 ``fuse_loss`` (with ``use_pallas`` and the WeightedMSE criterion) folds the
 criterion into the loss-fused kernels (:mod:`.emb2aff_wmse_cuda`): their
 forward gives the per-offset sums, their backward forms the loss cotangent
 in registers. ``use_pallas=False`` is the plain path, differentiated by
-autograd. Embeddings are (B, H, W, C) views; targets, weights and masks
-(B, K, H, W).
+autograd. Embeddings are (B, H, W, C) or (B, D, H, W, C) views; targets,
+weights and masks (B, K, H, W) or (B, K, D, H, W). With ``use_pallas`` the
+norm5 affinities come from the 3D kernels (:mod:`.emb2aff3d_cuda`).
 """
 
 from __future__ import annotations
@@ -22,8 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .emb2aff import cross_affinity_2d, embedding_to_affinity_2d
+from .emb2aff import (cross_affinity_2d, cross_affinity_3d, embedding_to_affinity_2d,
+                      embedding_to_affinity_3d, normalize_embedding, offset_affinity_3d)
+from .emb2aff3d_cuda import fused_affinity_3d, fused_cross_affinity_3d
 from .emb2aff_cuda import fused_affinity_2d
+from .offsets import SHIFTS_3D, offsets_3d
 from .emb2aff_wmse_cuda import fused_affinity_wmse_2d, fused_cross_affinity_wmse_2d
 
 
@@ -92,10 +102,10 @@ def ema_embedding_loss_2d(embedding_bhwc, ema_embedding_bhwc, target_bkhw,
         return torch.sum(s * coeff) / (b * w), affs
     if use_pallas and embedding_bhwc.device.type == "cuda":
         raise NotImplementedError(
-            "the cross-affinity kernel pair K4f/K4b "
+            "the 2D cross-affinity kernel K4f "
             "(emb2aff_pallas.py::fused_cross_affinity_2d) is not ported; "
             "use fuse_loss=True or use_pallas=False")
-    # on the CPU the plain function stands in for K4, as for every kernel
+    # on the CPU the plain function stands in for K4f, as for every kernel
     affs = cross_affinity_2d(embedding_bhwc, ema_embedding_bhwc, offsets)
     mask = mask_bkhw.to(affs.dtype)
     loss = 0.0
@@ -103,4 +113,52 @@ def ema_embedding_loss_2d(embedding_bhwc, ema_embedding_bhwc, target_bkhw,
         li = criterion(affs[:, i] * mask[:, i], target_bkhw[:, i] * mask[:, i],
                        weightmap_bkhw[:, i])
         loss = loss + (li * affs0_weight if i < 2 else li)
+    return loss, affs
+
+
+def _slab(x: torch.Tensor, i: int, axis: int, s: int) -> torch.Tensor:
+    """Channel i of (B, K, D, H, W), from index s on along spatial
+    ``axis``, as (B, 1, D', H', W')."""
+    return x[:, i:i + 1].narrow(2 + axis, s, x.shape[2 + axis] - s)
+
+
+def _slab_loss_3d(affs, target, weight, i: int, axis: int, s: int, criterion):
+    """The criterion over channel i's slab where the neighbour is inside."""
+    return criterion(_slab(affs, i, axis, s), _slab(target, i, axis, s),
+                     _slab(weight, i, axis, s))
+
+
+def embedding_loss_norm1(embedding_bdhwc, target, weightmap, criterion=weighted_mse,
+                         affs0_weight: float = 1.0, shift: int = 1,
+                         ema_embedding_bdhwc=None):
+    """Unit-shift 3D loss over (z, y, x): (loss, affs (B, 3, D, H, W)), the
+    z channel scaled by ``affs0_weight``. With ``ema_embedding_bdhwc`` the
+    cross-view variant (the student at p, the teacher at p - shift)."""
+    n = normalize_embedding(embedding_bdhwc)
+    n_lo = n if ema_embedding_bdhwc is None else normalize_embedding(ema_embedding_bdhwc)
+    affs = offset_affinity_3d(n, n_lo, offsets_3d((shift,) * 3))
+    loss = 0.0
+    for axis in range(3):
+        li = _slab_loss_3d(affs, target, weightmap, axis, axis, shift, criterion)
+        loss = loss + (li * affs0_weight if axis == 0 else li)
+    return loss, affs
+
+
+def embedding_loss_norm5(embedding_bdhwc, target, weightmap, criterion=weighted_mse,
+                         affs0_weight: float = 1.0, shifts=SHIFTS_3D,
+                         ema_embedding_bdhwc=None, use_pallas: bool = True):
+    """Shift-table 3D loss: (loss, affs (B, K, D, H, W)), channels 0..2
+    scaled by ``affs0_weight``. With ``ema_embedding_bdhwc`` the cross-view
+    variant. ``use_pallas``: the affinities through the 3D kernels."""
+    if ema_embedding_bdhwc is None:
+        affs = (fused_affinity_3d(embedding_bdhwc, shifts) if use_pallas
+                else embedding_to_affinity_3d(embedding_bdhwc, shifts))
+    else:
+        affs = (fused_cross_affinity_3d(embedding_bdhwc, ema_embedding_bdhwc, shifts)
+                if use_pallas else
+                cross_affinity_3d(embedding_bdhwc, ema_embedding_bdhwc, shifts))
+    loss = 0.0
+    for i, s in enumerate(shifts):
+        li = _slab_loss_3d(affs, target, weightmap, i, i % 3, int(s), criterion)
+        loss = loss + (li * affs0_weight if i < 3 else li)
     return loss, affs

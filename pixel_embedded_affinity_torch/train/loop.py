@@ -1,20 +1,27 @@
-"""Training loop (2D, CVPPP): data -> train step -> validation -> checkpoints.
+"""Training loop: data -> train step -> validation -> checkpoints.
 
-The port of the JAX package's ``train/loop.py`` for the ``cvppp`` preset:
-host sample workers feed batches (copied to the card from pinned memory),
-each step runs :class:`.train_step.TrainStep2D`, every ``valid_freq``
-steps the validation set is decoded (K1f affinities, mutex watershed,
-small-object merging, relabelling) and scored (SBD/DiC/VOI/ARAND), and
-every ``save_freq`` steps and at the end a checkpoint is written. Losses
+The port of the JAX package's ``train/loop.py`` for the ``cvppp`` (2D) and
+``ac3ac4`` (3D) presets: host sample workers feed batches (copied to the
+card from pinned memory), each step runs :class:`.train_step.TrainStep2D`
+or :class:`.train_step.TrainStep3D`, every ``valid_freq`` steps the
+validation data is decoded and scored, and every ``save_freq`` steps and
+at the end a checkpoint is written. 2D validation decodes each image (K1f
+affinities, mutex watershed, small-object merging, relabelling) and scores
+SBD/DiC/VOI/ARAND; 3D validation serves the validation volume tiled (K5f
+affinities) through ``train.valid_decoders`` and scores VOI/ARAND and the
+affinities' MSE and BCE against the label's. Losses
 stay on the device until a display, validation or save point fetches them
 in one copy; the watchdog then checks each one. Scalars go to
 ``scalars.jsonl`` and the reference's ``loss.txt``/``valid.txt``.
 
-Data comes through ``data_override=(train_dataset, valid_samples)``, the
-JAX loop's own hook: ``train_dataset.sample(rng) -> {"image": (H, W, 3)
-ImageNet-normalised float32, "seg": (H, W) int}`` and a list (or indexable)
-of such samples for validation. The CVPPP disk sampler and the
-device-resident sampler are not ported yet.
+Data comes through ``data_override=(train_dataset, valid)``, the JAX
+loop's own hook: ``train_dataset.sample(rng)`` gives ``{"image": (H, W, 3)
+ImageNet-normalised float32, "seg": (H, W) int}`` (2D) or ``{"image": (D,
+H, W, 1) float32 in [0, 1], "seg": (D, H, W) int}`` (3D); ``valid`` is a
+list (or indexable) of such 2D samples, or a volume with ``raw`` (D, H, W)
+float32 in [0, 1] and ``label`` (D, H, W) int (:class:`..data.AC3AC4ValidVolume`).
+The disk samplers (CVPPP, AC3/AC4) and the device-resident sampler are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -31,28 +38,25 @@ from ..config import Config, resolve_compute_dtype
 from ..data.provider import Provider, to_device
 from ..device import resolve_device
 from ..metrics import abs_diff_fg_labels, adapted_rand_error, symmetric_best_dice, voi
-from ..models import ResidualUNet2DDeep
+from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
 from ..ops import multi_offset, relabel
 from ..ops.losses import CRITERIA
-from ..ops.targets import gen_affs, weight_binary_ratio
+from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
 from ..postproc import merge_func, seg_mutex
 from ..utils.guards import LossWatchdog
 from .checkpoint import latest_checkpoint, load_checkpoint, restore, save_checkpoint
 from .optim import AMSGrad
-from .train_step import TrainState, TrainStep2D, make_eval_step_2d
+from .train_step import TrainState, TrainStep2D, TrainStep3D, make_eval_step_2d
+
+ARCHS_3D = ("unet_pni_deep",)
 
 log = logging.getLogger("pea")
 
 
 def check_train_config(cfg: Config):
     """Raise NotImplementedError for the options whose code is not ported."""
-    if cfg.model.arch == "unet_pni_deep":
-        raise NotImplementedError(
-            "3D training (AC3/AC4, model.arch='unet_pni_deep') is not ported: it "
-            "is the next slice of the port, with the kernels K6f and the K5/K6 "
-            "backwards (K1b, K4b); the port serves 3D (infer.run_inference_3d)")
     not_ported = []
-    if cfg.model.arch != "resunet2d_deep":
+    if cfg.model.arch not in ("resunet2d_deep",) + ARCHS_3D:
         not_ported.append(f"model.arch={cfg.model.arch!r}")
     if resolve_compute_dtype(cfg.model) != "float32":
         not_ported.append(f"model.dtype={cfg.model.dtype!r} (float32 only)")
@@ -77,8 +81,12 @@ def init_state(cfg: Config, device) -> TrainState:
     the draw is the same whatever the device), and a fresh AMSGrad."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.random_seed)
-        model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
-                                   tuple(cfg.model.filters), cfg.model.emd)
+        if cfg.model.arch in ARCHS_3D:
+            model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
+                                         cfg.model.emd)
+        else:
+            model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
+                                       tuple(cfg.model.filters), cfg.model.emd)
     model = model.to(device).train()
     opt = AMSGrad(model.parameters(), lr=cfg.train.base_lr, eps=0.01,
                   weight_decay=cfg.train.weight_decay or 0.0)
@@ -116,6 +124,41 @@ def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offset
             "valid/ARAND": float(np.mean(arands))}
 
 
+def valid_geometry_3d(crop_size) -> tuple:
+    """(stride, padding) of the in-loop 3D validation's tiles, the JAX
+    loop's: stride (cz - 8, cy / 2, cx / 2) and padding (min(4, cz / 4),
+    min(48, cy / 4), min(48, cx / 4)), so (10, 80, 80) and (4, 40, 40) at
+    (18, 160, 160)."""
+    cz, cy, cx = crop_size
+    return ((max(cz - 8, 1), cy // 2, cx // 2),
+            (min(4, cz // 4), min(48, cy // 4), min(48, cx // 4)))
+
+
+def validate_3d(cfg: Config, state: TrainState, valid_volume, device) -> dict:
+    """Serve the validation volume tiled with the trained weights, decode it
+    with ``train.valid_decoders`` and score it: VOI/ARAND per decoder, and
+    the affinities' MSE and BCE (p clipped to [1e-6, 1 - 1e-6]) against the
+    label's 12-channel targets. Tiles: :func:`valid_geometry_3d`."""
+    from ..infer.inference3d import run_inference_3d
+
+    stride, padding = valid_geometry_3d(cfg.data.crop_size)
+    affs, results = run_inference_3d(
+        cfg, state.model.state_dict(), valid_volume.raw, gt=valid_volume.label,
+        decoders=tuple(cfg.train.valid_decoders), crop_size=tuple(cfg.data.crop_size),
+        stride=stride, padding=padding, device=device)
+    out = {f"valid/{dec}_{k}": float(v) for dec, (_, m) in results.items() for k, v in m.items()}
+    label = torch.from_numpy(np.asarray(valid_volume.label, np.int64)[None])
+    gt = seg_to_aff_3d_12ch(label)[0].numpy()
+    out["valid/affs_mse"] = float(np.mean((affs - gt) ** 2))
+    p = np.clip(affs, 1e-6, 1 - 1e-6)
+    out["valid/affs_bce"] = float(np.mean(-(gt * np.log(p) + (1 - gt) * np.log(1 - p))))
+    return out
+
+
+def _has_valid(valid) -> bool:
+    return valid is not None and (hasattr(valid, "raw") or len(valid) > 0)
+
+
 class ScalarLogger:
     """scalars.jsonl, plus the reference's loss.txt / valid.txt."""
 
@@ -143,13 +186,15 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     ``device``: CUDA unless "cpu" is asked for. ``timing``, when given,
     receives per-step host seconds, ``data_s`` (batch wait and device copy)
     and ``step_s`` (the step, synchronised after it: timing costs the
-    overlap of one step's host work with the previous step's kernels).
+    overlap of one step's host work with the previous step's kernels), and
+    ``valid_s``, the seconds of each validation.
     """
     check_train_config(cfg)
+    is_3d = cfg.model.arch in ARCHS_3D
     if data_override is None:
         raise NotImplementedError(
-            "the CVPPP disk sampler (cv2) is not ported; pass "
-            "data_override=(train_dataset, valid_samples)")
+            f"the {'AC3/AC4 (h5py, cv2)' if is_3d else 'CVPPP (cv2)'} disk sampler is not "
+            "ported; pass data_override=(train_dataset, valid)")
     dev = resolve_device(device)
     train_ds, valid_ds = data_override
     total_iters = max_iters or cfg.train.total_iters
@@ -161,19 +206,31 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
             restore(state, load_checkpoint(ck))
             log.info("resumed from %s", ck)
 
-    offsets = multi_offset(list(cfg.data.shifts), neighbor=cfg.data.neighbor)
     criterion = CRITERIA[cfg.train.loss_func]
-    step_fn = TrainStep2D(
-        offsets, neighbor=cfg.data.neighbor, criterion=criterion,
-        affs0_weight=cfg.train.affs0_weight, deep_weight=cfg.train.deep_weight,
-        self_emb=cfg.train.self_emb, cross_emb=cfg.train.cross_emb,
-        ct_weight=cfg.train.ct_weight, use_pallas=cfg.train.use_pallas,
-        fuse_loss=cfg.train.fuse_loss, device_ema=True,
-        ema_seed=cfg.train.random_seed, ema_noise=cfg.data.if_ema_noise,
-        ema_blur=cfg.data.if_ema_blur, ema_intensity=cfg.data.if_ema_intensity,
-        ema_mask=cfg.data.if_ema_mask, ema_flip=cfg.data.if_ema_flip)
-    eval_step = make_eval_step_2d(offsets, criterion=criterion,
-                                  use_pallas=cfg.train.use_pallas)
+    ema_flags = dict(ema_seed=cfg.train.random_seed, ema_intensity=cfg.data.if_ema_intensity,
+                     ema_mask=cfg.data.if_ema_mask, ema_flip=cfg.data.if_ema_flip)
+    if is_3d:
+        step_fn = TrainStep3D(
+            criterion=criterion, affs0_weight=cfg.train.affs0_weight,
+            embedding_mode=cfg.train.embedding_mode, use_pallas=cfg.train.use_pallas,
+            device_ema=True, **ema_flags)
+
+        def validate():
+            return validate_3d(cfg, state, valid_ds, dev)
+    else:
+        offsets = multi_offset(list(cfg.data.shifts), neighbor=cfg.data.neighbor)
+        step_fn = TrainStep2D(
+            offsets, neighbor=cfg.data.neighbor, criterion=criterion,
+            affs0_weight=cfg.train.affs0_weight, deep_weight=cfg.train.deep_weight,
+            self_emb=cfg.train.self_emb, cross_emb=cfg.train.cross_emb,
+            ct_weight=cfg.train.ct_weight, use_pallas=cfg.train.use_pallas,
+            fuse_loss=cfg.train.fuse_loss, device_ema=True, ema_noise=cfg.data.if_ema_noise,
+            ema_blur=cfg.data.if_ema_blur, **ema_flags)
+        eval_step = make_eval_step_2d(offsets, criterion=criterion,
+                                      use_pallas=cfg.train.use_pallas)
+
+        def validate():
+            return validate_2d(cfg, eval_step, state, valid_ds, offsets, dev)
 
     provider = Provider(train_ds, batch_size=cfg.train.batch_size,
                         num_workers=cfg.train.num_workers, seed=cfg.train.random_seed)
@@ -218,10 +275,12 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
                 log.info("step %d, loss=%.6f (%.2f s)", it, avg, dt)
                 logger.add(it, loss=avg, sec_per_iter=dt / max(it, 1))
                 sum_loss = 0.0
-            if cfg.train.if_valid and valid_ds is not None and len(valid_ds) > 0 \
-                    and it % valid_freq == 0 and it > 1:
+            if cfg.train.if_valid and _has_valid(valid_ds) and it % valid_freq == 0 and it > 1:
                 drain()
-                m = validate_2d(cfg, eval_step, state, valid_ds, offsets, dev)
+                t0 = time.perf_counter()
+                m = validate()
+                if timing is not None:
+                    timing.setdefault("valid_s", []).append(time.perf_counter() - t0)
                 log.info("valid @%d: %s", it, m)
                 logger.add(it, **m)
                 history.append({"step": it, **m})

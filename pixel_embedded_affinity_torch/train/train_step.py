@@ -1,4 +1,4 @@
-"""The 2D train and eval steps (CVPPP).
+"""The train steps, 2D (CVPPP) and 3D (AC3/AC4), and the 2D eval step.
 
 One train step, as the JAX package's ``make_train_step_2d``:
 targets built on the device from the labels; the EMA view drawn on the
@@ -14,19 +14,33 @@ losses take its outputs as ``permute(0, 2, 3, 1)`` views with no copy.
 
 The JAX default trains an exact twin of the model in a TPU layout
 (``models/resunet2d_s2d.py``); the port has the one model.
+
+The 3D step, as ``make_train_step_3d``: the 12-channel targets and their
+pyramid built on the device; the EMA view (intensity, cutout, 4-bit flip)
+drawn on the device; the student forward, then the teacher's under
+``no_grad``; the teacher un-flipped by its rule; the norm5 self and cross
+losses through the 3D kernels (with another ``embedding_mode`` than 5,
+norm1 at full scale, as the JAX step chooses); norm1 deep supervision of e1..e4 (1/16 .. 1/2 in y,
+x) against the pyramid levels 4..1; backward; AMSGrad. The JAX model
+rematerialises its blocks to fit a TPU's memory; with the teacher under
+``no_grad`` only the student's activations are held, and the port keeps
+them.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 
+from ..data.ac3ac4 import convert_consistency_flip_3d_rule4
 from ..data.consistency import IMAGENET_MEAN, IMAGENET_STD, convert_consistency_flip
-from ..data.device_aug import ema_generator, ema_view_2d
+from ..data.device_aug import ema_generator, ema_view_2d, ema_view_3d
 from ..device import float32_convs
-from ..ops.losses import ema_embedding_loss_2d, embedding_loss_2d, weighted_mse
-from ..ops.targets import build_targets_2d
+from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
+                          embedding_loss_norm5, weighted_mse)
+from ..ops.targets import build_targets_2d, build_targets_3d
 
 
 @dataclass
@@ -63,8 +77,8 @@ class TrainStep2D:
 
     ``use_pallas=False`` is the plain path. With ``use_pallas`` the
     WeightedMSE loss goes through the loss-fused kernels K2/K3
-    (``fuse_loss=True``); the unfused kernel path needs K1b, K4f and K4b
-    and raises on CUDA.
+    (``fuse_loss=True``); the unfused kernel path needs K4f and raises on
+    CUDA.
     """
 
     def __init__(self, offsets, *, neighbor: int = 4, criterion=weighted_mse,
@@ -112,8 +126,8 @@ class TrainStep2D:
         if self.use_pallas and not fused and batch["image"].device.type == "cuda":
             raise NotImplementedError(
                 "the unfused kernel path (fuse_loss=False or a criterion other "
-                "than WeightedMSE) needs K1b, K4f and K4b "
-                "(emb2aff_pallas.py:255, :340, :431), which are not ported; use "
+                "than WeightedMSE) needs the 2D cross-affinity kernel K4f "
+                "(emb2aff_pallas.py:340), which is not ported; use "
                 "fuse_loss=True or use_pallas=False")
         offsets, nb_half = self.offsets, self.neighbor // 2
         kw = dict(criterion=self.criterion, use_pallas=self.use_pallas,
@@ -149,6 +163,93 @@ class TrainStep2D:
             metrics["loss_ct"] = lc.detach()
         metrics["loss"] = loss.detach()
         return loss, torch.relu(pred.detach()), metrics
+
+    def grads(self, model, batch: dict):
+        """Forward and backward in train mode; the gradients land in
+        ``.grad``. Returns (pred, metrics)."""
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with float32_convs():
+            loss, pred, metrics = self.loss(model, batch)
+            loss.backward()
+        return pred, metrics
+
+    def __call__(self, state: TrainState, batch: dict):
+        if self.device_ema:
+            batch = self.ema_batch(batch, state.step)
+        pred, metrics = self.grads(state.model, batch)
+        state.optimizer.step()
+        state.step += 1
+        return pred, metrics
+
+
+def _ncdhw(image_bdhwc: torch.Tensor) -> torch.Tensor:
+    return image_bdhwc.permute(0, 4, 1, 2, 3).contiguous()
+
+
+def _bdhwc(x_ncdhw: torch.Tensor) -> torch.Tensor:
+    return x_ncdhw.permute(0, 2, 3, 4, 1)
+
+
+class TrainStep3D:
+    """``step(state, batch) -> (pred, metrics)`` updates ``state`` in place.
+
+    ``batch``: tensors on one device, ``image`` (B, D, H, W, 1) in [0, 1],
+    ``seg`` (B, D, H, W) integer labels, and, when ``device_ema`` is
+    False, ``ema_image`` and ``rules`` (B, 4). ``pred`` is relu of the
+    full-scale self affinities (B, K, D, H, W) after the boundary fill;
+    ``metrics`` holds 0-d tensors (loss, loss_embedding, loss_cross,
+    loss_deep). ``use_pallas=False`` is the plain path.
+    """
+
+    def __init__(self, *, criterion=weighted_mse, affs0_weight: float = 1.0,
+                 embedding_mode: int = 5, use_pallas: bool = True,
+                 device_ema: bool = True, ema_seed: int = 0, ema_intensity: bool = True,
+                 ema_mask: bool = True, ema_flip: bool = True):
+        self.criterion, self.affs0_weight = criterion, affs0_weight
+        self.embedding_mode = embedding_mode
+        self.use_pallas = use_pallas
+        self.device_ema, self.ema_seed = device_ema, ema_seed
+        self.ema_flags = dict(intensity=ema_intensity, mask=ema_mask, flip=ema_flip)
+
+    def ema_batch(self, batch: dict, step: int) -> dict:
+        """``batch`` with the EMA view and its rules drawn for ``step``."""
+        img = batch["image"]
+        ema, rules = ema_view_3d(img, ema_generator(self.ema_seed, step, img.device),
+                                 **self.ema_flags)
+        return dict(batch, ema_image=ema, rules=rules)
+
+    def loss(self, model, batch: dict):
+        """(loss, pred, metrics) of a batch that carries ``ema_image`` and
+        ``rules``, with the autograd graph; run it under float32_convs."""
+        affs_t, wmap_t, downs = build_targets_3d(batch["seg"])
+        outs = model(_ncdhw(batch["image"]))
+        with torch.no_grad():
+            ema = model(_ncdhw(batch["ema_image"]))[4]
+        ema = convert_consistency_flip_3d_rule4(_bdhwc(ema), batch["rules"])
+        e1, e2, e3, e4, embedding = (_bdhwc(o) for o in outs)
+
+        kw = dict(criterion=self.criterion, affs0_weight=self.affs0_weight)
+        if self.embedding_mode == 5:
+            full = functools.partial(embedding_loss_norm5, use_pallas=self.use_pallas, **kw)
+        else:
+            full = functools.partial(embedding_loss_norm1, **kw)
+        loss_emb, pred = full(embedding, affs_t, wmap_t)
+        loss_cross, _ = full(embedding, affs_t, wmap_t, ema_embedding_bdhwc=ema)
+        deep = 0.0
+        # e1 (1/16) <-> level 4 ... e4 (1/2) <-> level 1
+        for emb, (t, w) in zip([e1, e2, e3, e4], downs[::-1]):
+            deep = deep + embedding_loss_norm1(emb, t, w, **kw)[0]
+        loss = loss_emb + loss_cross + deep
+        # the reference's boundary fill: the first slab of each unit-shift
+        # channel takes the next one's values
+        pred = pred.detach().clone()
+        pred[:, 1, :, :1, :] = pred[:, 1, :, 1:2, :]
+        pred[:, 2, :, :, :1] = pred[:, 2, :, :, 1:2]
+        pred[:, 0, :1, :, :] = pred[:, 0, 1:2, :, :]
+        metrics = {"loss": loss.detach(), "loss_embedding": loss_emb.detach(),
+                   "loss_cross": loss_cross.detach(), "loss_deep": deep.detach()}
+        return loss, torch.relu(pred), metrics
 
     def grads(self, model, batch: dict):
         """Forward and backward in train mode; the gradients land in

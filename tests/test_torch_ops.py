@@ -117,9 +117,9 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """The port, its serving paths (2D and 3D) and its training path import with jax,
-    flax, optax, the JAX package and the lazily-imported optional modules
-    all blocked."""
+    """The port, its serving paths (2D and 3D) and its training paths (2D
+    and 3D) import with jax, flax, optax, the JAX package and the
+    lazily-imported optional modules all blocked."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'pixel_embedded_affinity_tpu',\n"
@@ -142,6 +142,12 @@ def test_port_imports_without_jax():
         "import pixel_embedded_affinity_torch.parallel.tiling\n"
         "import pixel_embedded_affinity_torch.models.unet3d_pni\n"
         "import pixel_embedded_affinity_torch.ops.emb2aff3d_cuda\n"
+        "import pixel_embedded_affinity_torch.ops.emb2aff_cuda\n"
+        "import pixel_embedded_affinity_torch.models.common\n"
+        "import pixel_embedded_affinity_torch.train.train_step\n"
+        "import pixel_embedded_affinity_torch.train.loop\n"
+        "from pixel_embedded_affinity_torch.train import TrainStep3D, validate_3d\n"
+        "from pixel_embedded_affinity_torch.ops import fused_cross_affinity_3d\n"
         "import pixel_embedded_affinity_torch.postproc.watershed\n"
         "import pixel_embedded_affinity_torch.postproc.agglomerate\n"
         "import pixel_embedded_affinity_torch.postproc.multicut\n"
