@@ -10,7 +10,11 @@ Phases, each of which exits nonzero when it fails:
   3. kernels: each kernel against its plain PyTorch version on the card:
      K1f at the serving shapes, in float32 and bfloat16 and on a permuted
      NCHW view; K1's backward (the self-affinity backward kernel at D = 1)
-     through autograd at B=2 544x544, neighbor 8 and 4; K2f/K2b at the five
+     through autograd at B=2 544x544, neighbor 8 and 4; K4f (the cross
+     forward at D = 1) and its backward through autograd at the BBBC train
+     shape B=2 256x256 with the un-flipped teacher's view (x and y strides
+     swapped) and at an odd shape, neighbor 4 and 8, float32 and bfloat16,
+     with a zero vector, and its time with L2 flushed; K2f/K2b at the five
      training scales and K3f/K3b at full scale, on the NCHW view, with a
      zero vector;
   4. fixture: the port's model on the reference golden
@@ -24,10 +28,9 @@ Phases, each of which exits nonzero when it fails:
   6. training: train() on the full-width cvppp preset, B=2, 8 steps on
      synthetic 544x544 leaves, validation on 2 images and a checkpoint,
      with every kernel's launch count read around the run; the reloaded
-     checkpoint's next-step loss; the unfused kernel path must refuse to
-     run (K4f is not ported); the device time of one step by kernel; one
-     step's parameter gradients against the same step in float64 through
-     the plain path;
+     checkpoint's next-step loss; the device time of one step by kernel;
+     one step's parameter gradients against the same step in float64
+     through the plain path;
   7. 3D kernels: K5f against its plain version at the serving tile batch
      (4 tiles of 18x160x160, C=16, on the permuted NCDHW view) in float32
      and bfloat16, at two odd shapes with a zero vector, and through
@@ -54,8 +57,23 @@ Phases, each of which exits nonzero when it fails:
      the run; the reloaded checkpoint's next-step loss; one step's peak
      device memory and device time by kernel; one step's parameter
      gradients against float64;
- 11. one JSON line listing each kernel: launches, error, times, bound;
- 12. the last line: {"ok": true, "device": {...}}.
+ 11. BBBC training: train() on the full-width bbbc039v1 preset (mask head,
+     weight 1000), B=2, 8 steps from the device-resident sampler over 8
+     synthetic 520x696 nuclei images, validation on 2 (AJI/F1/PQ) and a
+     checkpoint, each kernel's launch count read around the run; the
+     reloaded checkpoint's next-step loss; the device time of one step by
+     kernel;
+ 12. the unfused path: 4 steps of the same preset with train.fuse_loss
+     False, K1f/K1b/K4f/K4b launched 5/5/1/1 times a step; on one batch the
+     unfused step's loss and parameter gradients against the fused step's;
+ 13. BBBC serving: run_inference_2d on 4 synthetic 520x696 images, seeded
+     by the predicted mask, with the timing split and K1f's launches: once
+     with the random weights' full mask (the decode's worst case), then with
+     the mask head's bias moved so the nuclei's share is foreground, at
+     batch 1, 4 and the server's default; one image's served affinities and
+     mask logits against a float64 run;
+ 14. one JSON line listing each kernel: launches, error, times, bound;
+ 15. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -117,7 +135,7 @@ TRAIN_STEPS = 8
 # and are held apart.
 F64_GRAD_RTOL = 0.1
 KERNEL_EXCESS = 1.5
-BIAS_BEFORE_BN = re.compile(r"(conv\.[03]|project\.0)\.bias$")
+BIAS_BEFORE_BN = re.compile(r"(conv\.[03]|project\.0|binary_seg\.0)\.bias$")
 K5_SOURCE = "pixel_embedded_affinity_torch/csrc/affinity3d.cu"
 K5_REPLACES = "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:543"
 K5_F32_ATOL = 1e-6
@@ -144,6 +162,20 @@ GRAD_REPLACES = {"K5b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:255",
                  "K6f": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:692",
                  "K6b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:431"}
 GRAD_NAMES = {"K5b": "affinity_bwd", "K6f": "cross_affinity_fwd", "K6b": "cross_affinity_bwd"}
+# K4f: the cross forward of GRAD_SOURCE at D = 1
+K4F_REPLACES = "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:340"
+# BBBC039: the training set, 8 synthetic images at the dataset's 520x696;
+# validation and serving at the same geometry
+BBBC_SHAPE = (520, 696)
+BBBC_TRAIN_IMAGES, BBBC_VALID_IMAGES, BBBC_SERVE_IMAGES = 8, 2, 4
+UNFUSED_STEPS = 4
+# the unfused step against the fused one on one batch: the same function,
+# the loss-fused kernels summing in another order than K1/K4 and the
+# criterion (the conv biases in front of BatchNorm, whose true gradient is
+# 0, relative to the largest gradient of all); cuDNN's run-to-run spread is
+# measured beside
+UNFUSED_LOSS_RTOL = 1e-5
+UNFUSED_GRAD_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -515,7 +547,8 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
     per_img_wall = wall_ms / iters / images
     print(f"[profile] {label}: device busy {busy:.4f} ms/{unit} of "
           f"{per_img_wall:.4f} ms/{unit} wall (idle share "
-          f"{max(0.0, 1 - busy / per_img_wall):.3f}); top kernels:")
+          f"{max(0.0, 1 - busy / per_img_wall):.3f}), {sum(r[1] for r in rows) / images:.1f} "
+          f"kernels a {unit}; top kernels:")
     for ms, calls, name in rows[:12]:
         print(f"[profile]   {ms:.4f} ms/{unit}  {ms / busy:6.1%}  x{calls}  {name[:110]}")
     mine = [r for r in rows if any(o in r[2] for o in ours)]
@@ -558,6 +591,101 @@ def phase_k1_grad() -> float:
         check(rest <= GRAD_RTOL and at_zero <= GRAD_RTOL, f"K1 gradient error {rest}, {at_zero}")
         max_err = max(max_err, err)
     return max_err
+
+
+def teacher_view(nchw):
+    """The un-flipped EMA teacher's embedding as the train step hands it to
+    K4f: the model's NCHW output permuted to (B, H, W, C) and passed
+    through the un-flip, whose torch.where leaves the x and y strides
+    swapped (H stride 1) whatever the rules."""
+    import torch
+
+    from pixel_embedded_affinity_torch.data.consistency import convert_consistency_flip
+
+    rules = torch.tensor([[1.0, 0.0, 1.0]] * nchw.shape[0], device=nchw.device)
+    view = convert_consistency_flip(nchw.permute(0, 2, 3, 1), rules)
+    check(view.stride()[1] == 1, f"teacher view strides {view.stride()}")
+    return view
+
+
+def phase_k4f() -> dict:
+    """K4f (cross_affinity_fwd at D = 1) and its backward (cross_affinity_bwd
+    at D = 1) through autograd against the plain version: the student an
+    NCHW view, the teacher as the un-flip leaves it, at B=2 256x256 (the
+    bbbc039v1 train shape) and an odd shape, neighbor 4 and 8, float32 and
+    bfloat16, a zero vector and a random cotangent; the forward's time with
+    L2 flushed. Returns K4f's error and times."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops import (
+        cross_affinity_2d_plain, cross_affinity_bwd, fused_cross_affinity_2d, multi_offset)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    zero = (1, 3, 5)
+    res = {"max_abs_err": 0.0}
+    for (b, h, w), neighbor in [((2, 256, 256), 4), ((2, 256, 256), 8), ((1, 41, 41), 4)]:  # the transpose needs H == W
+        offsets = multi_offset([1, 3, 5, 9, 11], neighbor)
+        k = len(offsets)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            a_nc = torch.randn((b, 16, h, w), generator=gen, device="cuda")
+            a_nc[zero[0] % b, :, zero[1], zero[2]] = 0.0
+            a_nc = a_nc.to(dtype).requires_grad_()
+            t_nc = torch.randn((b, 16, h, w), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((b, k, h, w), generator=gen, device="cuda").to(dtype)
+            for with_db in (False, True):
+                t_leaf = t_nc.clone().requires_grad_(with_db)
+                a, t = a_nc.permute(0, 2, 3, 1), teacher_view(t_leaf)
+                before = (fused_cross_affinity_2d.launches, cross_affinity_bwd.launches)
+                got = fused_cross_affinity_2d(a, t, offsets)
+                grads = torch.autograd.grad(got, [a_nc, t_leaf] if with_db else [a_nc], g,
+                                            retain_graph=True)
+                check((fused_cross_affinity_2d.launches, cross_affinity_bwd.launches)
+                      == (before[0] + 1, before[1] + 1), "K4f or its backward did not launch")
+                ref = cross_affinity_2d_plain(a, t, offsets)
+                refs = torch.autograd.grad(ref, [a_nc, t_leaf] if with_db else [a_nc], g)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                zpx = (zero[0] % b,) + zero[1:]
+                gerrs = [_grad_err(x.permute(0, 2, 3, 1), r.permute(0, 2, 3, 1), zpx)
+                         for x, r in zip(grads, refs)]
+                print(f"[kernels] K4f B={b} {h}x{w} C=16 K={k} neighbor {neighbor} "
+                      f"{str(dtype)[6:]}, teacher strides {tuple(t.stride())}"
+                      f"{', with db' if with_db else ''}: f32 {err:.3e}; grads rel (rest, "
+                      f"zero-vector pixel, abs) "
+                      + ", ".join(f"({x:.3e}, {z:.3e}, {m:.3e})" for x, z, m in gerrs))
+                check(got.shape == (b, k, h, w) and got.dtype == dtype, "K4f shape or dtype")
+                check(bool((got[zpx[0], :, zpx[1], zpx[2]] == 0).all()),
+                      "K4f nonzero affinity at a zero vector")
+                check(err <= (F32_ATOL if f32 else BF16_ATOL), f"K4f error {err}")
+                gtol = GRAD_RTOL if f32 else BF16_GRAD_RTOL
+                for x, z, _ in gerrs:
+                    check(x <= gtol and z <= gtol, f"K4f gradient error {x}, {z}")
+                check(all(x.is_contiguous() for x in grads), "K4f gradients not NCHW")
+                if f32:
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+
+    flush = 64 << 20  # beyond the 50 MB L2
+    offsets = multi_offset([1, 3, 5, 9, 11], 4)
+    a = torch.randn((2, 16, 256, 256), generator=gen, device="cuda").permute(0, 2, 3, 1)
+    t = teacher_view(torch.randn((2, 16, 256, 256), generator=gen, device="cuda"))
+    g = torch.randn((2, len(offsets), 256, 256), generator=gen, device="cuda")
+    res["ms"] = timed_ms(lambda: fused_cross_affinity_2d(a, t, offsets), flush_bytes=flush)
+    res["plain_ms"] = timed_ms(lambda: cross_affinity_2d_plain(a, t, offsets),
+                               flush_bytes=flush)
+    res["nhwc_ms"] = timed_ms(lambda: fused_cross_affinity_2d(a, t.contiguous(), offsets),
+                              flush_bytes=flush)
+    res["bound_ms"], res["bound_by"] = train3d_bound(2 * 256 * 256, 16, len(offsets), 2, 0,
+                                                     "fwd")
+    offs3 = [(0, dy, dx) for dy, dx in offsets]
+    res["bwd_ms"] = timed_ms(lambda: cross_affinity_bwd(a[:, None], t[:, None], g[:, :, None],
+                                                        offs3, need_db=False),
+                             flush_bytes=flush)
+    res["bwd_bound_ms"] = train3d_bound(2 * 256 * 256, 16, len(offsets), 2, 1, "bwd")[0]
+    print(f"[kernels] K4f time B=2 256x256 C=16 K=10, student NCHW view, teacher as the "
+          f"un-flip leaves it (ms, L2 flushed, median of 20; nhwc_ms: a contiguous teacher; "
+          f"bwd: the D = 1 cross backward without db): {json.dumps(res)}, {card_line()}")
+    return res
 
 
 def wmse_bound(b: int, side: int, c: int, k: int, n_in: int, n_out: int):
@@ -775,13 +903,6 @@ def phase_train(samples) -> dict:
     la, lb = next_loss(state.model), next_loss(loaded.model)
     print(f"[train] next-step loss: trained state {la!r}, reloaded checkpoint {lb!r}")
     check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
-
-    try:
-        TrainStep2D(offsets, fuse_loss=False).loss(loaded.model, batch)
-    except NotImplementedError as err:
-        print(f"[train] fuse_loss=False refuses to run on the card: {str(err)[:90]}...")
-    else:
-        raise SmokeFailure("the unfused kernel path ran on the card")
 
     device_breakdown(lambda: step(loaded, batch), 1, iters=3,
                      label="train step B=2 544x544", unit="step")
@@ -1317,6 +1438,309 @@ def phase_train_3d() -> dict:
     return launches
 
 
+def _bbbc_launchers():
+    from pixel_embedded_affinity_torch.ops import (
+        affinity_bwd, cross_affinity_bwd, fused_affinity_2d, fused_cross_affinity_2d)
+
+    return {**_wmse_launchers(), "K1f": fused_affinity_2d, "K1b": affinity_bwd,
+            "K4f": fused_cross_affinity_2d, "K4b": cross_affinity_bwd}
+
+
+def _train_run(cfg, data, steps: int, out: str, label: str):
+    """train() on the card with every 2D kernel's count set to 0 just before;
+    returns (state, history, timing, launches)."""
+    from pixel_embedded_affinity_torch.train import train
+
+    launchers = _bbbc_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    timing: dict = {}
+    t0 = time.perf_counter()
+    state, history = train(cfg, max_iters=steps, data_override=data, device="cuda",
+                           log_dir=os.path.join(out, "log"), timing=timing)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in launchers.items()}
+    print(f"[{label}] {wall:.2f} s for {steps} steps + validation + checkpoint; "
+          f"launches {json.dumps(launches)}")
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    print(f"[{label}] loss per step: {losses}")
+    check(len(losses) == steps and all(np.isfinite(losses)), "a non-finite loss")
+    data_ms = [1e3 * t for t in timing["data_s"][1:]]
+    step_ms = [1e3 * t for t in timing["step_s"][1:]]
+    print(f"[{label}] warm ms/step (steps 2..{steps}, median): data "
+          f"{np.median(data_ms):.4f} + step {np.median(step_ms):.4f} = "
+          f"{np.median(np.add(data_ms, step_ms)):.4f}; first step "
+          f"{1e3 * (timing['data_s'][0] + timing['step_s'][0]):.4f}; {card_line()}")
+    return state, history, timing, launches
+
+
+def bbbc_setup():
+    """The bbbc039v1 config's padded training arrays (8 synthetic 520x696
+    nuclei images) and 2 validation images."""
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import BBBCValidation, synthesize_nuclei
+    from pixel_embedded_affinity_torch.data.device_data import pad_bbbc_arrays
+
+    cfg = load_config("bbbc039v1")
+    t0 = time.perf_counter()
+    arrays = pad_bbbc_arrays(synthesize_nuclei(BBBC_TRAIN_IMAGES, *BBBC_SHAPE, seed=SEED + 6),
+                             cfg.data.bbbc_padding)
+    valid = BBBCValidation(pairs=synthesize_nuclei(BBBC_VALID_IMAGES, *BBBC_SHAPE,
+                                                   seed=SEED + 7),
+                           shifts=cfg.data.shifts, neighbor=cfg.data.neighbor)
+    print(f"[bbbc] {BBBC_TRAIN_IMAGES} synthetic {BBBC_SHAPE} training images padded to "
+          f"{arrays[0].shape[1:]}, {len(valid)} validation images, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return arrays, valid
+
+
+def phase_train_bbbc(arrays, valid) -> dict:
+    """The BBBC training main path: the device-resident sampler, the mask
+    head, the loss-fused kernels; returns each kernel's launches in it."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data.device_data import (
+        sample_bbbc_batch, sampler_generator)
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops import multi_offset
+    from pixel_embedded_affinity_torch.train import (
+        TrainStep2D, init_state, latest_checkpoint, load_checkpoint, restore)
+
+    out = os.path.join(REPO, "build", "chip_smoke_bbbc")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config("bbbc039v1", {
+        "train": {"display_freq": 1, "valid_freq": TRAIN_STEPS, "save_freq": 10 ** 6},
+        "save_path": os.path.join(out, "models")})
+    check(cfg.data.device_resident and cfg.train.mask_weight == 1000.0, "bbbc039v1 preset")
+    print(f"[bbbc-train] bbbc039v1 ResidualUNet2DDeep filters {cfg.model.filters} emd "
+          f"{cfg.model.emd}, mask weight {cfg.train.mask_weight}, B={cfg.train.batch_size} "
+          f"crops {cfg.data.size}x{cfg.data.size} (padding {cfg.data.bbbc_padding}) from the "
+          f"device-resident sampler, {TRAIN_STEPS} steps, validation on {len(valid)} "
+          f"{BBBC_SHAPE} images, convs in float32 (TF32 off)")
+    state, history, timing, launches = _train_run(cfg, (arrays, valid), TRAIN_STEPS, out,
+                                                  "bbbc-train")
+    for k, per_step in [("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1)]:
+        check(launches[k] == per_step * TRAIN_STEPS,
+              f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps")
+    check(launches["K1f"] == len(valid) and launches["K4f"] == launches["K1b"] == 0,
+          f"launches {launches}")
+    check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values())
+          and {"valid/AJI", "valid/F1", "valid/PQ"} <= set(history[0]), f"validation {history}")
+    print(f"[bbbc-train] validation ({timing['valid_s'][0]:.4f} s wall): "
+          f"{json.dumps(history[0])}")
+
+    ck = latest_checkpoint(os.path.join(cfg.save_path, cfg.name))
+    check(ck is not None and ck.endswith(f"model-{TRAIN_STEPS:06d}.ckpt"), f"checkpoint {ck}")
+    loaded = restore(init_state(cfg, "cuda"), load_checkpoint(ck))
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    step = TrainStep2D(offsets, mask_weight=cfg.train.mask_weight, imagenet_norm=False,
+                       ema_seed=cfg.train.random_seed)
+    images, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    batch = step.ema_batch(sample_bbbc_batch(images, labels,
+                                             sampler_generator(cfg.train.random_seed,
+                                                               loaded.step),
+                                             cfg.train.batch_size, size=cfg.data.size,
+                                             padding=cfg.data.bbbc_padding), loaded.step)
+    check(batch["image"].shape == (2, 256, 256, 3) and batch["seg"].dtype == torch.int32,
+          "device sampler batch")
+
+    def next_loss(model):
+        model = copy.deepcopy(model).train()
+        with torch.no_grad(), float32_convs():
+            return step.loss(model, batch)[0].item()
+
+    la, lb = next_loss(state.model), next_loss(loaded.model)
+    print(f"[bbbc-train] next-step loss: trained state {la!r}, reloaded checkpoint {lb!r}")
+    check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
+    device_breakdown(lambda: step(loaded, batch), 1, iters=3,
+                     label="bbbc train step B=2 256x256", unit="step",
+                     ours=("wmse", "affinity2d_fwd_kernel"))
+    sampler_ms = timed_ms(lambda: sample_bbbc_batch(
+        images, labels, sampler_generator(0, 1), 2, size=cfg.data.size,
+        padding=cfg.data.bbbc_padding), n=10)
+    print(f"[bbbc-train] device sampler: {sampler_ms:.4f} ms a batch of 2 on the device "
+          f"(median of 10)")
+    return {"launches": launches, "batch": batch, "state": loaded}
+
+
+def phase_unfused_bbbc(arrays, fused_batch, fused_state) -> dict:
+    """The unfused 2D path (train.fuse_loss=False) on the bbbc039v1 preset:
+    K1f/K1b five times a step, K4f/K4b once; on one batch its loss and
+    parameter gradients against the fused step's. Returns the launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.ops import multi_offset
+    from pixel_embedded_affinity_torch.train import TrainStep2D
+
+    out = os.path.join(REPO, "build", "chip_smoke_bbbc_unfused")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config("bbbc039v1", {
+        "train": {"fuse_loss": False, "if_valid": False, "display_freq": 1,
+                  "save_freq": 10 ** 6},
+        "save_path": os.path.join(out, "models")})
+    _, _, _, launches = _train_run(cfg, (arrays, None), UNFUSED_STEPS, out, "unfused")
+    for k, per_step in [("K1f", 5), ("K1b", 5), ("K4f", 1), ("K4b", 1),
+                        ("K2f", 0), ("K2b", 0), ("K3f", 0), ("K3b", 0)]:
+        check(launches[k] == per_step * UNFUSED_STEPS,
+              f"{k} launched {launches[k]} times in {UNFUSED_STEPS} unfused steps")
+
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    unfused_step = TrainStep2D(offsets, mask_weight=cfg.train.mask_weight, fuse_loss=False,
+                               imagenet_norm=False, device_ema=False)
+    state = copy.deepcopy(fused_state)
+    device_breakdown(lambda: unfused_step(state, fused_batch), 1, iters=3,
+                     label="unfused bbbc train step B=2 256x256", unit="step",
+                     ours=("affinity2d_fwd_kernel", "affinity_bwd_kernel",
+                           "cross_affinity_fwd_kernel", "cross_affinity_bwd_kernel"))
+    runs = {}
+    for name, fused in [("fused", True), ("fused again", True), ("unfused", False)]:
+        step = TrainStep2D(offsets, mask_weight=cfg.train.mask_weight, fuse_loss=fused,
+                           imagenet_norm=False, device_ema=False)
+        model = copy.deepcopy(fused_state.model)
+        _, metrics = step.grads(model, fused_batch)
+        runs[name] = ({k: v.item() for k, v in metrics.items()},
+                      {n: p.grad for n, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    ref_m, ref_g = runs["fused"]
+
+    top = max(r.abs().max().item() for r in ref_g.values())
+
+    def worst(name):
+        """The largest relative loss difference, and gradient difference
+        relative to each tensor's largest; a conv bias in front of
+        BatchNorm (true gradient 0, rounding noise) relative to the largest
+        of all."""
+        m, g = runs[name]
+        loss = max(abs(m[k] - ref_m[k]) / max(abs(ref_m[k]), 1e-30) for k in ref_m)
+        grad = max((g[n] - r).abs().max().item()
+                   / (top if BIAS_BEFORE_BN.search(n) else r.abs().max().item())
+                   for n, r in ref_g.items())
+        return loss, grad
+
+    (spread_l, spread_g), (err_l, err_g) = worst("fused again"), worst("unfused")
+    print(f"[unfused] one batch, unfused vs fused step: losses rel {err_l:.3e} (bound "
+          f"{UNFUSED_LOSS_RTOL}), parameter gradients rel to each tensor's largest "
+          f"{err_g:.3e} (bound {UNFUSED_GRAD_RTOL}); the fused step against itself "
+          f"{spread_l:.3e}, {spread_g:.3e}; metrics {json.dumps(runs['unfused'][0])}")
+    check(err_l <= UNFUSED_LOSS_RTOL, f"unfused loss off the fused one by {err_l}")
+    check(err_g <= UNFUSED_GRAD_RTOL, f"unfused gradients off the fused ones by {err_g}")
+    return launches
+
+
+def _serve_bbbc_timed(cfg, sd, samples, bs, label: str) -> int:
+    """run_inference_2d at batch ``bs`` (None: the server's default), warm,
+    its split printed; returns K1f's launches in the timed run."""
+    from pixel_embedded_affinity_torch.infer import run_inference_2d, serve_batch
+    from pixel_embedded_affinity_torch.ops import fused_affinity_2d
+
+    run_inference_2d(cfg, sd, samples, batch_size=bs, device="cuda")  # warm-up
+    timing: dict = {}
+    fused_affinity_2d.launches = 0
+    per, agg = run_inference_2d(cfg, sd, samples, timing=timing, batch_size=bs, device="cuda")
+    bs = bs or serve_batch(samples[0]["image"].shape)
+    expected = -(-len(samples) // bs)
+    parts = {k: timing[k] for k in ("setup_s", "forward_s", "decode_s", "metrics_s")}
+    parts["rest_s"] = timing["total_s"] - sum(parts.values())
+    print(f"[bbbc-serve] {label} B={bs}: K1f launches {fused_affinity_2d.launches} (expected "
+          f"{expected}); ms/img: wall {timing['total_s'] / len(samples) * 1e3:.4f} = "
+          + " + ".join(f"{k[:-2]} {v / len(samples) * 1e3:.4f}" for k, v in parts.items())
+          + f"; decode share {parts['decode_s'] / timing['total_s']:.4f}"
+          + f"; metrics {json.dumps(agg)}")
+    check(fused_affinity_2d.launches == expected, f"K1f launched at B={bs}")
+    check(len(per) == len(samples) and all(
+        set(m) == {"SBD", "DiC", "VOI", "ARAND", "AJI", "F1", "DQ", "SQ", "PQ"}
+        and all(np.isfinite(v) for v in m.values()) for m in per), f"metrics {per}")
+    return fused_affinity_2d.launches
+
+
+def phase_serving_bbbc() -> dict:
+    """BBBC serving at full width on synthetic 520x696 images; returns K1f's
+    launches in it."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import BBBCValidation, synthesize_nuclei
+    from pixel_embedded_affinity_torch.infer import build_model, forward_affinities
+    from pixel_embedded_affinity_torch.ops import embedding_to_affinity_2d, multi_offset
+
+    cfg = load_config("bbbc039v1")
+    torch.manual_seed(SEED)
+    sd = build_model(cfg, device="cpu").state_dict()
+    ds = BBBCValidation(pairs=synthesize_nuclei(BBBC_SERVE_IMAGES, *BBBC_SHAPE, seed=SEED + 8),
+                        shifts=cfg.data.shifts, neighbor=cfg.data.neighbor)
+    samples = [ds[i] for i in range(len(ds))]
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    x_all = torch.from_numpy(np.stack([s["image"] for s in samples])).cuda()
+    x_all = x_all.permute(0, 3, 1, 2).contiguous()
+    print(f"[bbbc-serve] bbbc039v1 ResidualUNet2DDeep filters {cfg.model.filters} emd "
+          f"{cfg.model.emd}, {len(samples)} synthetic images {samples[0]['image'].shape}, "
+          f"mask-seeded decode (strides {cfg.data.strides}), convs in float32 (TF32 off)")
+
+    def predicted_fg(state):
+        _, mask = forward_affinities(build_model(cfg, state, device="cuda"), x_all[:1],
+                                     offsets, with_mask=True)
+        return mask[0, ..., 1] - mask[0, ..., 0]
+
+    # random weights mark every pixel as foreground: the decode's worst case
+    print(f"[bbbc-serve] random weights: predicted foreground "
+          f"{(predicted_fg(sd) > 0).float().mean().item():.4f} of the first image")
+    launches = _serve_bbbc_timed(cfg, sd, samples, 1, "full mask (worst case)")
+    # as a trained model would, mark about the share the nuclei cover: the
+    # mask head's last bias moved to the first image's quantile of the logit
+    # margin at that share
+    share = float(np.mean(samples[0]["seg"] > 0))
+    sd["binary_seg.3.bias"][1] -= torch.quantile(predicted_fg(sd), 1.0 - share).cpu()
+    fg0 = (predicted_fg(sd) > 0).float().mean().item()
+    print(f"[bbbc-serve] mask-head bias moved: predicted foreground {fg0:.4f} of the "
+          f"first image, its nuclei {share:.4f}")
+    check(0.5 * share < fg0 < 2 * share, "the moved bias marks the nuclei's share")
+    for bs in (1, 4, None):
+        launches += _serve_bbbc_timed(cfg, sd, samples, bs, "nuclei-share mask")
+
+    model = build_model(cfg, sd, device="cuda")
+    # B=4 takes ~1 s a call at this size (cuDNN's FFT-tiled choice): fewer
+    # repeats there
+    for bs, n in ((1, 20), (4, 5)):
+        x = x_all[:bs]
+        ms = timed_ms(lambda: forward_affinities(model, x, offsets, with_mask=True), n=n)
+        print(f"[bbbc-serve] forward + affinity + mask logits B={bs}: {ms / bs:.4f} ms/img, "
+              f"warm median of {n}, {card_line()}")
+        device_breakdown(lambda: forward_affinities(model, x, offsets, with_mask=True), bs,
+                         iters=5 if bs == 1 else 2, label=f"bbbc serve B={bs} 520x696",
+                         ours=("affinity2d_fwd_kernel",))
+    # cuDNN's own algorithm search, for reference (the server runs its
+    # heuristics' choice)
+    torch.backends.cudnn.benchmark = True
+    try:
+        for bs, n in ((1, 10), (4, 3)):
+            x = x_all[:bs]
+            ms = timed_ms(lambda: forward_affinities(model, x, offsets, with_mask=True), n=n)
+            print(f"[bbbc-serve] with cudnn.benchmark, B={bs}: {ms / bs:.4f} ms/img, median "
+                  f"of {n}")
+    finally:
+        torch.backends.cudnn.benchmark = False
+    x = x_all[:1]
+    affs, mask = forward_affinities(model, x, offsets, with_mask=True)
+    check(affs.shape == (1, len(offsets)) + BBBC_SHAPE and mask.shape == (1,) + BBBC_SHAPE
+          + (2,), "served shapes")
+    with torch.no_grad():
+        outs64 = build_model(cfg, sd, device="cuda").double()(x.double())
+        ref = embedding_to_affinity_2d(outs64[4].permute(0, 2, 3, 1), offsets,
+                                       padding="valid").relu()
+        ref_mask = outs64[5].permute(0, 2, 3, 1)
+    err = (affs.double() - ref).abs().max().item()
+    err_m = ((mask.double() - ref_mask).abs().max() / ref_mask.abs().max()).item()
+    fg = (mask[..., 1] > mask[..., 0]).float().mean().item()
+    print(f"[bbbc-serve] one image vs float64: affinities {err:.3e} (bound {AFF_ATOL}), mask "
+          f"logits {err_m:.3e} of the largest (bound {AFF_ATOL}); predicted foreground "
+          f"{fg:.4f} of the pixels (the moved bias)")
+    check(err <= AFF_ATOL and err_m <= AFF_ATOL, "served BBBC outputs off float64")
+    return {"launches": launches}
+
+
 def decode_labels_canvas(label: np.ndarray):
     """The decoders' host time on a canvas with the synthetic volume's cells
     in it (random weights give a near-uniform one): noisy label-derived
@@ -1339,6 +1763,14 @@ def decode_labels_canvas(label: np.ndarray):
         check(np.isfinite(vs + vm + are), f"{dec} metrics on the labels canvas")
 
 
+def _timed(name: str, fn, *args):
+    """fn(*args), its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1350,27 +1782,35 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     # 2. build
-    phase_build()
+    _timed("build", phase_build)
     cfg, sd, samples = serving_setup()
     # 3. kernels vs plain, 4. fixture, 5. serving, 6. training
-    k1 = phase_kernels(main_path_embedding(cfg, sd, samples))
-    k1b_err = phase_k1_grad()
-    wmse = phase_wmse_kernels()
-    phase_fixture()
-    launches = phase_main_path(cfg, sd, samples)
-    train_launches = phase_train(samples)
+    k1 = _timed("K1f", phase_kernels, main_path_embedding(cfg, sd, samples))
+    k1b_err = _timed("K1b", phase_k1_grad)
+    k4f = _timed("K4f", phase_k4f)
+    wmse = _timed("K2, K3", phase_wmse_kernels)
+    _timed("fixture", phase_fixture)
+    launches = _timed("serving", phase_main_path, cfg, sd, samples)
+    train_launches = _timed("training", phase_train, samples)
     # 7. 3D kernels, 8. 3D fixture, 9. 3D serving, 10. 3D training
-    k5 = phase_kernels_3d()
-    grad = phase_train_kernels_3d()
-    phase_fixture_3d()
-    serve3d = phase_serving_3d()
-    train3d_launches = phase_train_3d()
-    # 11. kernels line, card, 12. last line
+    k5 = _timed("K5f", phase_kernels_3d)
+    grad = _timed("3D train kernels", phase_train_kernels_3d)
+    _timed("3D fixture", phase_fixture_3d)
+    serve3d = _timed("3D serving", phase_serving_3d)
+    train3d_launches = _timed("3D training", phase_train_3d)
+    # 11. BBBC training, 12. the unfused path, 13. BBBC serving
+    arrays, valid = bbbc_setup()
+    bbbc = _timed("BBBC training", phase_train_bbbc, arrays, valid)
+    unfused = _timed("unfused", phase_unfused_bbbc, arrays, bbbc["batch"], bbbc["state"])
+    serve_bbbc = _timed("BBBC serving", phase_serving_bbbc)
+    # 14. kernels line, card, 15. last line
+    trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k]
+               for k in bbbc["launches"]}
     t1 = k1["times"][1]
     kernels = [{
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": sum(launches.values()) + train_launches["K1f"],
+        "launches": sum(launches.values()) + trained["K1f"] + serve_bbbc["launches"],
         "max_abs_err": k1["max_abs_err"], "ms": t1["view"],
         "plain_ms": t1["plain_view"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None}]
@@ -1378,7 +1818,7 @@ def main() -> int:
         r = wmse[k]
         kernels.append({
             "name": name, "route": "cuda", "source": WMSE_SOURCE,
-            "replaces": WMSE_REPLACES[k], "launches": train_launches[k],
+            "replaces": WMSE_REPLACES[k], "launches": trained[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     kernels.append({
@@ -1388,13 +1828,20 @@ def main() -> int:
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None})
     grad["K5b"]["max_abs_err"] = max(grad["K5b"]["max_abs_err"], k1b_err)
+    # the 2D train path's launches of the D = 1 backwards: K1b's, K4b's
+    in_2d = {"K5b": trained["K1b"], "K6f": 0, "K6b": trained["K4b"]}
     for k, name in GRAD_NAMES.items():
         r = grad[k]
         kernels.append({
             "name": name, "route": "cuda", "source": GRAD_SOURCE, "replaces": GRAD_REPLACES[k],
-            "launches": train3d_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "launches": train3d_launches[k] + in_2d[k], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "cross_affinity_fwd_2d", "route": "cuda", "source": GRAD_SOURCE,
+        "replaces": K4F_REPLACES, "launches": trained["K4f"], "max_abs_err": k4f["max_abs_err"],
+        "ms": k4f["ms"], "plain_ms": k4f["plain_ms"], "bound_ms": k4f["bound_ms"],
+        "bound_by": k4f["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Config: the fields and the presets the serving and training paths read:
-``cvppp`` (2D serving and training) and ``ac3ac4`` (3D serving and
-training).
+``cvppp`` and ``bbbc039v1`` (2D serving and training) and ``ac3ac4`` (3D
+serving and training).
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
@@ -41,8 +41,8 @@ class TrainConfig:
     deep_weight: int = 1
     self_emb: float = 1.0
     cross_emb: float = 1.0
-    # nonzero selects the mask-head loss and the predicted-mask (BBBC)
-    # decode, not ported yet
+    # nonzero adds the mask-head loss to the 2D step and seeds the decode
+    # with the predicted foreground mask (BBBC)
     mask_weight: float = 0.0
     ct_weight: float = 0.0
     # 3D: the full-scale loss, norm5 (the shift table) at 5, norm1 (unit
@@ -71,7 +71,11 @@ class TrainConfig:
 
 @dataclass
 class DataConfig:
+    # "cvppp", "bbbc039v1" or "ac3ac4"
+    dataset: str = "cvppp"
     data_folder: str = "./data/CVPPP"
+    # the side of the square training crop (the BBBC device sampler's)
+    size: int = 544
     shifts: tuple = (1, 3, 5, 9, 27)
     neighbor: int = 4
     strides: tuple = (5, 5)
@@ -86,9 +90,14 @@ class DataConfig:
     # clean image; the port has no host-side path for either
     device_gt: bool = False
     device_ema: bool = False
-    # the whole training set resident on the device: not ported, and True
-    # raises (the JAX preset's True is left out of the port's)
+    # the whole training set resident on the device, sampled and augmented
+    # there: ported for bbbc039v1 (data/device_data.py); True raises for
+    # the other datasets (the JAX cvppp and ac3ac4 presets' True is left
+    # out of the port's)
     device_resident: bool = False
+    # bbbc039v1: the reflect padding around the images before the random
+    # crop
+    bbbc_padding: int = 30
     # 3D (AC3/AC4): the volume served ("ac4"; the CLI's -m test serves
     # "ac3") and the tile the tiled engine runs the model on
     dataset_name: str = "ac4"
@@ -125,8 +134,22 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "filters": (16, 32, 64, 128, 256)},
         "train": {"mask_weight": 0.0, "ct_weight": 0.0, "lr_mode": "fixed",
                   "base_lr": 1e-4, "batch_size": 2},
-        "data": {"shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
+        "data": {"dataset": "cvppp", "size": 544,
+                 "shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
                  "device_gt": True, "device_ema": True},
+    },
+    # the JAX package's bbbc039v1 preset
+    # (scripts_bbbc039v1/config/bbbc039v1.yaml)
+    "bbbc039v1": {
+        "name": "bbbc039v1",
+        "model": {"arch": "resunet2d_deep", "input_nc": 3, "output_nc": 2,
+                  "filters": (16, 32, 64, 128, 256)},
+        "train": {"mask_weight": 1000.0, "lr_mode": "fixed",
+                  "base_lr": 1e-4, "batch_size": 2},
+        "data": {"dataset": "bbbc039v1", "size": 256,
+                 "shifts": (1, 3, 5, 9, 11), "strides": (10, 10),
+                 "device_gt": True, "device_ema": True,
+                 "device_resident": True},
     },
     # the JAX package's ac3ac4 preset (scripts_ac3ac4/config/ac3ac4.yaml),
     # the fields the port reads
@@ -136,7 +159,7 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "filters": (28, 36, 48, 64, 80)},
         "train": {"embedding_mode": 5, "lr_mode": "fixed", "base_lr": 1e-4,
                   "batch_size": 2, "valid_decoders": ("waterz",)},
-        "data": {"dataset_name": "ac4", "crop_size": (18, 160, 160),
+        "data": {"dataset": "ac3ac4", "dataset_name": "ac4", "crop_size": (18, 160, 160),
                  "device_gt": True, "device_ema": True},
     },
 }

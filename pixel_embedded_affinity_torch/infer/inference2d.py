@@ -1,11 +1,14 @@
-"""2D serving (CVPPP).
+"""2D serving (CVPPP, BBBC039).
 
 Batches of images go through the model, the fused embedding->affinity
 kernel and a ReLU on the device, the convolutions in full float32 (TF32
-off); the host then runs mutex watershed (with
-the GT / given FG mask), small-object merging and relabelling, and scores
-SBD/|DiC|/VOI/ARAND. Samples are dicts of HWC numpy arrays as
-:mod:`..data.cvppp` produces them (``image``, and ``seg`` or ``fg``).
+off); the host then runs mutex watershed, small-object merging and
+relabelling, and scores SBD/|DiC|/VOI/ARAND. The watershed is seeded by
+the labels' (or the given) foreground, or, with ``train.mask_weight``
+(BBBC), by the mask head's: argmax of its logits > 0, components under 25
+pixels dropped; BBBC also scores DQ/SQ/PQ, AJI and pixel F1. Samples are
+dicts of HWC numpy arrays as :mod:`..data.cvppp` and :mod:`..data.bbbc`
+produce them (``image``, and ``seg`` or ``fg``).
 """
 
 from __future__ import annotations
@@ -18,14 +21,23 @@ import torch
 
 from ..config import Config, resolve_compute_dtype
 from ..device import float32_convs, resolve_device
-from ..metrics import abs_diff_fg_labels, adapted_rand_error, symmetric_best_dice, voi
+from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
+                       pixel_f1, remap_label, symmetric_best_dice, voi)
 from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
 from ..ops import fused_affinity_2d, multi_offset, relabel
-from ..postproc import merge_func, seg_mutex
+from ..postproc import merge_func, remove_small_object, seg_mutex
 
-# images per device call when the caller does not choose: at 544x544 on an
-# H100, batch 4 costs less device time per image than batch 1 (PERF.md)
-SERVE_BATCH = 4
+# images per device call when the caller does not choose, by image (H, W),
+# as measured on an H100 (PERF.md): at 544x544 batch 4 costs less device
+# time per image than batch 1; at 520x696 batch 4 costs 16x more per image,
+# cuDNN choosing an FFT-tiled convolution there. Shapes not measured are
+# served one at a time.
+SERVE_BATCHES = {(544, 544): 4}
+
+
+def serve_batch(image_shape) -> int:
+    """The batch for images of this (H, W, ...) shape."""
+    return SERVE_BATCHES.get(tuple(image_shape[:2]), 1)
 
 
 def build_model(cfg: Config, state_dict: dict | None = None,
@@ -51,19 +63,24 @@ def build_model(cfg: Config, state_dict: dict | None = None,
 
 
 @torch.no_grad()
-def forward_affinities(model: torch.nn.Module, x_nchw: torch.Tensor,
-                       offsets) -> torch.Tensor:
-    """(B, 3, H, W) images -> (B, K, H, W) ReLU'd affinities, on x's device."""
+def forward_affinities(model: torch.nn.Module, x_nchw: torch.Tensor, offsets,
+                       with_mask: bool = False):
+    """(B, 3, H, W) images -> (B, K, H, W) ReLU'd affinities, on x's
+    device; ``with_mask``: and the mask head's logits, a (B, H, W, 2)
+    view."""
     with float32_convs():
-        embedding = model(x_nchw)[4]
-    return fused_affinity_2d(embedding.permute(0, 2, 3, 1), offsets).relu_()
+        outs = model(x_nchw)
+    affs = fused_affinity_2d(outs[4].permute(0, 2, 3, 1), offsets).relu_()
+    return (affs, outs[5].permute(0, 2, 3, 1)) if with_mask else affs
 
 
-def _served(cfg: Config, state_dict: dict, dataset, batch_size: int, device,
-            clock: dict):
-    """Yield (sample, (K, H, W) affinities) in dataset order. Adds the wall
-    time of the model build to clock['setup_s'], and that of upload,
-    forward, affinity and fetch to clock['forward_s']."""
+def _served(cfg: Config, state_dict: dict, dataset, batch_size: int | None, device,
+            clock: dict, with_mask: bool = False):
+    """Yield (sample, (K, H, W) affinities, (H, W, 2) mask logits or None)
+    in dataset order, the logits only ``with_mask``; ``batch_size`` None
+    takes :func:`serve_batch` of each batch's first image. Adds the wall time of
+    the model build to clock['setup_s'], and that of upload, forward,
+    affinity and fetch to clock['forward_s']."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     model = build_model(cfg, state_dict, dev)
@@ -71,44 +88,57 @@ def _served(cfg: Config, state_dict: dict, dataset, batch_size: int, device,
         torch.cuda.synchronize(dev)
     clock["setup_s"] += time.perf_counter() - t0
     offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
-    for start in range(0, len(dataset), batch_size):
-        samples = [dataset[i]
-                   for i in range(start, min(start + batch_size, len(dataset)))]
+    start, n = 0, len(dataset)
+    while start < n:
+        first = dataset[start]
+        bs = batch_size or serve_batch(first["image"].shape)
+        samples = [first] + [dataset[i] for i in range(start + 1, min(start + bs, n))]
+        start += len(samples)
         t0 = time.perf_counter()
         x = torch.from_numpy(np.stack([s["image"] for s in samples]))
         x = x.to(dev).permute(0, 3, 1, 2).contiguous()
-        affs = forward_affinities(model, x, offsets).cpu().numpy()
+        out = forward_affinities(model, x, offsets, with_mask)
+        affs, masks = ((o.cpu().numpy() for o in out) if with_mask
+                       else (out.cpu().numpy(), [None] * len(samples)))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         clock["forward_s"] += time.perf_counter() - t0
-        yield from zip(samples, affs)
+        yield from zip(samples, affs, masks)
 
 
 def run_inference_2d(cfg: Config, state_dict: dict, dataset,
                      out_dir: str | None = None, timing: dict | None = None,
-                     batch_size: int = SERVE_BATCH, device=None):
+                     batch_size: int | None = None, device=None):
     """Serve and score a labelled set. Returns (per-image metric dicts,
     their means). With ``out_dir``, the segmentations and affinities are
     written there as seg.hdf / affs.hdf.
 
     ``timing``, when given, receives the run's split in seconds
     (total / setup / forward / decode / metrics; setup is the model build)
-    and n_images. ``device``: CUDA unless "cpu" is asked for.
+    and n_images. ``batch_size``: images per device call, by default
+    :func:`serve_batch` of the images' shape. ``device``: CUDA unless "cpu"
+    is asked for. With
+    ``train.mask_weight`` (BBBC) the predicted mask seeds the decode, as in
+    the module's docstring; the mask threshold is part of decode_s.
     """
-    if cfg.train.mask_weight:
-        raise NotImplementedError("the predicted-mask (BBBC) decode is not ported")
+    bbbc = bool(cfg.train.mask_weight)
     offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
     t_start = time.perf_counter()
     clock = {"setup_s": 0.0, "forward_s": 0.0}
     t_dec = t_met = 0.0
     results, segs, all_affs = [], [], []
-    for s, affs in _served(cfg, state_dict, dataset, batch_size, device, clock):
+    for s, affs, mask in _served(cfg, state_dict, dataset, batch_size, device, clock,
+                                 with_mask=bbbc):
         gt = s["seg"].astype(np.uint16)
         t0 = time.perf_counter()
-        fg = (gt > 0).astype(np.uint8)
+        if bbbc:
+            fg = remove_small_object((np.argmax(mask, axis=-1) > 0).astype(np.uint8),
+                                     min_size=25)
+        else:
+            fg = (gt > 0).astype(np.uint8)
         seg = seg_mutex(affs, offsets=offsets, strides=list(cfg.data.strides),
                         mask=fg)
-        seg = merge_func(seg.astype(np.uint16))
+        seg = merge_func(seg.astype(np.uint16), variant="bbbc" if bbbc else "cvppp")
         seg = relabel(seg).astype(np.uint16)
         segs.append(seg)
         if out_dir:
@@ -121,6 +151,11 @@ def run_inference_2d(cfg: Config, state_dict: dict, dataset,
         vs, vm = voi(gt, seg)
         m["VOI"] = vs + vm
         m["ARAND"] = adapted_rand_error(gt, seg)[0]
+        if bbbc:
+            gtr, pr = remap_label(gt.astype(np.int64)), remap_label(seg.astype(np.int64))
+            m["AJI"] = agg_jc_index(gtr, pr)
+            m["F1"] = pixel_f1(gtr, pr)
+            (m["DQ"], m["SQ"], m["PQ"]), _ = get_fast_pq(gtr, pr)
         t_met += time.perf_counter() - t0
         results.append(m)
 
@@ -141,7 +176,7 @@ def run_inference_2d(cfg: Config, state_dict: dict, dataset,
 
 
 def run_cvppp_test(cfg: Config, state_dict: dict, dataset, out_path: str,
-                   timing: dict | None = None, batch_size: int = SERVE_BATCH,
+                   timing: dict | None = None, batch_size: int | None = None,
                    device=None):
     """CVPPP test protocol: FG mask given, no labels; decode and write the
     CodaLab submission.h5. Returns (segmentations, names)."""
@@ -150,7 +185,7 @@ def run_cvppp_test(cfg: Config, state_dict: dict, dataset, out_path: str,
     clock = {"setup_s": 0.0, "forward_s": 0.0}
     t_dec = 0.0
     segs, names = [], []
-    for s, affs in _served(cfg, state_dict, dataset, batch_size, device, clock):
+    for s, affs, _ in _served(cfg, state_dict, dataset, batch_size, device, clock):
         t0 = time.perf_counter()
         seg = seg_mutex(affs, offsets=offsets, strides=list(cfg.data.strides),
                         mask=s["fg"]).astype(np.uint16)

@@ -1,6 +1,9 @@
-"""Serving CLI, 2D (CVPPP) and 3D (AC3/AC4):
+"""Serving CLI, 2D (CVPPP, BBBC039) and 3D (AC3/AC4):
 
     python -m pixel_embedded_affinity_torch.inference -c cvppp -ck <ckpt> \
+        [--torch-ckpt] [-m validation|test] [--out PATH] [--device cuda|cpu] \
+        [-o data.data_folder=...]
+    python -m pixel_embedded_affinity_torch.inference -c bbbc039v1 -ck <ckpt> \
         [--torch-ckpt] [-m validation|test] [--out PATH] [--device cuda|cpu] \
         [-o data.data_folder=...]
     python -m pixel_embedded_affinity_torch.inference -c ac3ac4 -ck <ckpt> \
@@ -8,8 +11,10 @@
         [--device cuda|cpu] [-o data.data_folder=...]
 
 The checkpoint is the JAX package's msgpack file, or with ``--torch-ckpt``
-a reference torch ``.ckpt``. 2D validation mode prints SBD/DiC/VOI/ARAND;
-test mode writes the CodaLab submission.h5. 3D runs the tiled engine on one
+a reference torch ``.ckpt``. CVPPP validation mode prints SBD/DiC/VOI/ARAND;
+test mode writes the CodaLab submission.h5. BBBC039 serves the validation
+split (``-m test``: the test split) at 520x696, seeded by the predicted
+mask, and prints SBD/DiC/VOI/ARAND with AJI/F1/DQ/SQ/PQ. 3D runs the tiled engine on one
 volume (as the JAX CLI selects it: ``-m test`` the first 100 slices of AC3,
 ``-m valid`` the last 20 of AC4, any other mode all of AC4) and prints
 VOI/ARAND per decoder and the timing split.
@@ -53,6 +58,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from .config import load_config, parse_overrides
+    from .data.bbbc import BBBCValidation
     from .data.cvppp import CVPPPTest, CVPPPValidation
     from .infer import run_cvppp_test, run_inference_2d
 
@@ -73,7 +79,7 @@ def main(argv=None):
         for dec, (_, m) in results.items():
             print(dec, json.dumps(m))
         print("COST TIME:", json.dumps(timing))
-    elif args.mode == "test":
+    elif args.mode == "test" and cfg.data.dataset == "cvppp":
         ds = CVPPPTest(cfg.data.data_folder, padding=cfg.data.padding)
         out = args.out or "submission.h5"
         _, names = run_cvppp_test(cfg, sd, ds, out, timing=timing,
@@ -81,8 +87,13 @@ def main(argv=None):
         print("COST TIME:", json.dumps(timing))
         print(json.dumps({"submission": out, "images": len(names)}))
     else:
-        ds = CVPPPValidation(cfg.data.data_folder, valid_set=cfg.data.valid_set,
-                             padding=cfg.data.padding)
+        if cfg.data.dataset == "bbbc039v1":
+            ds = BBBCValidation(cfg.data.data_folder, shifts=tuple(cfg.data.shifts),
+                                neighbor=cfg.data.neighbor,
+                                mode="test" if args.mode == "test" else "validation")
+        else:
+            ds = CVPPPValidation(cfg.data.data_folder, valid_set=cfg.data.valid_set,
+                                 padding=cfg.data.padding)
         _, agg = run_inference_2d(cfg, sd, ds, out_dir=args.out, timing=timing,
                                   device=args.device)
         print("COST TIME:", json.dumps(timing))

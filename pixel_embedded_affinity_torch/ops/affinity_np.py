@@ -1,4 +1,6 @@
-"""Host-side label utilities (numpy)."""
+"""Host-side label utilities (numpy): relabelling, and the 2D affinity
+targets and class-balancing weights of the JAX package's
+``ops/affinity_np.py``, which its datasets build on the host."""
 
 from __future__ import annotations
 
@@ -25,3 +27,50 @@ def relabel(seg: np.ndarray, do_type: bool = False) -> np.ndarray:
     mapping = np.zeros(mid, dtype=m_type)
     mapping[uid] = np.arange(1, len(uid) + 1, dtype=m_type)
     return mapping[seg]
+
+
+def _neighbour(a: np.ndarray, off) -> tuple[np.ndarray, np.ndarray]:
+    """(a[p + off], 1 where p + off lies inside) for a 2D array, the
+    neighbour 0 outside."""
+    h, w = a.shape
+    oy, ox = int(off[0]), int(off[1])
+    out = np.zeros_like(a)
+    inside = np.zeros(a.shape, np.uint8)
+    ys, xs = slice(max(0, -oy), min(h, h - oy)), slice(max(0, -ox), min(w, w - ox))
+    if ys.start < ys.stop and xs.start < xs.stop:
+        out[ys, xs] = a[ys.start + oy:ys.stop + oy, xs.start + ox:xs.stop + ox]
+        inside[ys, xs] = 1
+    return out, inside
+
+
+def gen_affs(labels: np.ndarray, offsets, ignore: bool = False, padding: bool = False):
+    """(H, W) labels -> (affs float32 (K, H, W), masks uint8 (K, H, W)):
+    1 where the labels at p and p + o_k agree (background with background
+    too; with ``ignore`` 0 where either is background); where p + o_k lies
+    outside the mask is 0 and the target ``padding``."""
+    labels = np.asarray(labels)
+    affs = np.zeros((len(offsets),) + labels.shape, np.float32)
+    masks = np.zeros((len(offsets),) + labels.shape, np.uint8)
+    for k, off in enumerate(offsets):
+        shifted, inside = _neighbour(labels, off)
+        out = (labels == shifted).astype(np.float32)
+        if ignore:
+            out[(labels == 0) | (shifted == 0)] = 0
+        out[inside == 0] = 1.0 if padding else 0.0
+        affs[k], masks[k] = out, inside
+    return affs, masks
+
+
+def weight_binary_ratio(label: np.ndarray, alpha: float = 1.0) -> np.ndarray:
+    """Inverse class-frequency weights of a binary target, the fraction
+    taken in float64 and clipped to [0.05, 0.99]; a uniform target gets
+    all ones."""
+    if label.max() == label.min():
+        return np.ones_like(label, dtype=np.float32)
+    binary = (label != 0).astype(np.float64)
+    frac = np.clip(float(binary.sum()) / binary.size, 5e-2, 0.99)
+    if frac > 0.5:
+        weight = binary + alpha * frac / (1.0 - frac) * (1.0 - binary)
+    else:
+        weight = alpha * (1.0 - frac) / frac * binary + (1.0 - binary)
+    return weight.astype(np.float32)

@@ -12,8 +12,9 @@ with its backward. On CUDA tensors each is a ``torch.autograd.Function``:
   gradient is skipped when it needs none;
 
 the three launchers of ``csrc/affinity_grad.cu``, whose offsets are
-(dz, dy, dx) per channel. ``affinity_bwd`` also serves K1's 2D backward
-(:mod:`.emb2aff_cuda`) at D = 1. The sources are built with nvcc at first
+(dz, dy, dx) per channel. At D = 1 they also serve the 2D wrappers of
+:mod:`.emb2aff_cuda`: ``affinity_bwd`` K1's backward, ``cross_affinity_fwd``
+K4f and ``cross_affinity_bwd`` K4's backward. The sources are built with nvcc at first
 use (:mod:`..cuda_build`). On CPU tensors the wrappers run the plain
 versions, differentiated by autograd. Each launcher counts its launches in
 ``.launches``; K5f's count is ``fused_affinity_3d.launches``. Design notes
@@ -29,7 +30,7 @@ import torch
 
 from .emb2aff import (cross_affinity_3d, embedding_to_affinity_3d, normalize_embedding,
                       offset_affinity_3d)
-from .emb2aff_cuda import _DTYPES, SUPPORTED_C
+from .emb2aff_cuda import _DTYPES, SUPPORTED_C, _on_cpu
 from .offsets import SHIFTS_3D, offsets_3d
 
 SOURCE = "affinity3d.cu"
@@ -168,9 +169,9 @@ def affinity_bwd(e: torch.Tensor, g: torch.Tensor, offsets,
     return de.permute(0, 2, 3, 4, 1)
 
 
-def cross_affinity_fwd(a: torch.Tensor, b: torch.Tensor, offsets) -> torch.Tensor:
-    """K6f: (B, K, D, H, W) <n_a(p), n_b(p + offsets[k])> of CUDA views."""
-    offs = _check([a, b], offsets)
+def _cross_fwd(a: torch.Tensor, b: torch.Tensor, offs: np.ndarray) -> torch.Tensor:
+    """One launch of ``cross_affinity_fwd`` on checked views, counted by the
+    caller: K6f's and, at D = 1, K4f's (:mod:`.emb2aff_cuda`)."""
     bs, d, h, w, _ = a.shape
     out = torch.empty((bs, offs.shape[0], d, h, w), dtype=a.dtype, device=a.device)
     if out.numel():
@@ -178,6 +179,13 @@ def cross_affinity_fwd(a: torch.Tensor, b: torch.Tensor, offsets) -> torch.Tenso
         _launch("cross_affinity_fwd", a.device, a.data_ptr(), sa.ctypes.data, b.data_ptr(),
                 sb.ctypes.data, out.data_ptr(), _DTYPES[a.dtype], *a.shape, offs.ctypes.data,
                 offs.shape[0])
+    return out
+
+
+def cross_affinity_fwd(a: torch.Tensor, b: torch.Tensor, offsets) -> torch.Tensor:
+    """K6f: (B, K, D, H, W) <n_a(p), n_b(p + offsets[k])> of CUDA views."""
+    out = _cross_fwd(a, b, _check([a, b], offsets))
+    if out.numel():
         cross_affinity_fwd.launches += 1
     return out
 
@@ -257,12 +265,6 @@ class _CrossAffinity3D(torch.autograd.Function):
         da, db = cross_affinity_bwd(a, b, g, offsets_3d(ctx.shifts),
                                     need_db=ctx.needs_input_grad[1])
         return (da if ctx.needs_input_grad[0] else None), db, None
-
-
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type == "cpu"
 
 
 def _shifts(shifts) -> tuple:

@@ -18,10 +18,16 @@ The formulas are the JAX package's ``ops/losses.py``, quirks included:
 ``fuse_loss`` (with ``use_pallas`` and the WeightedMSE criterion) folds the
 criterion into the loss-fused kernels (:mod:`.emb2aff_wmse_cuda`): their
 forward gives the per-offset sums, their backward forms the loss cotangent
-in registers. ``use_pallas=False`` is the plain path, differentiated by
-autograd. Embeddings are (B, H, W, C) or (B, D, H, W, C) views; targets,
-weights and masks (B, K, H, W) or (B, K, D, H, W). With ``use_pallas`` the
-norm5 affinities come from the 3D kernels (:mod:`.emb2aff3d_cuda`).
+in registers. Unfused, ``use_pallas`` takes the 2D affinities from the
+affinity kernels (:mod:`.emb2aff_cuda`: K1 self, K4 cross) and applies the
+criterion to them. ``use_pallas=False`` is the plain path, differentiated
+by autograd. Embeddings are (B, H, W, C) or (B, D, H, W, C) views;
+targets, weights and masks (B, K, H, W) or (B, K, D, H, W). With
+``use_pallas`` the norm5 affinities come from the 3D kernels
+(:mod:`.emb2aff3d_cuda`).
+
+``mask_head_loss`` is the BBBC mask head's class-weighted cross entropy,
+with the reference's class-weight order (see its docstring).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 from .emb2aff import (cross_affinity_2d, cross_affinity_3d, embedding_to_affinity_2d,
                       embedding_to_affinity_3d, normalize_embedding, offset_affinity_3d)
 from .emb2aff3d_cuda import fused_affinity_3d, fused_cross_affinity_3d
-from .emb2aff_cuda import fused_affinity_2d
+from .emb2aff_cuda import fused_affinity_2d, fused_cross_affinity_2d
 from .offsets import SHIFTS_3D, offsets_3d
 from .emb2aff_wmse_cuda import fused_affinity_wmse_2d, fused_cross_affinity_wmse_2d
 
@@ -50,8 +56,40 @@ def mse(pred, target, weight=None):
     return torch.mean((pred - target) ** 2)
 
 
-# the BCE criteria wait for the BBBC slice
-CRITERIA = {"WeightedMSELoss": weighted_mse, "MSELoss": mse}
+def _bce(pred, target, eps=1e-12):
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+
+
+def bce(pred, target, weight=None):
+    return torch.mean(_bce(pred, target))
+
+
+def weighted_bce(pred, target, weight=None):
+    b = _bce(pred, target)
+    if weight is not None:
+        b = weight * b
+    return torch.mean(b)
+
+
+CRITERIA = {"WeightedMSELoss": weighted_mse, "WeightedBCELoss": weighted_bce,
+            "MSELoss": mse, "BCELoss": bce}
+
+
+def mask_head_loss(logits_bhwc, target_mask_bhw):
+    """Class-weighted cross entropy of the binary mask head: logits
+    (B, H, W, 2), target (B, H, W) foreground mask.
+
+    The reference weights class 0 by count(target == 1) and class 1 by
+    count(target == 0), the pixel counts in that order, and, as torch's
+    CrossEntropyLoss with class weights, divides by the sum of the
+    samples' weights."""
+    t = target_mask_bhw.long()
+    n_fg = torch.sum(t == 1).to(logits_bhwc.dtype)
+    n_bg = torch.sum(t == 0).to(logits_bhwc.dtype)
+    w = torch.stack([n_fg, n_bg])[t]
+    pick = torch.gather(torch.log_softmax(logits_bhwc, dim=-1), -1, t[..., None])[..., 0]
+    return -torch.sum(w * pick) / torch.clamp(torch.sum(w), min=1e-12)
 
 
 def _fused(criterion, use_pallas: bool, fuse_loss: bool) -> bool:
@@ -100,13 +138,10 @@ def ema_embedding_loss_2d(embedding_bhwc, ema_embedding_bhwc, target_bkhw,
         coeff = torch.ones_like(s)
         coeff[:2] = affs0_weight
         return torch.sum(s * coeff) / (b * w), affs
-    if use_pallas and embedding_bhwc.device.type == "cuda":
-        raise NotImplementedError(
-            "the 2D cross-affinity kernel K4f "
-            "(emb2aff_pallas.py::fused_cross_affinity_2d) is not ported; "
-            "use fuse_loss=True or use_pallas=False")
-    # on the CPU the plain function stands in for K4f, as for every kernel
-    affs = cross_affinity_2d(embedding_bhwc, ema_embedding_bhwc, offsets)
+    if use_pallas:
+        affs = fused_cross_affinity_2d(embedding_bhwc, ema_embedding_bhwc, offsets)
+    else:
+        affs = cross_affinity_2d(embedding_bhwc, ema_embedding_bhwc, offsets)
     mask = mask_bkhw.to(affs.dtype)
     loss = 0.0
     for i in range(len(offsets)):

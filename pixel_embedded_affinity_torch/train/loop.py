@@ -1,13 +1,18 @@
 """Training loop: data -> train step -> validation -> checkpoints.
 
-The port of the JAX package's ``train/loop.py`` for the ``cvppp`` (2D) and
-``ac3ac4`` (3D) presets: host sample workers feed batches (copied to the
-card from pinned memory), each step runs :class:`.train_step.TrainStep2D`
-or :class:`.train_step.TrainStep3D`, every ``valid_freq`` steps the
-validation data is decoded and scored, and every ``save_freq`` steps and
-at the end a checkpoint is written. 2D validation decodes each image (K1f
-affinities, mutex watershed, small-object merging, relabelling) and scores
-SBD/DiC/VOI/ARAND; 3D validation serves the validation volume tiled (K5f
+The port of the JAX package's ``train/loop.py`` for the ``cvppp`` and
+``bbbc039v1`` (2D) and ``ac3ac4`` (3D) presets: host sample workers feed
+batches (copied to the card from pinned memory), or, with
+``data.device_resident`` (bbbc039v1), the training set lives on the device
+and each step's batch is cropped and augmented there
+(:mod:`..data.device_data`); each step runs
+:class:`.train_step.TrainStep2D` or :class:`.train_step.TrainStep3D`, every
+``valid_freq`` steps the validation data is decoded and scored, and every
+``save_freq`` steps and at the end a checkpoint is written. 2D validation
+decodes each image (K1f affinities, mutex watershed seeded by the labels'
+foreground or, with ``train.mask_weight``, by the predicted mask,
+small-object merging, relabelling) and scores SBD/DiC/VOI/ARAND, and with
+the mask AJI/F1/PQ; 3D validation serves the validation volume tiled (K5f
 affinities) through ``train.valid_decoders`` and scores VOI/ARAND and the
 affinities' MSE and BCE against the label's. Losses
 stay on the device until a display, validation or save point fetches them
@@ -16,12 +21,16 @@ in one copy; the watchdog then checks each one. Scalars go to
 
 Data comes through ``data_override=(train_dataset, valid)``, the JAX
 loop's own hook: ``train_dataset.sample(rng)`` gives ``{"image": (H, W, 3)
-ImageNet-normalised float32, "seg": (H, W) int}`` (2D) or ``{"image": (D,
-H, W, 1) float32 in [0, 1], "seg": (D, H, W) int}`` (3D); ``valid`` is a
-list (or indexable) of such 2D samples, or a volume with ``raw`` (D, H, W)
-float32 in [0, 1] and ``label`` (D, H, W) int (:class:`..data.AC3AC4ValidVolume`).
-The disk samplers (CVPPP, AC3/AC4) and the device-resident sampler are not
-ported yet.
+float32, ImageNet-normalised for cvppp and in [0, 1] for bbbc039v1, "seg":
+(H, W) int}`` (2D) or ``{"image": (D, H, W, 1) float32 in [0, 1], "seg":
+(D, H, W) int}`` (3D); ``valid`` is a list (or indexable) of such 2D
+samples, or a volume with ``raw`` (D, H, W) float32 in [0, 1] and
+``label`` (D, H, W) int (:class:`..data.AC3AC4ValidVolume`). With
+``data.device_resident`` the first item is the padded training set,
+``(images (N, Hp, Wp) float32, labels int32)`` as
+:func:`..data.device_data.pad_bbbc_arrays` gives it; without
+``data_override`` that run reads the BBBC folder (cv2). The disk samplers
+(CVPPP, AC3/AC4, BBBC's host chain) are not ported.
 """
 
 from __future__ import annotations
@@ -37,18 +46,20 @@ import torch
 from ..config import Config, resolve_compute_dtype
 from ..data.provider import Provider, to_device
 from ..device import resolve_device
-from ..metrics import abs_diff_fg_labels, adapted_rand_error, symmetric_best_dice, voi
+from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
+                       pixel_f1, remap_label, symmetric_best_dice, voi)
 from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
 from ..ops import multi_offset, relabel
-from ..ops.losses import CRITERIA
+from ..ops.losses import CRITERIA, mask_head_loss
 from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
-from ..postproc import merge_func, seg_mutex
+from ..postproc import merge_func, remove_small_object, seg_mutex
 from ..utils.guards import LossWatchdog
 from .checkpoint import latest_checkpoint, load_checkpoint, restore, save_checkpoint
 from .optim import AMSGrad
 from .train_step import TrainState, TrainStep2D, TrainStep3D, make_eval_step_2d
 
 ARCHS_3D = ("unet_pni_deep",)
+DATASETS = ("cvppp", "bbbc039v1", "ac3ac4")
 
 log = logging.getLogger("pea")
 
@@ -64,14 +75,15 @@ def check_train_config(cfg: Config):
         not_ported.append(f"train.lr_mode={cfg.train.lr_mode!r} (fixed only)")
     if cfg.train.loss_func not in CRITERIA:
         not_ported.append(f"train.loss_func={cfg.train.loss_func!r}")
-    if cfg.train.mask_weight:
-        not_ported.append("train.mask_weight (the mask-head loss)")
+    if cfg.data.dataset not in DATASETS:
+        not_ported.append(f"data.dataset={cfg.data.dataset!r}")
     if not (cfg.data.device_gt and cfg.data.device_ema):
         not_ported.append("host-built targets or EMA views (data.device_gt/device_ema)")
     if cfg.data.if_ema_noise or cfg.data.if_ema_blur:
         not_ported.append("the EMA view's noise/blur (data.if_ema_noise/if_ema_blur)")
-    if cfg.data.device_resident:
-        not_ported.append("the device-resident sampler (data.device_resident)")
+    if cfg.data.device_resident and cfg.data.dataset != "bbbc039v1":
+        not_ported.append(f"the {cfg.data.dataset} device-resident sampler "
+                          "(data.device_resident)")
     if not_ported:
         raise NotImplementedError("not ported: " + "; ".join(not_ported))
 
@@ -95,33 +107,49 @@ def init_state(cfg: Config, device) -> TrainState:
 
 def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offsets,
                 device) -> dict:
-    """Decode and score the validation set; targets are built on the device."""
+    """Decode and score the validation set; targets are built on the
+    device. With ``train.mask_weight`` (BBBC), as the JAX loop: the loss
+    adds the mask head's, the decode is seeded by argmax(softmax(mask
+    logits)) > 0 with components under 25 pixels dropped, the small-object
+    merging takes the bbbc schedule, and AJI/F1/PQ are scored on
+    ``remap_label``-ed labels, 0.0 when either is empty."""
     dev = torch.device(device)
-    losses, dices, diffs, vois, arands = [], [], [], [], []
+    bbbc = bool(cfg.train.mask_weight)
+    scores: dict = {}
     for i in range(len(valid_dataset)):
         s = valid_dataset[i]
         seg_t = torch.from_numpy(np.asarray(s["seg"], np.int64)[None]).to(dev)
         affs, mask = gen_affs(seg_t, offsets)
         batch = {"image": torch.from_numpy(np.ascontiguousarray(s["image"][None])).to(dev),
                  "affs": affs, "wmap": weight_binary_ratio(affs), "mask": mask}
-        loss, pred, _, _ = eval_step(state.model, batch)
+        loss, pred, _, pred_mask = eval_step(state.model, batch)
+        loss = float(loss)
         out_affs = pred[0].cpu().numpy()
         gt = np.asarray(s["seg"]).astype(np.uint16)
-        fg = (gt > 0).astype(np.uint8)
+        if bbbc:
+            loss += cfg.train.mask_weight * float(mask_head_loss(pred_mask, seg_t > 0))
+            prob = torch.softmax(pred_mask[0], dim=-1).cpu().numpy()
+            fg = remove_small_object((np.argmax(prob, axis=-1) > 0).astype(np.uint8),
+                                     min_size=25)
+        else:
+            fg = (gt > 0).astype(np.uint8)
         seg = seg_mutex(out_affs, offsets=offsets, strides=list(cfg.data.strides),
                         mask=fg).astype(np.uint16)
-        seg = relabel(merge_func(seg)).astype(np.uint16)
-        losses.append(float(loss))
-        dices.append(symmetric_best_dice(seg, gt))
-        diffs.append(abs_diff_fg_labels(seg, gt))
+        seg = merge_func(seg, variant="bbbc" if bbbc else "cvppp")
+        seg = relabel(seg).astype(np.uint16)
         vs, vm = voi(gt, seg)
-        vois.append(vs + vm)
-        arands.append(adapted_rand_error(gt, seg)[0])
-    return {"valid/loss": float(np.mean(losses)),
-            "valid/SBD": float(np.mean(dices)),
-            "valid/DiC": float(np.mean(diffs)),
-            "valid/VOI": float(np.mean(vois)),
-            "valid/ARAND": float(np.mean(arands))}
+        m = {"loss": loss, "SBD": symmetric_best_dice(seg, gt),
+             "DiC": abs_diff_fg_labels(seg, gt), "VOI": vs + vm,
+             "ARAND": adapted_rand_error(gt, seg)[0]}
+        if bbbc:
+            gtr, pr = remap_label(gt.astype(np.int64)), remap_label(seg.astype(np.int64))
+            empty = pr.max() == 0 or gtr.max() == 0
+            m["AJI"] = 0.0 if empty else agg_jc_index(gtr, pr)
+            m["F1"] = 0.0 if empty else pixel_f1(gtr, pr)
+            m["PQ"] = 0.0 if empty else get_fast_pq(gtr, pr)[0][2]
+        for k, v in m.items():
+            scores.setdefault(k, []).append(float(v))
+    return {f"valid/{k}": float(np.mean(v)) for k, v in scores.items()}
 
 
 def valid_geometry_3d(crop_size) -> tuple:
@@ -184,19 +212,30 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     """Train; returns (state, history of validation results).
 
     ``device``: CUDA unless "cpu" is asked for. ``timing``, when given,
-    receives per-step host seconds, ``data_s`` (batch wait and device copy)
-    and ``step_s`` (the step, synchronised after it: timing costs the
+    receives per-step host seconds, ``data_s`` (batch wait and device copy,
+    or the device sampler's launches) and ``step_s`` (the step, synchronised after it: timing costs the
     overlap of one step's host work with the previous step's kernels), and
     ``valid_s``, the seconds of each validation.
     """
     check_train_config(cfg)
     is_3d = cfg.model.arch in ARCHS_3D
-    if data_override is None:
+    device_resident = cfg.data.device_resident
+    if data_override is not None:
+        train_ds, valid_ds = data_override
+    elif device_resident:
+        from ..data.bbbc import BBBCValidation
+        from ..data.device_data import load_bbbc_arrays
+
+        train_ds = load_bbbc_arrays(cfg.data.data_folder, cfg.data.bbbc_padding)
+        valid_ds = BBBCValidation(cfg.data.data_folder, shifts=tuple(cfg.data.shifts),
+                                  neighbor=cfg.data.neighbor)
+    else:
+        name = {"ac3ac4": "AC3/AC4 (h5py, cv2)", "cvppp": "CVPPP (cv2)"}.get(
+            cfg.data.dataset, f"{cfg.data.dataset} host (cv2)")
         raise NotImplementedError(
-            f"the {'AC3/AC4 (h5py, cv2)' if is_3d else 'CVPPP (cv2)'} disk sampler is not "
-            "ported; pass data_override=(train_dataset, valid)")
+            f"the {name} disk sampler is not ported; pass "
+            "data_override=(train_dataset, valid)")
     dev = resolve_device(device)
-    train_ds, valid_ds = data_override
     total_iters = max_iters or cfg.train.total_iters
     state = init_state(cfg, dev)
     save_path = os.path.join(cfg.save_path, cfg.name)
@@ -223,17 +262,33 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
             offsets, neighbor=cfg.data.neighbor, criterion=criterion,
             affs0_weight=cfg.train.affs0_weight, deep_weight=cfg.train.deep_weight,
             self_emb=cfg.train.self_emb, cross_emb=cfg.train.cross_emb,
-            ct_weight=cfg.train.ct_weight, use_pallas=cfg.train.use_pallas,
-            fuse_loss=cfg.train.fuse_loss, device_ema=True, ema_noise=cfg.data.if_ema_noise,
-            ema_blur=cfg.data.if_ema_blur, **ema_flags)
+            mask_weight=cfg.train.mask_weight, ct_weight=cfg.train.ct_weight,
+            use_pallas=cfg.train.use_pallas, fuse_loss=cfg.train.fuse_loss,
+            imagenet_norm=cfg.data.dataset == "cvppp", device_ema=True,
+            ema_noise=cfg.data.if_ema_noise, ema_blur=cfg.data.if_ema_blur, **ema_flags)
         eval_step = make_eval_step_2d(offsets, criterion=criterion,
                                       use_pallas=cfg.train.use_pallas)
 
         def validate():
             return validate_2d(cfg, eval_step, state, valid_ds, offsets, dev)
 
-    provider = Provider(train_ds, batch_size=cfg.train.batch_size,
-                        num_workers=cfg.train.num_workers, seed=cfg.train.random_seed)
+    if device_resident:
+        from ..data.device_data import sample_bbbc_batch, sampler_generator
+
+        images, labels = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in train_ds)
+        provider = None
+
+        def next_batch(step: int) -> dict:
+            return sample_bbbc_batch(images, labels,
+                                     sampler_generator(cfg.train.random_seed, step),
+                                     cfg.train.batch_size, size=cfg.data.size,
+                                     padding=cfg.data.bbbc_padding)
+    else:
+        provider = Provider(train_ds, batch_size=cfg.train.batch_size,
+                            num_workers=cfg.train.num_workers, seed=cfg.train.random_seed)
+
+        def next_batch(step: int) -> dict:
+            return to_device(provider.next(), dev)
     logger = ScalarLogger(log_dir or os.path.join(save_path, "log"))
     watchdog = LossWatchdog(save_dir=save_path)
     history: list = []
@@ -257,7 +312,7 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     try:
         while it < total_iters:
             t0 = time.perf_counter()
-            batch = to_device(provider.next(), dev)
+            batch = next_batch(it)
             t1 = time.perf_counter()
             _, metrics = step_fn(state, batch)
             it += 1
@@ -289,6 +344,7 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
                 save_checkpoint(save_path, state, it)
         drain()
     finally:
-        provider.close()
+        if provider is not None:
+            provider.close()
         logger.close()
     return state, history

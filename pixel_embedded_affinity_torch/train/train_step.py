@@ -1,4 +1,4 @@
-"""The train steps, 2D (CVPPP) and 3D (AC3/AC4), and the 2D eval step.
+"""The train steps, 2D (CVPPP, BBBC039) and 3D (AC3/AC4), and the 2D eval step.
 
 One train step, as the JAX package's ``make_train_step_2d``:
 targets built on the device from the labels; the EMA view drawn on the
@@ -8,7 +8,8 @@ teacher), so the BatchNorm running statistics update twice, in that order,
 as the JAX step chains them; the teacher's embedding un-flipped; deep
 supervision of e4, e3, e2, e1 (1/2 .. 1/16 scale) against the pyramid
 levels 1..4 with ``neighbor // 2 * (4 - k)`` offsets; the full-scale self
-loss and the cross-view loss; backward; AMSGrad. Every convolution, the
+loss and the cross-view loss; with ``mask_weight`` (BBBC) the mask head's
+loss against the foreground; backward; AMSGrad. Every convolution, the
 backward ones too, runs in float32 with TF32 off. The model is NCHW; the
 losses take its outputs as ``permute(0, 2, 3, 1)`` views with no copy.
 
@@ -39,7 +40,7 @@ from ..data.consistency import IMAGENET_MEAN, IMAGENET_STD, convert_consistency_
 from ..data.device_aug import ema_generator, ema_view_2d, ema_view_3d
 from ..device import float32_convs
 from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
-                          embedding_loss_norm5, weighted_mse)
+                          embedding_loss_norm5, mask_head_loss, weighted_mse)
 from ..ops.targets import build_targets_2d, build_targets_3d
 
 
@@ -69,22 +70,25 @@ def _bhwc(x_nchw: torch.Tensor) -> torch.Tensor:
 class TrainStep2D:
     """``step(state, batch) -> (pred, metrics)`` updates ``state`` in place.
 
-    ``batch``: tensors on one device, ``image`` (B, H, W, 3) ImageNet-
-    normalised (the cvppp pipeline's), ``seg`` (B, H, W) integer labels,
-    and, when ``device_ema`` is False, ``ema_image`` and ``rules`` (B, 3).
-    ``pred`` is relu of the full-scale affinities (monitoring); ``metrics``
-    holds 0-d tensors (loss, loss_embedding, loss_cross[, loss_ct]).
+    ``batch``: tensors on one device, ``image`` (B, H, W, 3), ImageNet-
+    normalised with ``imagenet_norm`` (the cvppp pipeline's) or in [0, 1]
+    without (BBBC's), ``seg`` (B, H, W) integer labels, and, when
+    ``device_ema`` is False, ``ema_image`` and ``rules`` (B, 3). ``pred``
+    is relu of the full-scale affinities (monitoring); ``metrics`` holds 0-d
+    tensors (loss, loss_embedding, loss_cross[, loss_mask][, loss_ct]).
 
     ``use_pallas=False`` is the plain path. With ``use_pallas`` the
     WeightedMSE loss goes through the loss-fused kernels K2/K3
-    (``fuse_loss=True``); the unfused kernel path needs K4f and raises on
-    CUDA.
+    (``fuse_loss=True``); unfused (``fuse_loss=False``, or another
+    criterion) the affinities come from K1 and K4, forward and backward,
+    and the criterion is applied to them. ``mask_weight`` adds
+    ``mask_weight * mask_head_loss`` of the mask head against ``seg > 0``.
     """
 
     def __init__(self, offsets, *, neighbor: int = 4, criterion=weighted_mse,
                  affs0_weight: float = 1.0, deep_weight=1, self_emb: float = 1.0,
-                 cross_emb: float = 1.0, ct_weight: float = 0.0,
-                 use_pallas: bool = True, fuse_loss: bool = True,
+                 cross_emb: float = 1.0, mask_weight: float = 0.0, ct_weight: float = 0.0,
+                 use_pallas: bool = True, fuse_loss: bool = True, imagenet_norm: bool = True,
                  device_ema: bool = True, ema_seed: int = 0,
                  ema_noise: bool = False, ema_blur: bool = False,
                  ema_intensity: bool = True, ema_mask: bool = True,
@@ -94,8 +98,10 @@ class TrainStep2D:
         self.criterion = criterion
         self.affs0_weight = affs0_weight
         self.dwf = deep_weight_factors(deep_weight)
-        self.self_emb, self.cross_emb, self.ct_weight = self_emb, cross_emb, ct_weight
+        self.self_emb, self.cross_emb = self_emb, cross_emb
+        self.mask_weight, self.ct_weight = mask_weight, ct_weight
         self.use_pallas, self.fuse_loss = use_pallas, fuse_loss
+        self.imagenet_norm = imagenet_norm
         self.device_ema, self.ema_seed = device_ema, ema_seed
         self.ema_flags = dict(noise=ema_noise, blur=ema_blur, intensity=ema_intensity,
                               mask=ema_mask, flip=ema_flip)
@@ -112,9 +118,13 @@ class TrainStep2D:
 
     def ema_batch(self, batch: dict, step: int) -> dict:
         """``batch`` with the EMA view and its rules drawn for ``step``: the
-        view is drawn from the un-normalised image and normalised again."""
+        view is drawn from the [0, 1] image, so with ``imagenet_norm`` from
+        the de-normalised one, normalised again after."""
         img = batch["image"]
         gen = ema_generator(self.ema_seed, step, img.device)
+        if not self.imagenet_norm:
+            ema, rules = ema_view_2d(img, batch["seg"] > 0, gen, **self.ema_flags)
+            return dict(batch, ema_image=ema, rules=rules)
         mean, std = self._imagenet(img)
         ema, rules = ema_view_2d(img * std + mean, batch["seg"] > 0, gen, **self.ema_flags)
         return dict(batch, ema_image=(ema - mean) / std, rules=rules)
@@ -122,13 +132,6 @@ class TrainStep2D:
     def loss(self, model, batch: dict):
         """(loss, pred, metrics) of a batch that carries ``ema_image`` and
         ``rules``, with the autograd graph; run it under float32_convs."""
-        fused = self.fuse_loss and self.use_pallas and self.criterion is weighted_mse
-        if self.use_pallas and not fused and batch["image"].device.type == "cuda":
-            raise NotImplementedError(
-                "the unfused kernel path (fuse_loss=False or a criterion other "
-                "than WeightedMSE) needs the 2D cross-affinity kernel K4f "
-                "(emb2aff_pallas.py:340), which is not ported; use "
-                "fuse_loss=True or use_pallas=False")
         offsets, nb_half = self.offsets, self.neighbor // 2
         kw = dict(criterion=self.criterion, use_pallas=self.use_pallas,
                   fuse_loss=self.fuse_loss)
@@ -157,6 +160,10 @@ class TrainStep2D:
         loss = loss_self * self.self_emb + loss_cross_total
         metrics = {"loss_embedding": (loss_self * self.self_emb).detach(),
                    "loss_cross": loss_cross_total.detach()}
+        if self.mask_weight:
+            lm = mask_head_loss(_bhwc(outs[5]), batch["seg"] > 0)
+            loss = loss + self.mask_weight * lm
+            metrics["loss_mask"] = lm.detach()
         if self.ct_weight:
             lc = torch.mean((embedding - ema) ** 2)
             loss = loss + self.ct_weight * lc
@@ -271,9 +278,10 @@ class TrainStep3D:
 
 
 def make_eval_step_2d(offsets, *, criterion=weighted_mse, use_pallas: bool = True):
-    """``eval_step(model, batch) -> (loss, pred, embedding, mask_logits)`` in
-    eval mode; ``batch`` carries image (B, H, W, 3), affs, wmap, mask. With
-    ``use_pallas`` the affinities come from K1f."""
+    """``eval_step(model, batch) -> (loss, pred, embedding, pred_mask)`` in
+    eval mode; ``batch`` carries image (B, H, W, 3), affs, wmap, mask;
+    ``embedding`` and the mask logits ``pred_mask`` are (B, H, W, C) views.
+    With ``use_pallas`` the affinities come from K1f."""
     offsets = [tuple(map(int, o)) for o in offsets]
 
     @torch.no_grad()
@@ -285,6 +293,6 @@ def make_eval_step_2d(offsets, *, criterion=weighted_mse, use_pallas: bool = Tru
         loss, pred = embedding_loss_2d(embedding, batch["affs"], batch["wmap"],
                                        batch["mask"], offsets, criterion=criterion,
                                        use_pallas=use_pallas)
-        return loss, torch.relu(pred), embedding, outs[5]
+        return loss, torch.relu(pred), embedding, _bhwc(outs[5])
 
     return eval_step

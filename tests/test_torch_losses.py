@@ -139,7 +139,7 @@ def test_weighted_mse_keeps_the_bw_normaliser():
     got = float(L.weighted_mse(T(p), T(t), T(w)))
     np.testing.assert_allclose(got, float(JL.weighted_mse(p, t, w)), rtol=1e-6)
     np.testing.assert_allclose(got, float(np.sum(w * (p - t) ** 2) / (2 * 13)), rtol=1e-6)
-    assert set(L.CRITERIA) == {"WeightedMSELoss", "MSELoss"}
+    assert set(L.CRITERIA) == {"WeightedMSELoss", "WeightedBCELoss", "MSELoss", "BCELoss"}
 
 
 @pytest.fixture(scope="module")

@@ -118,8 +118,9 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
 
 def test_port_imports_without_jax():
     """The port, its serving paths (2D and 3D) and its training paths (2D
-    and 3D) import with jax, flax, optax, the JAX package and the
-    lazily-imported optional modules all blocked."""
+    and 3D, the BBBC device sampler too) import with jax, flax, optax, the
+    JAX package and the lazily-imported optional modules all blocked, and
+    the synthetic nuclei need none of them."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'pixel_embedded_affinity_tpu',\n"
@@ -151,6 +152,13 @@ def test_port_imports_without_jax():
         "import pixel_embedded_affinity_torch.postproc.watershed\n"
         "import pixel_embedded_affinity_torch.postproc.agglomerate\n"
         "import pixel_embedded_affinity_torch.postproc.multicut\n"
+        "import pixel_embedded_affinity_torch.data.bbbc\n"
+        "import pixel_embedded_affinity_torch.data.device_data\n"
+        "import pixel_embedded_affinity_torch.data.device_warp\n"
+        "import pixel_embedded_affinity_torch.metrics.bbbc\n"
+        "from pixel_embedded_affinity_torch.ops import fused_cross_affinity_2d\n"
+        "from pixel_embedded_affinity_torch.data import synthesize_nuclei\n"
+        "synthesize_nuclei(1, 40, 48)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

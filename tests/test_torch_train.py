@@ -294,8 +294,8 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
 @pytest.mark.parametrize("override", [
     {"train": {"lr_mode": "poly"}},
     {"model": {"dtype": "bfloat16"}},
-    {"train": {"mask_weight": 1000.0}},
-    {"train": {"loss_func": "WeightedBCELoss"}},
+    {"data": {"if_ema_noise": True}},
+    {"model": {"arch": "resnet50_embedding"}},
     {"data": {"device_gt": False}},
     {"data": {"if_ema_blur": True}},
     {"data": {"device_resident": True}},
