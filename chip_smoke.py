@@ -72,8 +72,25 @@ Phases, each of which exits nonzero when it fails:
      the mask head's bias moved so the nuclei's share is foreground, at
      batch 1, 4 and the server's default; one image's served affinities and
      mask logits against a float64 run;
- 14. one JSON line listing each kernel: launches, error, times, bound;
- 15. the last line: {"ok": true, "device": {...}}.
+ 14. K7, K9a and K9b (one conv kernel, csrc/conv3x3.cu, through three
+     wrappers) against their plain versions at the fast forward's
+     direct-stage convs, an odd shape and 3 -> 16, float32 and bfloat16;
+     K9b chains of 2-4 C -> C convs on a 272x272 image, the canvas exactly
+     0 outside the image after every step; times with L2 flushed beside
+     cuDNN's conv and the bound;
+ 15. K8 (csrc/s2d_block.cu) against its plain version at the cvppp model's
+     five s2d blocks (the split up3 and up4 included) and two odd shapes,
+     float32 and bfloat16; each block's time beside cuDNN's
+     direct-resolution form of the same folded block and the bound;
+ 16. the fast forward: the folded-BatchNorm forward of the full-width cvppp
+     model with non-trivial BatchNorm statistics, in the default forms, all
+     "pallas" (5 K8 launches a forward), with the s2d input and the
+     full-resolution head, against the dense module and float64; the device
+     time of the dense module, the default forms and all "pallas" at B=1
+     and B=4 with a profile split; run_inference_2d through the fast
+     forward at B=1 and B=4 against the dense run's metrics;
+ 17. one JSON line listing each kernel: launches, error, times, bound;
+ 18. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -164,6 +181,35 @@ GRAD_REPLACES = {"K5b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:255",
 GRAD_NAMES = {"K5b": "affinity_bwd", "K6f": "cross_affinity_fwd", "K6b": "cross_affinity_bwd"}
 # K4f: the cross forward of GRAD_SOURCE at D = 1
 K4F_REPLACES = "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:340"
+# K7, K9a and K9b: one conv kernel, three wrappers; K8: the s2d residual block
+CONV_SOURCE = "pixel_embedded_affinity_torch/csrc/conv3x3.cu"
+CONV_REPLACES = {"K7": "pixel_embedded_affinity_tpu/ops/conv3x3_pallas.py:106",
+                 "K9a": "pixel_embedded_affinity_tpu/ops/conv3x3_blocked.py:178",
+                 "K9b": "pixel_embedded_affinity_tpu/ops/conv3x3_blocked.py:309"}
+CONV_NAMES = {"K7": "conv3x3_fused", "K9a": "conv3x3_blocked", "K9b": "conv3x3_blocked_flat"}
+K8_SOURCE = "pixel_embedded_affinity_torch/csrc/s2d_block.cu"
+K8_REPLACES = "pixel_embedded_affinity_tpu/ops/s2d_block_pallas.py:210"
+# the conv kernels against their plain versions, relative to the largest
+# output: float32 sums of up to 9 x 768 products in another order; bfloat16
+# outputs (and K8's bfloat16 y1) rounded to 2^-8
+CONV_F32_RTOL = 1e-5
+CONV_BF16_RTOL = 8e-3
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+# K7/K9a at the fast forward's direct-stage convs (B=1; conv1 and project
+# fused on Cout) and a few more: (B, H, W, Cin, Cout, relu)
+K7_SHAPES = [(1, 136, 136, 64, 256, False), (1, 136, 136, 128, 128, True),
+             (1, 68, 68, 128, 512, False), (1, 68, 68, 256, 256, True),
+             (1, 68, 68, 256, 512, False), (1, 136, 136, 384, 256, False),
+             (2, 37, 53, 48, 40, True), (1, 544, 544, 3, 16, True)]
+# K9b chains on a 272x272 canvas image (the s2d stage's size): (C, k)
+K9B_CHAINS = [(16, 4), (32, 3), (64, 2), (128, 3)]
+# K8 at the cvppp model's five s2d stages, 544x544, B=1: (stage, B, s2d H,
+# s2d W, direct input channels of each part, c1 = cp = c2), and two odd
+# shapes with tile remainders (the kernel's tile is 6 x 14)
+K8_STAGES = [("inconv", 1, 272, 272, (3,), 16), ("down1", 1, 272, 272, (16,), 32),
+             ("down2", 1, 136, 136, (32,), 64), ("up3", 1, 136, 136, (128, 64), 64),
+             ("up4", 1, 272, 272, (64, 32), 32)]
+K8_ODD = [("odd split", 2, 37, 53, (8, 8), 16), ("odd", 1, 41, 29, (24,), 32)]
 # BBBC039: the training set, 8 synthetic images at the dataset's 520x696;
 # validation and serving at the same geometry
 BBBC_SHAPE = (520, 696)
@@ -266,11 +312,11 @@ def synthetic_leaves(n: int, h: int, w: int, seed: int):
 def phase_build() -> float:
     from pixel_embedded_affinity_torch import cuda_build
     from pixel_embedded_affinity_torch.ops import (
-        emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda)
+        conv3x3_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda, s2d_block_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
     sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE,
-               emb2aff3d_cuda.GRAD_SOURCE]
+               emb2aff3d_cuda.GRAD_SOURCE, conv3x3_cuda.SOURCE, s2d_block_cuda.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -515,11 +561,13 @@ def served_precision(cfg, sd, model, x, offsets):
 
 
 def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
-                     unit: str = "img", ours: tuple = ()):
+                     unit: str = "img", ours: tuple = (), split: tuple = ()):
     """Device time of fn() by kernel (torch.profiler), per image (or per
     ``unit``, ``images`` of them per call), and the device's idle share of
     the host-clock wall time of the same calls; also the rows whose kernel
-    name holds one of ``ours``."""
+    name holds one of ``ours``, and with ``split`` ((group, name parts),
+    ...) the time by group: a kernel goes to the first group one of whose
+    parts its lower-cased name holds, else to "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -551,6 +599,15 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
           f"kernels a {unit}; top kernels:")
     for ms, calls, name in rows[:12]:
         print(f"[profile]   {ms:.4f} ms/{unit}  {ms / busy:6.1%}  x{calls}  {name[:110]}")
+    if split:
+        groups: dict = {}
+        for ms, calls, name in rows:
+            key = next((g for g, parts in split if any(p in name.lower() for p in parts)), "other")
+            t, n = groups.get(key, (0.0, 0))
+            groups[key] = (t + ms, n + calls)
+        print(f"[profile] {label} by group: " + "; ".join(
+            f"{g} {t:.4f} ms/{unit} {t / busy:.1%} x{n / images:.0f}"
+            for g, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     mine = [r for r in rows if any(o in r[2] for o in ours)]
     if mine:
         tot = sum(r[0] for r in mine)
@@ -1763,6 +1820,423 @@ def decode_labels_canvas(label: np.ndarray):
         check(np.isfinite(vs + vm + are), f"{dec} metrics on the labels canvas")
 
 
+def rel_err(got, ref) -> float:
+    """max |got - ref| relative to max |ref|."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def conv_bound(n_px: int, cin: int, cout: int, taps: int, itemsize: int, n_ops_px=None):
+    """Least time of a conv that reads n_px input pixels and writes n_px
+    output pixels, n_ops_px of them (n_px by default) with taps x Cin x Cout
+    multiply-adds each, the rest plain zeros: its input, weights and output
+    each moved once over HBM, vs 2 flops a multiply-add at the float32 rate
+    (bfloat16: the tensor cores' rate)."""
+    n_ops = n_px if n_ops_px is None else n_ops_px
+    nbytes = (n_px * (cin + cout) + taps * cin * cout) * itemsize + 8 * cout
+    rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * taps * cin * cout * n_ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_conv(x, w, scale, shift, relu: bool):
+    """cuDNN's F.conv2d of the NHWC x as a channels-last NCHW view, the scale
+    folded into the weights and the shift as its bias, TF32 off, then an
+    in-place ReLU: one PyTorch call for K7's function."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+
+    xc = x.permute(0, 3, 1, 2)
+    wf = (w * scale).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def run():
+        with float32_convs():
+            y = F.conv2d(xc, wf, shift, padding=1)
+        return y.relu_() if relu else y
+    return run
+
+
+def phase_conv3x3() -> dict:
+    """K7 (conv3x3_fused), K9a (conv3x3_blocked) and K9b (the canvas mode,
+    conv3x3_blocked_chain's steps) against their plain versions: K7 and K9a
+    at the fast forward's direct-stage shapes, an odd shape and 3 -> 16, in
+    float32 and bfloat16; K9b chains of k C -> C convs on a 272x272 image,
+    each step's canvas checked to be exactly 0 outside the image. The
+    launches are those of these calls through the public wrappers (no model
+    path reaches the three, in the JAX package either). Then each kernel's
+    time with L2 flushed beside its plain version's, cuDNN's and the bound."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops.conv3x3_cuda import (
+        blocked_egress, blocked_ingest, conv3x3_blocked, conv3x3_blocked_chain,
+        conv3x3_blocked_flat, conv3x3_canvas_plain, conv3x3_fused, conv3x3_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def weights(cin, cout):
+        return (rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5), 1 + 0.1 * rnd(cout),
+                0.1 * rnd(cout))
+
+    conv3x3_fused.launches = conv3x3_blocked.launches = conv3x3_blocked_flat.launches = 0
+    res = {k: {"max_abs_err": 0.0} for k in CONV_NAMES}
+    for b, h, w, cin, cout, relu in K7_SHAPES:
+        x = rnd(b, h, w, cin)
+        wt, sc, sh = weights(cin, cout)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            xi = x.to(dtype)
+            ref = conv3x3_plain(xi, wt, sc, sh, relu)
+            errs = {}
+            for key, fn in (("K7", conv3x3_fused), ("K9a", conv3x3_blocked)):
+                got = fn(xi, wt, sc, sh, relu)
+                check(got.shape == (b, h, w, cout) and got.dtype == dtype, f"{key} shape/dtype")
+                errs[key] = rel_err(got, ref)
+                check(errs[key] <= (CONV_F32_RTOL if f32 else CONV_BF16_RTOL),
+                      f"{key} {(b, h, w, cin, cout)} {dtype} error {errs[key]}")
+                if f32:
+                    res[key]["max_abs_err"] = max(res[key]["max_abs_err"],
+                                                  (got - ref).abs().max().item())
+            print(f"[conv] K7/K9a B={b} {h}x{w} {cin}->{cout} relu={relu} {str(dtype)[6:]}: "
+                  f"rel error {errs['K7']:.3e}/{errs['K9a']:.3e}")
+    for c, k in K9B_CHAINS:
+        x = rnd(1, 272, 272, c)
+        ws = [weights(c, c) for _ in range(k)]
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            xi = x.to(dtype)
+            ref = xi
+            for wt, sc, sh in ws:
+                ref = conv3x3_plain(ref, wt, sc, sh, True)
+            got = conv3x3_blocked_chain(xi, [p[0] for p in ws], [p[1] for p in ws],
+                                        [p[2] for p in ws], relu=True)
+            err = rel_err(got, ref)
+            # the same chain step by step: the canvas outside the image exactly 0
+            canvas, g = blocked_ingest(xi, k, k)
+            oy = ox = k
+            for wt, sc, sh in ws:
+                canvas = conv3x3_blocked_flat(canvas, wt, g, oy, ox, sc, sh, relu=True)
+                oy, ox = oy - 1, ox - 1
+                outside = canvas.clone()
+                outside[:, oy:oy + g.h, ox:ox + g.w] = 0
+                check(bool((outside == 0).all()), f"K9b canvas not zero outside the image (C={c})")
+            step_err = rel_err(blocked_egress(canvas, g, oy, ox), ref)
+            print(f"[conv] K9b chain C={c} k={k} 272x272 {str(dtype)[6:]}: rel error {err:.3e} "
+                  f"(steps {step_err:.3e}), canvas border exactly 0")
+            tol = CONV_F32_RTOL if f32 else CONV_BF16_RTOL
+            check(err <= tol and step_err <= tol, f"K9b C={c} k={k} {dtype} error {err}")
+            if f32:
+                res["K9b"]["max_abs_err"] = max(res["K9b"]["max_abs_err"],
+                                                 (got - ref).abs().max().item())
+    for key in CONV_NAMES:
+        res[key]["launches"] = getattr(
+            {"K7": conv3x3_fused, "K9a": conv3x3_blocked, "K9b": conv3x3_blocked_flat}[key],
+            "launches")
+    print(f"[conv] launches through the wrappers: "
+          + ", ".join(f"{k} {res[k]['launches']}" for k in CONV_NAMES))
+    check(all(res[k]["launches"] > 0 for k in CONV_NAMES), "a conv wrapper launched nothing")
+
+    flush = 64 << 20  # beyond the 50 MB L2
+    times = []
+    for b, h, w, cin, cout, relu in K7_SHAPES:
+        x = rnd(b, h, w, cin)
+        wt, sc, sh = weights(cin, cout)
+        t = {"shape": [b, h, w, cin, cout],
+             "ms": timed_ms(lambda: conv3x3_fused(x, wt, sc, sh, relu), flush_bytes=flush),
+             "plain_ms": timed_ms(lambda: conv3x3_plain(x, wt, sc, sh, relu), flush_bytes=flush),
+             "library_ms": timed_ms(library_conv(x, wt, sc, sh, relu), flush_bytes=flush),
+             "bf16_ms": timed_ms(lambda: conv3x3_fused(x.bfloat16(), wt, sc, sh, relu),
+                                 flush_bytes=flush)}
+        t["bound_ms"], t["bound_by"] = conv_bound(b * h * w, cin, cout, 9, 4)
+        times.append(t)
+        print(f"[conv] K7 time {json.dumps(t)}")
+    head = times[0]  # 136x136 64 -> 256: down3's conv1 and project
+    for key in ("K7", "K9a"):
+        res[key].update({k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")})
+    b, h, w, cin, cout, relu = K7_SHAPES[0]
+    x = rnd(b, h, w, cin)
+    wt, sc, sh = weights(cin, cout)
+    res["K9a"]["ms"] = timed_ms(lambda: conv3x3_blocked(x, wt, sc, sh, relu), flush_bytes=flush)
+    x = rnd(1, 272, 272, 64)
+    wt, sc, sh = weights(64, 64)
+    canvas, g = blocked_ingest(x, 2, 2)
+    t = {"ms": timed_ms(lambda: conv3x3_blocked_flat(canvas, wt, g, 2, 2, sc, sh, True),
+                        flush_bytes=flush),
+         "plain_ms": timed_ms(lambda: conv3x3_canvas_plain(canvas, wt, 2, 2, 272, 272, sc, sh,
+                                                           True), flush_bytes=flush),
+         "library_ms": timed_ms(library_conv(canvas, wt, sc, sh, True), flush_bytes=flush)}
+    # the canvas is read and written whole; only the image needs arithmetic
+    t["bound_ms"], t["bound_by"] = conv_bound(g.b * g.height * g.width, 64, 64, 9, 4,
+                                              n_ops_px=g.b * g.h * g.w)
+    res["K9b"].update(t)
+    print(f"[conv] K9b time, one step on the {g.height}x{g.width}x64 canvas of a 272x272 "
+          f"image: {json.dumps(t)}; library: cuDNN F.conv2d with the scale in the weights, "
+          f"the shift as bias, channels-last, TF32 off, then an in-place ReLU; "
+          f"ms in float32, L2 flushed, median of 20, {card_line()}")
+    return res
+
+
+def k8_bound(b, h, w, ks, c1, c2, itemsize: int):
+    """Least time of K8 on these inputs: the parts, the taps and the output
+    each moved once over HBM, vs the 2x2 parity form's multiply-adds (4 taps
+    x K_p x 4 (c1 + c2) for conv1 and project, 4 x 4 c1 x 4 c2 for conv2 a
+    pixel) at 2 flops each at the float32 rate (bfloat16: the tensor
+    cores'). Also the operations time of the same block in its direct
+    3x3 form (9/16 of the parity form's multiply-adds, 7 of its 16 taps
+    being structural zeros), the floor of the block's own arithmetic."""
+    n = b * h * w
+    macs = n * (4 * sum(ks) * 4 * (c1 + c2) + 4 * 4 * c1 * 4 * c2)
+    macs_direct = 4 * n * (9 * (sum(ks) // 4) * (c1 + c2) + 9 * c1 * c2)
+    nbytes = (n * (sum(ks) + 4 * c2) + 4 * sum(ks) * 4 * (c1 + c2) + 64 * c1 * c2) * itemsize
+    rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / rate * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, macs, max(t_bytes, 2 * macs_direct / rate * 1e3)
+
+
+def phase_s2d_block() -> dict:
+    """K8 against its plain version at the cvppp model's five s2d blocks
+    (544x544, B=1, the split up3 and up4 included) and two odd shapes with
+    tile remainders, float32 and bfloat16; each full-width block's time with
+    L2 flushed beside the plain version's, cuDNN's direct-resolution form of
+    the same folded block and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops.s2d import depth_to_space
+    from pixel_embedded_affinity_torch.ops.s2d_block_cuda import (
+        block_taps, fused_s2d_block, fused_s2d_block_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    flush = 64 << 20
+    res = {"max_abs_err": 0.0, "stages": {}}
+    for name, b, h, w, parts, c in K8_STAGES + K8_ODD:
+        cin = sum(parts)
+        w1, wp = (rnd(3, 3, cin, c, scale=(9 * cin) ** -0.5) for _ in range(2))
+        w2 = rnd(3, 3, c, c, scale=(9 * c) ** -0.5)
+        h1, hp, h2 = (0.1 * rnd(c) for _ in range(3))
+        split = parts[0] if len(parts) == 2 else None
+        k1ps, h1p, k2, h2t = block_taps(w1, wp, w2, h1, hp, h2, split)
+        xs = tuple(rnd(b, h, w, 4 * p) for p in parts)
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            xi = tuple(x.to(dtype) for x in xs)
+            got = fused_s2d_block(xi, k1ps, h1p, k2, h2t, c, c, c)
+            ref = fused_s2d_block_plain(xi, k1ps, h1p, k2, h2t, c, c, c)
+            check(got.shape == (b, h, w, 4 * c) and got.dtype == dtype, f"K8 {name} shape/dtype")
+            errs.append(rel_err(got, ref))
+            check(errs[-1] <= (CONV_F32_RTOL if dtype == torch.float32 else CONV_BF16_RTOL),
+                  f"K8 {name} {dtype} error {errs[-1]}")
+            if dtype == torch.float32:
+                res["max_abs_err"] = max(res["max_abs_err"], (got - ref).abs().max().item())
+        print(f"[k8] {name} B={b} s2d {h}x{w} parts {tuple(4 * p for p in parts)} c={c}: "
+              f"rel error f32 {errs[0]:.3e}, bf16 {errs[1]:.3e}")
+        if name.startswith("odd"):
+            continue
+        # cuDNN's direct-resolution form of the same folded block on the
+        # direct-layout input (made outside the timing)
+        xd = torch.cat([depth_to_space(x) for x in xs], -1).permute(0, 3, 1, 2)
+        w1p = torch.cat([w1, wp], 3).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b1p = torch.cat([h1, hp])
+        w2d = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def library():
+            with float32_convs():
+                v = F.conv2d(xd, w1p, b1p, padding=1)
+                return F.conv2d(v[:, :c].relu(), w2d, h2, padding=1).add_(v[:, c:]).relu_()
+
+        (bound, by), macs, direct_bound = k8_bound(b, h, w, [4 * p for p in parts], c, c, 4)
+        t = {"ms": timed_ms(lambda: fused_s2d_block(xs, k1ps, h1p, k2, h2t, c, c, c),
+                            flush_bytes=flush),
+             "plain_ms": timed_ms(lambda: fused_s2d_block_plain(xs, k1ps, h1p, k2, h2t, c, c, c),
+                                  flush_bytes=flush),
+             "library_ms": timed_ms(library, flush_bytes=flush),
+             "bf16_ms": timed_ms(lambda: fused_s2d_block(tuple(x.bfloat16() for x in xs), k1ps,
+                                                         h1p, k2, h2t, c, c, c),
+                                 flush_bytes=flush),
+             "bound_ms": bound, "bound_by": by, "direct_bound_ms": direct_bound,
+             "gmac": macs / 1e9}
+        t["tflops"] = 2 * macs / t["ms"] / 1e9
+        res["stages"][name] = t
+        print(f"[k8] {name} time (ms, L2 flushed, median of 20; library: cuDNN's "
+              f"direct-resolution form, conv1+project one F.conv2d, conv2, add, ReLU, "
+              f"channels-last, TF32 off): {json.dumps(t)}")
+    st = res["stages"].values()
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "direct_bound_ms", "bf16_ms"):
+        res[key] = sum(t[key] for t in st)
+    res["bound_by"] = "operations" if all(t["bound_by"] == "operations" for t in st) else "bytes"
+    print(f"[k8] the five blocks of one 544x544 image: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f}, cuDNN direct form {res['library_ms']:.4f}, bound "
+          f"{res['bound_ms']:.4f} ({res['bound_by']}; the direct form's "
+          f"{res['direct_bound_ms']:.4f}), {card_line()}")
+    return res
+
+
+# the fast forward's device time by kernel group (lower-cased name parts)
+FAST_SPLIT = (("K8", ("s2d_block",)), ("K1f", ("affinity2d",)),
+              ("convs", ("fprop", "conv", "winograd", "fft")),
+              ("matmuls: upsample einsums, heads", ("gemm", "cutlass")),
+              ("cuDNN layout transposes", ("nchwtonhwc", "nhwctonchw")),
+              ("inference BatchNorm", ("bn_fw",)),
+              ("upsampling", ("upsample",)),
+              ("pools, reductions", ("max_pool", "reduce")),
+              ("copies: permute, pad, cat, slice", ("cat", "copy", "pad", "index")),
+              ("elementwise: shifts, ReLU, casts", ("elementwise",)))
+PALLAS_FORMS = {k: "pallas" for k in ("inconv", "down1", "down2", "up3", "up4")}
+
+
+def bn_stats_sd(sd: dict, seed: int) -> dict:
+    """The state dict with non-trivial BatchNorm statistics and affine
+    parameters (seeded), so that folding them is tested."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = dict(sd)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            out[k] = torch.from_numpy(rng.normal(0, 0.1, v.shape).astype(np.float32))
+        elif k.endswith("running_var"):
+            out[k] = torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        elif k.endswith(".weight") and v.dim() == 1:
+            out[k] = torch.from_numpy((1 + rng.normal(0, 0.1, v.shape)).astype(np.float32))
+        elif k.endswith(".bias") and v.dim() == 1 and k[:-5] + ".running_mean" in sd:
+            out[k] = torch.from_numpy(rng.normal(0, 0.1, v.shape).astype(np.float32))
+    return out
+
+
+def phase_fast_forward(cfg, sd, samples) -> dict:
+    """The folded-BatchNorm fast forward at full width (the cvppp model, seeded
+    weights, non-trivial BatchNorm statistics): embedding and mask logits of
+    the default forms, the all-"pallas" forms (5 K8 launches a forward), the
+    s2d input and the full-resolution head, each against the dense module
+    and its float64 run; the device time of the dense module, the default
+    forms and the all-"pallas" forms at B=1 and B=4 with a profile split;
+    then run_inference_2d through the fast forward at B=1 and B=4 against
+    the dense run's metrics. Returns K8's and K1f's launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.infer import (
+        build_model, fast_affinities, forward_affinities, inference2d, run_inference_2d)
+    from pixel_embedded_affinity_torch.models import build_fast_resunet_forward, pack_image_s2d
+    from pixel_embedded_affinity_torch.ops import (
+        fused_affinity_2d, fused_s2d_block, multi_offset)
+
+    sd = bn_stats_sd(sd, SEED + 16)
+    model = build_model(cfg, sd, device="cuda")
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    imgs = np.stack([s["image"] for s in samples])
+    x = torch.from_numpy(imgs).cuda()
+    packed = torch.from_numpy(pack_image_s2d(imgs)).cuda()
+    with torch.no_grad(), float32_convs():
+        dense = [o.permute(0, 2, 3, 1) for o in model(x[:1].permute(0, 3, 1, 2).contiguous())[4:]]
+        f64 = [o.permute(0, 2, 3, 1) for o in build_model(cfg, sd, device="cuda").double()(
+            x[:1].permute(0, 3, 1, 2).double())[4:]]
+    variants = {
+        "default forms": (build_fast_resunet_forward(model), x[:1]),
+        "all pallas": (build_fast_resunet_forward(model, stage_forms=PALLAS_FORMS), x[:1]),
+        "s2d input": (build_fast_resunet_forward(model, input_format="s2d"), packed[:1]),
+        "s2d input, head at full res (served)": (build_fast_resunet_forward(
+            model, input_format="s2d", head_at_fullres=True), packed[:1]),
+    }
+    launches = {"K8": 0, "K1f": 0}
+    for name, (fwd, inp) in variants.items():
+        fused_s2d_block.launches = 0
+        emb, mask = fwd(inp)
+        n = fused_s2d_block.launches
+        launches["K8"] += n
+        check(n == (5 if name == "all pallas" else 0), f"{name}: K8 launched {n} times")
+        torch.cuda.synchronize()
+        errs = []
+        for got, d, r in zip((emb, mask), dense, f64):
+            check(got.shape == d.shape and bool(torch.isfinite(got).all()), f"{name} output")
+            top = r.abs().max().item()
+            errs += [(got.double() - d.double()).abs().max().item() / top,
+                     (got.double() - r).abs().max().item() / top]
+        print(f"[fast] {name}: K8 launches {n}; embedding vs dense {errs[0]:.3e}, vs float64 "
+              f"{errs[1]:.3e}; mask logits vs dense {errs[2]:.3e}, vs float64 {errs[3]:.3e} "
+              f"(relative to the largest float64 value)")
+        check(max(errs) <= AFF_ATOL, f"{name} off the dense module or float64: {errs}")
+    pallas_fwd = variants["all pallas"][0]
+    fused_s2d_block.launches = 0
+    pallas_fwd(x)
+    check(fused_s2d_block.launches == 5,
+          f"all pallas at B=4: {fused_s2d_block.launches} K8 launches")
+    launches["K8"] += fused_s2d_block.launches
+
+    served = variants["s2d input, head at full res (served)"][0]
+    pallas_s2d = build_fast_resunet_forward(model, input_format="s2d", head_at_fullres=True,
+                                            stage_forms=PALLAS_FORMS)
+    times = {}
+    for bs in (1, 4):
+        xb = x[:bs].permute(0, 3, 1, 2).contiguous()
+        pb = packed[:bs]
+        runs = {"dense": (lambda: model(xb), lambda: forward_affinities(model, xb, offsets)),
+                "default forms": (lambda: served(pb), lambda: fast_affinities(served, pb, offsets)),
+                "all pallas": (lambda: pallas_s2d(pb),
+                               lambda: fast_affinities(pallas_s2d, pb, offsets))}
+        t = {}
+        for name, (fwd, fwd_aff) in runs.items():
+            with torch.no_grad(), float32_convs():
+                t[name] = {"forward": timed_ms(fwd) / bs,
+                           "forward+affinity": timed_ms(fwd_aff) / bs}
+        times[bs] = t
+        print(f"[fast] B={bs} 544x544 device ms/img (warm median of 20; dense: the module on "
+              f"the NCHW image; fast: the served s2d input and full-resolution head): "
+              f"{json.dumps(t)}, {card_line()}")
+        for name, (_, fwd_aff) in runs.items():
+            device_breakdown(fwd_aff, bs, iters=3, label=f"{name} B={bs}", split=FAST_SPLIT)
+
+    # serving through the fast forward against the dense module's run
+    calls = {"n": 0}
+    real = inference2d.fast_affinities
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    walls = {}
+    for bs in (1, 4):
+        run_inference_2d(cfg, sd, samples, batch_size=bs, device="cuda", use_fast=True)
+        _, ref = run_inference_2d(cfg, sd, samples, batch_size=bs, device="cuda", use_fast=False)
+        timing = {}
+        inference2d.fast_affinities = counted
+        fused_affinity_2d.launches, calls["n"] = 0, 0
+        try:
+            per, agg = run_inference_2d(cfg, sd, samples, timing=timing, batch_size=bs,
+                                        device="cuda", use_fast=True)
+        finally:
+            inference2d.fast_affinities = real
+        n_batches = -(-len(samples) // bs)
+        launches["K1f"] += fused_affinity_2d.launches
+        check(calls["n"] == n_batches and fused_affinity_2d.launches == n_batches,
+              f"fast serving at B={bs}: {calls['n']} fast forwards, "
+              f"{fused_affinity_2d.launches} K1f launches")
+        parts = {k: timing[k] / len(samples) * 1e3
+                 for k in ("setup_s", "forward_s", "decode_s", "metrics_s")}
+        walls[bs] = timing["total_s"] / len(samples) * 1e3
+        print(f"[fast] serving B={bs} use_fast=True: metrics {json.dumps(agg)} (dense "
+              f"{json.dumps(ref)}); ms/img wall {walls[bs]:.4f} = "
+              + " + ".join(f"{k[:-2]} {v:.4f}" for k, v in parts.items()))
+        check(len(per) == len(samples), "one result per image")
+        for k in ref:
+            check(abs(agg[k] - ref[k]) <= 5e-3, f"fast serving {k} {agg[k]} vs dense {ref[k]}")
+    return {"launches": launches, "times": times, "walls": walls}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -1803,14 +2277,19 @@ def main() -> int:
     bbbc = _timed("BBBC training", phase_train_bbbc, arrays, valid)
     unfused = _timed("unfused", phase_unfused_bbbc, arrays, bbbc["batch"], bbbc["state"])
     serve_bbbc = _timed("BBBC serving", phase_serving_bbbc)
-    # 14. kernels line, card, 15. last line
+    # 14. K7/K9a/K9b, 15. K8, 16. the fast forward
+    conv = _timed("K7, K9a, K9b", phase_conv3x3)
+    k8 = _timed("K8", phase_s2d_block)
+    fast = _timed("fast forward", phase_fast_forward, cfg, sd, samples)
+    # 17. kernels line, card, 18. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k]
                for k in bbbc["launches"]}
     t1 = k1["times"][1]
     kernels = [{
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": sum(launches.values()) + trained["K1f"] + serve_bbbc["launches"],
+        "launches": (sum(launches.values()) + trained["K1f"] + serve_bbbc["launches"]
+                     + fast["launches"]["K1f"]),
         "max_abs_err": k1["max_abs_err"], "ms": t1["view"],
         "plain_ms": t1["plain_view"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None}]
@@ -1842,6 +2321,18 @@ def main() -> int:
         "replaces": K4F_REPLACES, "launches": trained["K4f"], "max_abs_err": k4f["max_abs_err"],
         "ms": k4f["ms"], "plain_ms": k4f["plain_ms"], "bound_ms": k4f["bound_ms"],
         "bound_by": k4f["bound_by"], "library_ms": None})
+    for k, name in CONV_NAMES.items():
+        r = conv[k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES[k],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    kernels.append({
+        "name": "s2d_block_fwd", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
+        "launches": fast["launches"]["K8"], "max_abs_err": k8["max_abs_err"], "ms": k8["ms"],
+        "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+        "library_ms": k8["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,13 @@ serving and training).
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
-the same in both packages. Options whose code is not ported yet are kept
-with their JAX defaults and raise where they would take effect
-(``train.loop.check_train_config``).
+the same in both packages. The port has only the fields its code reads: a
+JAX key it lacks (``train.opt_type``, ``model.s2d_train``, ...) fails as an
+unknown config key. A few fields whose code is not ported keep their JAX
+names, and raise where a value the port does not serve would take
+effect (``model.dtype``, ``model.bf16_tiled_infer``,
+``model.fast_tiled_infer``, ``data.device_resident``,
+``train.loop.check_train_config``).
 """
 
 from __future__ import annotations

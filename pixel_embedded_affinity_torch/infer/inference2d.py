@@ -3,7 +3,12 @@
 Batches of images go through the model, the fused embedding->affinity
 kernel and a ReLU on the device, the convolutions in full float32 (TF32
 off); the host then runs mutex watershed, small-object merging and
-relabelling, and scores SBD/|DiC|/VOI/ARAND. The watershed is seeded by
+relabelling, and scores SBD/|DiC|/VOI/ARAND. With ``use_fast`` the model
+runs as the folded-BatchNorm fast forward
+(:func:`..models.fast_forward.build_fast_resunet_forward`, as the JAX
+package serves on its TPU: the image packed to s2d on the host, the
+embedding head at full resolution) wherever H and W divide by 16, and as
+the dense module elsewhere. The watershed is seeded by
 the labels' (or the given) foreground, or, with ``train.mask_weight``
 (BBBC), by the mask head's: argmax of its logits > 0, components under 25
 pixels dropped; BBBC also scores DQ/SQ/PQ, AJI and pixel F1. Samples are
@@ -24,6 +29,7 @@ from ..device import float32_convs, resolve_device
 from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
                        pixel_f1, remap_label, symmetric_best_dice, voi)
 from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
+from ..models.fast_forward import build_fast_resunet_forward, pack_image_s2d
 from ..ops import fused_affinity_2d, multi_offset, relabel
 from ..postproc import merge_func, remove_small_object, seg_mutex
 
@@ -38,6 +44,7 @@ SERVE_BATCHES = {(544, 544): 4}
 def serve_batch(image_shape) -> int:
     """The batch for images of this (H, W, ...) shape."""
     return SERVE_BATCHES.get(tuple(image_shape[:2]), 1)
+
 
 
 def build_model(cfg: Config, state_dict: dict | None = None,
@@ -74,30 +81,58 @@ def forward_affinities(model: torch.nn.Module, x_nchw: torch.Tensor, offsets,
     return (affs, outs[5].permute(0, 2, 3, 1)) if with_mask else affs
 
 
+def fast_affinities(fast, packed: torch.Tensor, offsets, with_mask: bool = False):
+    """forward_affinities through a fast forward built with
+    ``input_format="s2d"``, from the (B, H/2, W/2, 12) packed images."""
+    emb, mask = fast(packed)
+    affs = fused_affinity_2d(emb, offsets).relu_()
+    return (affs, mask) if with_mask else affs
+
+
+def _batches(dataset, batch_size: int | None):
+    """The dataset in order, as runs of one image shape of at most
+    ``batch_size`` samples (:func:`serve_batch` of the run's shape when None)."""
+    batch, limit = [], 0
+    for i in range(len(dataset)):
+        s = dataset[i]
+        if batch and (len(batch) == limit or s["image"].shape != batch[0]["image"].shape):
+            yield batch
+            batch = []
+        if not batch:
+            limit = batch_size or serve_batch(s["image"].shape)
+        batch.append(s)
+    if batch:
+        yield batch
+
+
 def _served(cfg: Config, state_dict: dict, dataset, batch_size: int | None, device,
-            clock: dict, with_mask: bool = False):
+            clock: dict, with_mask: bool = False, use_fast: bool = False):
     """Yield (sample, (K, H, W) affinities, (H, W, 2) mask logits or None)
-    in dataset order, the logits only ``with_mask``; ``batch_size`` None
-    takes :func:`serve_batch` of each batch's first image. Adds the wall time of
-    the model build to clock['setup_s'], and that of upload, forward,
-    affinity and fetch to clock['forward_s']."""
+    in dataset order, the logits only ``with_mask``. A batch is a run of
+    images of one shape, of ``batch_size`` at most, or when None of
+    :func:`serve_batch` of that shape. ``use_fast`` serves
+    ``resunet2d_deep`` through the fast forward where H and W divide by 16. Adds the wall time of the model build
+    to clock['setup_s'], and that of upload, forward, affinity and fetch to
+    clock['forward_s']."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     model = build_model(cfg, state_dict, dev)
+    fast = (build_fast_resunet_forward(model, input_format="s2d", head_at_fullres=True,
+                                       with_mask=with_mask)
+            if use_fast and cfg.model.arch == "resunet2d_deep" else None)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     clock["setup_s"] += time.perf_counter() - t0
     offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
-    start, n = 0, len(dataset)
-    while start < n:
-        first = dataset[start]
-        bs = batch_size or serve_batch(first["image"].shape)
-        samples = [first] + [dataset[i] for i in range(start + 1, min(start + bs, n))]
-        start += len(samples)
+    for samples in _batches(dataset, batch_size):
         t0 = time.perf_counter()
-        x = torch.from_numpy(np.stack([s["image"] for s in samples]))
-        x = x.to(dev).permute(0, 3, 1, 2).contiguous()
-        out = forward_affinities(model, x, offsets, with_mask)
+        imgs = np.stack([s["image"] for s in samples])
+        if fast is not None and imgs.shape[1] % 16 == 0 and imgs.shape[2] % 16 == 0:
+            out = fast_affinities(fast, torch.from_numpy(pack_image_s2d(imgs)).to(dev),
+                                  offsets, with_mask)
+        else:
+            x = torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2).contiguous()
+            out = forward_affinities(model, x, offsets, with_mask)
         affs, masks = ((o.cpu().numpy() for o in out) if with_mask
                        else (out.cpu().numpy(), [None] * len(samples)))
         if dev.type == "cuda":
@@ -108,7 +143,8 @@ def _served(cfg: Config, state_dict: dict, dataset, batch_size: int | None, devi
 
 def run_inference_2d(cfg: Config, state_dict: dict, dataset,
                      out_dir: str | None = None, timing: dict | None = None,
-                     batch_size: int | None = None, device=None):
+                     batch_size: int | None = None, device=None,
+                     use_fast: bool = False):
     """Serve and score a labelled set. Returns (per-image metric dicts,
     their means). With ``out_dir``, the segmentations and affinities are
     written there as seg.hdf / affs.hdf.
@@ -116,10 +152,17 @@ def run_inference_2d(cfg: Config, state_dict: dict, dataset,
     ``timing``, when given, receives the run's split in seconds
     (total / setup / forward / decode / metrics; setup is the model build)
     and n_images. ``batch_size``: images per device call, by default
-    :func:`serve_batch` of the images' shape. ``device``: CUDA unless "cpu"
-    is asked for. With
-    ``train.mask_weight`` (BBBC) the predicted mask seeds the decode, as in
-    the module's docstring; the mask threshold is part of decode_s.
+    :func:`serve_batch` of the images' shape; a change of image shape ends a
+    batch. ``device``: CUDA unless "cpu" is asked for. ``use_fast``: serve
+    through the fast forward (the JAX package's ``use_pallas`` for the
+    forward; see the module's docstring). It is off by default: measured on
+    an NVIDIA H100 80GB HBM3 at 700 W, 544x544, float32 with TF32 off,
+    forward + affinity take 11.46 ms/img dense against 18.88 with the JAX
+    default stage forms at batch 1, 8.09 against 13.94 at batch 4, the
+    served batch (chip_smoke.py phase 16, PERF.md §5): the forms do 1.7x
+    the dense model's multiply-adds, more than the folded BatchNorm saves.
+    With ``train.mask_weight`` (BBBC) the predicted mask seeds the decode,
+    as in the module's docstring; the mask threshold is part of decode_s.
     """
     bbbc = bool(cfg.train.mask_weight)
     offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
@@ -128,7 +171,7 @@ def run_inference_2d(cfg: Config, state_dict: dict, dataset,
     t_dec = t_met = 0.0
     results, segs, all_affs = [], [], []
     for s, affs, mask in _served(cfg, state_dict, dataset, batch_size, device, clock,
-                                 with_mask=bbbc):
+                                 with_mask=bbbc, use_fast=use_fast):
         gt = s["seg"].astype(np.uint16)
         t0 = time.perf_counter()
         if bbbc:
@@ -177,15 +220,17 @@ def run_inference_2d(cfg: Config, state_dict: dict, dataset,
 
 def run_cvppp_test(cfg: Config, state_dict: dict, dataset, out_path: str,
                    timing: dict | None = None, batch_size: int | None = None,
-                   device=None):
+                   device=None, use_fast: bool = False):
     """CVPPP test protocol: FG mask given, no labels; decode and write the
-    CodaLab submission.h5. Returns (segmentations, names)."""
+    CodaLab submission.h5. Returns (segmentations, names). The arguments
+    are those of :func:`run_inference_2d`."""
     offsets = multi_offset(cfg.data.shifts, neighbor=cfg.data.neighbor)
     t_start = time.perf_counter()
     clock = {"setup_s": 0.0, "forward_s": 0.0}
     t_dec = 0.0
     segs, names = [], []
-    for s, affs, _ in _served(cfg, state_dict, dataset, batch_size, device, clock):
+    for s, affs, _ in _served(cfg, state_dict, dataset, batch_size, device, clock,
+                              use_fast=use_fast):
         t0 = time.perf_counter()
         seg = seg_mutex(affs, offsets=offsets, strides=list(cfg.data.strides),
                         mask=s["fg"]).astype(np.uint16)

@@ -2,7 +2,7 @@
 
     python -m pixel_embedded_affinity_torch.inference -c cvppp -ck <ckpt> \
         [--torch-ckpt] [-m validation|test] [--out PATH] [--device cuda|cpu] \
-        [-o data.data_folder=...]
+        [--fast] [-o data.data_folder=...]
     python -m pixel_embedded_affinity_torch.inference -c bbbc039v1 -ck <ckpt> \
         [--torch-ckpt] [-m validation|test] [--out PATH] [--device cuda|cpu] \
         [-o data.data_folder=...]
@@ -17,7 +17,8 @@ split (``-m test``: the test split) at 520x696, seeded by the predicted
 mask, and prints SBD/DiC/VOI/ARAND with AJI/F1/DQ/SQ/PQ. 3D runs the tiled engine on one
 volume (as the JAX CLI selects it: ``-m test`` the first 100 slices of AC3,
 ``-m valid`` the last 20 of AC4, any other mode all of AC4) and prints
-VOI/ARAND per decoder and the timing split.
+VOI/ARAND per decoder and the timing split. ``--fast`` serves 2D through
+the folded-BatchNorm fast forward instead of the dense module.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ def main(argv=None):
                         help="dotted key=value overrides")
     parser.add_argument("--decoders", type=str, default="mutex,waterz,lmc",
                         help="3D decoders to run (comma-separated)")
+    parser.add_argument("--fast", action="store_true",
+                        help="2D: serve through the folded-BatchNorm fast forward")
     args = parser.parse_args(argv)
 
     from .config import load_config, parse_overrides
@@ -83,7 +86,7 @@ def main(argv=None):
         ds = CVPPPTest(cfg.data.data_folder, padding=cfg.data.padding)
         out = args.out or "submission.h5"
         _, names = run_cvppp_test(cfg, sd, ds, out, timing=timing,
-                                  device=args.device)
+                                  device=args.device, use_fast=args.fast)
         print("COST TIME:", json.dumps(timing))
         print(json.dumps({"submission": out, "images": len(names)}))
     else:
@@ -95,7 +98,7 @@ def main(argv=None):
             ds = CVPPPValidation(cfg.data.data_folder, valid_set=cfg.data.valid_set,
                                  padding=cfg.data.padding)
         _, agg = run_inference_2d(cfg, sd, ds, out_dir=args.out, timing=timing,
-                                  device=args.device)
+                                  device=args.device, use_fast=args.fast)
         print("COST TIME:", json.dumps(timing))
         print(json.dumps(agg))
 

@@ -11,3 +11,9 @@ from .emb2aff3d_cuda import (
 from .emb2aff_wmse_cuda import (
     fused_affinity_wmse_2d, fused_cross_affinity_wmse_2d,
     affinity_wmse_2d_plain, cross_affinity_wmse_2d_plain)
+from .s2d import (space_to_depth, depth_to_space, s2d_conv_weights, s2d_conv2x2_weights,
+                  s2d_conv2x2_weights_qx, s2d_conv2x2_slices)
+from .conv3x3_cuda import (conv3x3_fused, conv3x3_blocked, conv3x3_blocked_flat,
+                           conv3x3_blocked_chain, blocked_ingest, blocked_egress,
+                           conv3x3_plain, conv3x3_canvas_plain)
+from .s2d_block_cuda import fused_s2d_block, fused_s2d_block_plain

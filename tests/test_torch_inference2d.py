@@ -160,3 +160,90 @@ def test_load_jax_checkpoint_and_cli(case, jax_run, capsys):
     agg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     for k, v in jax_run[2].items():
         np.testing.assert_allclose(agg[k], v, atol=METRIC_ATOL, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_fast_run(case):
+    out = case["root"] / "jax_fast"
+    per, agg = jax_run_inference_2d(case["jcfg"], case["variables"], case["samples"],
+                                    out_dir=str(out), save_h5=True, use_pallas=True,
+                                    one_dispatch=False)
+    return out, per, agg
+
+
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_fast_serving_matches_jax(case, jax_fast_run, batch_size):
+    """use_fast=True (the folded-BatchNorm fast forward on the host-packed
+    s2d image, head at full resolution) against JAX's use_pallas=True
+    serving, which on the CPU runs the same fast forward and its pure-XLA
+    small-batch affinity: affinities to 1e-4, metrics to METRIC_ATOL,
+    segmentations bit-equal."""
+    jout, jper, jagg = jax_fast_run
+    out = case["root"] / f"torch_fast_b{batch_size}"
+    per, agg = run_inference_2d(case["cfg"], case["sd"], case["samples"], out_dir=str(out),
+                                batch_size=batch_size, device="cpu", use_fast=True)
+    with h5py.File(out / "affs.hdf") as ft, h5py.File(jout / "affs.hdf") as fj:
+        np.testing.assert_allclose(ft["main"][:], fj["main"][:], atol=1e-4)
+    with h5py.File(out / "seg.hdf") as ft, h5py.File(jout / "seg.hdf") as fj:
+        assert ft["main"][:].tobytes() == fj["main"][:].tobytes()
+    assert len(per) == len(jper) == 3
+    for t, j in zip(per, jper):
+        for k in j:
+            np.testing.assert_allclose(t[k], j[k], atol=METRIC_ATOL, err_msg=k)
+    for k in jagg:
+        np.testing.assert_allclose(agg[k], jagg[k], atol=METRIC_ATOL, err_msg=k)
+
+
+
+def test_cli_fast_matches_jax(case, jax_fast_run, capsys):
+    """The serving CLI with --fast: the fast forward from a JAX checkpoint,
+    metrics to METRIC_ATOL of JAX's use_pallas=True serving."""
+    import json
+
+    fname = save_checkpoint(str(case["root"] / "models_fast"),
+                            {"params": case["variables"]["params"],
+                             "batch_stats": case["variables"]["batch_stats"], "step": 3}, 3)
+    cli.main(["-c", "cvppp", "-ck", fname, "--device", "cpu", "--fast", "-o",
+              f"data.data_folder={case['folder']}", f"model.filters={FILTERS}"])
+    agg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k, v in jax_fast_run[2].items():
+        np.testing.assert_allclose(agg[k], v, atol=METRIC_ATOL, err_msg=k)
+
+def _leaves(h, w, seed):
+    """A labelled sample of h x w: rectangles of leaves on a dark ground,
+    ImageNet-normalised-like values."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((h, w), np.uint16)
+    for i in range(1, 7):
+        y0, x0 = rng.integers(0, h - h // 4), rng.integers(0, w - w // 4)
+        seg[y0:y0 + rng.integers(h // 8, h // 4), x0:x0 + rng.integers(w // 8, w // 4)] = i
+    img = rng.normal(0, 0.2, (h, w, 3)).astype(np.float32)
+    img[seg > 0] += rng.uniform(0.5, 1.5, 3).astype(np.float32)
+    return {"image": img, "seg": seg}
+
+
+def test_ragged_image_shapes_serve_as_jax(case, monkeypatch):
+    """A 544x544 image, then a 64x80 one: the server's default batch (4 at
+    544x544) ends where the shape changes. Metrics to METRIC_ATOL of JAX's
+    per-image serving, segmentations bit-equal."""
+    import pixel_embedded_affinity_tpu.infer.inference2d as jinf
+
+    import pixel_embedded_affinity_torch.infer.inference2d as tinf
+
+    samples = [_leaves(544, 544, 1), _leaves(64, 80, 2)]
+    segs = {"jax": [], "torch": []}
+    for mod, key in ((jinf, "jax"), (tinf, "torch")):
+        real = mod.relabel
+        monkeypatch.setattr(mod, "relabel", lambda seg, _r=real, _k=key: segs[_k].append(
+            _r(seg)) or segs[_k][-1])
+    jper, jagg = jax_run_inference_2d(case["jcfg"], case["variables"], samples,
+                                      use_pallas=False, one_dispatch=False)
+    timing = {}
+    per, agg = run_inference_2d(case["cfg"], case["sd"], samples, timing=timing, device="cpu")
+    assert timing["n_images"] == 2 and len(per) == len(jper) == 2
+    assert [s.shape for s in segs["torch"]] == [(544, 544), (64, 80)]
+    for a, b in zip(segs["torch"], segs["jax"]):
+        assert a.astype(np.uint16).tobytes() == b.astype(np.uint16).tobytes()
+    for t, j in zip(per, jper):
+        for k in j:
+            np.testing.assert_allclose(t[k], j[k], atol=METRIC_ATOL, err_msg=k)

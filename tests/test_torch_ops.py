@@ -117,8 +117,9 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """The port, its serving paths (2D and 3D) and its training paths (2D
-    and 3D, the BBBC device sampler too) import with jax, flax, optax, the
+    """The port, its serving paths (2D, the fast forward and its kernels'
+    wrappers included, and 3D) and its training paths (2D and 3D, the BBBC
+    device sampler too) import with jax, flax, optax, the
     JAX package and the lazily-imported optional modules all blocked, and
     the synthetic nuclei need none of them."""
     code = (
@@ -158,6 +159,11 @@ def test_port_imports_without_jax():
         "import pixel_embedded_affinity_torch.metrics.bbbc\n"
         "from pixel_embedded_affinity_torch.ops import fused_cross_affinity_2d\n"
         "from pixel_embedded_affinity_torch.data import synthesize_nuclei\n"
+        "import pixel_embedded_affinity_torch.ops.s2d\n"
+        "import pixel_embedded_affinity_torch.ops.conv3x3_cuda\n"
+        "import pixel_embedded_affinity_torch.ops.s2d_block_cuda\n"
+        "from pixel_embedded_affinity_torch.models import build_fast_resunet_forward\n"
+        "from pixel_embedded_affinity_torch.infer import fast_affinities\n"
         "synthesize_nuclei(1, 40, 48)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
