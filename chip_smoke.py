@@ -25,8 +25,9 @@ Phases, each of which exits nonzero when it fails:
      544x544, through run_inference_2d at batch 1 and batch 4, with each
      kernel's launch count read around each run; the served affinities of
      one image against the same model run in float64 on the card;
-  6. training: train() on the full-width cvppp preset, B=2, 8 steps on
-     synthetic 544x544 leaves, validation on 2 images and a checkpoint,
+  6. training: train() on the full-width cvppp preset, B=2, 8 steps from
+     the device-resident sampler over 4 synthetic leaf images (uint8,
+     padded to 544x544), validation on 2 images and a checkpoint,
      with every kernel's launch count read around the run; the reloaded
      checkpoint's next-step loss; the device time of one step by kernel;
      one step's parameter gradients against the same step in float64
@@ -51,7 +52,8 @@ Phases, each of which exits nonzero when it fails:
      the same run through the plain affinity; the decoders' time on a noisy
      label-derived canvas of the first 20x512x512;
  10. 3D training: train() on the full-width ac3ac4 preset, B=2 crops of
-     18x160x160 from a synthetic 36x320x320 volume, 8 steps, validation
+     18x160x160 from the device-resident sampler over a synthetic
+     36x320x320 volume (through load_ac3ac4_arrays), 8 steps, validation
      with waterz on a synthetic 20x256x256 volume (cut from AC4's
      20x1024x1024) and a checkpoint, each kernel's launch count read around
      the run; the reloaded checkpoint's next-step loss; one step's peak
@@ -89,8 +91,20 @@ Phases, each of which exits nonzero when it fails:
      time of the dense module, the default forms and all "pallas" at B=1
      and B=4 with a profile split; run_inference_2d through the fast
      forward at B=1 and B=4 against the dense run's metrics;
- 17. one JSON line listing each kernel: launches, error, times, bound;
- 18. the last line: {"ok": true, "device": {...}}.
+ 17. the device-resident samplers at the real training geometry: CVPPP's
+     108 544x544 uint8 images (12 synthetic ones repeated) and AC4's
+     80x1024x1024 split (phase 9's volume stacked 4 times, its border
+     widening included): device MB, host and device ms a B=2 batch, device
+     operations a batch, the batches' shapes, types, ranges and label ids;
+     one full-width cvppp step with the EMA view's noise and blur on;
+ 18. P, the tile copy (csrc/tile_copy.cu), against its plain version bit
+     for bit: float32 and bfloat16, the (1, 544, 544, 16) embedding as
+     NHWC, NCHW and (B, H, C, W), an odd shape whose bytes are no multiple
+     of 16 and views with misaligned storage offsets; its time beside the
+     plain version's, copy_'s and the bound, L2 flushed; the arrangement
+     probe (utils/profile_arrange.py) at B=1 and B=4 with P's launches;
+ 19. one JSON line listing each kernel: launches, error, times, bound;
+ 20. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -139,6 +153,9 @@ GRAD_RTOL = 1e-5
 # the training shapes at B=2, C=16: (side, offsets) of the five scales
 TRAIN_SCALES = [(544, 10), (272, 8), (136, 6), (68, 4), (34, 2)]
 TRAIN_STEPS = 8
+# data_s of the host provider that fed phases 6 and 10 before the device-
+# resident sampler (PERF.md section 5), printed beside the sampler's
+HOST_DATA_MS = {"cvppp": 8.04, "ac3ac4": 4.25}
 # one full-width step's parameter gradients against the plain path in
 # float64, relative to each tensor's largest gradient. The plain float32
 # path is itself up to ~2e-2 off at this size: float32 decides a few
@@ -214,6 +231,14 @@ K8_ODD = [("odd split", 2, 37, 53, (8, 8), 16), ("odd", 1, 41, 29, (24,), 32)]
 # validation and serving at the same geometry
 BBBC_SHAPE = (520, 696)
 BBBC_TRAIN_IMAGES, BBBC_VALID_IMAGES, BBBC_SERVE_IMAGES = 8, 2, 4
+# the device-resident samplers at the real training sets' sizes: CVPPP A1's
+# 108 training images (128 less the 20 of valid_set local_20_1), made of
+# 12 synthetic ones repeated, and AC4's first 80 slices of 1024x1024
+CVPPP_TRAIN_IMAGES, CVPPP_DISTINCT = 108, 12
+AC4_TRAIN_SLICES = 80
+# P, the tile copy of the arrangement probe
+P_SOURCE = "pixel_embedded_affinity_torch/csrc/tile_copy.cu"
+P_REPLACES = "docs/profile_b1_arrange.py:83"
 UNFUSED_STEPS = 4
 # the unfused step against the fused one on one batch: the same function,
 # the loss-fused kernels summing in another order than K1/K4 and the
@@ -278,16 +303,13 @@ def affinity_bound(shape, k: int, itemsize: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def synthetic_leaves(n: int, h: int, w: int, seed: int):
-    """CVPPP-like samples: ellipse leaves around the image centre, RGB in
-    [0, 1], reflect-padded and ImageNet-normalised as the data pipeline
-    does; labels zero-padded."""
-    from pixel_embedded_affinity_torch.data.cvppp import PAD, normalize_imagenet
-
+def leaf_pairs(n: int, h: int, w: int, seed: int):
+    """CVPPP-like (image, label) pairs: ellipse leaves around the image
+    centre, RGB float32 in [0, 1], unpadded, as the dataset's PNGs read."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    samples = []
-    for i in range(n):
+    pairs = []
+    for _ in range(n):
         label = np.zeros((h, w), np.int32)
         m = min(h, w)
         for leaf in range(1, int(rng.integers(6, 14)) + 1):
@@ -302,21 +324,31 @@ def synthetic_leaves(n: int, h: int, w: int, seed: int):
         img = rng.normal(0.1, 0.03, (h, w, 3)).astype(np.float32)
         img[label > 0] = (0.15, rng.uniform(0.4, 0.8), 0.1)
         img = np.clip(img + rng.normal(0, 0.02, img.shape), 0, 1).astype(np.float32)
-        img = np.pad(img, PAD + ((0, 0),), mode="reflect")
-        samples.append({"image": np.ascontiguousarray(normalize_imagenet(img)),
-                        "seg": np.pad(label, PAD, mode="constant"),
-                        "name": f"plant{i:03d}"})
-    return samples
+        pairs.append((img, label))
+    return pairs
+
+
+def synthetic_leaves(n: int, h: int, w: int, seed: int):
+    """:func:`leaf_pairs` as served samples: reflect-padded and
+    ImageNet-normalised as the data pipeline does; labels zero-padded."""
+    from pixel_embedded_affinity_torch.data.cvppp import PAD, normalize_imagenet
+
+    return [{"image": np.ascontiguousarray(normalize_imagenet(
+                np.pad(img, PAD + ((0, 0),), mode="reflect"))),
+             "seg": np.pad(label, PAD, mode="constant"), "name": f"plant{i:03d}"}
+            for i, (img, label) in enumerate(leaf_pairs(n, h, w, seed))]
 
 
 def phase_build() -> float:
     from pixel_embedded_affinity_torch import cuda_build
     from pixel_embedded_affinity_torch.ops import (
-        conv3x3_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda, s2d_block_cuda)
+        conv3x3_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda, s2d_block_cuda,
+        tile_copy_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
     sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE,
-               emb2aff3d_cuda.GRAD_SOURCE, conv3x3_cuda.SOURCE, s2d_block_cuda.SOURCE]
+               emb2aff3d_cuda.GRAD_SOURCE, conv3x3_cuda.SOURCE, s2d_block_cuda.SOURCE,
+               tile_copy_cuda.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -865,23 +897,6 @@ def phase_wmse_kernels() -> dict:
     return res
 
 
-class LeafSet:
-    """The smoke run's training set: synthetic leaf samples, each drawn
-    flipped along x and y at random."""
-
-    def __init__(self, samples):
-        self.samples = samples
-
-    def sample(self, rng):
-        s = self.samples[int(rng.integers(len(self.samples)))]
-        img, seg = s["image"], s["seg"]
-        if rng.random() < 0.5:
-            img, seg = img[:, ::-1], seg[:, ::-1]
-        if rng.random() < 0.5:
-            img, seg = img[::-1], seg[::-1]
-        return {"image": np.ascontiguousarray(img), "seg": np.ascontiguousarray(seg)}
-
-
 def _wmse_launchers():
     from pixel_embedded_affinity_torch.ops import emb2aff_wmse_cuda as W
 
@@ -889,12 +904,13 @@ def _wmse_launchers():
             "K3f": W.cross_wmse2d_fwd, "K3b": W.cross_wmse2d_bwd}
 
 
-def phase_train(samples) -> dict:
+def phase_train() -> dict:
     """The training main path; returns each kernel's launches in it."""
     import torch
 
     from pixel_embedded_affinity_torch.config import load_config
-    from pixel_embedded_affinity_torch.data.provider import collate, to_device
+    from pixel_embedded_affinity_torch.data.device_data import (
+        pack_cvppp_arrays, sample_cvppp_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
     from pixel_embedded_affinity_torch.ops import fused_affinity_2d, multi_offset
     from pixel_embedded_affinity_torch.train import (
@@ -905,11 +921,14 @@ def phase_train(samples) -> dict:
     cfg = load_config("cvppp", {
         "train": {"display_freq": 1, "valid_freq": TRAIN_STEPS, "save_freq": 10 ** 6},
         "save_path": os.path.join(out, "models")})
-    train_ds = LeafSet([{"image": s["image"], "seg": s["seg"]} for s in samples])
+    check(cfg.data.device_resident, "cvppp preset: device_resident")
+    # the serving phase's 4 leaf images, packed as the loader packs the files
+    arrays = pack_cvppp_arrays(leaf_pairs(4, 530, 500, SEED))
     valid = synthetic_leaves(2, 530, 500, SEED + 1)
     print(f"[train] cvppp ResidualUNet2DDeep filters {cfg.model.filters} emd "
-          f"{cfg.model.emd}, B={cfg.train.batch_size}, 544x544, {TRAIN_STEPS} steps, "
-          f"validation on {len(valid)} images, convs in float32 (TF32 off)")
+          f"{cfg.model.emd}, B={cfg.train.batch_size}, 544x544 from the device-resident "
+          f"sampler over {len(arrays[0])} synthetic leaf images {arrays[0].shape[1:]} uint8, "
+          f"{TRAIN_STEPS} steps, validation on {len(valid)} images, convs in float32 (TF32 off)")
 
     launchers = _wmse_launchers()
     timing: dict = {}
@@ -917,7 +936,7 @@ def phase_train(samples) -> dict:
         fn.launches = 0
     fused_affinity_2d.launches = 0
     t0 = time.perf_counter()
-    state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(train_ds, valid),
+    state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(arrays, valid),
                            device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launchers.items()}
@@ -935,12 +954,7 @@ def phase_train(samples) -> dict:
     check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values()),
           f"validation {history}")
     print(f"[train] validation: {json.dumps(history[0])}")
-    data_ms = [1e3 * t for t in timing["data_s"][1:]]
-    step_ms = [1e3 * t for t in timing["step_s"][1:]]
-    print(f"[train] warm ms/step (steps 2..{TRAIN_STEPS}, median): data "
-          f"{np.median(data_ms):.4f} + step {np.median(step_ms):.4f} = "
-          f"{np.median(np.add(data_ms, step_ms)):.4f}; first step "
-          f"{1e3 * (timing['data_s'][0] + timing['step_s'][0]):.4f}; {card_line()}")
+    print_step_times("train", timing, TRAIN_STEPS, HOST_DATA_MS["cvppp"])
 
     # the checkpoint gives the trained state's next-step loss, bit for bit
     ck = latest_checkpoint(os.path.join(cfg.save_path, cfg.name))
@@ -948,9 +962,12 @@ def phase_train(samples) -> dict:
     loaded = restore(init_state(cfg, "cuda"), load_checkpoint(ck))
     offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
     step = TrainStep2D(offsets, ema_seed=cfg.train.random_seed)
-    rng = np.random.default_rng(SEED)
-    batch = step.ema_batch(to_device(collate([train_ds.sample(rng) for _ in range(2)]),
-                                     "cuda"), loaded.step)
+    images, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    batch = step.ema_batch(sample_cvppp_batch(images, labels,
+                                              sampler_generator(cfg.train.random_seed,
+                                                                loaded.step),
+                                              cfg.train.batch_size, out=cfg.data.size),
+                           loaded.step)
 
     def next_loss(model):
         model = copy.deepcopy(model).train()
@@ -967,6 +984,18 @@ def phase_train(samples) -> dict:
                     lambda use_pallas: TrainStep2D(offsets, use_pallas=use_pallas,
                                                    device_ema=False), BIAS_BEFORE_BN)
     return launches
+
+
+def print_step_times(label: str, timing: dict, steps: int, host_data_ms: float):
+    """The warm median of steps 2..steps: data_s (the device sampler's
+    launches) beside the host provider's reading, and step_s."""
+    data_ms = [1e3 * t for t in timing["data_s"][1:]]
+    step_ms = [1e3 * t for t in timing["step_s"][1:]]
+    print(f"[{label}] warm ms/step (steps 2..{steps}, median): data "
+          f"{np.median(data_ms):.4f} (the device-resident sampler; the host provider's, "
+          f"PERF.md: {host_data_ms}) + step {np.median(step_ms):.4f} = "
+          f"{np.median(np.add(data_ms, step_ms)):.4f}; first step "
+          f"{1e3 * (timing['data_s'][0] + timing['step_s'][0]):.4f}; {card_line()}")
 
 
 def train_precision(model, batch, make_step, zero_bias, label="train"):
@@ -1366,26 +1395,7 @@ def phase_serving_3d() -> dict:
     print(f"[serve3d] canvas vs the same run through the plain affinity: {err_c:.3e}")
     check(err_c <= CANVAS_ATOL, f"canvas off the plain run by {err_c}")
     decode_labels_canvas(label)
-    return {"launches": launches, "max_abs_err": err_k}
-
-
-class VolumeCrops:
-    """The 3D smoke run's training set: random crops of a synthetic volume,
-    (image (D, H, W, 1) in [0, 1], seg (D, H, W)), each flipped along z, y
-    and x at random."""
-
-    def __init__(self, raw: np.ndarray, label: np.ndarray, crop):
-        self.raw, self.label, self.crop = raw, label, tuple(crop)
-
-    def sample(self, rng):
-        sl = tuple(slice(o, o + c) for o, c in
-                   zip((int(rng.integers(n - c + 1)) for n, c in zip(self.raw.shape, self.crop)),
-                       self.crop))
-        img, seg = self.raw[sl].astype(np.float32) / 255.0, self.label[sl]
-        for axis in range(3):
-            if rng.random() < 0.5:
-                img, seg = np.flip(img, axis), np.flip(seg, axis)
-        return {"image": np.ascontiguousarray(img[..., None]), "seg": np.ascontiguousarray(seg)}
+    return {"launches": launches, "max_abs_err": err_k, "volume": (raw, label)}
 
 
 def _train3d_launchers():
@@ -1402,7 +1412,8 @@ def phase_train_3d() -> dict:
 
     from pixel_embedded_affinity_torch.config import load_config
     from pixel_embedded_affinity_torch.data import AC3AC4ValidVolume, synthesize_volume
-    from pixel_embedded_affinity_torch.data.provider import collate, to_device
+    from pixel_embedded_affinity_torch.data.device_data import (
+        load_ac3ac4_arrays, sample_ac3ac4_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
     from pixel_embedded_affinity_torch.parallel import tile_grid
     from pixel_embedded_affinity_torch.train import (
@@ -1415,16 +1426,20 @@ def phase_train_3d() -> dict:
         "train": {"display_freq": 1, "valid_freq": TRAIN_STEPS, "save_freq": 10 ** 6},
         "save_path": os.path.join(out, "models")})
     t0 = time.perf_counter()
-    raw, label = synthesize_volume(*TRAIN3D_VOLUME, n_cells=TRAIN3D_CELLS, seed=SEED + 3)
+    check(cfg.data.device_resident, "ac3ac4 preset: device_resident")
+    # the whole synthetic volume as the training split, through the loader
+    arrays = load_ac3ac4_arrays("", train_split=TRAIN3D_VOLUME[0], crop_z=cfg.data.crop_size[0],
+                                arrays=synthesize_volume(*TRAIN3D_VOLUME, n_cells=TRAIN3D_CELLS,
+                                                         seed=SEED + 3))
     valid = AC3AC4ValidVolume("", arrays=synthesize_volume(*VALID3D_VOLUME,
                                                            n_cells=VALID3D_CELLS, seed=SEED + 4))
-    train_ds = VolumeCrops(raw, label, cfg.data.crop_size)
     stride, pad = valid_geometry_3d(cfg.data.crop_size)
     n_tiles = len(tile_grid(tuple(np.add(VALID3D_VOLUME, np.multiply(pad, 2))),
                             cfg.data.crop_size, stride))
     valid_batches = -(-n_tiles // 4)
     print(f"[train3d] ac3ac4 UNetPNIEmbeddingDeep filters {cfg.model.filters} emd "
-          f"{cfg.model.emd}, B={cfg.train.batch_size} crops {cfg.data.crop_size} of a synthetic "
+          f"{cfg.model.emd}, B={cfg.train.batch_size} crops {cfg.data.crop_size} from the "
+          f"device-resident sampler (margin {cfg.data.padding_3d}) over a synthetic "
           f"{TRAIN3D_VOLUME} volume, {TRAIN_STEPS} steps; validation on a synthetic "
           f"{VALID3D_VOLUME} volume (AC4's is 20x1024x1024): {n_tiles} tiles, "
           f"{valid_batches} batches, decoders {cfg.train.valid_decoders}; volumes made in "
@@ -1435,7 +1450,7 @@ def phase_train_3d() -> dict:
         fn.launches = 0
     timing: dict = {}
     t0 = time.perf_counter()
-    state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(train_ds, valid),
+    state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(arrays, valid),
                            device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launchers.items()}
@@ -1451,21 +1466,20 @@ def phase_train_3d() -> dict:
     check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values()),
           f"validation {history}")
     print(f"[train3d] validation ({timing['valid_s'][0]:.4f} s wall): {json.dumps(history[0])}")
-    data_ms = [1e3 * t for t in timing["data_s"][1:]]
-    step_ms = [1e3 * t for t in timing["step_s"][1:]]
-    print(f"[train3d] warm ms/step (steps 2..{TRAIN_STEPS}, median): data "
-          f"{np.median(data_ms):.4f} + step {np.median(step_ms):.4f} = "
-          f"{np.median(np.add(data_ms, step_ms)):.4f}; first step "
-          f"{1e3 * (timing['data_s'][0] + timing['step_s'][0]):.4f}; {card_line()}")
+    print_step_times("train3d", timing, TRAIN_STEPS, HOST_DATA_MS["ac3ac4"])
 
     # the checkpoint gives the trained state's next-step loss, bit for bit
     ck = latest_checkpoint(os.path.join(cfg.save_path, cfg.name))
     check(ck is not None and ck.endswith(f"model-{TRAIN_STEPS:06d}.ckpt"), f"checkpoint {ck}")
     loaded = restore(init_state(cfg, "cuda"), load_checkpoint(ck))
     step = TrainStep3D(ema_seed=cfg.train.random_seed)
-    rng = np.random.default_rng(SEED)
-    batch = step.ema_batch(to_device(collate([train_ds.sample(rng) for _ in range(2)]),
-                                     "cuda"), loaded.step)
+    raw, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    batch = step.ema_batch(sample_ac3ac4_batch(raw, labels,
+                                               sampler_generator(cfg.train.random_seed,
+                                                                 loaded.step),
+                                               cfg.train.batch_size,
+                                               crop_size=tuple(cfg.data.crop_size),
+                                               padding=cfg.data.padding_3d), loaded.step)
 
     def next_loss(model):
         model = copy.deepcopy(model).train()
@@ -2237,6 +2251,243 @@ def phase_fast_forward(cfg, sd, samples) -> dict:
     return {"launches": launches, "times": times, "walls": walls}
 
 
+def sampler_times(draw, label: str, batches: int = 20):
+    """Print the host ms a batch (the launches, no sync), the ms between
+    CUDA events around the same call, and the device's busy ms and
+    operations a batch (torch.profiler), each over ``batches`` draws with
+    their own steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for s in range(3):
+        draw(10 ** 6 + s)
+    torch.cuda.synchronize()
+    host = []
+    for s in range(batches):
+        t0 = time.perf_counter()
+        draw(s)
+        host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    step = iter(range(batches, 3 * batches))
+    dev_ms = timed_ms(lambda: draw(next(step)), n=batches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for s in range(batches):
+            draw(3 * batches + s)
+        torch.cuda.synchronize()
+    busy = device_times(prof)
+    kernels = sum(n for _, n in busy.values()) / batches
+    busy_ms = sum(t for t, _ in busy.values()) / batches
+    print(f"[samplers] {label}: host {np.median(host):.4f} ms a batch of 2 (launches, no "
+          f"sync), {dev_ms:.4f} ms a batch between CUDA events, device busy {busy_ms:.4f} ms "
+          f"a batch (profiler), {kernels:.1f} device operations a batch; {card_line()}")
+
+
+def device_times(prof) -> dict:
+    """{event name: (device ms, count)} of a torch.profiler run, for the
+    events with device time."""
+    out = {}
+    for ev in prof.key_averages():
+        t_us = getattr(ev, "self_device_time_total", None)
+        if t_us is None:
+            t_us = getattr(ev, "self_cuda_time_total", 0)
+        if t_us > 0:
+            out[ev.key] = (t_us / 1e3, ev.count)
+    return out
+
+
+def profiled_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
+    """fn()'s device time a call by torch.profiler: the kernels' own
+    durations, without the gaps between launches that CUDA events around a
+    call also count; with ``flush_bytes`` a buffer that size is rewritten
+    before each call and its fill left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = (torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+             if flush_bytes else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = device_times(prof)
+    if flush is not None:
+        events = {k: v for k, v in events.items()
+                  if not any(f in k.lower() for f in ("fill", "memset"))}
+    return sum(t for t, _ in events.values()) / n
+
+
+def phase_samplers(volume) -> dict:
+    """The device-resident samplers at the real training geometry: CVPPP's
+    108 544x544 images (12 synthetic leaf images repeated 9 times) and
+    AC4's 80x1024x1024 training split (the 3D serving phase's 20-slice
+    volume stacked 4 times); memory, ms a batch, launches a batch, the
+    batches' contract; then one full-width cvppp step with the EMA view's
+    noise and blur on; returns that step's kernel launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data.device_data import (
+        load_ac3ac4_arrays, pack_cvppp_arrays, sample_ac3ac4_batch, sample_cvppp_batch,
+        sampler_generator)
+    from pixel_embedded_affinity_torch.train import train
+
+    t0 = time.perf_counter()
+    arrays = pack_cvppp_arrays(leaf_pairs(CVPPP_DISTINCT, 530, 500, SEED + 8)
+                               * (CVPPP_TRAIN_IMAGES // CVPPP_DISTINCT))
+    t_pack = time.perf_counter() - t0
+    images, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    mb = (images.numel() * images.element_size() + labels.numel() * labels.element_size()) / 1e6
+    print(f"[samplers] cvppp: {images.shape[0]} images {tuple(images.shape[1:])} uint8 + labels "
+          f"int32 ({CVPPP_DISTINCT} synthetic leaf images repeated), {mb:.2f} MB on the "
+          f"device; made and packed in {t_pack:.2f} s")
+    sampler_times(lambda s: sample_cvppp_batch(images, labels, sampler_generator(SEED, s), 2),
+                  "cvppp B=2 544x544")
+    src_ids = set(np.unique(arrays[1]).tolist())
+    for s in range(4):
+        b = sample_cvppp_batch(images, labels, sampler_generator(SEED, s), 2)
+        img, seg = b["image"], b["seg"]
+        check(img.shape == (2, 544, 544, 3) and img.dtype == torch.float32
+              and seg.shape == (2, 544, 544) and seg.dtype == torch.int32, "cvppp batch")
+        check(bool(torch.isfinite(img).all()) and -2.2 < float(img.min())
+              and float(img.max()) < 2.7, "cvppp image range (ImageNet-normalised [0, 1])")
+        check(set(torch.unique(seg).tolist()) <= src_ids, "cvppp labels not from the source")
+    print(f"[samplers] cvppp batches: image (2, 544, 544, 3) float32 in "
+          f"[{float(img.min()):.4f}, {float(img.max()):.4f}], seg (2, 544, 544) int32, "
+          f"ids a subset of the source's")
+
+    cfg = load_config("cvppp", {"data": {"if_ema_noise": True, "if_ema_blur": True},
+                                "train": {"if_valid": False, "display_freq": 1,
+                                          "save_freq": 10 ** 6},
+                                "save_path": os.path.join(REPO, "build", "chip_smoke_ema")})
+    launchers = _wmse_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, _ = train(cfg, max_iters=1, data_override=(arrays, []), device="cuda")
+    n = {k: fn.launches for k, fn in launchers.items()}
+    check(state.step == 1 and n == {"K2f": 5, "K2b": 5, "K3f": 1, "K3b": 1},
+          f"EMA noise/blur step: launches {n}")
+    check(all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+          "EMA noise/blur step: non-finite parameters")
+    print(f"[samplers] one cvppp step with the EMA view's noise and blur on: "
+          f"{time.perf_counter() - t0:.2f} s (first step, cuDNN's search included), "
+          f"launches {json.dumps(n)}, parameters finite")
+    ema_launches = n
+    del images, labels, arrays
+
+    t0 = time.perf_counter()
+    raw = np.concatenate([volume[0]] * 4)
+    lab = np.concatenate([volume[1] + i * (int(volume[1].max()) + 1) for i in range(4)])
+    arrays = load_ac3ac4_arrays("", train_split=AC4_TRAIN_SLICES, arrays=(raw, lab))
+    t_load = time.perf_counter() - t0
+    raw_d, lab_d = (torch.from_numpy(a).cuda() for a in arrays)
+    mb = (raw_d.numel() * raw_d.element_size() + lab_d.numel() * lab_d.element_size()) / 1e6
+    print(f"[samplers] ac3ac4: volume {tuple(raw_d.shape)} uint8 + labels int32 (the serving "
+          f"volume stacked 4 times, ids kept apart), {mb:.2f} MB on the device; "
+          f"load_ac3ac4_arrays (border widening) {t_load:.2f} s")
+    sampler_times(lambda s: sample_ac3ac4_batch(raw_d, lab_d, sampler_generator(SEED, s), 2),
+                  "ac3ac4 B=2 18x160x160 (crop 18x260x260)")
+    src_ids = set(np.unique(arrays[1]).tolist()) | {0}
+    for s in range(4):
+        b = sample_ac3ac4_batch(raw_d, lab_d, sampler_generator(SEED, s), 2)
+        img, seg = b["image"], b["seg"]
+        check(img.shape == (2, 18, 160, 160, 1) and img.dtype == torch.float32
+              and seg.shape == (2, 18, 160, 160) and seg.dtype == torch.int32, "ac3ac4 batch")
+        check(float(img.min()) >= 0 and float(img.max()) <= 1, "ac3ac4 image range")
+        check(set(torch.unique(seg).tolist()) <= src_ids, "ac3ac4 labels not from the source")
+    print(f"[samplers] ac3ac4 batches: image (2, 18, 160, 160, 1) float32 in "
+          f"[{float(img.min()):.4f}, {float(img.max()):.4f}], seg int32, ids a subset of the "
+          f"source's and 0")
+    return ema_launches
+
+
+def phase_tile_copy() -> dict:
+    """P, the tile copy, against its plain version bit for bit: float32 and
+    bfloat16, the probe's three arrangements of the (1, 544, 544, 16)
+    embedding, an odd shape whose bytes are no multiple of 16, and views
+    whose storage offset leaves 8, 4, 2 and 1 bytes of alignment; its time
+    beside the plain version's, copy_'s and the bound, L2 flushed; then the
+    arrangement probe at B=1 and B=4, the kernel's launches counted around
+    it."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops import tile_copy, tile_copy_plain
+    from pixel_embedded_affinity_torch.utils import profile_arrange
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    err = 0.0
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        emb = torch.randn((1, 544, 544, 16), generator=g, device="cuda").to(dt)
+        for name, (perm, axis) in (("NHWC", ((0, 1, 2, 3), 1)), ("NCHW", ((0, 3, 1, 2), 2)),
+                                   ("BHCW", ((0, 1, 3, 2), 1))):
+            t = emb.permute(*perm).contiguous()
+            got, ref = tile_copy(t, axis), tile_copy_plain(t, axis)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"tile_copy {name} {dt} differs from its plain version")
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+            cases += 1
+        odd = torch.randn((3, 33, 5, 7), generator=g, device="cuda").to(dt)
+        check(torch.equal(tile_copy(odd, 1, 11), tile_copy_plain(odd, 1, 11)), f"odd {dt}")
+        cases += 1
+    for dt, off in ((torch.float32, 2), (torch.float32, 1), (torch.bfloat16, 1),
+                    (torch.uint8, 1)):
+        n = 3 * 33 * 5 * 7
+        buf = torch.randint(0, 100, (off + n,), generator=g, device="cuda").to(dt)
+        t = buf[off:].view(3, 33, 5, 7)
+        check(torch.equal(tile_copy(t, 1, 11), tile_copy_plain(t, 1, 11)),
+              f"misaligned view {dt} offset {off}")
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"[P] tile_copy against tile_copy_plain: {cases} cases bit-exact (max abs error "
+          f"{err}): float32 and bfloat16 x NHWC/NCHW/(B,H,C,W) of (1, 544, 544, 16), an odd "
+          f"(3, 33, 5, 7) (bytes no multiple of 16), views 8, 4, 2, 1 bytes aligned")
+
+    t = torch.randn((1, 544, 544, 16), generator=g, device="cuda").to(torch.bfloat16)
+    out = torch.empty_like(t)
+    flush = 64 << 20  # beyond the 50 MB L2
+    res = {"max_abs_err": err,
+           "ms": timed_ms(lambda: tile_copy(t, 1), flush_bytes=flush),
+           "plain_ms": timed_ms(lambda: tile_copy_plain(t, 1), flush_bytes=flush),
+           "library_ms": timed_ms(lambda: out.copy_(t), flush_bytes=flush)}
+    nbytes = t.numel() * t.element_size()
+    res["bound_ms"], res["bound_by"] = 2 * nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    print(f"[P] tile_copy (1, 544, 544, 16) bfloat16, {nbytes / 1e6:.2f} MB (ms, L2 flushed, "
+          f"median of 20, CUDA events): kernel {res['ms']:.4f}, plain (clone) "
+          f"{res['plain_ms']:.4f}, copy_ {res['library_ms']:.4f}, bound {res['bound_ms']:.4f} "
+          f"(bytes); {card_line()}")
+    # a 6 us copy launched through ctypes: CUDA events around one call also
+    # count the host's launch path, so the kernels line takes the
+    # profiler's durations of the kernels themselves
+    events = {k: res[k] for k in ("ms", "plain_ms", "library_ms")}
+    res.update({k: profiled_ms(f, flush_bytes=flush) for k, f in
+                (("ms", lambda: tile_copy(t, 1)), ("plain_ms", lambda: tile_copy_plain(t, 1)),
+                 ("library_ms", lambda: out.copy_(t)))})
+    check(min(res[k] for k in events) > 0, f"the profiler recorded no device time: {res}")
+    print(f"[P] the same, device time by torch.profiler (ms a call, the kernels' own "
+          f"durations, the kernels line's): kernel {res['ms']:.4f}, plain {res['plain_ms']:.4f}, "
+          f"copy_ {res['library_ms']:.4f} (CUDA events: {json.dumps(events)})")
+
+    tile_copy.launches = 0
+    for b in (1, 4):
+        ms = profile_arrange.run(b, "cuda")
+        print(f"[P] arrangement probe B={b}, ResidualUNet2DDeep (16..256) fast forward "
+              f"bfloat16 s2d input 544x544, median of 30 (CUDA events), {card_line()}:")
+        for name, v in ms.items():
+            print(f"[P]   {name:24s} {v:8.3f} ms")
+            check(np.isfinite(v) and v > 0, f"probe {name}")
+    res["launches"] = tile_copy.launches
+    expected = 2 * 3 * (3 + 30)  # two batches, three copy variants, warm-up and timed calls
+    check(res["launches"] == expected,
+          f"tile_copy launched {res['launches']} times in the probe, expected {expected}")
+    print(f"[P] tile_copy launches in the probe: {res['launches']}")
+    return res
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -2265,7 +2516,7 @@ def main() -> int:
     wmse = _timed("K2, K3", phase_wmse_kernels)
     _timed("fixture", phase_fixture)
     launches = _timed("serving", phase_main_path, cfg, sd, samples)
-    train_launches = _timed("training", phase_train, samples)
+    train_launches = _timed("training", phase_train)
     # 7. 3D kernels, 8. 3D fixture, 9. 3D serving, 10. 3D training
     k5 = _timed("K5f", phase_kernels_3d)
     grad = _timed("3D train kernels", phase_train_kernels_3d)
@@ -2281,8 +2532,11 @@ def main() -> int:
     conv = _timed("K7, K9a, K9b", phase_conv3x3)
     k8 = _timed("K8", phase_s2d_block)
     fast = _timed("fast forward", phase_fast_forward, cfg, sd, samples)
-    # 17. kernels line, card, 18. last line
-    trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k]
+    # 17. the device-resident samplers at the real geometry, 18. P and the probe
+    ema = _timed("samplers", phase_samplers, serve3d.pop("volume"))
+    p = _timed("P", phase_tile_copy)
+    # 19. kernels line, card, 20. last line
+    trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                for k in bbbc["launches"]}
     t1 = k1["times"][1]
     kernels = [{
@@ -2333,6 +2587,11 @@ def main() -> int:
         "launches": fast["launches"]["K8"], "max_abs_err": k8["max_abs_err"], "ms": k8["ms"],
         "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
         "library_ms": k8["library_ms"]})
+    kernels.append({
+        "name": "tile_copy", "route": "cuda", "source": P_SOURCE, "replaces": P_REPLACES,
+        "launches": p["launches"], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+        "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+        "library_ms": p["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,7 @@ JAX key it lacks (``train.opt_type``, ``model.s2d_train``, ...) fails as an
 unknown config key. A few fields whose code is not ported keep their JAX
 names, and raise where a value the port does not serve would take
 effect (``model.dtype``, ``model.bf16_tiled_infer``,
-``model.fast_tiled_infer``, ``data.device_resident``,
-``train.loop.check_train_config``).
+``model.fast_tiled_infer``, ``train.loop.check_train_config``).
 """
 
 from __future__ import annotations
@@ -78,7 +77,7 @@ class DataConfig:
     # "cvppp", "bbbc039v1" or "ac3ac4"
     dataset: str = "cvppp"
     data_folder: str = "./data/CVPPP"
-    # the side of the square training crop (the BBBC device sampler's)
+    # the side of the square training crop (the 2D device samplers')
     size: int = 544
     shifts: tuple = (1, 3, 5, 9, 27)
     neighbor: int = 4
@@ -95,17 +94,21 @@ class DataConfig:
     device_gt: bool = False
     device_ema: bool = False
     # the whole training set resident on the device, sampled and augmented
-    # there: ported for bbbc039v1 (data/device_data.py); True raises for
-    # the other datasets (the JAX cvppp and ac3ac4 presets' True is left
-    # out of the port's)
+    # there (data/device_data.py: the cvppp, bbbc039v1 and ac3ac4
+    # samplers), on in the three presets as in JAX; False trains from the
+    # host samples passed through train()'s data_override
     device_resident: bool = False
     # bbbc039v1: the reflect padding around the images before the random
     # crop
     bbbc_padding: int = 30
-    # 3D (AC3/AC4): the volume served ("ac4"; the CLI's -m test serves
-    # "ac3") and the tile the tiled engine runs the model on
+    # 3D (AC3/AC4): the volume served and trained on ("ac4"; the CLI's
+    # -m test serves "ac3"), the training slices (the first train_split),
+    # the tile the tiled engine runs the model on and the training crop,
+    # and the margin around the crop that the sampler's warps read
     dataset_name: str = "ac4"
+    train_split: int = 80
     crop_size: tuple = (18, 160, 160)
+    padding_3d: int = 50
 
 
 @dataclass
@@ -140,7 +143,8 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "base_lr": 1e-4, "batch_size": 2},
         "data": {"dataset": "cvppp", "size": 544,
                  "shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
-                 "device_gt": True, "device_ema": True},
+                 "device_gt": True, "device_ema": True,
+                 "device_resident": True},
     },
     # the JAX package's bbbc039v1 preset
     # (scripts_bbbc039v1/config/bbbc039v1.yaml)
@@ -163,8 +167,10 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "filters": (28, 36, 48, 64, 80)},
         "train": {"embedding_mode": 5, "lr_mode": "fixed", "base_lr": 1e-4,
                   "batch_size": 2, "valid_decoders": ("waterz",)},
-        "data": {"dataset": "ac3ac4", "dataset_name": "ac4", "crop_size": (18, 160, 160),
-                 "device_gt": True, "device_ema": True},
+        "data": {"dataset": "ac3ac4", "dataset_name": "ac4",
+                 "train_split": 80, "crop_size": (18, 160, 160),
+                 "padding_3d": 50, "device_gt": True, "device_ema": True,
+                 "device_resident": True},
     },
 }
 

@@ -16,6 +16,18 @@ _FILES = {"ac4": ("AC4_inputs.h5", "AC4_labels.h5"),
           "ac3": ("AC3_inputs.h5", "AC3_labels.h5")}
 
 
+def read_volume(data_folder: str, dataset_name: str = "ac4") -> tuple[np.ndarray, np.ndarray]:
+    """(raw, label) of ``dataset_name``, each its HDF5 file's ``main``
+    (h5py, imported here)."""
+    import h5py
+
+    out = []
+    for name in _FILES[dataset_name]:
+        with h5py.File(os.path.join(data_folder, name), "r") as f:
+            out.append(f["main"][:])
+    return tuple(out)
+
+
 class AC3AC4ValidVolume:
     """A whole volume for tiled inference: ``raw`` float32 in [0, 1] and
     ``label`` int64, both (D, H, W).
@@ -28,16 +40,7 @@ class AC3AC4ValidVolume:
     def __init__(self, data_folder: str, dataset_name: str = "ac4",
                  mode: str = "valid",
                  arrays: tuple[np.ndarray, np.ndarray] | None = None):
-        if arrays is not None:
-            raw, label = arrays
-        else:
-            import h5py
-
-            fr, fl = _FILES[dataset_name]
-            with h5py.File(os.path.join(data_folder, fr), "r") as f:
-                raw = f["main"][:]
-            with h5py.File(os.path.join(data_folder, fl), "r") as f:
-                label = f["main"][:]
+        raw, label = read_volume(data_folder, dataset_name) if arrays is None else arrays
         if dataset_name == "ac3":
             raw, label = raw[:100], label[:100]
         elif mode == "valid":

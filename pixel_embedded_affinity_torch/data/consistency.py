@@ -16,6 +16,17 @@ import torch
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
+_STATS: dict = {}
+
+
+def imagenet_stats(device, dtype=torch.float32) -> tuple:
+    """(mean, std) as tensors on ``device``, made once: a copy from pageable
+    host memory would wait for the queued kernels at every use."""
+    key = (torch.device(device), dtype)
+    if key not in _STATS:
+        _STATS[key] = tuple(torch.as_tensor(a, dtype=dtype, device=key[0])
+                            for a in (IMAGENET_MEAN, IMAGENET_STD))
+    return _STATS[key]
 
 
 def _bit(rules_b3: torch.Tensor, i: int) -> torch.Tensor:

@@ -40,6 +40,22 @@ def _read_gray(path: str) -> np.ndarray:
     return a[..., 0] if a.ndim == 3 else a
 
 
+def split_names(data_folder: str, valid_set: str = "local_20_1") -> tuple[list, list]:
+    """(training names, validation names) of ``train/``'s ``plantXXX``: the
+    validation names listed in ``valid_set/<valid_set>.txt``, or without
+    that file the first fifth (the JAX package's rule); training, the
+    others."""
+    names = sorted({f[:8] for f in os.listdir(os.path.join(data_folder, "train"))
+                    if "rgb" in f})
+    valid_file = os.path.join(data_folder, "valid_set", valid_set + ".txt")
+    if os.path.exists(valid_file):
+        with open(valid_file) as f:
+            valid = [x.strip() for x in f if x.strip()]
+    else:
+        valid = names[: max(1, len(names) // 5)]
+    return [n for n in names if n not in valid], valid
+
+
 class CVPPPValidation:
     """Validation images with GT labels: ``{image, seg, name}``."""
 
@@ -47,13 +63,7 @@ class CVPPPValidation:
                  padding: bool = True):
         self.dir = os.path.join(data_folder, "train")
         self.padding = padding
-        valid_file = os.path.join(data_folder, "valid_set", valid_set + ".txt")
-        if os.path.exists(valid_file):
-            with open(valid_file) as f:
-                self.names = [x.strip() for x in f if x.strip()]
-        else:  # the JAX package's rule: the first fifth of the train names
-            names = sorted({f[:8] for f in os.listdir(self.dir) if "rgb" in f})
-            self.names = names[: max(1, len(names) // 5)]
+        self.names = split_names(data_folder, valid_set)[1]
 
     def __len__(self):
         return len(self.names)

@@ -2,9 +2,10 @@
 
 The port of the JAX package's ``data/device_aug.py``. 2D: from the clean
 [0, 1] image (B, H, W, C) and its foreground (B, H, W), the EMA view gets,
-in this order: an intensity jitter, up to 20 squares inside the
-foreground's bounding box filled with the per-channel foreground mean, and
-the 3-bit flip rule. 3D: from the clean [0, 1] volume (B, D, H, W, 1), a
+in this order: Gaussian noise and a Gaussian blur (both off in the
+presets), an intensity jitter, up to 20 squares inside the foreground's
+bounding box filled with the per-channel foreground mean, and the 3-bit
+flip rule. 3D: from the clean [0, 1] volume (B, D, H, W, 1), a
 per-slice contrast/brightness/gamma jitter applied to half the samples, up
 to 60 zeroed boxes, and the 4-bit flip rule. Every draw comes from the
 ``torch.Generator`` the
@@ -45,6 +46,58 @@ def add_intensity_2d(img, gen, contrast_factor=0.1, brightness_factor=0.1):
     out = img * (1 + (u - 0.5) * contrast_factor)
     out = out + (v - 0.5) * brightness_factor
     return torch.clamp(out, 0, 1)
+
+
+def add_gauss_noise_2d(img, gen, min_std=0.0, max_std=0.05):
+    """clip(img + n std), std ~ U[min_std, max_std] per sample and one
+    N(0, 1) field n (B, H, W, 1) over the channels."""
+    b, h, w, _ = img.shape
+    std = min_std + (max_std - min_std) * _uniform(gen, (b, 1, 1, 1), img)
+    noise = torch.randn((b, h, w, 1), generator=gen, device=img.device, dtype=img.dtype)
+    return torch.clamp(img + noise * std, 0, 1)
+
+
+def add_gauss_blur_2d(img, gen, max_kernel_size=7, min_sigma=0.0, max_sigma=1.0):
+    """cv2.GaussianBlur per sample: kernel 2 half + 1, half ~ U{0..3} (the
+    kernel 1 is the identity), sigma ~ U[min_sigma, max_sigma]."""
+    b = img.shape[0]
+    r = max_kernel_size // 2
+    zero = torch.zeros(b, dtype=torch.long, device=img.device)
+    half = _randint(gen, zero, zero + r + 1, (b,))
+    sigma = min_sigma + (max_sigma - min_sigma) * _uniform(gen, (b,), img)
+    return _gauss_blur_2d(img, half, sigma, r)
+
+
+def _reflect101_index(n: int, r: int, device) -> torch.Tensor:
+    """Indices -r .. n + r - 1 folded into [0, n) with cv2's
+    BORDER_REFLECT_101 (the edge not repeated)."""
+    i = torch.arange(-r, n + r, device=device).abs()
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def _gauss_blur_2d(img, half, sigma, r):
+    """The separable Gaussian blur of (B, H, W, C) with per-sample radius
+    ``half`` (B,) (<= r) and ``sigma`` (B,), as the JAX function: cv2's
+    GaussianBlur where sigma > 0; sigma <= 0 taken from the kernel size by
+    cv2's formula, 0.3 ((k - 1) / 2 - 1) + 0.8 (cv2 itself has fixed tables
+    for kernels up to 7 there); taps beyond the radius weigh 0; REFLECT_101
+    borders; the result clipped to [0, 1]."""
+    ksz = (2 * half + 1).to(img.dtype)
+    sig = torch.where(sigma > 0, sigma, 0.3 * ((ksz - 1) * 0.5 - 1) + 0.8)
+    x = torch.arange(-r, r + 1, dtype=img.dtype, device=img.device)
+    wts = torch.exp(-(x[None, :] ** 2) / (2 * sig[:, None] ** 2))
+    wts = torch.where(x.abs()[None, :] <= half[:, None], wts, torch.zeros_like(wts))
+    wts = wts / wts.sum(dim=1, keepdim=True)  # (B, 2r + 1)
+
+    def pass_axis(e, axis):
+        n = e.shape[axis]
+        ep = e.index_select(axis, _reflect101_index(n, r, e.device))
+        out = torch.zeros_like(e)
+        for d in range(2 * r + 1):
+            out = out + wts[:, d, None, None, None] * ep.narrow(axis, d, n)
+        return out
+
+    return torch.clamp(pass_axis(pass_axis(img, 1), 2), 0, 1)
 
 
 def _first_true(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -100,10 +153,13 @@ def flip_2d(img, rules_b3):
 
 def ema_view_2d(img, fg_bhw, gen, *, noise=False, blur=False, intensity=True,
                 mask=True, flip=True):
-    """Clean [0, 1] image (B, H, W, C) -> (ema_image, rules (B, 3))."""
-    if noise or blur:
-        raise NotImplementedError("the EMA view's Gaussian noise and blur are not ported")
+    """Clean [0, 1] image (B, H, W, C) -> (ema_image, rules (B, 3)); the
+    links in the reference's order: noise, blur, intensity, mask, flip."""
     ema = img
+    if noise:
+        ema = add_gauss_noise_2d(ema, gen)
+    if blur:
+        ema = add_gauss_blur_2d(ema, gen)
     if intensity:
         ema = add_intensity_2d(ema, gen)
     if mask:

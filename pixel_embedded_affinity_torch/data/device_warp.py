@@ -5,8 +5,9 @@ The BBBC device sampler (:mod:`.device_data`) warps with these; the host
 chains they stand for warp with ``cv2.remap``, ``cv2.warpAffine`` and
 ``cv2.resize`` and smooth noise with ``scipy.ndimage.gaussian_filter``.
 Each function takes its parameters explicitly (angles, factors, fields);
-the random draws live in the sampler. Images are (H, W) tensors,
-coordinates (h, w) float32 tensors on the image's device.
+the random draws live in the sampler. Images are (H, W) tensors, or
+(..., H, W) stacks that one map warps alike (the AC3/AC4 sampler's
+volumes); coordinates are (h, w) float32 tensors on the image's device.
 
 Conventions reproduced:
 - scipy's gaussian_filter: truncate 4, radius int(truncate * sigma + 0.5),
@@ -67,8 +68,9 @@ def reflect_index(i: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-    """img (H, W) at integer index maps yi, xi (h, w)."""
-    return img.reshape(-1)[yi * img.shape[1] + xi]
+    """img (..., H, W) at integer index maps yi, xi (h, w): (..., h, w)."""
+    flat = img.reshape(*img.shape[:-2], -1)
+    return flat[..., yi * img.shape[-1] + xi]
 
 
 def remap_bilinear(img: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
@@ -76,7 +78,7 @@ def remap_bilinear(img: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
     """cv2.remap(INTER_LINEAR): img sampled at the float coordinates (my,
     mx). ``border``: 'reflect' (BORDER_REFLECT) or 'constant' (each tap
     outside the image counts 0)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     x0 = torch.floor(mx).to(torch.int64)
     y0 = torch.floor(my).to(torch.int64)
     fx = mx - x0.to(torch.float32)
@@ -105,7 +107,7 @@ def remap_bilinear(img: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
 def remap_nearest(img: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
                   border: str = "reflect") -> torch.Tensor:
     """cv2.remap(INTER_NEAREST): the source pixel nearest (my, mx)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     xi = torch.floor(mx + 0.5).to(torch.int64)
     yi = torch.floor(my + 0.5).to(torch.int64)
     if border == "reflect":

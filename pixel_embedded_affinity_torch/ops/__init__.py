@@ -17,3 +17,4 @@ from .conv3x3_cuda import (conv3x3_fused, conv3x3_blocked, conv3x3_blocked_flat,
                            conv3x3_blocked_chain, blocked_ingest, blocked_egress,
                            conv3x3_plain, conv3x3_canvas_plain)
 from .s2d_block_cuda import fused_s2d_block, fused_s2d_block_plain
+from .tile_copy_cuda import tile_copy, tile_copy_plain

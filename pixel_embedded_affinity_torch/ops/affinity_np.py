@@ -1,6 +1,6 @@
-"""Host-side label utilities (numpy): relabelling, and the 2D affinity
-targets and class-balancing weights of the JAX package's
-``ops/affinity_np.py``, which its datasets build on the host."""
+"""Host-side label utilities (numpy): relabelling, the 2D affinity targets
+and class-balancing weights, and the border widening of the AC3/AC4
+training labels, from the JAX package's ``ops/affinity_np.py``."""
 
 from __future__ import annotations
 
@@ -74,3 +74,28 @@ def weight_binary_ratio(label: np.ndarray, alpha: float = 1.0) -> np.ndarray:
     else:
         weight = alpha * (1.0 - frac) / frac * binary + (1.0 - binary)
     return weight.astype(np.float32)
+
+
+def seg_widen_border(seg: np.ndarray, tsz_h: int = 1) -> np.ndarray:
+    """Kisuk Lee's border widening: a pixel becomes 0 where its (2t + 1)^2
+    window (mirrored at the edge, the edge not repeated) holds more than one
+    positive id. Min/max filters per 2D plane; a 3D array is taken slice by
+    slice along z."""
+    from scipy.ndimage import maximum_filter, minimum_filter
+
+    seg = np.ascontiguousarray(seg)
+    size = 2 * tsz_h + 1
+
+    def one(plane: np.ndarray) -> np.ndarray:
+        p0 = maximum_filter(plane, size=size, mode="mirror")
+        tmp = plane.copy()
+        tmp[tmp == 0] = plane.max() + 1
+        p1 = minimum_filter(tmp, size=size, mode="mirror")
+        return plane * (p0 == p1)
+
+    if seg.ndim == 3:
+        out = np.empty_like(seg)
+        for z in range(seg.shape[0]):
+            out[z] = one(seg[z])
+        return out
+    return one(seg)

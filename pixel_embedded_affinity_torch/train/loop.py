@@ -1,11 +1,11 @@
 """Training loop: data -> train step -> validation -> checkpoints.
 
 The port of the JAX package's ``train/loop.py`` for the ``cvppp`` and
-``bbbc039v1`` (2D) and ``ac3ac4`` (3D) presets: host sample workers feed
-batches (copied to the card from pinned memory), or, with
-``data.device_resident`` (bbbc039v1), the training set lives on the device
-and each step's batch is cropped and augmented there
-(:mod:`..data.device_data`); each step runs
+``bbbc039v1`` (2D) and ``ac3ac4`` (3D) presets. With
+``data.device_resident`` (the presets' default, as in JAX) the training set
+lives on the device and each step's batch is picked, cropped and augmented
+there (:mod:`..data.device_data`); without it, host sample workers feed
+batches (copied to the card from pinned memory). Each step runs
 :class:`.train_step.TrainStep2D` or :class:`.train_step.TrainStep3D`, every
 ``valid_freq`` steps the validation data is decoded and scored, and every
 ``save_freq`` steps and at the end a checkpoint is written. 2D validation
@@ -19,18 +19,21 @@ stay on the device until a display, validation or save point fetches them
 in one copy; the watchdog then checks each one. Scalars go to
 ``scalars.jsonl`` and the reference's ``loss.txt``/``valid.txt``.
 
-Data comes through ``data_override=(train_dataset, valid)``, the JAX
-loop's own hook: ``train_dataset.sample(rng)`` gives ``{"image": (H, W, 3)
-float32, ImageNet-normalised for cvppp and in [0, 1] for bbbc039v1, "seg":
-(H, W) int}`` (2D) or ``{"image": (D, H, W, 1) float32 in [0, 1], "seg":
-(D, H, W) int}`` (3D); ``valid`` is a list (or indexable) of such 2D
-samples, or a volume with ``raw`` (D, H, W) float32 in [0, 1] and
-``label`` (D, H, W) int (:class:`..data.AC3AC4ValidVolume`). With
-``data.device_resident`` the first item is the padded training set,
-``(images (N, Hp, Wp) float32, labels int32)`` as
-:func:`..data.device_data.pad_bbbc_arrays` gives it; without
-``data_override`` that run reads the BBBC folder (cv2). The disk samplers
-(CVPPP, AC3/AC4, BBBC's host chain) are not ported.
+Data comes through ``data_override=(train, valid)``, the JAX loop's own
+hook, or from ``data.data_folder``. With ``data.device_resident``,
+``train`` is the packed training set, ``(images, labels)`` numpy arrays as
+:func:`..data.device_data.pack_cvppp_arrays` (cvppp),
+:func:`..data.device_data.pad_bbbc_arrays` (bbbc039v1) or
+:func:`..data.device_data.load_ac3ac4_arrays` (ac3ac4) give them; without
+``data_override`` the dataset's loader reads the folder (cv2, or h5py for
+AC3/AC4). Without ``data.device_resident``, ``train.sample(rng)`` gives
+``{"image": (H, W, 3) float32, ImageNet-normalised for cvppp and in [0, 1]
+for bbbc039v1, "seg": (H, W) int}`` (2D) or ``{"image": (D, H, W, 1)
+float32 in [0, 1], "seg": (D, H, W) int}`` (3D), and ``data_override`` is
+needed: the host disk samplers are not ported. ``valid`` is a list (or
+indexable) of 2D samples (``CVPPPValidation``, ``BBBCValidation``), or a
+volume with ``raw`` (D, H, W) float32 in [0, 1] and ``label`` (D, H, W)
+int (:class:`..data.AC3AC4ValidVolume`).
 """
 
 from __future__ import annotations
@@ -79,13 +82,57 @@ def check_train_config(cfg: Config):
         not_ported.append(f"data.dataset={cfg.data.dataset!r}")
     if not (cfg.data.device_gt and cfg.data.device_ema):
         not_ported.append("host-built targets or EMA views (data.device_gt/device_ema)")
-    if cfg.data.if_ema_noise or cfg.data.if_ema_blur:
-        not_ported.append("the EMA view's noise/blur (data.if_ema_noise/if_ema_blur)")
-    if cfg.data.device_resident and cfg.data.dataset != "bbbc039v1":
-        not_ported.append(f"the {cfg.data.dataset} device-resident sampler "
-                          "(data.device_resident)")
     if not_ported:
         raise NotImplementedError("not ported: " + "; ".join(not_ported))
+
+
+def load_resident_data(cfg: Config):
+    """(training arrays, validation set) of ``cfg.data.dataset`` read from
+    ``data.data_folder``: cv2 for CVPPP and BBBC, h5py for AC3/AC4."""
+    from ..data import device_data as dd
+
+    d = cfg.data
+    if d.dataset == "cvppp":
+        from ..data.cvppp import CVPPPValidation
+
+        return (dd.load_cvppp_arrays(d.data_folder, d.valid_set, d.padding),
+                CVPPPValidation(d.data_folder, valid_set=d.valid_set, padding=d.padding))
+    if d.dataset == "bbbc039v1":
+        from ..data.bbbc import BBBCValidation
+
+        return (dd.load_bbbc_arrays(d.data_folder, d.bbbc_padding),
+                BBBCValidation(d.data_folder, shifts=tuple(d.shifts), neighbor=d.neighbor))
+    from ..data.ac3ac4 import AC3AC4ValidVolume
+
+    return (dd.load_ac3ac4_arrays(d.data_folder, d.dataset_name, d.train_split,
+                                  crop_z=d.crop_size[0]),
+            AC3AC4ValidVolume(d.data_folder, dataset_name=d.dataset_name, mode="valid"))
+
+
+def resident_sampler(cfg: Config, arrays, device):
+    """The training arrays uploaded to ``device`` once, and next_batch(step):
+    the dataset's device sampler, its draws from ``sampler_generator(seed,
+    step)``, so a resumed run draws the batches an uninterrupted run drew."""
+    from ..data import device_data as dd
+
+    d, b = cfg.data, cfg.train.batch_size
+    images, labels = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+    if d.dataset == "cvppp":
+        def draw(gen):
+            return dd.sample_cvppp_batch(images, labels, gen, b, out=d.size)
+    elif d.dataset == "bbbc039v1":
+        def draw(gen):
+            return dd.sample_bbbc_batch(images, labels, gen, b, size=d.size,
+                                        padding=d.bbbc_padding)
+    else:
+        def draw(gen):
+            return dd.sample_ac3ac4_batch(images, labels, gen, b, crop_size=tuple(d.crop_size),
+                                          padding=d.padding_3d)
+
+    def next_batch(step: int) -> dict:
+        return draw(dd.sampler_generator(cfg.train.random_seed, step))
+
+    return next_batch
 
 
 def init_state(cfg: Config, device) -> TrainState:
@@ -219,22 +266,21 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     """
     check_train_config(cfg)
     is_3d = cfg.model.arch in ARCHS_3D
-    device_resident = cfg.data.device_resident
     if data_override is not None:
         train_ds, valid_ds = data_override
-    elif device_resident:
-        from ..data.bbbc import BBBCValidation
-        from ..data.device_data import load_bbbc_arrays
-
-        train_ds = load_bbbc_arrays(cfg.data.data_folder, cfg.data.bbbc_padding)
-        valid_ds = BBBCValidation(cfg.data.data_folder, shifts=tuple(cfg.data.shifts),
-                                  neighbor=cfg.data.neighbor)
+    elif cfg.data.device_resident:
+        train_ds, valid_ds = load_resident_data(cfg)
     else:
         name = {"ac3ac4": "AC3/AC4 (h5py, cv2)", "cvppp": "CVPPP (cv2)"}.get(
             cfg.data.dataset, f"{cfg.data.dataset} host (cv2)")
         raise NotImplementedError(
             f"the {name} disk sampler is not ported; pass "
-            "data_override=(train_dataset, valid)")
+            "data_override=(train_dataset, valid) or set data.device_resident")
+    if cfg.data.device_resident and not (isinstance(train_ds, (tuple, list))
+                                         and len(train_ds) == 2):
+        raise TypeError("with data.device_resident the training set is an (images, labels) "
+                        "pair of arrays; a dataset with .sample() trains with "
+                        "data.device_resident=False")
     dev = resolve_device(device)
     total_iters = max_iters or cfg.train.total_iters
     state = init_state(cfg, dev)
@@ -272,17 +318,9 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
         def validate():
             return validate_2d(cfg, eval_step, state, valid_ds, offsets, dev)
 
-    if device_resident:
-        from ..data.device_data import sample_bbbc_batch, sampler_generator
-
-        images, labels = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in train_ds)
+    if cfg.data.device_resident:
         provider = None
-
-        def next_batch(step: int) -> dict:
-            return sample_bbbc_batch(images, labels,
-                                     sampler_generator(cfg.train.random_seed, step),
-                                     cfg.train.batch_size, size=cfg.data.size,
-                                     padding=cfg.data.bbbc_padding)
+        next_batch = resident_sampler(cfg, train_ds, dev)
     else:
         provider = Provider(train_ds, batch_size=cfg.train.batch_size,
                             num_workers=cfg.train.num_workers, seed=cfg.train.random_seed)

@@ -36,7 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from ..data.ac3ac4 import convert_consistency_flip_3d_rule4
-from ..data.consistency import IMAGENET_MEAN, IMAGENET_STD, convert_consistency_flip
+from ..data.consistency import convert_consistency_flip, imagenet_stats
 from ..data.device_aug import ema_generator, ema_view_2d, ema_view_3d
 from ..device import float32_convs
 from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
@@ -105,16 +105,6 @@ class TrainStep2D:
         self.device_ema, self.ema_seed = device_ema, ema_seed
         self.ema_flags = dict(noise=ema_noise, blur=ema_blur, intensity=ema_intensity,
                               mask=ema_mask, flip=ema_flip)
-        self._mean_std: dict = {}
-
-    def _imagenet(self, like: torch.Tensor):
-        """(mean, std) on ``like``'s device, made once: a copy from pageable
-        host memory would wait for the queued kernels every step."""
-        key = (like.device, like.dtype)
-        if key not in self._mean_std:
-            self._mean_std[key] = tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
-                                        for a in (IMAGENET_MEAN, IMAGENET_STD))
-        return self._mean_std[key]
 
     def ema_batch(self, batch: dict, step: int) -> dict:
         """``batch`` with the EMA view and its rules drawn for ``step``: the
@@ -125,7 +115,7 @@ class TrainStep2D:
         if not self.imagenet_norm:
             ema, rules = ema_view_2d(img, batch["seg"] > 0, gen, **self.ema_flags)
             return dict(batch, ema_image=ema, rules=rules)
-        mean, std = self._imagenet(img)
+        mean, std = imagenet_stats(img.device, img.dtype)
         ema, rules = ema_view_2d(img * std + mean, batch["seg"] > 0, gen, **self.ema_flags)
         return dict(batch, ema_image=(ema - mean) / std, rules=rules)
 

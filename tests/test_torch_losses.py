@@ -294,9 +294,13 @@ def test_ema_view_is_seeded_by_seed_and_step():
     rules = ema_view_2d(img[:1].expand(512, 16, 16, 3), fg[:1].expand(512, 16, 16),
                         ema_generator(0, 0, "cpu"))[1].numpy()
     assert set(np.unique(rules)) == {0.0, 1.0} and abs(rules.mean() - 0.5) < 0.05
+    # the noise and blur links are ported: seeded the same way, drawn in
+    # front of the others, and the view stays in [0, 1]
     for flag in ("noise", "blur"):
-        with pytest.raises(NotImplementedError):
-            ema_view_2d(img, fg, ema_generator(0, 0, "cpu"), **{flag: True})
+        d = ema_view_2d(img, fg, ema_generator(7, 3, "cpu"), **{flag: True})
+        e = ema_view_2d(img, fg, ema_generator(7, 3, "cpu"), **{flag: True})
+        assert torch.equal(d[0], e[0]) and not torch.equal(d[0], a[0])
+        assert float(d[0].min()) >= 0 and float(d[0].max()) <= 1
 
 
 def test_amsgrad_matches_optax_over_three_steps():

@@ -178,7 +178,7 @@ def test_ac3ac4_preset_matches_jax():
     cfg, jcfg = load_config("ac3ac4"), jax_load_config("ac3ac4")
     for f in ("arch", "input_nc", "output_nc", "emd", "filters"):
         assert getattr(cfg.model, f) == getattr(jcfg.model, f), f
-    for f in ("dataset_name", "crop_size"):
+    for f in ("dataset_name", "crop_size", "train_split", "padding_3d"):
         assert getattr(cfg.data, f) == getattr(jcfg.data, f), f
     # the JAX package's TPU serving choices are off, and refused when on
     assert not cfg.model.bf16_tiled_infer and not cfg.model.fast_tiled_infer
@@ -187,7 +187,7 @@ def test_ac3ac4_preset_matches_jax():
 def test_train_refuses_3d():
     """3D training is ported: the ac3ac4 preset's train fields are the JAX
     preset's, and ``train`` refuses only what is not ported, the AC3/AC4
-    disk sampler (it needs h5py and cv2)."""
+    host disk sampler (device_resident off, it needs h5py and cv2)."""
     from pixel_embedded_affinity_torch.train import train
 
     cfg, jcfg = load_config("ac3ac4"), jax_load_config("ac3ac4")
@@ -196,8 +196,9 @@ def test_train_refuses_3d():
     assert cfg.train.embedding_mode == 5 and cfg.train.valid_decoders == ("waterz",)
     for k in ("device_gt", "device_ema"):
         assert getattr(cfg.data, k) and getattr(jcfg.data, k), k
-    # the device-resident sampler is not ported: off in the port
-    assert jcfg.data.device_resident and not cfg.data.device_resident
+    # the device-resident sampler is ported: on in both presets
+    assert jcfg.data.device_resident and cfg.data.device_resident
+    cfg.data.device_resident = False
     with pytest.raises(NotImplementedError, match="disk sampler"):
         train(cfg, max_iters=1, device="cpu")
 

@@ -164,6 +164,10 @@ def test_port_imports_without_jax():
         "import pixel_embedded_affinity_torch.ops.s2d_block_cuda\n"
         "from pixel_embedded_affinity_torch.models import build_fast_resunet_forward\n"
         "from pixel_embedded_affinity_torch.infer import fast_affinities\n"
+        "import pixel_embedded_affinity_torch.ops.tile_copy_cuda\n"
+        "import pixel_embedded_affinity_torch.utils.profile_arrange\n"
+        "from pixel_embedded_affinity_torch.data.device_data import (\n"
+        "    sample_cvppp_batch, sample_ac3ac4_batch, load_ac3ac4_arrays)\n"
         "synthesize_nuclei(1, 40, 48)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

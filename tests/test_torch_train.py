@@ -257,6 +257,7 @@ def _train_setup(tmp_path, name, **train_kw):
         "model": {"filters": FILTERS},
         "train": {"num_workers": 1, "display_freq": 1, "valid_freq": 3,
                   "save_freq": 2, **train_kw},
+        "data": {"device_resident": False},  # the host samples above
         "save_path": str(tmp_path / name)})
     return cfg, (FixedSample(sample), valid)
 
@@ -291,6 +292,12 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
                     else v == b["optimizer"]["state"][i][k]), (i, k)
 
 
+# the EMA view's noise and blur and the device-resident sampler are ported
+# now: their cases pass the check
+PORTED_OPTIONS = [{"data": {"if_ema_noise": True}}, {"data": {"if_ema_blur": True}},
+                  {"data": {"device_resident": True}}]
+
+
 @pytest.mark.parametrize("override", [
     {"train": {"lr_mode": "poly"}},
     {"model": {"dtype": "bfloat16"}},
@@ -301,13 +308,20 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
     {"data": {"device_resident": True}},
 ])
 def test_unported_train_options_raise(override):
+    cfg = load_config("cvppp", override)
+    if override in PORTED_OPTIONS:
+        check_train_config(cfg)
+        return
     with pytest.raises(NotImplementedError):
-        check_train_config(load_config("cvppp", override))
+        check_train_config(cfg)
 
 
 def test_train_without_data_override_raises():
+    """Without the device-resident sampler the host disk sampler is asked
+    for, and it is not ported."""
     with pytest.raises(NotImplementedError, match="data_override"):
-        train(load_config("cvppp"), max_iters=1, device="cpu")
+        train(load_config("cvppp", {"data": {"device_resident": False}}), max_iters=1,
+              device="cpu")
 
 
 def test_cvppp_preset_matches_jax():
@@ -320,8 +334,8 @@ def test_cvppp_preset_matches_jax():
             if k == "dtype":  # "auto": float32 in the port, bfloat16 on a TPU
                 continue
             # not ported, off in the port (the JAX defaults are on): the
-            # device-resident sampler and the TPU's 3D serving choices
-            if k in ("device_resident", "bf16_tiled_infer", "fast_tiled_infer"):
+            # TPU's 3D serving choices
+            if k in ("bf16_tiled_infer", "fast_tiled_infer"):
                 assert not getattr(p, k) and getattr(r, k)
                 continue
             assert getattr(p, k) == getattr(r, k), f"{sec}.{k}"
