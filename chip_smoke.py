@@ -31,7 +31,9 @@ Phases, each of which exits nonzero when it fails:
      with every kernel's launch count read around the run; the reloaded
      checkpoint's next-step loss; the device time of one step by kernel;
      one step's parameter gradients against the same step in float64
-     through the plain path;
+     through the plain path; then 3 steps through the host provider
+     (data.device_resident False, worker processes) with the launches
+     read around them;
   7. 3D kernels: K5f against its plain version at the serving tile batch
      (4 tiles of 18x160x160, C=16, on the permuted NCDHW view) in float32
      and bfloat16, at two odd shapes with a zero vector, and through
@@ -58,7 +60,8 @@ Phases, each of which exits nonzero when it fails:
      20x1024x1024) and a checkpoint, each kernel's launch count read around
      the run; the reloaded checkpoint's next-step loss; one step's peak
      device memory and device time by kernel; one step's parameter
-     gradients against float64;
+     gradients against float64; then 3 steps through the host provider
+     with the launches read around them;
  11. BBBC training: train() on the full-width bbbc039v1 preset (mask head,
      weight 1000), B=2, 8 steps from the device-resident sampler over 8
      synthetic 520x696 nuclei images, validation on 2 (AJI/F1/PQ) and a
@@ -96,14 +99,18 @@ Phases, each of which exits nonzero when it fails:
      80x1024x1024 split (phase 9's volume stacked 4 times, its border
      widening included): device MB, host and device ms a B=2 batch, device
      operations a batch, the batches' shapes, types, ranges and label ids;
-     one full-width cvppp step with the EMA view's noise and blur on;
+     the card's batches against the CPU sampler's at the same (seed, step)
+     (every CVPPP draw, and the AC3/AC4 batches with no draw on the
+     device); one full-width cvppp step with the EMA view's noise and blur
+     on;
  18. P, the tile copy (csrc/tile_copy.cu), against its plain version bit
      for bit: float32 and bfloat16, the (1, 544, 544, 16) embedding as
      NHWC, NCHW and (B, H, C, W), an odd shape whose bytes are no multiple
      of 16 and views with misaligned storage offsets; its time beside the
      plain version's, copy_'s and the bound, L2 flushed; the arrangement
      probe (utils/profile_arrange.py) at B=1 and B=4 with P's launches;
- 19. one JSON line listing each kernel: launches, error, times, bound;
+ 19. one JSON line listing each kernel: launches, error, times, bound,
+     and how the times were taken (CUDA events, or for P torch.profiler);
  20. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
@@ -153,6 +160,9 @@ GRAD_RTOL = 1e-5
 # the training shapes at B=2, C=16: (side, offsets) of the five scales
 TRAIN_SCALES = [(544, 10), (272, 8), (136, 6), (68, 4), (34, 2)]
 TRAIN_STEPS = 8
+# steps of the short run through the host provider (data.device_resident
+# False) after each of phases 6 and 10
+PROVIDER_STEPS = 3
 # data_s of the host provider that fed phases 6 and 10 before the device-
 # resident sampler (PERF.md section 5), printed beside the sampler's
 HOST_DATA_MS = {"cvppp": 8.04, "ac3ac4": 4.25}
@@ -897,6 +907,61 @@ def phase_wmse_kernels() -> dict:
     return res
 
 
+class LeafSet:
+    """The host provider's training set: synthetic leaf samples, each drawn
+    flipped along x and y at random."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def sample(self, rng):
+        s = self.samples[int(rng.integers(len(self.samples)))]
+        img, seg = s["image"], s["seg"]
+        if rng.random() < 0.5:
+            img, seg = img[:, ::-1], seg[:, ::-1]
+        if rng.random() < 0.5:
+            img, seg = img[::-1], seg[::-1]
+        return {"image": np.ascontiguousarray(img), "seg": np.ascontiguousarray(seg)}
+
+
+def provider_run(preset: str, train_ds, launchers: dict, per_step: dict, label: str) -> dict:
+    """PROVIDER_STEPS steps of ``preset`` through the host provider
+    (data.device_resident False: worker processes, pinned copies), every
+    count in ``launchers`` set to 0 just before and read just after, each
+    held to ``per_step`` a step; returns the launches."""
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.train import train
+
+    out = os.path.join(REPO, "build", f"chip_smoke_provider_{preset}")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config(preset, {"data": {"device_resident": False},
+                               "train": {"if_valid": False, "display_freq": 1,
+                                         "save_freq": 10 ** 6},
+                               "save_path": os.path.join(out, "models")})
+    for fn in launchers.values():
+        fn.launches = 0
+    timing: dict = {}
+    t0 = time.perf_counter()
+    state, _ = train(cfg, max_iters=PROVIDER_STEPS, data_override=(train_ds, []),
+                     device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in launchers.items()}
+    for k, n in per_step.items():
+        check(launches[k] == n * PROVIDER_STEPS,
+              f"{label} host provider: {k} launched {launches[k]} times in "
+              f"{PROVIDER_STEPS} steps")
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    check(state.step == PROVIDER_STEPS and len(losses) == PROVIDER_STEPS
+          and all(np.isfinite(losses)), f"{label} host provider: losses {losses}")
+    print(f"[{label}] host provider (device_resident False, {cfg.train.num_workers} worker "
+          f"processes): {wall:.2f} s for {PROVIDER_STEPS} steps, losses {losses}, launches "
+          f"{json.dumps(launches)}; warm ms/step (steps 2..{PROVIDER_STEPS}, median): data "
+          f"{1e3 * np.median(timing['data_s'][1:]):.4f} + step "
+          f"{1e3 * np.median(timing['step_s'][1:]):.4f}; {card_line()}")
+    return launches
+
+
 def _wmse_launchers():
     from pixel_embedded_affinity_torch.ops import emb2aff_wmse_cuda as W
 
@@ -983,7 +1048,10 @@ def phase_train() -> dict:
     train_precision(state.model, batch,
                     lambda use_pallas: TrainStep2D(offsets, use_pallas=use_pallas,
                                                    device_ema=False), BIAS_BEFORE_BN)
-    return launches
+    # the host provider's path, on the serving phase's leaf samples
+    host = provider_run("cvppp", LeafSet(synthetic_leaves(4, 530, 500, SEED)), launchers,
+                        {"K2f": 5, "K2b": 5, "K3f": 1, "K3b": 1}, "train")
+    return {k: launches[k] + host.get(k, 0) for k in launches}
 
 
 def print_step_times(label: str, timing: dict, steps: int, host_data_ms: float):
@@ -1398,6 +1466,25 @@ def phase_serving_3d() -> dict:
     return {"launches": launches, "max_abs_err": err_k, "volume": (raw, label)}
 
 
+class VolumeCrops:
+    """The 3D host provider's training set: random crops of a volume,
+    (image (D, H, W, 1) in [0, 1], seg (D, H, W)), each flipped along z, y
+    and x at random."""
+
+    def __init__(self, raw: np.ndarray, label: np.ndarray, crop):
+        self.raw, self.label, self.crop = raw, label, tuple(crop)
+
+    def sample(self, rng):
+        sl = tuple(slice(o, o + c) for o, c in
+                   zip((int(rng.integers(n - c + 1)) for n, c in zip(self.raw.shape, self.crop)),
+                       self.crop))
+        img, seg = self.raw[sl].astype(np.float32) / 255.0, self.label[sl]
+        for axis in range(3):
+            if rng.random() < 0.5:
+                img, seg = np.flip(img, axis), np.flip(seg, axis)
+        return {"image": np.ascontiguousarray(img[..., None]), "seg": np.ascontiguousarray(seg)}
+
+
 def _train3d_launchers():
     from pixel_embedded_affinity_torch.ops import (
         affinity_bwd, cross_affinity_bwd, cross_affinity_fwd, fused_affinity_3d)
@@ -1506,7 +1593,10 @@ def phase_train_3d() -> dict:
     train_precision(state.model, batch,
                     lambda use_pallas: TrainStep3D(use_pallas=use_pallas, device_ema=False),
                     BIAS_BEFORE_BN_3D, label="train3d")
-    return launches
+    # the host provider's path, on crops of the same training volume
+    host = provider_run("ac3ac4", VolumeCrops(*arrays, cfg.data.crop_size), launchers,
+                        {"K5f": 1, "K5b": 1, "K6f": 1, "K6b": 1}, "train3d")
+    return {k: launches[k] + host[k] for k in launches}
 
 
 def _bbbc_launchers():
@@ -2320,6 +2410,21 @@ def profiled_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
     return sum(t for t, _ in events.values()) / n
 
 
+def host_drawn_ac3ac4(step: int, shape) -> bool:
+    """Whether the B=2 AC3/AC4 batch at (SEED, step) makes no draw on the
+    device and augments at least one sample."""
+    from pixel_embedded_affinity_torch.data.device_data import (
+        _ac3ac4_params, sampler_generator)
+
+    gen = sampler_generator(SEED, step)
+    ps = [_ac3ac4_params(gen, shape, (18, 260, 260)) for _ in range(2)]
+    host = [not p["aug"] or (not p["mix"]["elastic"] and p["mix"]["gray"] != "slices"
+                             and not (p["mix"]["em"] and p["mix"]["em"][0] == "missing"
+                                      and any(n for _, n in p["mix"]["em"][1])))
+            for p in ps]
+    return all(host) and any(p["aug"] for p in ps)
+
+
 def phase_samplers(volume) -> dict:
     """The device-resident samplers at the real training geometry: CVPPP's
     108 544x544 images (12 synthetic leaf images repeated 9 times) and
@@ -2330,6 +2435,7 @@ def phase_samplers(volume) -> dict:
     import torch
 
     from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data.consistency import imagenet_stats
     from pixel_embedded_affinity_torch.data.device_data import (
         load_ac3ac4_arrays, pack_cvppp_arrays, sample_ac3ac4_batch, sample_cvppp_batch,
         sampler_generator)
@@ -2358,6 +2464,21 @@ def phase_samplers(volume) -> dict:
     print(f"[samplers] cvppp batches: image (2, 544, 544, 3) float32 in "
           f"[{float(img.min()):.4f}, {float(img.max()):.4f}], seg (2, 544, 544) int32, "
           f"ids a subset of the source's")
+    # every CVPPP draw is made on the host: the CPU sampler at the same
+    # (seed, step) gives the same batch; images held at the resize's own
+    # tolerance, 1e-4 on the 0-255 scale
+    cpu = [torch.from_numpy(a) for a in arrays]
+    scale = 255.0 * imagenet_stats("cuda")[1]
+    err = 0.0
+    for s in range(4):
+        b = sample_cvppp_batch(images, labels, sampler_generator(SEED, s), 2)
+        c = sample_cvppp_batch(*cpu, sampler_generator(SEED, s), 2)
+        check(torch.equal(b["seg"].cpu(), c["seg"]), f"cvppp labels, card vs CPU, step {s}")
+        e = float(((b["image"] - c["image"].cuda()) * scale).abs().max())
+        check(e <= 1e-4, f"cvppp images, card vs CPU, step {s}: {e} on the 0-255 scale")
+        err = max(err, e)
+    print(f"[samplers] cvppp card vs CPU sampler at the same (seed, step), 4 batches: labels "
+          f"bit-equal, images {err:.3e} apart on the 0-255 scale (held at 1e-4)")
 
     cfg = load_config("cvppp", {"data": {"if_ema_noise": True, "if_ema_blur": True},
                                 "train": {"if_valid": False, "display_freq": 1,
@@ -2402,6 +2523,21 @@ def phase_samplers(volume) -> dict:
     print(f"[samplers] ac3ac4 batches: image (2, 18, 160, 160, 1) float32 in "
           f"[{float(img.min()):.4f}, {float(img.max()):.4f}], seg int32, ids a subset of the "
           f"source's and 0")
+    # batches whose draws are all made on the host (no elastic field, no
+    # per-slice jitter, no noise-filled section) against the CPU sampler
+    cpu = [torch.from_numpy(a) for a in arrays]
+    steps = [s for s in range(200) if host_drawn_ac3ac4(s, arrays[1].shape)][:4]
+    check(len(steps) == 4, f"ac3ac4: host-drawn batches at steps {steps}")
+    err = 0.0
+    for s in steps:
+        b = sample_ac3ac4_batch(raw_d, lab_d, sampler_generator(SEED, s), 2)
+        c = sample_ac3ac4_batch(*cpu, sampler_generator(SEED, s), 2)
+        check(torch.equal(b["seg"].cpu(), c["seg"]), f"ac3ac4 labels, card vs CPU, step {s}")
+        e = float((b["image"].cpu() - c["image"]).abs().max())
+        check(e <= 1e-6, f"ac3ac4 images, card vs CPU, step {s}: {e}")
+        err = max(err, e)
+    print(f"[samplers] ac3ac4 card vs CPU sampler at the same (seed, step), the host-drawn "
+          f"batches at steps {steps}: labels bit-equal, images {err:.3e} apart (held at 1e-6)")
     return ema_launches
 
 
@@ -2591,7 +2727,9 @@ def main() -> int:
         "name": "tile_copy", "route": "cuda", "source": P_SOURCE, "replaces": P_REPLACES,
         "launches": p["launches"], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-        "library_ms": p["library_ms"]})
+        "library_ms": p["library_ms"], "timed_by": "torch.profiler"})
+    for entry in kernels:  # P's times are the profiler's (phase_tile_copy)
+        entry.setdefault("timed_by", "cuda events")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

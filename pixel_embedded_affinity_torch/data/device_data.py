@@ -34,7 +34,7 @@ the centre size^2.
 AC3/AC4 (``sample_ac3ac4``): the uint8 volume and int32 labels
 (:func:`load_ac3ac4_arrays`: the first ``train_split`` slices, borders
 widened); per sample a (cz, cy + 2 padding, cx + 2 padding) crop, /255,
-on ``aug_prob`` (0.5) of the samples the reference's _augs_mix (the 4-bit
+on ``AC3AC4_AUG_PROB`` (0.5) of the samples the reference's _augs_mix (the 4-bit
 flip at 0.5, a rot90 in xy at 0.5, one elastic field for every slice at
 0.5, the intensity jitter at 0.5, and at 0.2 an EM artefact: missing
 sections or a misalignment, 0.5 each), then the centre crop. Labels follow
@@ -61,6 +61,8 @@ from .cvppp import PAD, _read_gray, _read_rgb, split_names
 _STREAM = 55991
 # the share of BBBC samples that go through the augmentation chain
 AUG_PROB = 0.8
+# the share of AC3/AC4 samples that go through _augs_mix
+AC3AC4_AUG_PROB = 0.5
 
 
 def sampler_generator(seed: int, step: int) -> torch.Generator:
@@ -171,9 +173,12 @@ def rrc_box(gen: torch.Generator, H: int, W: int, scale=(0.7, 1.0), ratio=(3 / 4
 def _bilinear_coords(n: int, start: int, out: int, device):
     """cv2 INTER_LINEAR's source taps of ``out`` outputs over ``n`` inputs
     from ``start``: src = (dst + 0.5) n / out - 0.5, clamped; (lo, hi,
-    weight of hi)."""
-    d = torch.arange(out, dtype=torch.float32, device=device)
-    f = torch.clamp((d + 0.5) * n / out - 0.5, 0.0, n - 1.0)
+    weight of hi). The quotient is float32's correctly rounded one on every
+    device: a CUDA tensor divided by a scalar is multiplied by its
+    reciprocal, an ulp of src (6e-5 at 500) off, so it is divided in
+    float64, whose rounding to float32 is exact here."""
+    d = torch.arange(out, dtype=torch.float64, device=device)
+    f = torch.clamp(((d + 0.5) * n / out).float() - 0.5, 0.0, n - 1.0)
     lo = torch.floor(f)
     hi = torch.clamp(lo + 1, max=n - 1)
     return start + lo.long(), start + hi.long(), f - lo
@@ -223,8 +228,7 @@ def _cvppp_params(gen: torch.Generator, n: int, H: int, W: int) -> dict:
             "box": rrc_box(gen, H, W)}
 
 
-def _cvppp_sample(images: torch.Tensor, labels: torch.Tensor, p: dict, out: int,
-                  normalize: bool = True) -> dict:
+def _cvppp_sample(images: torch.Tensor, labels: torch.Tensor, p: dict, out: int) -> dict:
     """The sample at the draws ``p`` (:func:`_cvppp_params`): image k
     flipped, its box resized to (out, out) with the values on 0-255, /255,
     normalised."""
@@ -242,29 +246,26 @@ def _cvppp_sample(images: torch.Tensor, labels: torch.Tensor, p: dict, out: int,
         rows_n = H - 1 - rows_n
     image = _resize_bilinear(images[p["k"]], rows, cols) / 255.0
     seg = labels[p["k"]].index_select(0, rows_n).index_select(1, cols_n)
-    if normalize:
-        mean, std = imagenet_stats(dev)
-        image = (image - mean) / std
-    return {"image": image, "seg": seg}
+    mean, std = imagenet_stats(dev)
+    return {"image": (image - mean) / std, "seg": seg}
 
 
 def sample_cvppp(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator,
-                 out: int = 544, normalize: bool = True) -> dict:
+                 out: int = 544) -> dict:
     """One training sample from the packed stacks (on any device): an
     image, a horizontal and a vertical flip at 0.5 each, a RandomResizedCrop
     box resized to (out, out) with the values on 0-255, /255, the ImageNet
     normalisation. Returns {'image': (out, out, 3) float32, 'seg': (out,
     out) int32}."""
     n, H, W = labels.shape
-    return _cvppp_sample(images, labels, _cvppp_params(gen, n, H, W), out, normalize)
+    return _cvppp_sample(images, labels, _cvppp_params(gen, n, H, W), out)
 
 
 def sample_cvppp_batch(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator,
-                       batch_size: int, out: int = 544, normalize: bool = True) -> dict:
+                       batch_size: int, out: int = 544) -> dict:
     """``batch_size`` samples stacked: image (B, out, out, 3), seg (B, out,
     out)."""
-    samples = [sample_cvppp(images, labels, gen, out, normalize=normalize)
-               for _ in range(batch_size)]
+    samples = [sample_cvppp(images, labels, gen, out) for _ in range(batch_size)]
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
@@ -362,7 +363,7 @@ def sample_bbbc_batch(images: torch.Tensor, labels: torch.Tensor, gen: torch.Gen
 # --------------------------------------------------------------- AC3/AC4
 
 def load_ac3ac4_arrays(data_folder: str, dataset_name: str = "ac4", train_split: int = 80,
-                       if_dilate: bool = True, crop_z: int = 18, arrays=None):
+                       crop_z: int = 18, arrays=None):
     """(raw uint8 (D, H, W), labels int32 (D, H, W)) of the training split:
     the HDF5 files' ``main`` (or ``arrays=(raw, label)`` in their place),
     the first ``train_split`` slices, the label borders widened by one
@@ -370,9 +371,7 @@ def load_ac3ac4_arrays(data_folder: str, dataset_name: str = "ac4", train_split:
     reflect-padded in z where the volume is thinner than ``crop_z``."""
     raw, label = read_volume(data_folder, dataset_name) if arrays is None else arrays
     raw = raw[:train_split]
-    label = label[:train_split].astype(np.int64)
-    if if_dilate:
-        label = seg_widen_border(label, tsz_h=1)
+    label = seg_widen_border(label[:train_split].astype(np.int64), tsz_h=1)
     if raw.shape[0] < crop_z:
         pz = (crop_z - raw.shape[0]) // 2
         pad = ((pz, crop_z - raw.shape[0] - pz), (0, 0), (0, 0))
@@ -506,27 +505,24 @@ def _augs_mix(img: torch.Tensor, lab: torch.Tensor, p: dict):
     return img, lab
 
 
-def _ac3ac4_params(gen: torch.Generator, shape, crop_from: tuple,
-                   aug_prob: float = 0.5) -> dict:
+def _ac3ac4_params(gen: torch.Generator, shape, crop_from: tuple) -> dict:
     """One AC3/AC4 sample's host draws: the crop's corner in a volume of
-    ``shape``, whether it is augmented (at ``aug_prob``) and _augs_mix's
-    draws (:func:`_augs_mix_params`)."""
+    ``shape``, whether it is augmented (at ``AC3AC4_AUG_PROB``) and
+    _augs_mix's draws (:func:`_augs_mix_params`)."""
     corner = tuple(int(torch.randint(0, n - c + 1, (1,), generator=gen))
                    for n, c in zip(shape, crop_from))
     (u_aug,) = _uniform(gen)
-    return {"corner": corner, "aug": u_aug < aug_prob,
+    return {"corner": corner, "aug": u_aug < AC3AC4_AUG_PROB,
             "mix": _augs_mix_params(gen, crop_from[0])}
 
 
-def sample_ac3ac4(raw: torch.Tensor, label: torch.Tensor, gen: torch.Generator,
-                  crop_size=(18, 160, 160), padding: int = 50, aug_prob: float = 0.5) -> dict:
-    """One training sample from the volume (on any device): a random (cz,
-    cy + 2 padding, cx + 2 padding) crop, /255, _augs_mix at p =
-    ``aug_prob``, the centre crop_size. Returns {'image': (cz, cy, cx, 1)
-    float32 in [0, 1], 'seg': (cz, cy, cx) int32}."""
+def _ac3ac4_sample(raw: torch.Tensor, label: torch.Tensor, p: dict, crop_size,
+                   padding: int) -> dict:
+    """The sample at the draws ``p`` (:func:`_ac3ac4_params`): the (cz, cy
+    + 2 padding, cx + 2 padding) crop at p's corner, /255, _augs_mix where
+    p's gate says so, the centre crop_size."""
     cz, cy, cx = crop_size
     cfo = (cz, cy + 2 * padding, cx + 2 * padding)
-    p = _ac3ac4_params(gen, label.shape, cfo, aug_prob)
     (rz, ry, rx), (oz, oy, ox) = p["corner"], (0, padding, padding)
     if p["aug"]:
         img = raw[rz:rz + cz, ry:ry + cfo[1], rx:rx + cfo[2]].float() / 255.0
@@ -541,11 +537,22 @@ def sample_ac3ac4(raw: torch.Tensor, label: torch.Tensor, gen: torch.Generator,
     return {"image": img[..., None].contiguous(), "seg": lab.contiguous()}
 
 
+def sample_ac3ac4(raw: torch.Tensor, label: torch.Tensor, gen: torch.Generator,
+                  crop_size=(18, 160, 160), padding: int = 50) -> dict:
+    """One training sample from the volume (on any device): a random (cz,
+    cy + 2 padding, cx + 2 padding) crop, /255, _augs_mix at p =
+    ``AC3AC4_AUG_PROB``, the centre crop_size. Returns {'image': (cz, cy,
+    cx, 1) float32 in [0, 1], 'seg': (cz, cy, cx) int32}."""
+    cz, cy, cx = crop_size
+    p = _ac3ac4_params(gen, label.shape, (cz, cy + 2 * padding, cx + 2 * padding))
+    return _ac3ac4_sample(raw, label, p, crop_size, padding)
+
+
 def sample_ac3ac4_batch(raw: torch.Tensor, label: torch.Tensor, gen: torch.Generator,
-                        batch_size: int, crop_size=(18, 160, 160), padding: int = 50,
-                        aug_prob: float = 0.5) -> dict:
+                        batch_size: int, crop_size=(18, 160, 160),
+                        padding: int = 50) -> dict:
     """``batch_size`` samples stacked: image (B, cz, cy, cx, 1), seg (B, cz,
     cy, cx)."""
-    samples = [sample_ac3ac4(raw, label, gen, crop_size, padding, aug_prob)
+    samples = [sample_ac3ac4(raw, label, gen, crop_size, padding)
                for _ in range(batch_size)]
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}

@@ -97,6 +97,21 @@ def test_crop_resize_bilinear_matches_jax(box):
     np.testing.assert_allclose(got, exp, rtol=0, atol=IMG_ATOL)
 
 
+def test_bilinear_taps_are_float32s_at_the_training_size():
+    """The taps of every box side from 300 to 544 resized to 544 equal
+    float32 arithmetic with a correctly rounded division, as JAX's on the
+    CPU: the port's quotient does not depend on the device's division."""
+    d = np.arange(544, dtype=np.float32)
+    for n in range(300, 545):
+        lo, hi, w = dd._bilinear_coords(n, 3, 544, "cpu")
+        f = np.clip((d + np.float32(0.5)) * np.float32(n) / np.float32(544) - np.float32(0.5),
+                    np.float32(0), np.float32(n - 1))
+        exp_lo = np.floor(f)
+        np.testing.assert_array_equal(lo.numpy(), 3 + exp_lo.astype(np.int64))
+        np.testing.assert_array_equal(hi.numpy(), 3 + np.minimum(exp_lo + 1, n - 1))
+        np.testing.assert_array_equal(w.numpy(), f - exp_lo)
+
+
 @pytest.mark.parametrize("box", BOXES)
 def test_crop_resize_nearest_matches_jax(box):
     _, lab = _img_lab()
@@ -171,8 +186,9 @@ def test_sampler_contract(stacks):
     assert all(torch.equal(batch[k], again[k]) for k in batch)
     other = dd.sample_cvppp_batch(images, labels, dd.sampler_generator(555, 4), 3, out=64)
     assert not torch.equal(batch["image"], other["image"])
-    plain = dd.sample_cvppp(images, labels, dd.sampler_generator(1, 1), out=64, normalize=False)
-    assert 0 <= float(plain["image"].min()) and float(plain["image"].max()) <= 1
+    # the batch is its samples, drawn in turn from the one generator
+    first = dd.sample_cvppp(images, labels, dd.sampler_generator(555, 3), out=64)
+    assert all(torch.equal(batch[k][0], first[k]) for k in batch)
 
 
 def test_draws_match_jax_rates():

@@ -242,8 +242,8 @@ def test_sampler_contract(arrays):
     other = dd.sample_ac3ac4_batch(raw, labels, dd.sampler_generator(555, 4), 3, **kw)
     assert not torch.equal(batch["image"], other["image"])
     # no augmentation: the centre of the drawn crop, /255
-    plain = dd.sample_ac3ac4(raw, labels, dd.sampler_generator(1, 1), aug_prob=0.0, **kw)
-    p = dd._ac3ac4_params(dd.sampler_generator(1, 1), arrays[1].shape, (12, 52, 52), 0.0)
+    p = dd._ac3ac4_params(dd.sampler_generator(1, 1), arrays[1].shape, (12, 52, 52))
+    plain = dd._ac3ac4_sample(raw, labels, {**p, "aug": False}, **kw)
     z, y, x = p["corner"]
     np.testing.assert_allclose(plain["image"][..., 0].numpy(),
                                arrays[0][z:z + 12, y + 10:y + 42, x + 10:x + 42] / 255.0,

@@ -235,23 +235,6 @@ def report(label, step_fn, template, batch, device):
     print(f"[{label}] largest own rounding: {worst_local[0]} {worst_local[1]:.3e}")
 
 
-class LeafSet:
-    """The training set: synthetic leaf samples, each drawn flipped along x
-    and y at random."""
-
-    def __init__(self, samples):
-        self.samples = samples
-
-    def sample(self, rng):
-        s = self.samples[int(rng.integers(len(self.samples)))]
-        img, seg = s["image"], s["seg"]
-        if rng.random() < 0.5:
-            img, seg = img[:, ::-1], seg[:, ::-1]
-        if rng.random() < 0.5:
-            img, seg = img[::-1], seg[::-1]
-        return {"image": np.ascontiguousarray(img), "seg": np.ascontiguousarray(seg)}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true",
@@ -266,7 +249,7 @@ def main() -> int:
     if device == "cuda" and not torch.cuda.is_available():
         print("grad_precision: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import TRAIN_STEPS, card_line, synthetic_leaves
+    from chip_smoke import TRAIN_STEPS, LeafSet, card_line, synthetic_leaves
     from pixel_embedded_affinity_torch.config import load_config
     from pixel_embedded_affinity_torch.data.provider import collate, to_device
     from pixel_embedded_affinity_torch.ops import multi_offset
