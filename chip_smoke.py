@@ -222,6 +222,9 @@ K8_REPLACES = "pixel_embedded_affinity_tpu/ops/s2d_block_pallas.py:210"
 CONV_F32_RTOL = 1e-5
 CONV_BF16_RTOL = 8e-3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+# K7/K9 and K8 run float32 as three TF32 passes (hi*hi + hi*lo + lo*hi) on
+# the tensor cores: 495 TFLOP/s (H100 SXM data sheet, dense TF32) over 3
+TF32X3_FLOPS_PER_S = 495e12 / 3
 # K7/K9a at the fast forward's direct-stage convs (B=1; conv1 and project
 # fused on Cout) and a few more: (B, H, W, Cin, Cout, relu)
 K7_SHAPES = [(1, 136, 136, 64, 256, False), (1, 136, 136, 128, 128, True),
@@ -1930,15 +1933,18 @@ def rel_err(got, ref) -> float:
     return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def conv_bound(n_px: int, cin: int, cout: int, taps: int, itemsize: int, n_ops_px=None):
+def conv_bound(n_px: int, cin: int, cout: int, taps: int, itemsize: int, n_ops_px=None,
+               f32_rate: float = TF32X3_FLOPS_PER_S):
     """Least time of a conv that reads n_px input pixels and writes n_px
     output pixels, n_ops_px of them (n_px by default) with taps x Cin x Cout
     multiply-adds each, the rest plain zeros: its input, weights and output
-    each moved once over HBM, vs 2 flops a multiply-add at the float32 rate
-    (bfloat16: the tensor cores' rate)."""
+    each moved once over HBM, vs 2 flops a multiply-add at the rate of the
+    kernel's path: float32 at ``f32_rate`` (3xTF32 on the tensor cores by
+    default; F32_FLOPS_PER_S for the CUDA cores), bfloat16 at the tensor
+    cores' rate."""
     n_ops = n_px if n_ops_px is None else n_ops_px
     nbytes = (n_px * (cin + cout) + taps * cin * cout) * itemsize + 8 * cout
-    rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    rate = f32_rate if itemsize == 4 else BF16_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * taps * cin * cout * n_ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1946,21 +1952,104 @@ def conv_bound(n_px: int, cin: int, cout: int, taps: int, itemsize: int, n_ops_p
 
 def library_conv(x, w, scale, shift, relu: bool):
     """cuDNN's F.conv2d of the NHWC x as a channels-last NCHW view, the scale
-    folded into the weights and the shift as its bias, TF32 off, then an
-    in-place ReLU: one PyTorch call for K7's function."""
+    folded into the weights and the shift as its bias (both in x's dtype),
+    TF32 off, then an in-place ReLU: one PyTorch call for K7's function."""
     import torch
     import torch.nn.functional as F
 
     from pixel_embedded_affinity_torch.device import float32_convs
 
     xc = x.permute(0, 3, 1, 2)
-    wf = (w * scale).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    wf = (w.float() * scale).to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bias = shift.to(x.dtype)
 
     def run():
         with float32_convs():
-            y = F.conv2d(xc, wf, shift, padding=1)
+            y = F.conv2d(xc, wf, bias, padding=1)
         return y.relu_() if relu else y
     return run
+
+
+def sass_report(source: str) -> dict:
+    """One line for the library of ``csrc/<source>``: each kernel's
+    tensor-core instructions (HMMA lines of ``cuobjdump -sass``) and what
+    ``-Xptxas -v`` said of it (registers, static shared memory, spills);
+    returns {kernel: HMMA count}."""
+    from pixel_embedded_affinity_torch import cuda_build
+
+    so = cuda_build.library_path(source)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {so}: {out.stderr[-500:]}")
+    hmma, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            hmma[fn] = 0
+        elif fn and "HMMA" in ln:
+            hmma[fn] += 1
+    ptxas, entry = {}, None
+    with open(so[:-3] + ".log") as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1)
+            elif entry and ("spill" in ln or "Used" in ln):
+                ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
+    names = subprocess.run(["c++filt"], input="\n".join(hmma), capture_output=True,
+                           text=True).stdout.split("\n") if shutil.which("c++filt") else list(hmma)
+    print(f"[sass] {os.path.basename(so)}: " + "; ".join(
+        f"{nice}: {hmma[k]} HMMA, ptxas: {ptxas.get(k, 'n/a')}" for k, nice in zip(hmma, names)))
+    check(len(hmma) > 0 and all(n > 0 for n in hmma.values()),
+          f"{source}: a kernel without tensor-core instructions: {hmma}")
+    return hmma
+
+
+def graph_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
+    """Median device time of fn() in ms without the host's launch path: fn
+    is captured once in a CUDA graph and each replay is timed by CUDA
+    events. With ``flush_bytes``, a buffer that size is rewritten before
+    each replay so the call starts with its inputs out of L2."""
+    import torch
+
+    flush = (torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+             if flush_bytes else None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(n + 3):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[3:]))
+
+
+def kernel_times(fns: dict, flush_bytes: int) -> dict:
+    """Each fn's device time a call, by name: a CUDA graph's replay
+    (``name``; the device's own time) and CUDA events around the eager call,
+    which also count the host's launch path while the card waits (``name``
+    with "ms" -> "event_ms"); L2 flushed before each call, median of 20."""
+    out = {}
+    for name, fn in fns.items():
+        out[name] = graph_ms(fn, flush_bytes=flush_bytes)
+        out[name[:-2] + "event_ms"] = timed_ms(fn, flush_bytes=flush_bytes)
+    return out
 
 
 def phase_conv3x3() -> dict:
@@ -1974,6 +2063,7 @@ def phase_conv3x3() -> dict:
     time with L2 flushed beside its plain version's, cuDNN's and the bound."""
     import torch
 
+    from pixel_embedded_affinity_torch.ops import conv3x3_cuda
     from pixel_embedded_affinity_torch.ops.conv3x3_cuda import (
         blocked_egress, blocked_ingest, conv3x3_blocked, conv3x3_blocked_chain,
         conv3x3_blocked_flat, conv3x3_canvas_plain, conv3x3_fused, conv3x3_plain)
@@ -2050,74 +2140,97 @@ def phase_conv3x3() -> dict:
     for b, h, w, cin, cout, relu in K7_SHAPES:
         x = rnd(b, h, w, cin)
         wt, sc, sh = weights(cin, cout)
-        t = {"shape": [b, h, w, cin, cout],
-             "ms": timed_ms(lambda: conv3x3_fused(x, wt, sc, sh, relu), flush_bytes=flush),
-             "plain_ms": timed_ms(lambda: conv3x3_plain(x, wt, sc, sh, relu), flush_bytes=flush),
-             "library_ms": timed_ms(library_conv(x, wt, sc, sh, relu), flush_bytes=flush),
-             "bf16_ms": timed_ms(lambda: conv3x3_fused(x.bfloat16(), wt, sc, sh, relu),
-                                 flush_bytes=flush)}
+        xb, wb = x.bfloat16(), wt.bfloat16()
+        t = {"shape": [b, h, w, cin, cout], **kernel_times({
+            "ms": lambda: conv3x3_fused(x, wt, sc, sh, relu),
+            "plain_ms": lambda: conv3x3_plain(x, wt, sc, sh, relu),
+            "library_ms": library_conv(x, wt, sc, sh, relu),
+            "bf16_ms": lambda: conv3x3_fused(xb, wb, sc, sh, relu),
+            "bf16_library_ms": library_conv(xb, wb, sc, sh, relu)}, flush)}
         t["bound_ms"], t["bound_by"] = conv_bound(b * h * w, cin, cout, 9, 4)
+        t["bf16_bound_ms"], t["bf16_bound_by"] = conv_bound(b * h * w, cin, cout, 9, 2)
+        t["cuda_core_bound_ms"] = conv_bound(b * h * w, cin, cout, 9, 4,
+                                             f32_rate=F32_FLOPS_PER_S)[0]
         times.append(t)
-        print(f"[conv] K7 time {json.dumps(t)}")
+        print(f"[conv] K7 time {json.dumps(t)}, {card_line()}")
     head = times[0]  # 136x136 64 -> 256: down3's conv1 and project
     for key in ("K7", "K9a"):
-        res[key].update({k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                              "bound_by")})
+        res[key].update({k: v for k, v in head.items() if k != "shape"})
     b, h, w, cin, cout, relu = K7_SHAPES[0]
     x = rnd(b, h, w, cin)
     wt, sc, sh = weights(cin, cout)
-    res["K9a"]["ms"] = timed_ms(lambda: conv3x3_blocked(x, wt, sc, sh, relu), flush_bytes=flush)
+    xb, wb = x.bfloat16(), wt.bfloat16()
+    res["K9a"].update(kernel_times({
+        "ms": lambda: conv3x3_blocked(x, wt, sc, sh, relu),
+        "bf16_ms": lambda: conv3x3_blocked(xb, wb, sc, sh, relu)}, flush))
     x = rnd(1, 272, 272, 64)
     wt, sc, sh = weights(64, 64)
     canvas, g = blocked_ingest(x, 2, 2)
-    t = {"ms": timed_ms(lambda: conv3x3_blocked_flat(canvas, wt, g, 2, 2, sc, sh, True),
-                        flush_bytes=flush),
-         "plain_ms": timed_ms(lambda: conv3x3_canvas_plain(canvas, wt, 2, 2, 272, 272, sc, sh,
-                                                           True), flush_bytes=flush),
-         "library_ms": timed_ms(library_conv(canvas, wt, sc, sh, True), flush_bytes=flush)}
+    canvas_b, wb = canvas.bfloat16(), wt.bfloat16()
+    t = kernel_times({
+        "ms": lambda: conv3x3_blocked_flat(canvas, wt, g, 2, 2, sc, sh, True),
+        "plain_ms": lambda: conv3x3_canvas_plain(canvas, wt, 2, 2, 272, 272, sc, sh, True),
+        "library_ms": library_conv(canvas, wt, sc, sh, True),
+        "bf16_ms": lambda: conv3x3_blocked_flat(canvas_b, wb, g, 2, 2, sc, sh, True),
+        "bf16_library_ms": library_conv(canvas_b, wb, sc, sh, True)}, flush)
     # the canvas is read and written whole; only the image needs arithmetic
-    t["bound_ms"], t["bound_by"] = conv_bound(g.b * g.height * g.width, 64, 64, 9, 4,
-                                              n_ops_px=g.b * g.h * g.w)
+    n_px, n_img = g.b * g.height * g.width, g.b * g.h * g.w
+    t["bound_ms"], t["bound_by"] = conv_bound(n_px, 64, 64, 9, 4, n_ops_px=n_img)
+    t["bf16_bound_ms"], t["bf16_bound_by"] = conv_bound(n_px, 64, 64, 9, 2, n_ops_px=n_img)
+    t["cuda_core_bound_ms"] = conv_bound(n_px, 64, 64, 9, 4, n_ops_px=n_img,
+                                         f32_rate=F32_FLOPS_PER_S)[0]
     res["K9b"].update(t)
     print(f"[conv] K9b time, one step on the {g.height}x{g.width}x64 canvas of a 272x272 "
           f"image: {json.dumps(t)}; library: cuDNN F.conv2d with the scale in the weights, "
           f"the shift as bias, channels-last, TF32 off, then an in-place ReLU; "
-          f"ms in float32, L2 flushed, median of 20, {card_line()}")
+          f"ms in float32 unless bf16_, by CUDA graph replays (event_ms: CUDA events around "
+          f"the eager call), L2 flushed, median of 20; bound at 3xTF32 "
+          f"(495/3 TFLOP/s) or bf16 (989), cuda_core_bound at 67; {card_line()}")
+    sass_report(conv3x3_cuda.SOURCE)
     return res
 
 
-def k8_bound(b, h, w, ks, c1, c2, itemsize: int):
-    """Least time of K8 on these inputs: the parts, the taps and the output
-    each moved once over HBM, vs the 2x2 parity form's multiply-adds (4 taps
-    x K_p x 4 (c1 + c2) for conv1 and project, 4 x 4 c1 x 4 c2 for conv2 a
-    pixel) at 2 flops each at the float32 rate (bfloat16: the tensor
-    cores'). Also the operations time of the same block in its direct
-    3x3 form (9/16 of the parity form's multiply-adds, 7 of its 16 taps
-    being structural zeros), the floor of the block's own arithmetic."""
-    n = b * h * w
-    macs = n * (4 * sum(ks) * 4 * (c1 + c2) + 4 * 4 * c1 * 4 * c2)
-    macs_direct = 4 * n * (9 * (sum(ks) // 4) * (c1 + c2) + 9 * c1 * c2)
-    nbytes = (n * (sum(ks) + 4 * c2) + 4 * sum(ks) * 4 * (c1 + c2) + 64 * c1 * c2) * itemsize
-    rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / rate * 1e3
-    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return bound, macs, max(t_bytes, 2 * macs_direct / rate * 1e3)
+def k8_bound(b, h, w, ks, c: int) -> dict:
+    """Least times of K8 on these inputs (s2d B, H, W; ``ks`` the parts' s2d
+    channels 4 Kp; c1 = cp = c2 = c): the parts, the direct taps and the
+    output each moved once over HBM, vs the direct 3x3 form's multiply-adds
+    (9 Kp (2c) for conv1 and project, 9 c^2 for conv2 a direct pixel), 2
+    flops each, at the rate of the kernel's path: float32 as 3xTF32, bf16
+    on the tensor cores. Beside them the CUDA-core float32 bounds of the
+    direct form and of the TPU kernel's 2x2 parity form (16/9 of the
+    direct form's multiply-adds), which the CUDA-core kernel before the
+    tensor-core one ran."""
+    n, kt = b * h * w, sum(ks) // 4
+    macs = 4 * n * (9 * kt * 2 * c + 9 * c * c)
+    macs_parity = n * (4 * sum(ks) * 8 * c + 4 * 4 * c * 4 * c)
+    out = {"macs": macs}
+    for key, itemsize, rate in (("", 4, TF32X3_FLOPS_PER_S), ("bf16_", 2, BF16_FLOPS_PER_S)):
+        nbytes = (n * (sum(ks) + 4 * c) + 9 * kt * 2 * c + 9 * c * c) * itemsize + 12 * c
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / rate * 1e3
+        out[key + "bound_ms"] = max(t_bytes, t_ops)
+        out[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["cuda_core_bound_ms"] = 2 * macs / F32_FLOPS_PER_S * 1e3
+    out["cuda_core_parity_bound_ms"] = 2 * macs_parity / F32_FLOPS_PER_S * 1e3
+    return out
 
 
 def phase_s2d_block() -> dict:
     """K8 against its plain version at the cvppp model's five s2d blocks
     (544x544, B=1, the split up3 and up4 included) and two odd shapes with
-    tile remainders, float32 and bfloat16; each full-width block's time with
-    L2 flushed beside the plain version's, cuDNN's direct-resolution form of
-    the same folded block and the bound."""
+    tile remainders, float32 and bfloat16, through the public call (the
+    direct taps recovered from the parity taps and checked); a perturbed
+    parity tap raises. Each full-width block's time with L2 flushed (the
+    launch with its direct taps precomputed, as the fast forward makes it)
+    beside the plain version's, cuDNN's direct-resolution form of the same
+    folded block and the bounds, in float32 and bfloat16."""
     import torch
     import torch.nn.functional as F
 
     from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops import s2d_block_cuda
     from pixel_embedded_affinity_torch.ops.s2d import depth_to_space
     from pixel_embedded_affinity_torch.ops.s2d_block_cuda import (
-        block_taps, fused_s2d_block, fused_s2d_block_plain)
+        DirectTaps, block_taps, direct_taps, fused_s2d_block, fused_s2d_block_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
 
@@ -2157,35 +2270,63 @@ def phase_s2d_block() -> dict:
         b1p = torch.cat([h1, hp])
         w2d = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
-        def library():
-            with float32_convs():
-                v = F.conv2d(xd, w1p, b1p, padding=1)
-                return F.conv2d(v[:, :c].relu(), w2d, h2, padding=1).add_(v[:, c:]).relu_()
+        def library(xd, w1p, b1p, w2d, h2):
+            def run():
+                with float32_convs():
+                    v = F.conv2d(xd, w1p, b1p, padding=1)
+                    return F.conv2d(v[:, :c].relu(), w2d, h2, padding=1).add_(v[:, c:]).relu_()
+            return run
 
-        (bound, by), macs, direct_bound = k8_bound(b, h, w, [4 * p for p in parts], c, c, 4)
-        t = {"ms": timed_ms(lambda: fused_s2d_block(xs, k1ps, h1p, k2, h2t, c, c, c),
-                            flush_bytes=flush),
-             "plain_ms": timed_ms(lambda: fused_s2d_block_plain(xs, k1ps, h1p, k2, h2t, c, c, c),
-                                  flush_bytes=flush),
-             "library_ms": timed_ms(library, flush_bytes=flush),
-             "bf16_ms": timed_ms(lambda: fused_s2d_block(tuple(x.bfloat16() for x in xs), k1ps,
-                                                         h1p, k2, h2t, c, c, c),
-                                 flush_bytes=flush),
-             "bound_ms": bound, "bound_by": by, "direct_bound_ms": direct_bound,
-             "gmac": macs / 1e9}
-        t["tflops"] = 2 * macs / t["ms"] / 1e9
+        d = direct_taps(k1ps, h1p, k2, h2t, c, c, c)
+        db = DirectTaps(tuple(t.bfloat16() for t in d.w1p), d.w2.bfloat16(), d.h1, d.hp, d.h2)
+        xsb = tuple(x.bfloat16() for x in xs)
+        t = kernel_times({
+            "ms": lambda: fused_s2d_block(xs, k1ps, h1p, k2, h2t, c, c, c, direct=d),
+            "plain_ms": lambda: fused_s2d_block_plain(xs, k1ps, h1p, k2, h2t, c, c, c),
+            "library_ms": library(xd, w1p, b1p, w2d, h2),
+            "bf16_ms": lambda: fused_s2d_block(xsb, k1ps, h1p, k2, h2t, c, c, c, direct=db),
+            "bf16_library_ms": library(xd.bfloat16(), w1p.bfloat16(), b1p.bfloat16(),
+                                       w2d.bfloat16(), h2.bfloat16())}, flush)
+        bounds = k8_bound(b, h, w, [4 * p for p in parts], c)
+        t.update(bounds)
+        t["tflops"] = 2 * bounds["macs"] / t["ms"] / 1e9
+        t["bf16_tflops"] = 2 * bounds["macs"] / t["bf16_ms"] / 1e9
         res["stages"][name] = t
-        print(f"[k8] {name} time (ms, L2 flushed, median of 20; library: cuDNN's "
+        print(f"[k8] {name} time (ms by CUDA graph replays, event_ms by CUDA events around "
+              f"the eager call, L2 flushed, median of 20; library: cuDNN's "
               f"direct-resolution form, conv1+project one F.conv2d, conv2, add, ReLU, "
-              f"channels-last, TF32 off): {json.dumps(t)}")
+              f"channels-last, TF32 off; tflops of the direct form): {json.dumps(t)}, "
+              f"{card_line()}")
+    # a parity tap off its 3x3 structure: refused on the card, never run
+    k1ps, h1p, k2, h2t = block_taps(*(rnd(3, 3, 8, 16) for _ in range(2)), rnd(3, 3, 16, 16),
+                                    *(rnd(16) for _ in range(3)))
+    bad = k1ps.clone()
+    bad[0, 0, 0, 0] += 1.0  # (by, bx, py, px) = 0 and qy = qx = 0: a structural zero
+    n0 = fused_s2d_block.launches
+    for taps in (bad, k1ps):
+        try:
+            fused_s2d_block(rnd(1, 8, 8, 32), taps, h1p, k2, h2t, 16, 16, 16)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused == (taps is bad), f"K8 structure check: refused={refused}")
+    check(fused_s2d_block.launches == n0 + 1, "K8 launched for refused taps")
+    print("[k8] parity taps off the 3x3 structure raise ValueError on the card")
     st = res["stages"].values()
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "direct_bound_ms", "bf16_ms"):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bf16_ms", "bf16_library_ms",
+                "bf16_bound_ms", "cuda_core_bound_ms", "cuda_core_parity_bound_ms", "event_ms",
+                "library_event_ms", "bf16_event_ms", "bf16_library_event_ms"):
         res[key] = sum(t[key] for t in st)
     res["bound_by"] = "operations" if all(t["bound_by"] == "operations" for t in st) else "bytes"
-    print(f"[k8] the five blocks of one 544x544 image: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f}, cuDNN direct form {res['library_ms']:.4f}, bound "
-          f"{res['bound_ms']:.4f} ({res['bound_by']}; the direct form's "
-          f"{res['direct_bound_ms']:.4f}), {card_line()}")
+    print(f"[k8] the five blocks of one 544x544 image, by CUDA graph replays (CUDA events "
+          f"around the eager calls): kernel {res['ms']:.4f} ms ({res['event_ms']:.4f}; bf16 "
+          f"{res['bf16_ms']:.4f} ({res['bf16_event_ms']:.4f})), plain {res['plain_ms']:.4f}, "
+          f"cuDNN direct form {res['library_ms']:.4f} ({res['library_event_ms']:.4f}; bf16 "
+          f"{res['bf16_library_ms']:.4f} ({res['bf16_library_event_ms']:.4f})), bound "
+          f"{res['bound_ms']:.4f} ({res['bound_by']}, 3xTF32; bf16 {res['bf16_bound_ms']:.4f}); "
+          f"CUDA-core bounds: direct form {res['cuda_core_bound_ms']:.4f}, 2x2 parity form "
+          f"{res['cuda_core_parity_bound_ms']:.4f}; {card_line()}")
+    sass_report(s2d_block_cuda.SOURCE)
     return res
 
 
@@ -2301,8 +2442,10 @@ def phase_fast_forward(cfg, sd, samples) -> dict:
         print(f"[fast] B={bs} 544x544 device ms/img (warm median of 20; dense: the module on "
               f"the NCHW image; fast: the served s2d input and full-resolution head): "
               f"{json.dumps(t)}, {card_line()}")
+        card = card_line()
         for name, (_, fwd_aff) in runs.items():
-            device_breakdown(fwd_aff, bs, iters=3, label=f"{name} B={bs}", split=FAST_SPLIT)
+            device_breakdown(fwd_aff, bs, iters=3, label=f"{name} B={bs} ({card})",
+                             split=FAST_SPLIT)
 
     # serving through the fast forward against the dense module's run
     calls = {"n": 0}
@@ -2717,18 +2860,18 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES[k],
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "timed_by": "cuda graph replay"})
     kernels.append({
         "name": "s2d_block_fwd", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
         "launches": fast["launches"]["K8"], "max_abs_err": k8["max_abs_err"], "ms": k8["ms"],
         "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
-        "library_ms": k8["library_ms"]})
+        "library_ms": k8["library_ms"], "timed_by": "cuda graph replay"})
     kernels.append({
         "name": "tile_copy", "route": "cuda", "source": P_SOURCE, "replaces": P_REPLACES,
         "launches": p["launches"], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "library_ms": p["library_ms"], "timed_by": "torch.profiler"})
-    for entry in kernels:  # P's times are the profiler's (phase_tile_copy)
+    for entry in kernels:  # P's times are the profiler's, K7/K9's and K8's graph replays'
         entry.setdefault("timed_by", "cuda events")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

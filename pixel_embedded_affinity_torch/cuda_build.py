@@ -3,13 +3,15 @@
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/lib<name>-<hash>.so`` beside the package, at first
 use, and loaded with ctypes. The file name carries the sha256 of the
-source, so a stale build is never loaded. ``nvcc``'s ``-Xptxas -v`` report
+source and of every shared header ``csrc/*.cuh`` it may include, so a
+stale build is never loaded. ``nvcc``'s ``-Xptxas -v`` report
 (registers, shared memory, spills) goes to a ``.log`` next to the library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -17,6 +19,7 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -36,10 +39,14 @@ def _nvcc() -> str:
     return cand
 
 
-def library_path(source: str) -> str:
-    """Where the build of ``csrc/<source>`` lives (named by its hash)."""
-    with open(os.path.join(_PKG, "csrc", source), "rb") as f:
-        h = hashlib.sha256(f.read()).hexdigest()[:12]
+def library_path(source: str, csrc: str = CSRC) -> str:
+    """Where the build of ``<csrc>/<source>`` lives, named by the hash of the
+    source and of the shared headers ``<csrc>/*.cuh``."""
+    digest = hashlib.sha256()
+    for path in [os.path.join(csrc, source)] + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h = digest.hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h}.so")
 
@@ -51,7 +58,7 @@ def build(source: str) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}.{threading.get_ident()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_PKG, "csrc", source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(os.path.splitext(so)[0] + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)

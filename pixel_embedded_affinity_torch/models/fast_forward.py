@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from ..device import float32_convs
 from ..ops.s2d import (depth_to_space, fuse_parity_groups, s2d_conv2x2_weights_qx,
                        s2d_conv_weights, space_to_depth)
-from ..ops.s2d_block_cuda import block_taps, fused_s2d_block
+from ..ops.s2d_block_cuda import block_taps, direct_taps, fused_s2d_block
 from .common import replication_pad_to, upsample_align_corners
 
 BLOCKS = {"inconv": "inconv.conv", "down1": "down1.block", "down2": "down2.block",
@@ -197,6 +197,9 @@ class _BlockW:
         elif s2d == "pallas":
             taps = block_taps(w1, wp, w2, h1, hp, h2, split_at)
             self.k1p, self.h1p, self.k2, self.h2 = (_map(lambda x: x.to(dtype), t) for t in taps)
+            # the kernel's direct taps, gathered and checked once here
+            self.direct = direct_taps(self.k1p, self.h1p, self.k2, self.h2,
+                                      self.c1, self.cp, self.c2)
         else:
             # one conv per x output parity, output groups (qy, [conv1 | project])
             def k1(qx):
@@ -216,7 +219,8 @@ class _BlockW:
     def __call__(self, x):
         if self.s2d == "pallas":
             return fused_s2d_block(_map(torch.Tensor.contiguous, x), self.k1p, self.h1p,
-                                   self.k2, self.h2, self.c1, self.cp, self.c2)
+                                   self.k2, self.h2, self.c1, self.cp, self.c2,
+                                   direct=self.direct)
         if self.s2d == "2x2":
             return self._call_2x2(x)
         v = self._in_conv(x, self.w1p) + self.h1p

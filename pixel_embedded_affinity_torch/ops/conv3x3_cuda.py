@@ -19,9 +19,11 @@ launch counter here:
 
 y = conv(x) * scale + shift in float32, then ReLU if asked, stored in x's
 dtype (float32 or bfloat16); the weights are taken in x's dtype, as the JAX
-kernels take them. On a CUDA tensor each wrapper launches the kernel (built
-with nvcc at first use, see :mod:`..cuda_build`); on a CPU tensor it runs
-the plain version, :func:`conv3x3_plain` or :func:`conv3x3_canvas_plain`.
+kernels take them. On a CUDA tensor each wrapper launches the kernel, an
+implicit GEMM on the tensor cores (3xTF32 for float32, bf16 products for
+bfloat16; built with nvcc at first use, see :mod:`..cuda_build`); on a CPU
+tensor it runs the plain version, :func:`conv3x3_plain` or
+:func:`conv3x3_canvas_plain`.
 """
 
 from __future__ import annotations
