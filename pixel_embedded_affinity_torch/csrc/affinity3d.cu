@@ -19,23 +19,38 @@
 // voxel (each vector normalised once, one C-dot per channel), takes 11.9 us
 // at the 67 TFLOP/s float32 rate, so bytes bound it.
 //
-// Design, the simple first version (as K1f's): one thread per output voxel,
-// threads of a warp along x so that loads from the model's NCDHW layout
-// (channel stride D*H*W, x stride 1) and the output stores coalesce; blocks
-// of 32x8 over (x, y), one grid row per (b, z). The thread keeps its own
-// normalised vector in registers and, for each channel, loads the
-// neighbour's C values, normalises them and takes the dot. The TPU's row
-// tiles, halo and front slab padding have no counterpart: a bounds check
-// writes the zeros. What it gives up: each neighbour vector is loaded and
-// normalised once per channel that reaches it (the repeats mostly hit L1/L2,
-// not HBM), and no shared-memory tile with a 27-voxel halo is staged.
+// Design: one thread per output voxel, threads of a warp along x so that
+// loads from the model's NCDHW layout (channel stride D*H*W, x stride 1)
+// and the output stores coalesce; blocks of 32x8 over (x, y), one grid row
+// per (b, z). The thread normalises its own vector once and, for each
+// channel, loads the neighbour's C values (L1/L2 hits but for the first
+// touch) and takes the dot of the raw values in four independent sums,
+// scaled by one reciprocal of the neighbour's norm. Dividing each value by
+// the norm instead, 13 x C divisions a voxel, took about half of the
+// kernel's time on the H100. The TPU's row tiles, halo and front slab
+// padding have no counterpart: a bounds check writes the zeros.
+//
+// The staged z-walk design, each voxel normalised once a block, the slice
+// staged in shared memory with a halo of 9 and a walk along z with a
+// four-slice ring, is tools/affinity_zwalk.cu; tools/affinity_zwalk.py
+// holds the two against each other on the card. On an NVIDIA H100 80GB
+// HBM3 at 700 W, B=4 18x160x160, C=16, float32, the NCDHW view, L2
+// flushed, by CUDA graph replay, it took 0.2550-0.2595 ms against this
+// kernel's 0.1750-0.1797 in the same run: its shared memory leaves 16
+// warps an SM, each block waiting at two barriers a slice, where this
+// kernel's 55 registers leave 32 warps of independent voxels that find
+// their near neighbours in L1.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "affinity_load.cuh"
+
 namespace {
+
+using namespace affinity_load;
 
 constexpr int kMaxShifts = 64;
 
@@ -43,30 +58,18 @@ struct Shifts {
     int s[kMaxShifts];
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
-
-// n[c] = v[c] / max(sqrt(sum v^2 + 1e-36), 1e-12), in float32
-template <typename T, int C>
-__device__ __forceinline__ void load_normalized(const T* __restrict__ v, int64_t sC, float* n) {
+// n[c] = the C values at v in float32 (load_values); returns 1 /
+// max(sqrt(sum n^2 + 1e-36), 1e-12), the inverse norm
+template <typename T, int C, bool kContig>
+__device__ __forceinline__ float load_vec(const T* __restrict__ v, int64_t sC, float* n) {
+    load_values<T, C, kContig>(v, sC, n);
     float ss = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-        n[c] = to_float(v[c * sC]);
-        ss += n[c] * n[c];
-    }
-    const float d = fmaxf(sqrtf(ss + 1e-36f), 1e-12f);
-#pragma unroll
-    for (int c = 0; c < C; ++c) n[c] = n[c] / d;
+    for (int c = 0; c < C; ++c) ss += n[c] * n[c];
+    return 1.f / fmaxf(sqrtf(ss + 1e-36f), 1e-12f);
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kContig>
 __global__ void affinity3d_fwd_kernel(const T* __restrict__ e, T* __restrict__ out,
                                       int D, int H, int W, int K,
                                       int64_t sB, int64_t sD, int64_t sH, int64_t sW,
@@ -79,7 +82,9 @@ __global__ void affinity3d_fwd_kernel(const T* __restrict__ e, T* __restrict__ o
 
     const T* p = e + b * sB + z * sD + y * sH + x * sW;
     float n0[C];
-    load_normalized<T, C>(p, sC, n0);
+    const float inv0 = load_vec<T, C, kContig>(p, sC, n0);
+#pragma unroll
+    for (int c = 0; c < C; ++c) n0[c] *= inv0;
 
     const int64_t vol = (int64_t)D * H * W;
     T* o = out + (int64_t)b * K * vol + ((int64_t)z * H + y) * W + x;
@@ -91,10 +96,11 @@ __global__ void affinity3d_fwd_kernel(const T* __restrict__ e, T* __restrict__ o
         const int64_t step = axis == 0 ? sD : (axis == 1 ? sH : sW);
         float a = 0.f;
         if (pos - s >= 0 && pos - s < size) {
-            float n1[C];
-            load_normalized<T, C>(p - s * step, sC, n1);
+            float n1[C], d[4] = {0.f, 0.f, 0.f, 0.f};
+            const float inv = load_vec<T, C, kContig>(p - s * step, sC, n1);
 #pragma unroll
-            for (int c = 0; c < C; ++c) a += n0[c] * n1[c];
+            for (int c = 0; c < C; ++c) d[c % 4] += n0[c] * n1[c];
+            a = ((d[0] + d[1]) + (d[2] + d[3])) * inv;
         }
         o[k * vol] = from_float<T>(a);
     }
@@ -108,18 +114,22 @@ cudaError_t launch(const void* e, void* out, int B, int D, int H, int W, int C,
     const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, B * D);
     const T* ep = static_cast<const T*>(e);
     T* op = static_cast<T*>(out);
-    switch (C) {
-        case 8:
-            affinity3d_fwd_kernel<T, 8><<<grid, block, 0, stream>>>(
-                ep, op, D, H, W, K, sB, sD, sH, sW, sC, sh);
-            break;
-        case 16:
-            affinity3d_fwd_kernel<T, 16><<<grid, block, 0, stream>>>(
-                ep, op, D, H, W, K, sB, sD, sH, sW, sC, sh);
-            break;
-        default:
-            return cudaErrorInvalidValue;
-    }
+    const int64_t strides[5] = {sB, sD, sH, sW, sC};
+    const bool contig = contiguous_vectors<T>(e, strides);
+    if (C == 8 && contig)
+        affinity3d_fwd_kernel<T, 8, true><<<grid, block, 0, stream>>>(
+            ep, op, D, H, W, K, sB, sD, sH, sW, sC, sh);
+    else if (C == 8)
+        affinity3d_fwd_kernel<T, 8, false><<<grid, block, 0, stream>>>(
+            ep, op, D, H, W, K, sB, sD, sH, sW, sC, sh);
+    else if (C == 16 && contig)
+        affinity3d_fwd_kernel<T, 16, true><<<grid, block, 0, stream>>>(
+            ep, op, D, H, W, K, sB, sD, sH, sW, sC, sh);
+    else if (C == 16)
+        affinity3d_fwd_kernel<T, 16, false><<<grid, block, 0, stream>>>(
+            ep, op, D, H, W, K, sB, sD, sH, sW, sC, sh);
+    else
+        return cudaErrorInvalidValue;
     return cudaGetLastError();
 }
 

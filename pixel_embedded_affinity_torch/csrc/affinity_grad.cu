@@ -48,23 +48,37 @@
 // vector once, 2C a dot and 2C a multiply-add per channel and term, and 5C
 // per VJP, is < 10 us at the 67 TFLOP/s float32 rate: bytes bound all three.
 //
-// Design, the simple first version, as K5f (affinity3d.cu): one thread per
-// voxel; 32x8 blocks over (x, y), one grid row per (b, z), so a warp's
-// loads from the NCDHW view (channel stride D*H*W, x stride 1) and its
-// stores coalesce; bounds checks in place of the TPU's zero pad, row-tile
-// halo and front slab. Each thread gathers its own gradient (no atomics, the
-// same result every run) in one launch per backward, where the TPU splits
-// it into a 2D pass over B*D slices, XLA slab adds and a separate VJP. What
-// it gives up: each neighbour vector is loaded and normalised again for
-// every channel and term that reaches it (up to 2K times, mostly from
-// L1/L2), and no shared-memory tile with the 27-voxel halo is staged.
+// Design, as K5f (affinity3d.cu): one thread per voxel; 32x8 blocks over
+// (x, y), one grid row per (b, z), so a warp's loads from the NCDHW view
+// (channel stride D*H*W, x stride 1) and its stores coalesce; bounds checks
+// in place of the TPU's zero pad, row-tile halo and front slab. Each thread
+// gathers its own gradient (no atomics, the same result every run) in one
+// launch per backward, where the TPU splits it into a 2D pass over B*D
+// slices, XLA slab adds and a separate VJP. Each neighbour vector is loaded
+// again for every channel and term that reaches it (2K times, from L1/L2).
+// affinity_bwd folds each neighbour's normalisation into its cotangent: one
+// reciprocal square root of the sum of squares of the values it loads
+// scales g, so a term costs C multiply-adds, not C divisions and C more;
+// the voxel's own vector is normalised once and its VJP takes one
+// reciprocal. The cross kernels still divide. The staged z-walk form of
+// affinity_bwd (tools/affinity_zwalk.cu: a voxel's channels over four
+// lanes, the past four slices in registers, the next four, the halo and
+// the step's cotangents in shared memory) took 0.6135-0.6147 ms against
+// this kernel's 0.1915-0.1959 (B=2 18x160x160, float32, the NCDHW view,
+// CUDA graph replay, NVIDIA H100 80GB HBM3 at 700 W, one run,
+// tools/affinity_zwalk.py): the four lanes repeat each term's index and
+// bounds work, and the block waits at three barriers a slice.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "affinity_load.cuh"
+
 namespace {
+
+using namespace affinity_load;
 
 constexpr int kMaxChannels = 64;
 constexpr int kBlockX = 32;
@@ -85,15 +99,6 @@ struct Emb {
         return p + b * sB + z * sD + y * sH + x * sW;
     }
 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ bool inside(int z, int y, int x, int D, int H, int W) {
     return z >= 0 && z < D && y >= 0 && y < H && x >= 0 && x < W;
@@ -143,7 +148,20 @@ __device__ __forceinline__ void store_grad(const float* n, float norm, const flo
     for (int c = 0; c < C; ++c) out[c * vol] = from_float<T>(raw ? dn[c] : (dn[c] - n[c] * proj) / mm);
 }
 
-template <typename T, int C>
+// v = the C values at p; returns 1 / max(|v|, eps) by one reciprocal
+// square root (within 2^-22.9 of the quotient; min(rsqrt, 1e12) is
+// 1 / max(sqrt, eps) for every sum of squares), or 1 when raw
+template <typename T, int C, bool kContig>
+__device__ __forceinline__ float load_scaled(const T* __restrict__ p, int64_t sC, bool raw,
+                                             float* v) {
+    load_values<T, C, kContig>(p, sC, v);
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c % 4] += v[c] * v[c];
+    return raw ? 1.f : fminf(rsqrtf((s[0] + s[1]) + (s[2] + s[3]) + 1e-36f), 1e12f);
+}
+
+template <typename T, int C, bool kContig>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 affinity_bwd_kernel(Emb<T> e, const T* __restrict__ g, T* __restrict__ de,
                     int D, int H, int W, int K, Offsets off, bool raw) {
@@ -153,10 +171,18 @@ affinity_bwd_kernel(Emb<T> e, const T* __restrict__ g, T* __restrict__ de,
     const int z = blockIdx.z - b * D;
     if (x >= W || y >= H) return;
 
+    // the voxel's own unit vector, and its norm for the VJP
     float n0[C], dn[C];
-    const float norm = load_vec<T, C>(e.at(b, z, y, x), e.sC, raw, n0);
+    float ss = 0.f;
+    load_values<T, C, kContig>(e.at(b, z, y, x), e.sC, n0);
 #pragma unroll
-    for (int c = 0; c < C; ++c) dn[c] = 0.f;
+    for (int c = 0; c < C; ++c) ss += n0[c] * n0[c];
+    const float norm = sqrtf(ss + 1e-36f), inv = raw ? 1.f : 1.f / fmaxf(norm, 1e-12f);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        n0[c] *= inv;
+        dn[c] = 0.f;
+    }
 
     const int64_t vol = (int64_t)D * H * W;
     const T* gb = g + (int64_t)b * K * vol;
@@ -165,20 +191,23 @@ affinity_bwd_kernel(Emb<T> e, const T* __restrict__ g, T* __restrict__ de,
         // the pair (p, p + o_k): a_k(p) = <n(p), n(p + o_k)>
         int zz = z + off.z[k], yy = y + off.y[k], xx = x + off.x[k];
         if (inside(zz, yy, xx, D, H, W)) {
-            float nq[C];
-            load_vec<T, C>(e.at(b, zz, yy, xx), e.sC, raw, nq);
-            axpy<C>(to_float(gk[((int64_t)z * H + y) * W + x]), nq, dn);
+            float v[C];
+            const float r = load_scaled<T, C, kContig>(e.at(b, zz, yy, xx), e.sC, raw, v);
+            axpy<C>(to_float(gk[((int64_t)z * H + y) * W + x]) * r, v, dn);
         }
         // the pair (p - o_k, p): a_k(p - o_k) = <n(p - o_k), n(p)>
         zz = z - off.z[k], yy = y - off.y[k], xx = x - off.x[k];
         if (inside(zz, yy, xx, D, H, W)) {
-            float nr[C];
-            load_vec<T, C>(e.at(b, zz, yy, xx), e.sC, raw, nr);
-            axpy<C>(to_float(gk[((int64_t)zz * H + yy) * W + xx]), nr, dn);
+            float v[C];
+            const float r = load_scaled<T, C, kContig>(e.at(b, zz, yy, xx), e.sC, raw, v);
+            axpy<C>(to_float(gk[((int64_t)zz * H + yy) * W + xx]) * r, v, dn);
         }
     }
-    store_grad<T, C>(n0, norm, dn, raw, de + (int64_t)b * C * vol + ((int64_t)z * H + y) * W + x,
-                     vol);
+    // the normalisation's VJP, (dn - n <n, dn> [|e| >= eps]) / max(|e|, eps)
+    const float proj = (!raw && norm >= 1e-12f) ? dot<C>(n0, dn) : 0.f;
+    T* out = de + (int64_t)b * C * vol + ((int64_t)z * H + y) * W + x;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c * vol] = from_float<T>((dn[c] - n0[c] * proj) * inv);
 }
 
 template <typename T, int C>
@@ -281,8 +310,13 @@ Emb<T> emb(const void* p, const int64_t* s) {
 template <typename T, int C>
 void launch_bwd(const void* e, const int64_t* se, const void* g, void* de, int B, int D, int H,
                 int W, int K, const Offsets& off, bool raw, cudaStream_t s) {
-    affinity_bwd_kernel<T, C><<<grid_of(B, D, H, W), dim3(kBlockX, kBlockY), 0, s>>>(
-        emb<T>(e, se), static_cast<const T*>(g), static_cast<T*>(de), D, H, W, K, off, raw);
+    const dim3 grid = grid_of(B, D, H, W), block(kBlockX, kBlockY);
+    if (contiguous_vectors<T>(e, se))
+        affinity_bwd_kernel<T, C, true><<<grid, block, 0, s>>>(
+            emb<T>(e, se), static_cast<const T*>(g), static_cast<T*>(de), D, H, W, K, off, raw);
+    else
+        affinity_bwd_kernel<T, C, false><<<grid, block, 0, s>>>(
+            emb<T>(e, se), static_cast<const T*>(g), static_cast<T*>(de), D, H, W, K, off, raw);
 }
 
 template <typename T, int C>

@@ -10,6 +10,7 @@
 
 #include <ucontext.h>
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -30,7 +31,7 @@ struct dim3 {
     unsigned x, y, z;
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline dim3 threadIdx, blockIdx;
+inline dim3 threadIdx, blockIdx, blockDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -40,10 +41,23 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
     return bytes > (int)kSmemMax ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int emu_sms = 3;  // the emulated card's SMs
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = emu_sms; return cudaSuccess; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+    *n = 1;
+    return cudaSuccess;
+}
+
+struct float4 { float x, y, z, w; };
+struct uint4 { uint32_t x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t emu_bits(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 
 struct __nv_bfloat16 { uint16_t v; };
@@ -76,13 +90,26 @@ inline void emu_yield(EmuWait why) {
 inline void __syncthreads() { emu_yield(kBlockBarrier); }
 inline void emu_warp_sync() { emu_yield(kWarpBarrier); }
 
+// the warp's exchange through a scratch row between two warp barriers
+inline float emu_shfl[32][32];
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+    float* row = emu_shfl[emu_cur >> 5];
+    const int lane = emu_cur & 31;
+    row[lane] = v;
+    emu_warp_sync();
+    const float got = row[lane ^ mask];
+    emu_warp_sync();
+    return got;
+}
+
 inline void emu_entry() {
     (*emu_fn)();
     emu_threads[emu_cur].state = kDone;
     swapcontext(&emu_threads[emu_cur].ctx, &emu_sched);
 }
 
-inline void emu_run_block(int threads) {
+inline void emu_run_block(dim3 block) {
+    const int threads = (int)(block.x * block.y * block.z);
     emu_threads.assign(threads, EmuThread{});
     for (int t = 0; t < threads; ++t) {
         EmuThread& th = emu_threads[t];
@@ -98,7 +125,7 @@ inline void emu_run_block(int threads) {
         for (int t = 0; t < threads; ++t) {
             if (emu_threads[t].state != kRunning) continue;
             emu_cur = t;
-            threadIdx = dim3(t, 0, 0);
+            threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
             swapcontext(&emu_sched, &emu_threads[t].ctx);
             ran = true;
         }
@@ -121,28 +148,29 @@ inline void emu_run_block(int threads) {
             }
         }
         if (released) continue;
-        bool block = true;
-        for (const auto& th : emu_threads) block &= th.state == kBlockBarrier || th.state == kDone;
+        bool at_barrier = true;
+        for (const auto& th : emu_threads) at_barrier &= th.state == kBlockBarrier || th.state == kDone;
         for (const auto& th : emu_threads)
-            if (th.state == kDone && block) {
+            if (th.state == kDone && at_barrier) {
                 std::fprintf(stderr, "a thread left the block before a __syncthreads()\n");
                 std::abort();
             }
-        if (!block) { std::fprintf(stderr, "deadlock\n"); std::abort(); }
+        if (!at_barrier) { std::fprintf(stderr, "deadlock\n"); std::abort(); }
         for (auto& th : emu_threads) th.state = kRunning;
     }
 }
 
-inline void emu_launch(dim3 grid, int threads, size_t smem, cudaStream_t,
+inline void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
                        std::function<void()> fn) {
-    if (smem > kSmemMax || threads % 32) std::abort();
+    if (smem > kSmemMax || (block.x * block.y * block.z) % 32) std::abort();
     emu_smem_bytes = smem;
     emu_fn = &fn;
+    blockDim = block;
     for (unsigned z = 0; z < grid.z; ++z)
         for (unsigned y = 0; y < grid.y; ++y)
             for (unsigned x = 0; x < grid.x; ++x) {
                 std::memset(smem_raw, 0xCD, sizeof(smem_raw));
                 blockIdx = dim3(x, y, z);
-                emu_run_block(threads);
+                emu_run_block(block);
             }
 }

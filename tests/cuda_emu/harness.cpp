@@ -1,11 +1,18 @@
-// One case of the port's conv3x3 or s2d_block kernel on the CPU stand-in,
-// against a float64 reference on the same (float32 or bf16-rounded) inputs:
+// One case of the port's conv3x3, s2d_block, affinity3d or affinity_grad
+// kernel on the CPU stand-in, against a float64 reference on the same
+// (float32 or bf16-rounded) inputs:
 //   harness conv B H W Cin Cout off relu dtype
 //   harness k8 B H W c dtype K0 [K1]
+//   harness k5f B D H W C dtype layout [shift...]
+//   harness bwd B D H W C dtype layout raw [oz oy ox ...]
 // (dtype 0 float32, 1 bfloat16; off 0 is the canvas mode, kept rectangle
-// [1, H - 2) x [2, W - 1)). Prints the largest error relative to the
-// largest reference output, and for the canvas mode whether every element
-// outside the rectangle is exactly 0.
+// [1, H - 2) x [2, W - 1); layout 0 a contiguous (B, D, H, W, C)
+// embedding, 1 the (B, C, D, H, W) one seen through permuted strides; no
+// shifts or offsets: the 3D shift table). Prints the largest error relative
+// to the largest reference output (k5f: the largest absolute error), and
+// whether every element that must be exactly 0 is: outside the canvas
+// mode's rectangle, or an affinity whose neighbour lies outside or that
+// touches the zero vector the affinity cases put at (0, 1, 3, 5).
 #include <algorithm>
 #include <cmath>
 #include <cstdio>
@@ -19,6 +26,12 @@
 extern "C" int conv3x3_fwd(const void* x, const void* w, const float* scale, const float* shift,
                            void* out, int dtype, int B, int H, int W, int Cin, int Cout, int off,
                            int r0, int r1, int c0, int c1, int relu, void* stream);
+extern "C" int affinity3d_fwd(const void* e, void* out, int dtype, int B, int D, int H, int W,
+                              int C, int64_t sB, int64_t sD, int64_t sH, int64_t sW, int64_t sC,
+                              const int32_t* shifts, int K, void* stream);
+extern "C" int affinity_bwd(const void* e, const int64_t* se, const void* g, void* de, int dtype,
+                            int B, int D, int H, int W, int C, const int32_t* offsets, int K,
+                            int raw, void* stream);
 extern "C" int s2d_block_fwd(const void* x0, const void* w1p0, int K0, const void* x1,
                              const void* w1p1, int K1, int n_parts, const void* w2,
                              const float* h1, const float* hp, const float* h2, void* out,
@@ -155,12 +168,142 @@ static int k8(int B, int H, int W, int c, int dt, std::vector<int> Ks) {
     return 0;
 }
 
+// An embedding for the affinity kernels: values in logical (B, D, H, W, C)
+// order, stored contiguous (layout 0) or as (B, C, D, H, W) (layout 1), a
+// zero vector at (0, 1, 3, 5) clamped into the volume
+struct Embedding {
+    int B, D, H, W, C;
+    Tensor t;
+    int64_t s[5];
+    int zero[4];
+    Embedding(int B, int D, int H, int W, int C, int dt, int layout)
+        : B(B), D(D), H(H), W(W), C(C), t(randn((size_t)B * D * H * W * C, 1), dt) {
+        zero[0] = 0; zero[1] = std::min(1, D - 1); zero[2] = std::min(3, H - 1); zero[3] = std::min(5, W - 1);
+        const int64_t vol = (int64_t)D * H * W;
+        if (layout) { s[0] = C * vol; s[1] = (int64_t)H * W; s[2] = W; s[3] = 1; s[4] = vol; }
+        else { s[4] = 1; s[3] = C; s[2] = (int64_t)W * C; s[1] = (int64_t)H * W * C; s[0] = vol * C; }
+        for (int c = 0; c < C; ++c) set(zero[0], zero[1], zero[2], zero[3], c, 0.f);
+    }
+    size_t at(int b, int z, int y, int x, int c) const {
+        return (size_t)(b * s[0] + z * s[1] + y * s[2] + x * s[3] + c * s[4]);
+    }
+    void set(int b, int z, int y, int x, int c, float v) {
+        const size_t i = at(b, z, y, x, c);
+        if (t.dt) { t.b[i] = __float2bfloat16(v); t.f[i] = __bfloat162float(t.b[i]); } else t.f[i] = v;
+    }
+    bool inside(int z, int y, int x) const { return z >= 0 && z < D && y >= 0 && y < H && x >= 0 && x < W; }
+    // the vector at a voxel, normalised unless raw, and its norm
+    double vec(int b, int z, int y, int x, bool raw, std::vector<double>& n) const {
+        double ss = 0;
+        n.assign(C, 0);
+        for (int c = 0; c < C; ++c) { n[c] = t.f[at(b, z, y, x, c)]; ss += n[c] * n[c]; }
+        const double norm = std::sqrt(ss + 1e-36);
+        if (!raw) for (auto& v : n) v /= std::max(norm, 1e-12);
+        return norm;
+    }
+    bool is_zero(int b, int z, int y, int x) const {
+        return b == zero[0] && z == zero[1] && y == zero[2] && x == zero[3];
+    }
+};
+
+static const int kShifts3D[12] = {1, 1, 1, 2, 3, 3, 3, 9, 9, 4, 27, 27};
+
+static int k5f(int B, int D, int H, int W, int C, int dt, int layout, std::vector<int> shifts) {
+    if (shifts.empty()) shifts.assign(kShifts3D, kShifts3D + 12);
+    const int K = (int)shifts.size();
+    Embedding e(B, D, H, W, C, dt, layout);
+    Tensor out((size_t)B * K * D * H * W, dt);
+    const int err = affinity3d_fwd(e.t.ptr(), out.ptr(), dt, B, D, H, W, C, e.s[0], e.s[1], e.s[2],
+                                   e.s[3], e.s[4], shifts.data(), K, nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    double worst = 0;
+    bool zeros = true;
+    std::vector<double> n0, n1;
+    for (int b = 0; b < B; ++b)
+        for (int z = 0; z < D; ++z)
+            for (int y = 0; y < H; ++y)
+                for (int x = 0; x < W; ++x) {
+                    e.vec(b, z, y, x, false, n0);
+                    for (int k = 0; k < K; ++k) {
+                        int q[3] = {z, y, x};
+                        q[k % 3] -= shifts[k];
+                        double a = 0;
+                        const bool in = e.inside(q[0], q[1], q[2]);
+                        if (in) {
+                            e.vec(b, q[0], q[1], q[2], false, n1);
+                            for (int c = 0; c < C; ++c) a += n0[c] * n1[c];
+                        }
+                        const float got = out.at(((((size_t)b * K + k) * D + z) * H + y) * W + x);
+                        if (!in || e.is_zero(b, z, y, x) || e.is_zero(b, q[0], q[1], q[2]))
+                            zeros &= got == 0.f;
+                        worst = std::max(worst, std::fabs(got - a));
+                    }
+                }
+    std::printf("abs_err %.6e zeros_outside %d\n", worst, (int)zeros);
+    return 0;
+}
+
+static int bwd(int B, int D, int H, int W, int C, int dt, int layout, int raw, std::vector<int> o) {
+    if (o.empty())
+        for (int k = 0; k < 12; ++k) {
+            int v[3] = {0, 0, 0};
+            v[k % 3] = -kShifts3D[k];
+            o.insert(o.end(), v, v + 3);
+        }
+    const int K = (int)o.size() / 3;
+    Embedding e(B, D, H, W, C, dt, layout);
+    const size_t vol = (size_t)D * H * W;
+    Tensor g(randn((size_t)B * K * vol, 1), dt), de((size_t)B * C * vol, dt);
+    const int err = affinity_bwd(e.t.ptr(), e.s, g.ptr(), de.ptr(), dt, B, D, H, W, C, o.data(), K,
+                                 raw, nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    auto G = [&](int b, int k, int z, int y, int x) { return (double)g.f[(((size_t)b * K + k) * D + z) * H * W + (size_t)y * W + x]; };
+    double rest = 0, top = 0, zd = 0, ztop = 0;
+    std::vector<double> n0, nq, dn(C);
+    for (int b = 0; b < B; ++b)
+        for (int z = 0; z < D; ++z)
+            for (int y = 0; y < H; ++y)
+                for (int x = 0; x < W; ++x) {
+                    const double norm = e.vec(b, z, y, x, raw, n0);
+                    std::fill(dn.begin(), dn.end(), 0.0);
+                    for (int k = 0; k < K; ++k) {
+                        const int oz = o[3 * k], oy = o[3 * k + 1], ox = o[3 * k + 2];
+                        if (e.inside(z + oz, y + oy, x + ox)) {
+                            e.vec(b, z + oz, y + oy, x + ox, raw, nq);
+                            for (int c = 0; c < C; ++c) dn[c] += G(b, k, z, y, x) * nq[c];
+                        }
+                        if (e.inside(z - oz, y - oy, x - ox)) {
+                            e.vec(b, z - oz, y - oy, x - ox, raw, nq);
+                            for (int c = 0; c < C; ++c) dn[c] += G(b, k, z - oz, y - oy, x - ox) * nq[c];
+                        }
+                    }
+                    double proj = 0;
+                    if (!raw && norm >= 1e-12)
+                        for (int c = 0; c < C; ++c) proj += n0[c] * dn[c];
+                    const double mm = raw ? 1.0 : std::max(norm, 1e-12);
+                    for (int c = 0; c < C; ++c) {
+                        const double ref = (dn[c] - n0[c] * proj) / mm;
+                        const double d = std::fabs(de.at((((size_t)b * C + c) * D + z) * H * W + (size_t)y * W + x) - ref);
+                        if (e.is_zero(b, z, y, x)) { zd = std::max(zd, d); ztop = std::max(ztop, std::fabs(ref)); }
+                        else { rest = std::max(rest, d); top = std::max(top, std::fabs(ref)); }
+                    }
+                }
+    const double at_zero = ztop > 0 ? zd / ztop : zd;
+    std::printf("rel_err %.6e zeros_outside 1 (rest %.3e, zero vector %.3e)\n", std::max(rest / top, at_zero), rest / top, at_zero);
+    return 0;
+}
+
 int main(int argc, char** argv) {
     std::vector<int> a;
     for (int i = 2; i < argc; ++i) a.push_back(std::atoi(argv[i]));
     if (argc >= 10 && std::string(argv[1]) == "conv") return conv(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7]);
     if (argc >= 8 && std::string(argv[1]) == "k8")
         return k8(a[0], a[1], a[2], a[3], a[4], std::vector<int>(a.begin() + 5, a.end()));
-    std::fprintf(stderr, "usage: harness conv B H W Cin Cout off relu dtype | k8 B H W c dtype K0 [K1]\n");
+    if (argc >= 9 && std::string(argv[1]) == "k5f")
+        return k5f(a[0], a[1], a[2], a[3], a[4], a[5], a[6], std::vector<int>(a.begin() + 7, a.end()));
+    if (argc >= 10 && std::string(argv[1]) == "bwd")
+        return bwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], std::vector<int>(a.begin() + 8, a.end()));
+    std::fprintf(stderr, "usage: harness conv B H W Cin Cout off relu dtype | k8 B H W c dtype K0 [K1]"
+                         " | k5f B D H W C dtype layout [shift...] | bwd B D H W C dtype layout raw [oz oy ox...]\n");
     return 2;
 }

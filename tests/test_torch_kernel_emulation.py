@@ -1,21 +1,34 @@
 """The port's tensor-core kernels, ``csrc/conv3x3.cu`` (K7/K9a/K9b) and
-``csrc/s2d_block.cu`` (K8), compiled with g++ and run on the CPU against a
-float64 reference: ``tests/cuda_emu`` stands in for the CUDA runtime (each
-CUDA thread a coroutine, barriers released by a scheduler) and for the
-instructions that ``csrc/mma_tc.cuh`` wraps (cp.async, cvt.rna.tf32,
-mma.sync and ldmatrix, by the PTX ISA's fragment layouts). The kernels'
-own source is used unchanged apart from its asm wrappers, so their tiling,
-staging, pipelines, s2d address map, ring and epilogues are checked here;
-the card's timing and the hardware's own rounding are not (chip_smoke.py
+``csrc/s2d_block.cu`` (K8), and its affinity kernels, ``csrc/affinity3d.cu``
+(K5f) and ``affinity_bwd`` of ``csrc/affinity_grad.cu`` (K5b, K1b at D = 1),
+which gather each neighbour through the cache, one thread a voxel, compiled
+with g++ and run on the CPU against a float64 reference: ``tests/cuda_emu``
+stands in for the CUDA runtime (each CUDA thread a coroutine, barriers and
+warp shuffles released by a scheduler) and for the instructions that
+``csrc/mma_tc.cuh`` wraps (cp.async, cvt.rna.tf32, mma.sync and ldmatrix,
+by the PTX ISA's fragment layouts). The kernels' own source is used
+unchanged apart from its asm wrappers, so their tiling, staging,
+pipelines, s2d address map, ring and epilogues are checked here; the
+card's timing and the hardware's own rounding are not (chip_smoke.py
 holds the kernels against their plain versions on the card). Small shapes,
 ragged tiles, Cin = 3 (the plain-load path), split K8 inputs and the canvas
-mode's exact zeros; float32 at the card's 1e-5 gate, bf16 at 8e-3."""
+mode's exact zeros; float32 at the card's 1e-5 gate, bf16 at 8e-3. The
+affinity kernels: ragged tiles, D < 4 and H, W < 27 (whole channels
+outside), a zero vector, C = 8, the permuted NCDHW view, other shift and
+offset tables (negative, zero, diagonal, far z), neighbor 4 and 8 at D = 1,
+the raw form, bf16; K5f at the card's 1e-6 gate and its exact zeros, the
+backward at 1e-5 of the largest gradient (and at the zero vector's voxel,
+of its own). The same cases, and a walk over z chunks and tables longer
+than the staged cotangents, hold the staged z-walk forms of the two
+affinity kernels in ``tools/affinity_zwalk.cu`` (the design that
+``tools/affinity_zwalk.py`` times against the package's)."""
 
 import os
 import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 
 from pixel_embedded_affinity_torch import cuda_build
@@ -42,19 +55,26 @@ def _emulated_kernel(text: str) -> str:
                   text, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+ZWALK = os.path.join(os.path.dirname(EMU), os.pardir, "tools", "affinity_zwalk.cu")
+
+
+def _build(out, affinity_sources):
+    """The harness with the conv and s2d kernels and the given sources of
+    affinity3d_fwd and affinity_bwd, built in ``out``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    out = tmp_path_factory.mktemp("cuda_emu")
     with open(os.path.join(cuda_build.CSRC, "mma_tc.cuh")) as f:
         (out / "mma_tc.cuh").write_text(_emulated_header(f.read()).replace(*RUNTIME))
+    with open(os.path.join(cuda_build.CSRC, "affinity_load.cuh")) as f:
+        (out / "affinity_load.cuh").write_text(f.read().replace(*RUNTIME))
     objs = []
-    for name in ("conv3x3", "s2d_block"):
-        with open(os.path.join(cuda_build.CSRC, f"{name}.cu")) as f:
+    base = [os.path.join(cuda_build.CSRC, f"{n}.cu") for n in ("conv3x3", "s2d_block")]
+    for path in base + affinity_sources:
+        with open(path) as f:
             text = f.read()
         assert RUNTIME[0] in text and "<<<" in text
+        name = os.path.splitext(os.path.basename(path))[0]
         (out / f"{name}.cpp").write_text(_emulated_kernel(text.replace(*RUNTIME)))
         objs.append(out / f"{name}.cpp")
     exe = out / "harness"
@@ -65,10 +85,21 @@ def harness(tmp_path_factory):
     return str(exe)
 
 
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("cuda_emu"),
+                  [os.path.join(cuda_build.CSRC, f"{n}.cu") for n in ("affinity3d", "affinity_grad")])
+
+
+@pytest.fixture(scope="module")
+def harness_zwalk(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("cuda_emu_zwalk"), [ZWALK])
+
+
 def _run(exe, *args):
     proc = subprocess.run([exe, *map(str, args)], capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    m = re.search(r"rel_err (\S+) zeros_outside (\d)", proc.stdout)
+    m = re.search(r"(?:rel|abs)_err (\S+) zeros_outside (\d)", proc.stdout)
     return float(m.group(1)), m.group(2) == "1"
 
 
@@ -100,3 +131,92 @@ def test_conv3x3_kernel_emulated(harness, b, h, w, cin, cout, off, relu, dtype):
 def test_s2d_block_kernel_emulated(harness, b, h, w, c, parts, dtype):
     err, _ = _run(harness, "k8", b, h, w, c, dtype, *parts)
     assert err <= _TOL[dtype]
+
+
+# a shift table with a zero, negative shifts (halo below and to the right),
+# a far z and a far y shift
+_ODD_SHIFTS = (2, 0, 5, 5, -2, 1, 1, 12, -3)
+
+
+_K5F_CASES = [
+    (2, 6, 21, 35, 16, 1, ()),   # ragged tiles, the NCDHW view
+    (2, 3, 20, 25, 16, 0, ()),   # D < 4, H, W < 27
+    (1, 5, 17, 19, 8, 0, ()),    # C = 8
+    (1, 7, 18, 20, 16, 1, _ODD_SHIFTS),
+]
+_K5F_IDS = ["view", "small", "c8", "odd-shifts"]
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,h,w,c,layout,shifts", _K5F_CASES, ids=_K5F_IDS)
+def test_affinity3d_kernel_emulated(harness, b, d, h, w, c, layout, shifts, dtype):
+    err, zeros = _run(harness, "k5f", b, d, h, w, c, dtype, layout, *shifts)
+    assert err <= {0: 1e-6, 1: 8e-3}[dtype]
+    assert zeros
+
+
+def _offsets_2d(neighbor):
+    from pixel_embedded_affinity_torch.ops import multi_offset
+
+    return [v for dy, dx in multi_offset([1, 3, 5, 9, 27], neighbor) for v in (0, dy, dx)]
+
+
+# (dz, dy, dx): z offsets of either sign, an in-slice diagonal, far z,
+# far y and a far diagonal
+_ODD_OFFSETS = (1, 0, 0, -3, 0, 0, 0, 2, -1, 0, 0, 4, 5, 0, 0, 0, -12, 0, 1, 1, 1)
+
+
+_BWD_CASES = [
+    (2, 6, 21, 35, 16, 1, 0, ()),    # the 3D table: ragged tiles, the NCDHW view
+    (2, 3, 20, 25, 16, 0, 0, ()),    # D < 4, H, W < 27
+    (1, 5, 17, 19, 8, 0, 0, ()),     # C = 8
+    (1, 5, 17, 19, 16, 1, 1, ()),    # raw
+    (1, 7, 18, 20, 16, 0, 0, _ODD_OFFSETS),
+    (2, 1, 37, 29, 16, 1, 0, "n4"),  # D = 1: K1's offsets
+    (2, 1, 37, 29, 16, 1, 0, "n8"),  # neighbor 8's diagonals
+]
+_BWD_IDS = ["view", "small", "c8", "raw", "odd", "2d-n4", "2d-n8"]
+
+
+def _bwd(exe, b, d, h, w, c, layout, raw, offsets, dtype):
+    if isinstance(offsets, str):
+        offsets = _offsets_2d(int(offsets[1:]))
+    err, _ = _run(exe, "bwd", b, d, h, w, c, dtype, layout, raw, *offsets)
+    assert err <= {0: 1e-5, 1: 8e-3}[dtype]
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,h,w,c,layout,raw,offsets", _BWD_CASES, ids=_BWD_IDS)
+def test_affinity_bwd_kernel_emulated(harness, b, d, h, w, c, layout, raw, offsets, dtype):
+    _bwd(harness, b, d, h, w, c, layout, raw, offsets, dtype)
+
+
+# 40 random shifts and offsets, |dz| <= 5, |dy|, |dx| <= 12: far terms
+# beyond those read ahead, and (backward, C = 16) more channels than the
+# staged cotangents; 18 slices on a 9 x 33 slice: three z chunks on the
+# emulated card's three SMs, each warming its ring up
+_RNG = np.random.default_rng(3)
+_MANY_SHIFTS = tuple(int(v) for v in _RNG.integers(-12, 13, size=40))
+_MANY_OFFSETS = tuple(int(v) for _ in range(40) for v in (
+    _RNG.integers(-5, 6), _RNG.integers(-12, 13), _RNG.integers(-12, 13)))
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,h,w,c,layout,shifts", _K5F_CASES + [
+    (1, 7, 18, 20, 16, 1, _MANY_SHIFTS),
+    (1, 18, 9, 33, 16, 1, ()),
+], ids=_K5F_IDS + ["many-shifts", "z-chunks"])
+def test_zwalk_affinity3d_kernel_emulated(harness_zwalk, b, d, h, w, c, layout, shifts, dtype):
+    err, zeros = _run(harness_zwalk, "k5f", b, d, h, w, c, dtype, layout, *shifts)
+    assert err <= {0: 1e-6, 1: 8e-3}[dtype]
+    assert zeros
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,h,w,c,layout,raw,offsets", _BWD_CASES + [
+    (1, 7, 18, 20, 16, 1, 0, _MANY_OFFSETS),
+    (1, 18, 9, 33, 16, 0, 0, ()),
+], ids=_BWD_IDS + ["many-offsets", "z-chunks"])
+def test_zwalk_affinity_bwd_kernel_emulated(harness_zwalk, b, d, h, w, c, layout, raw, offsets,
+                                            dtype):
+    _bwd(harness_zwalk, b, d, h, w, c, layout, raw, offsets, dtype)
