@@ -13,11 +13,13 @@ Phases, each of which exits nonzero when it fails:
      NCHW view; K1's backward (the self-affinity backward kernel at D = 1)
      through autograd at B=2 544x544, neighbor 8 and 4; K4f (the cross
      forward at D = 1) and its backward through autograd at the BBBC train
-     shape B=2 256x256 with the un-flipped teacher's view (x and y strides
-     swapped) and at an odd shape, neighbor 4 and 8, float32 and bfloat16,
-     with a zero vector, and its time with L2 flushed; K2f/K2b at the five
-     training scales and K3f/K3b at full scale, on the NCHW view, with a
-     zero vector;
+     shape B=2 256x256 and at an odd shape, with the teacher as the
+     un-flip returns it (the student's strides, checked) and as it
+     returned it before (x and y strides swapped), neighbor 4 and 8,
+     float32 and bfloat16, with a zero vector, and their times on both
+     teachers with L2 flushed; K2f/K2b at the five training scales and
+     K3f/K3b at full scale, on the NCHW view, with a zero vector, K3's
+     times also on the swapped teacher;
   4. fixture: the port's model on the reference golden
      (tests/fixtures/resunet2d_deep.npz) with TF32 off, and the kernel's
      affinities against the golden's circular ones outside the wrap band;
@@ -31,13 +33,14 @@ Phases, each of which exits nonzero when it fails:
      padded to 544x544), validation on 2 images and a checkpoint,
      with every kernel's launch count read around the run; the reloaded
      checkpoint's next-step loss; the device time of one step by kernel;
-     one step's parameter gradients against the same step in float64
+     (K3f, K3b: each launch of the wmse kernels in order) and one step's
+     parameter gradients against the same step in float64
      through the plain path; then 3 steps through the host provider
      (data.device_resident False, worker processes) with the launches
      read around them;
   7. 3D kernels: K5f against its plain version at the serving tile batch
      (4 tiles of 18x160x160, C=16, on the permuted NCDHW view) and the
-     training batch (B=2; also channels-last, the train step's layout) in
+     training batch (B=2; also channels-last) in
      float32 and bfloat16, at two odd shapes with a zero vector, and
      through autograd (its backward kernel); its times at both batches and
      layouts with L2 flushed. The 3D training kernels, the
@@ -45,8 +48,13 @@ Phases, each of which exits nonzero when it fails:
      backward (K6b), against their plain versions at the training shape
      (B=2, 18x160x160, C=16, NCDHW view) and two odd shapes, float32 and
      bfloat16, with a zero vector and a random cotangent; K5b also on a
-     channels-last embedding; their raw (normalized) forms; their times
-     with L2 flushed;
+     channels-last embedding, K6f and K6b (with and without db) on a
+     channels-last student with three teachers: channels-last, H/W-swapped
+     (what the un-flip made of a channels-last teacher before it kept its
+     input's strides) and the NCDHW view, float32 and bfloat16 (the
+     16-byte load paths: no main path hands channels-last); their raw
+     (normalized) forms; their times with L2 flushed, the cross kernels'
+     on each layout;
   8. 3D fixture: the port's UNetPNIEmbeddingDeep on the reference golden
      (tests/fixtures/unet_pni_deep.npz) with TF32 off;
   9. 3D serving: AC3/AC4 serving at full width (ac3ac4 preset, filters
@@ -64,15 +72,16 @@ Phases, each of which exits nonzero when it fails:
      20x1024x1024) and a checkpoint, each kernel's launch count read around
      the run; the reloaded checkpoint's next-step loss; one step's peak
      device memory and device time by kernel, and the layout of the
-     embedding it hands the kernels; one step's parameter gradients against
-     float64; then 3 steps through the host provider with the launches
+     embedding it hands the kernels (NCDHW), the un-flipped teacher's
+     strides checked equal to the student's; one step's parameter gradients
+     against float64; then 3 steps through the host provider with the launches
      read around them;
  11. BBBC training: train() on the full-width bbbc039v1 preset (mask head,
      weight 1000), B=2, 8 steps from the device-resident sampler over 8
      synthetic 520x696 nuclei images, validation on 2 (AJI/F1/PQ) and a
      checkpoint, each kernel's launch count read around the run; the
      reloaded checkpoint's next-step loss; the device time of one step by
-     kernel;
+     kernel (K3f/K3b as in 6);
  12. the unfused path: 4 steps of the same preset with train.fuse_loss
      False, K1f/K1b/K4f/K4b launched 5/5/1/1 times a step; on one batch the
      unfused step's loss and parameter gradients against the fused step's;
@@ -156,6 +165,8 @@ WMSE_REPLACES = {
     "K3f": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:1009",
     "K3b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:1096",
 }
+# the CUDA kernels of K2f/K3f (one) and K2b/K3b (K3b: wmse_bwd_kernel<false>)
+WMSE_KERNELS = ("wmse_fwd_kernel", "wmse_bwd_kernel")
 WMSE_NAMES = {"K2f": "affinity_wmse2d_fwd", "K2b": "affinity_wmse2d_bwd",
               "K3f": "cross_affinity_wmse2d_fwd", "K3b": "cross_affinity_wmse2d_bwd"}
 # K2/K3 against their plain versions: affinities at F32_ATOL; the sums S
@@ -613,7 +624,7 @@ def served_precision(cfg, sd, model, x, offsets):
 
 def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
                      unit: str = "img", ours: tuple = (), split: tuple = (),
-                     require: tuple = ()):
+                     require: tuple = (), in_order: tuple = ()):
     """Device time of fn() by kernel (torch.profiler), per image (or per
     ``unit``, ``images`` of them per call), and the device's idle share of
     the host-clock wall time of the same calls; also the rows whose kernel
@@ -621,7 +632,10 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
     ...) the time by group: a kernel goes to the first group one of whose
     parts its lower-cased name holds, else to "other". Fails unless each
     kernel named in ``require`` has device time (the profiler can drop
-    records)."""
+    records). For each name part in ``in_order``, the device time of each
+    launch of a kernel whose name holds it, in launch order, medians over
+    the calls (one kernel that serves several calls of the path, told apart
+    by their order)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -664,6 +678,16 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
         print(f"[profile] {label} by group: " + "; ".join(
             f"{g} {t:.4f} ms/{unit} {t / busy:.1%} x{n / images:.0f}"
             for g, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    for part in in_order:
+        evs = sorted((e for e in prof.events()
+                      if part in e.name and str(getattr(e, "device_type", "")).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        if not evs or len(evs) % iters:
+            print(f"[profile] {label}: {len(evs)} launches of {part} recorded in {iters} calls")
+            continue
+        per = np.asarray([e.time_range.elapsed_us() / 1e3 for e in evs]).reshape(iters, -1)
+        print(f"[profile] {label}: {part} launches in order, ms (median of {iters} calls): "
+              f"{[round(float(v), 4) for v in np.median(per, axis=0)]}")
     mine = [r for r in rows if any(o in r[2] for o in ours)]
     if mine:
         tot = sum(r[0] for r in mine)
@@ -709,25 +733,41 @@ def phase_k1_grad() -> float:
 def teacher_view(nchw):
     """The un-flipped EMA teacher's embedding as the train step hands it to
     K4f: the model's NCHW output permuted to (B, H, W, C) and passed
-    through the un-flip, whose torch.where leaves the x and y strides
-    swapped (H stride 1) whatever the rules."""
+    through the un-flip, which keeps the student's strides whatever the
+    rules (x stride 1)."""
     import torch
 
     from pixel_embedded_affinity_torch.data.consistency import convert_consistency_flip
 
+    student = nchw.permute(0, 2, 3, 1)
     rules = torch.tensor([[1.0, 0.0, 1.0]] * nchw.shape[0], device=nchw.device)
-    view = convert_consistency_flip(nchw.permute(0, 2, 3, 1), rules)
-    check(view.stride()[1] == 1, f"teacher view strides {view.stride()}")
+    view = convert_consistency_flip(student, rules)
+    check(view.stride() == student.stride(),
+          f"teacher view strides {view.stride()}, the student's {student.stride()}")
     return view
+
+
+def swapped_view(e):
+    """The (B, ..., H, W, C) view e's values (H == W) in storage whose H and
+    W strides are exchanged, as the un-flip returned the teacher before it
+    kept the student's strides: H stride 1 for the model's NCHW output, the
+    channels-last 3D output's H and W strides swapped."""
+    import torch
+
+    check(e.shape[-3] == e.shape[-2], f"swapped_view needs H == W, got {tuple(e.shape)}")
+    out = torch.empty_strided(e.shape, e.stride(), dtype=e.dtype, device=e.device)
+    out.transpose(-3, -2).copy_(e)
+    return out.transpose(-3, -2)
 
 
 def phase_k4f() -> dict:
     """K4f (cross_affinity_fwd at D = 1) and its backward (cross_affinity_bwd
     at D = 1) through autograd against the plain version: the student an
-    NCHW view, the teacher as the un-flip leaves it, at B=2 256x256 (the
+    NCHW view, the teacher as the un-flip returns it (the student's strides)
+    and as it returned it before (H stride 1), at B=2 256x256 (the
     bbbc039v1 train shape) and an odd shape, neighbor 4 and 8, float32 and
-    bfloat16, a zero vector and a random cotangent; the forward's time with
-    L2 flushed. Returns K4f's error and times."""
+    bfloat16, a zero vector and a random cotangent; times with L2 flushed
+    on both teachers. Returns K4f's error and times."""
     import torch
 
     from pixel_embedded_affinity_torch.ops import (
@@ -736,6 +776,7 @@ def phase_k4f() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     zero = (1, 3, 5)
     res = {"max_abs_err": 0.0}
+    teachers = {"un-flip": teacher_view, "swapped": lambda x: swapped_view(x.permute(0, 2, 3, 1))}
     for (b, h, w), neighbor in [((2, 256, 256), 4), ((2, 256, 256), 8), ((1, 41, 41), 4)]:  # the transpose needs H == W
         offsets = multi_offset([1, 3, 5, 9, 11], neighbor)
         k = len(offsets)
@@ -746,9 +787,10 @@ def phase_k4f() -> dict:
             a_nc = a_nc.to(dtype).requires_grad_()
             t_nc = torch.randn((b, 16, h, w), generator=gen, device="cuda").to(dtype)
             g = torch.randn((b, k, h, w), generator=gen, device="cuda").to(dtype)
-            for with_db in (False, True):
+            for (teacher, view), with_db in [(tv, db) for tv in teachers.items()
+                                             for db in (False, True)]:
                 t_leaf = t_nc.clone().requires_grad_(with_db)
-                a, t = a_nc.permute(0, 2, 3, 1), teacher_view(t_leaf)
+                a, t = a_nc.permute(0, 2, 3, 1), view(t_leaf)
                 before = (fused_cross_affinity_2d.launches, cross_affinity_bwd.launches)
                 got = fused_cross_affinity_2d(a, t, offsets)
                 grads = torch.autograd.grad(got, [a_nc, t_leaf] if with_db else [a_nc], g,
@@ -763,7 +805,7 @@ def phase_k4f() -> dict:
                 gerrs = [_grad_err(x.permute(0, 2, 3, 1), r.permute(0, 2, 3, 1), zpx)
                          for x, r in zip(grads, refs)]
                 print(f"[kernels] K4f B={b} {h}x{w} C=16 K={k} neighbor {neighbor} "
-                      f"{str(dtype)[6:]}, teacher strides {tuple(t.stride())}"
+                      f"{str(dtype)[6:]}, teacher {teacher} strides {tuple(t.stride())}"
                       f"{', with db' if with_db else ''}: f32 {err:.3e}; grads rel (rest, "
                       f"zero-vector pixel, abs) "
                       + ", ".join(f"({x:.3e}, {z:.3e}, {m:.3e})" for x, z, m in gerrs))
@@ -774,30 +816,39 @@ def phase_k4f() -> dict:
                 gtol = GRAD_RTOL if f32 else BF16_GRAD_RTOL
                 for x, z, _ in gerrs:
                     check(x <= gtol and z <= gtol, f"K4f gradient error {x}, {z}")
-                check(all(x.is_contiguous() for x in grads), "K4f gradients not NCHW")
+                # the swapped teacher's gradient comes back through its copy
+                check(all(x.is_contiguous() for x in grads[:1 if teacher == "swapped" else 2]),
+                      "K4f gradients not NCHW")
                 if f32:
                     res["max_abs_err"] = max(res["max_abs_err"], err)
 
     flush = 64 << 20  # beyond the 50 MB L2
     offsets = multi_offset([1, 3, 5, 9, 11], 4)
+    offs3 = [(0, dy, dx) for dy, dx in offsets]
     a = torch.randn((2, 16, 256, 256), generator=gen, device="cuda").permute(0, 2, 3, 1)
-    t = teacher_view(torch.randn((2, 16, 256, 256), generator=gen, device="cuda"))
+    t_nc = torch.randn((2, 16, 256, 256), generator=gen, device="cuda")
+    t, t_old = teacher_view(t_nc), teachers["swapped"](t_nc)
     g = torch.randn((2, len(offsets), 256, 256), generator=gen, device="cuda")
-    res.update(kernel_times({"ms": lambda: fused_cross_affinity_2d(a, t, offsets)}, flush))
+    res.update(kernel_times({
+        "ms": lambda: fused_cross_affinity_2d(a, t, offsets),
+        "swapped_ms": lambda: fused_cross_affinity_2d(a, t_old, offsets),
+        "bwd_ms": lambda: cross_affinity_bwd(a[:, None], t[:, None], g[:, :, None], offs3,
+                                             need_db=False),
+        "bwd_swapped_ms": lambda: cross_affinity_bwd(a[:, None], t_old[:, None],
+                                                     g[:, :, None], offs3, need_db=False)},
+        flush))
     res["plain_ms"] = timed_ms(lambda: cross_affinity_2d_plain(a, t, offsets),
                                flush_bytes=flush)
     res["nhwc_ms"] = graph_ms(lambda: fused_cross_affinity_2d(a, t.contiguous(), offsets),
                               flush_bytes=flush)
     res["bound_ms"], res["bound_by"] = train3d_bound(2 * 256 * 256, 16, len(offsets), 2, 0,
                                                      "fwd")
-    offs3 = [(0, dy, dx) for dy, dx in offsets]
-    res.update(kernel_times({"bwd_ms": lambda: cross_affinity_bwd(
-        a[:, None], t[:, None], g[:, :, None], offs3, need_db=False)}, flush))
     res["bwd_bound_ms"] = train3d_bound(2 * 256 * 256, 16, len(offsets), 2, 1, "bwd")[0]
     print(f"[kernels] K4f time B=2 256x256 C=16 K=10, student NCHW view, teacher as the "
-          f"un-flip leaves it (ms, L2 flushed, median of 20; the kernels by CUDA graph replay, "
-          f"*event_ms and plain by CUDA events; nhwc_ms: a contiguous teacher; bwd: the D = 1 "
-          f"cross backward without db): {json.dumps(res)}, {card_line()}")
+          f"un-flip returns it (ms, L2 flushed, median of 20; the kernels by CUDA graph replay, "
+          f"*event_ms and plain by CUDA events; swapped: the teacher with H stride 1, as the "
+          f"un-flip returned it before; nhwc_ms: a contiguous teacher; bwd: the D = 1 cross "
+          f"backward without db): {json.dumps(res)}, {card_line()}")
     return res
 
 
@@ -912,14 +963,23 @@ def phase_wmse_kernels() -> dict:
                else W.cross_affinity_wmse_2d_plain(*req, *maps, offsets))[0]
         p_b = timed_ms(lambda: torch.autograd.grad(s_g, req, gs, retain_graph=True),
                        flush_bytes=flush)
+        if kind == "K3":  # the teacher as the un-flip returned it before: H stride 1
+            old = swapped_view(es[1])
+            t["fwd_swapped_ms"] = graph_ms(lambda: W.cross_wmse2d_fwd(es[0], old, *maps, offsets),
+                                           flush_bytes=flush)
+            t["bwd_swapped_ms"] = graph_ms(
+                lambda: W.cross_wmse2d_bwd(es[0], old, *maps, gs, offsets), flush_bytes=flush)
         for name, part, p, n_out in [(fwd, "fwd", p_f, 0), (bwd, "bwd", p_b, n_in)]:
             bound, by = wmse_bound(2, 544, 16, k, n_in, n_out)
             res[name].update(ms=t[f"{part}_ms"], event_ms=t[f"{part}_event_ms"], plain_ms=p,
                              bound_ms=bound, bound_by=by)
+            if kind == "K3":
+                res[name]["swapped_ms"] = t[f"{part}_swapped_ms"]
             print(f"[kernels] {name} time B=2 544x544 C=16 K=10 (ms, L2 flushed, median of "
                   f"20): kernel {res[name]['ms']:.4f} by graph replay, "
                   f"{res[name]['event_ms']:.4f} by events, plain {p:.4f}, bound {bound:.4f} "
-                  f"({by}), {card_line()}")
+                  f"({by}); the teacher with H stride 1: {res[name].get('swapped_ms')}; "
+                  f"{card_line()}")
     return res
 
 
@@ -1059,8 +1119,10 @@ def phase_train() -> dict:
     print(f"[train] next-step loss: trained state {la!r}, reloaded checkpoint {lb!r}")
     check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
 
+    # K2f and K3f are one kernel: K3f is each step's last launch of it
     device_breakdown(lambda: step(loaded, batch), 1, iters=3,
-                     label="train step B=2 544x544", unit="step")
+                     label="train step B=2 544x544", unit="step", ours=("wmse",),
+                     require=WMSE_KERNELS, in_order=WMSE_KERNELS)
     train_precision(state.model, batch,
                     lambda use_pallas: TrainStep2D(offsets, use_pallas=use_pallas,
                                                    device_ema=False), BIAS_BEFORE_BN)
@@ -1162,8 +1224,8 @@ def phase_kernels_3d() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     max_err = 0.0
     # the serving tile batch and the training batch as the model's NCDHW
-    # output permuted, no copy; the training batch channels-last, the layout
-    # of the train step's model output (the kernel's 16-byte loads); then
+    # output permuted, no copy; the training batch channels-last (the
+    # kernel's 16-byte loads); then
     # odd shapes: D < 4 and H, W < 27 put whole channels out of bounds
     cases = [((4, 18, 160, 160, 16), True), ((2, 18, 160, 160, 16), True),
              ((2, 18, 160, 160, 16), False), ((2, 5, 37, 41, 8), False),
@@ -1222,7 +1284,7 @@ def phase_kernels_3d() -> dict:
         view = torch.randn((b, 16, 18, 160, 160), generator=gen,
                            device="cuda").permute(0, 2, 3, 4, 1)
         view_b = view.to(torch.bfloat16)
-        last = view.contiguous()  # channels-last, as the train step's embedding
+        last = view.contiguous()  # channels-last
         t = kernel_times({"ms": lambda: fused_affinity_3d(view),
                           "bf16_ms": lambda: fused_affinity_3d(view_b),
                           "ndhwc_ms": lambda: fused_affinity_3d(last)}, flush)
@@ -1256,6 +1318,15 @@ def train3d_bound(n: int, c: int, k: int, n_read: int, n_write: int, kind: str,
     t_bytes = elems * itemsize / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def step_teachers(b):
+    """Three teachers for a channels-last student, from an NCDHW-view
+    embedding b: channels-last ("ndhwc"), the same with H and W strides
+    swapped ("swapped", what the un-flip made of it before it kept its
+    input's strides) and the NCDHW view ("view")."""
+    last = b.contiguous()
+    return {"ndhwc": last, "swapped": swapped_view(last), "view": b}
 
 
 def phase_train_kernels_3d() -> dict:
@@ -1329,8 +1400,8 @@ def phase_train_kernels_3d() -> dict:
                     res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                    *(m for _, _, m in errs[name]))
 
-    # the train step's layout: its model output is channels-last, which the
-    # self backward reads in 16-byte loads
+    # a channels-last embedding, which the self backward reads in 16-byte
+    # loads
     a, b, g = views((2, 18, 160, 160, 16), torch.float32)
     last = a.contiguous()
     x, z, m = _grad_err(affinity_bwd(last, g, offs), affinity_bwd_plain(last, g, offs), zero)
@@ -1338,6 +1409,40 @@ def phase_train_kernels_3d() -> dict:
           f"zero-vector voxel, abs) ({x:.3e}, {z:.3e}, {m:.3e})")
     check(x <= GRAD_RTOL and z <= GRAD_RTOL, f"K5b channels-last gradient error {x}, {z}")
     res["K5b"]["max_abs_err"] = max(res["K5b"]["max_abs_err"], m)
+
+    # the cross kernels on a channels-last student (their 16-byte loads: no
+    # main path hands this layout, the 3D step's inputs are NCDHW, but the
+    # wrappers take any strides) with three teachers: channels-last,
+    # H/W-swapped (what the un-flip made of a channels-last teacher before it
+    # kept its input's strides) and an NCDHW view
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b, g = views((2, 18, 160, 160, 16), dtype)
+        a = a.contiguous()
+        f32 = dtype == torch.float32
+        tol, gtol = (F32_ATOL, GRAD_RTOL) if f32 else (BF16_ATOL, BF16_GRAD_RTOL)
+        for name, t in step_teachers(b).items():
+            got = cross_affinity_fwd(a, t, offs)
+            grads = cross_affinity_bwd(a, t, g, offs)
+            da_only, _ = cross_affinity_bwd(a, t, g, offs, need_db=False)
+            ref = cross_affinity_3d_plain(a, t)
+            refs = cross_affinity_bwd_plain(a, t, g, offs)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            gerrs = [_grad_err(x, r, zero) for x, r in zip(grads, refs)]
+            print(f"[kernels3d-train] K6f/K6b {str(dtype)[6:]} channels-last student, teacher "
+                  f"{name} strides {tuple(t.stride())}: K6f {err:.3e}; da, db rel (rest, "
+                  f"zero-vector voxel, abs) "
+                  + ", ".join(f"({x:.3e}, {z:.3e}, {m:.3e})" for x, z, m in gerrs))
+            check(bool((got[zero[0], :, zero[1], zero[2], zero[3]] == 0).all()),
+                  f"K6f nonzero affinity at a zero vector, teacher {name}")
+            check(err <= tol, f"K6f error {err}, teacher {name}")
+            for x, z, _ in gerrs:
+                check(x <= gtol and z <= gtol, f"K6b gradient error {x}, {z}, teacher {name}")
+            check(torch.equal(da_only, grads[0]), f"K6b without db differs, teacher {name}")
+            if f32:
+                res["K6f"]["max_abs_err"] = max(res["K6f"]["max_abs_err"], err)
+                res["K6b"]["max_abs_err"] = max(res["K6b"]["max_abs_err"],
+                                                *(m for _, _, m in gerrs))
 
     # the raw forms (inputs taken as unit vectors, dn written), as the TPU
     # kernels' normalized=True
@@ -1370,10 +1475,20 @@ def phase_train_kernels_3d() -> dict:
               f"flushed, median of 20): kernel {t['ms']:.4f} by CUDA graph replay, "
               f"{t['event_ms']:.4f} by CUDA events, plain {p:.4f}, bound {bound:.4f} ({by}), "
               f"{card_line()}")
-    last = a.contiguous()  # channels-last, as the train step's embedding
+    last = a.contiguous()  # channels-last
+    for name, t in step_teachers(b).items():
+        lay = kernel_times({
+            "K6f_ms": lambda: cross_affinity_fwd(last, t, offs),
+            "K6b_ms": lambda: cross_affinity_bwd(last, t, g, offs, need_db=False)}, flush)
+        for kern in ("K6f", "K6b"):
+            res[kern][f"{name}_ms"] = lay[f"{kern}_ms"]
+            res[kern][f"{name}_event_ms"] = lay[f"{kern}_event_ms"]
+        print(f"[kernels3d-train] channels-last student, teacher {name}: "
+              f"K6f {lay['K6f_ms']:.4f} ms by graph replay, {lay['K6f_event_ms']:.4f} by "
+              f"events; K6b without db {lay['K6b_ms']:.4f}, {lay['K6b_event_ms']:.4f}")
     t_last = kernel_times({"ms": lambda: affinity_bwd(last, g, offs)}, flush)
     res["K5b"]["ndhwc_ms"], res["K5b"]["ndhwc_event_ms"] = t_last["ms"], t_last["event_ms"]
-    print(f"[kernels3d-train] K5b on a channels-last embedding (the train step's layout): "
+    print(f"[kernels3d-train] K5b on a channels-last embedding: "
           f"{t_last['ms']:.4f} ms by graph replay, {t_last['event_ms']:.4f} by events")
     bf = views((2, 18, 160, 160, 16), torch.bfloat16)
     t_bf = kernel_times({"ms": lambda: affinity_bwd(bf[0], bf[2], offs)}, flush)
@@ -1381,8 +1496,17 @@ def phase_train_kernels_3d() -> dict:
           f"{t_bf['event_ms']:.4f} by events, bound "
           f"{train3d_bound(n, 16, k, 1, 1, 'bwd', itemsize=2)[0]:.4f}")
     t_db = graph_ms(lambda: cross_affinity_bwd(a, b, g, offs), flush_bytes=flush)
-    print(f"[kernels3d-train] K6b with db: {t_db:.4f} ms, bound "
-          f"{train3d_bound(n, 16, k, 2, 2, 'bwd')[0]:.4f}; the plain version computes both")
+    t_db_last = graph_ms(lambda: cross_affinity_bwd(last, b.contiguous(), g, offs),
+                         flush_bytes=flush)
+    print(f"[kernels3d-train] K6b with db: {t_db:.4f} ms (channels-last both {t_db_last:.4f}), "
+          f"bound {train3d_bound(n, 16, k, 2, 2, 'bwd')[0]:.4f}; the plain version computes both")
+    bf_last = [x.contiguous() for x in bf[:2]]
+    t_bf = kernel_times({
+        "K6f_ms": lambda: cross_affinity_fwd(*bf_last, offs),
+        "K6b_ms": lambda: cross_affinity_bwd(*bf_last, bf[2], offs, need_db=False)}, flush)
+    print(f"[kernels3d-train] K6f/K6b bf16 channels-last both: {json.dumps(t_bf)}, bounds "
+          f"{train3d_bound(n, 16, k, 2, 0, 'fwd', itemsize=2)[0]:.4f}, "
+          f"{train3d_bound(n, 16, k, 2, 1, 'bwd', itemsize=2)[0]:.4f}")
     return res
 
 
@@ -1642,11 +1766,21 @@ def phase_train_3d() -> dict:
                      label="train3d step B=2 18x160x160", unit="step", ours=step_kernels,
                      require=step_kernels)
     # the layout the step hands the 3D kernels: its model's embedding output
-    from pixel_embedded_affinity_torch.train.train_step import _ncdhw
+    from pixel_embedded_affinity_torch.data.ac3ac4 import convert_consistency_flip_3d_rule4
+    from pixel_embedded_affinity_torch.train.train_step import _bdhwc, _ncdhw
 
-    emb = copy.deepcopy(loaded.model).train()(_ncdhw(batch["image"]))[4]
+    model = copy.deepcopy(loaded.model).train()
+    with torch.no_grad():
+        emb = model(_ncdhw(batch["image"]))[4]
+        ema = model(_ncdhw(batch["ema_image"]))[4]
+    student = _bdhwc(emb)
+    teacher = convert_consistency_flip_3d_rule4(_bdhwc(ema), batch["rules"])
     print(f"[train3d] the step's embedding {tuple(emb.shape)} strides {emb.stride()} "
-          f"(channels-last: {emb.is_contiguous(memory_format=torch.channels_last_3d)})")
+          f"(channels-last: {emb.is_contiguous(memory_format=torch.channels_last_3d)}); the "
+          f"cross kernels' student (B, D, H, W, C) strides {student.stride()}, the un-flipped "
+          f"teacher's {teacher.stride()} (rules {batch['rules'].tolist()})")
+    check(teacher.stride() == student.stride(), "the un-flipped teacher's strides differ "
+          "from the student's")
     train_precision(state.model, batch,
                     lambda use_pallas: TrainStep3D(use_pallas=use_pallas, device_ema=False),
                     BIAS_BEFORE_BN_3D, label="train3d")
@@ -1774,7 +1908,8 @@ def phase_train_bbbc(arrays, valid) -> dict:
     check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
     device_breakdown(lambda: step(loaded, batch), 1, iters=3,
                      label="bbbc train step B=2 256x256", unit="step",
-                     ours=("wmse", "affinity2d_fwd_kernel"))
+                     ours=("wmse", "affinity2d_fwd_kernel"), require=WMSE_KERNELS,
+                     in_order=WMSE_KERNELS)
     sampler_ms = timed_ms(lambda: sample_bbbc_batch(
         images, labels, sampler_generator(0, 1), 2, size=cfg.data.size,
         padding=cfg.data.bbbc_padding), n=10)
@@ -2937,11 +3072,15 @@ def main() -> int:
             "launches": train3d_launches[k] + in_2d[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+        if k != "K5b":  # a channels-last student with each teacher
+            kernels[-1]["channels_last_student_ms"] = {
+                t: r[f"{t}_ms"] for t in ("ndhwc", "swapped", "view")}
     kernels.append({
         "name": "cross_affinity_fwd_2d", "route": "cuda", "source": GRAD_SOURCE,
         "replaces": K4F_REPLACES, "launches": trained["K4f"], "max_abs_err": k4f["max_abs_err"],
         "ms": k4f["ms"], "event_ms": k4f["event_ms"], "plain_ms": k4f["plain_ms"],
-        "bound_ms": k4f["bound_ms"], "bound_by": k4f["bound_by"], "library_ms": None})
+        "bound_ms": k4f["bound_ms"], "bound_by": k4f["bound_by"], "library_ms": None,
+        "swapped_ms": k4f["swapped_ms"]})
     for k, name in CONV_NAMES.items():
         r = conv[k]
         kernels.append({

@@ -48,28 +48,49 @@
 // vector once, 2C a dot and 2C a multiply-add per channel and term, and 5C
 // per VJP, is < 10 us at the 67 TFLOP/s float32 rate: bytes bound all three.
 //
-// Design, as K5f (affinity3d.cu): one thread per voxel; 32x8 blocks over
-// (x, y), one grid row per (b, z), so a warp's loads from the NCDHW view
-// (channel stride D*H*W, x stride 1) and its stores coalesce; bounds checks
-// in place of the TPU's zero pad, row-tile halo and front slab. Each thread
-// gathers its own gradient (no atomics, the same result every run) in one
-// launch per backward, where the TPU splits it into a 2D pass over B*D
-// slices, XLA slab adds and a separate VJP. Each neighbour vector is loaded
-// again for every channel and term that reaches it (2K times, from L1/L2).
-// affinity_bwd folds each neighbour's normalisation into its cotangent: one
-// reciprocal square root of the sum of squares of the values it loads
-// scales g, so a term costs C multiply-adds, not C divisions and C more;
-// the voxel's own vector is normalised once and its VJP takes one
-// reciprocal. The cross kernels still divide. The staged z-walk form of
-// affinity_bwd (tools/affinity_zwalk.cu: a voxel's channels over four
-// lanes, the past four slices in registers, the next four, the halo and
-// the step's cotangents in shared memory) took 0.6135-0.6147 ms against
-// this kernel's 0.1915-0.1959 (B=2 18x160x160, float32, the NCDHW view,
-// CUDA graph replay, NVIDIA H100 80GB HBM3 at 700 W, one run,
-// tools/affinity_zwalk.py): the four lanes repeat each term's index and
-// bounds work, and the block waits at three barriers a slice.
+// Design, as K5f (affinity3d.cu): one thread per voxel; 32x8 blocks over (x,
+// y), one grid row per (b, z), so a warp's loads from the NCDHW view (channel
+// stride D*H*W, x stride 1) and its stores coalesce; bounds checks in place
+// of the TPU's zero pad, row-tile halo and front slab. Each thread gathers
+// its own gradient (no atomics, the same result every run) in one launch per
+// backward, where the TPU splits it into a 2D pass over B*D slices, XLA slab
+// adds and a separate VJP. Each neighbour vector is loaded again for every
+// channel and term that reaches it (from L1/L2): a staged tile would need a
+// halo of 27 on y and x, 132 KB in float32 for a 32x8 block. Every input is
+// read in the mode its own strides allow (load_values): 16-byte pieces where
+// its vectors are contiguous and aligned (a channels-last embedding), else
+// plane-wise (the model's NCDHW output permuted, which the 3D train step
+// hands them for the student and, un-flipped in its own strides, the
+// teacher); the cross kernels choose a and b apart, as kContigA and kContigB.
+// No kernel divides per value: a gathered neighbour's normalisation is one
+// reciprocal square root of the sum of squares of the values it loads, which
+// scales its dot (cross forward) or its cotangent g (backwards), so a term
+// costs C multiply-adds; the voxel's own vector is normalised, and its VJP
+// scaled, by one reciprocal each.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (B=2 18x160x160, C=16, float32, L2
+// flushed, CUDA graph replay, three runs of tools/cross_affinity_ab.py beside
+// the kernels they replaced, which divided C values a neighbour and read
+// every input plane-wise): the cross forward takes 0.106-0.127 ms on the
+// NCDHW view (0.156-0.165 before) and 0.111-0.124 on a channels-last student
+// and teacher (0.368-0.376), the cross backward without db 0.125-0.130
+// (0.210-0.221) and 0.118-0.131 (0.375-0.385); the 2D forward K4f at B=2
+// 256x256 0.024-0.028 ms (0.032-0.035) with the teacher in the student's
+// layout. A teacher whose vectors are plane-wise with an x stride of a row
+// (the NCDHW view with H and W swapped, which the un-flip returned before it
+// kept its input's strides) costs both forms alike, as every warp load of a
+// channel touches 32 sectors: 0.68 ms (0.69-0.70 before) for the 3D forward
+// and backward, 0.095-0.102 for K4f. The staged z-walk form of affinity_bwd
+// (tools/affinity_zwalk.cu: a voxel's channels over four lanes, the past four
+// slices in registers, the next four, the halo and the step's cotangents in
+// shared memory) took 0.6135-0.6147 ms against this kernel's 0.1915-0.1959
+// (B=2 18x160x160, float32, the NCDHW view, CUDA graph replay, NVIDIA H100
+// 80GB HBM3 at 700 W, one run, tools/affinity_zwalk.py): the four lanes
+// repeat each term's index and bounds work, and the block waits at three
+// barriers a slice.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,31 +125,13 @@ __device__ __forceinline__ bool inside(int z, int y, int x, int D, int H, int W)
     return z >= 0 && z < D && y >= 0 && y < H && x >= 0 && x < W;
 }
 
-// n[c] = v[c] / max(sqrt(sum v^2 + 1e-36), 1e-12), or v[c] as it is when
-// raw; returns the sqrt
-template <typename T, int C>
-__device__ __forceinline__ float load_vec(const T* __restrict__ v, int64_t sC, bool raw, float* n) {
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-        n[c] = to_float(v[c * sC]);
-        ss += n[c] * n[c];
-    }
-    const float norm = sqrtf(ss + 1e-36f);
-    if (!raw) {
-        const float d = fmaxf(norm, 1e-12f);
-#pragma unroll
-        for (int c = 0; c < C; ++c) n[c] = n[c] / d;
-    }
-    return norm;
-}
-
+// the dot of u and v in four independent sums
 template <int C>
 __device__ __forceinline__ float dot(const float* u, const float* v) {
-    float s = 0.f;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < C; ++c) s += u[c] * v[c];
-    return s;
+    for (int c = 0; c < C; ++c) s[c % 4] += u[c] * v[c];
+    return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
 template <int C>
@@ -137,28 +140,46 @@ __device__ __forceinline__ void axpy(float a, const float* x, float* y) {
     for (int c = 0; c < C; ++c) y[c] += a * x[c];
 }
 
-// out[c * vol] = (dn[c] - n[c] <n, dn> [norm >= eps]) / max(norm, eps), or
-// dn[c] when raw
-template <typename T, int C>
-__device__ __forceinline__ void store_grad(const float* n, float norm, const float* dn, bool raw,
-                                           T* __restrict__ out, int64_t vol) {
-    const float mm = raw ? 1.f : fmaxf(norm, 1e-12f);
-    const float proj = (!raw && norm >= 1e-12f) ? dot<C>(n, dn) : 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c * vol] = from_float<T>(raw ? dn[c] : (dn[c] - n[c] * proj) / mm);
+// 1 / max(|v|, eps) of the C values v by one reciprocal square root
+// (within 2^-22.9 of the quotient; min(rsqrt, 1e12) is 1 / max(sqrt, eps)
+// for every sum of squares), or 1 when raw
+template <int C>
+__device__ __forceinline__ float inv_norm(const float* v, bool raw) {
+    return raw ? 1.f : fminf(rsqrtf(dot<C>(v, v) + 1e-36f), 1e12f);
 }
 
-// v = the C values at p; returns 1 / max(|v|, eps) by one reciprocal
-// square root (within 2^-22.9 of the quotient; min(rsqrt, 1e12) is
-// 1 / max(sqrt, eps) for every sum of squares), or 1 when raw
+// v = the C values at p; returns inv_norm(v)
 template <typename T, int C, bool kContig>
 __device__ __forceinline__ float load_scaled(const T* __restrict__ p, int64_t sC, bool raw,
                                              float* v) {
     load_values<T, C, kContig>(p, sC, v);
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    return inv_norm<C>(v, raw);
+}
+
+// n = the C values at p times 1 / max(|v|, eps), one division (as they are
+// when raw); returns |v| = sqrt(sum v^2 + 1e-36) for the VJP
+template <typename T, int C, bool kContig>
+__device__ __forceinline__ float load_unit(const T* __restrict__ p, int64_t sC, bool raw,
+                                           float* n) {
+    load_values<T, C, kContig>(p, sC, n);
+    const float norm = sqrtf(dot<C>(n, n) + 1e-36f);
+    if (!raw) {
+        const float inv = 1.f / fmaxf(norm, 1e-12f);
 #pragma unroll
-    for (int c = 0; c < C; ++c) s[c % 4] += v[c] * v[c];
-    return raw ? 1.f : fminf(rsqrtf((s[0] + s[1]) + (s[2] + s[3]) + 1e-36f), 1e12f);
+        for (int c = 0; c < C; ++c) n[c] *= inv;
+    }
+    return norm;
+}
+
+// out[c * vol] = (dn[c] - n[c] <n, dn> [norm >= eps]) / max(norm, eps) by
+// one division, or dn[c] when raw
+template <typename T, int C>
+__device__ __forceinline__ void store_grad(const float* n, float norm, const float* dn, bool raw,
+                                           T* __restrict__ out, int64_t vol) {
+    const float inv = raw ? 1.f : 1.f / fmaxf(norm, 1e-12f);
+    const float proj = (!raw && norm >= 1e-12f) ? dot<C>(n, dn) : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c * vol] = from_float<T>((dn[c] - n[c] * proj) * inv);
 }
 
 template <typename T, int C, bool kContig>
@@ -173,16 +194,9 @@ affinity_bwd_kernel(Emb<T> e, const T* __restrict__ g, T* __restrict__ de,
 
     // the voxel's own unit vector, and its norm for the VJP
     float n0[C], dn[C];
-    float ss = 0.f;
-    load_values<T, C, kContig>(e.at(b, z, y, x), e.sC, n0);
+    const float norm = load_unit<T, C, kContig>(e.at(b, z, y, x), e.sC, raw, n0);
 #pragma unroll
-    for (int c = 0; c < C; ++c) ss += n0[c] * n0[c];
-    const float norm = sqrtf(ss + 1e-36f), inv = raw ? 1.f : 1.f / fmaxf(norm, 1e-12f);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-        n0[c] *= inv;
-        dn[c] = 0.f;
-    }
+    for (int c = 0; c < C; ++c) dn[c] = 0.f;
 
     const int64_t vol = (int64_t)D * H * W;
     const T* gb = g + (int64_t)b * K * vol;
@@ -203,14 +217,13 @@ affinity_bwd_kernel(Emb<T> e, const T* __restrict__ g, T* __restrict__ de,
             axpy<C>(to_float(gk[((int64_t)zz * H + yy) * W + xx]) * r, v, dn);
         }
     }
-    // the normalisation's VJP, (dn - n <n, dn> [|e| >= eps]) / max(|e|, eps)
-    const float proj = (!raw && norm >= 1e-12f) ? dot<C>(n0, dn) : 0.f;
-    T* out = de + (int64_t)b * C * vol + ((int64_t)z * H + y) * W + x;
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c * vol] = from_float<T>((dn[c] - n0[c] * proj) * inv);
+    store_grad<T, C>(n0, norm, dn, raw, de + (int64_t)b * C * vol + ((int64_t)z * H + y) * W + x,
+                     vol);
 }
 
-template <typename T, int C>
+// kContigA, kContigB: a's, b's vectors contiguous and 16-byte aligned
+// (load_values)
+template <typename T, int C, bool kContigA, bool kContigB>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 cross_affinity_fwd_kernel(Emb<T> a, Emb<T> b, T* __restrict__ out, int D, int H, int W, int K,
                           Offsets off) {
@@ -221,23 +234,26 @@ cross_affinity_fwd_kernel(Emb<T> a, Emb<T> b, T* __restrict__ out, int D, int H,
     if (x >= W || y >= H) return;
 
     float na[C];
-    load_vec<T, C>(a.at(bi, z, y, x), a.sC, false, na);
+    load_unit<T, C, kContigA>(a.at(bi, z, y, x), a.sC, false, na);
     const int64_t vol = (int64_t)D * H * W;
     T* o = out + (int64_t)bi * K * vol + ((int64_t)z * H + y) * W + x;
     for (int k = 0; k < K; ++k) {
         const int zz = z + off.z[k], yy = y + off.y[k], xx = x + off.x[k];
-        float v = 0.f;
+        float a_k = 0.f;
         if (inside(zz, yy, xx, D, H, W)) {
-            float nb[C];
-            load_vec<T, C>(b.at(bi, zz, yy, xx), b.sC, false, nb);
-            v = dot<C>(na, nb);
+            // <n_a(p), v / |v|>: the raw values' dot times one reciprocal
+            float v[C];
+            const float r = load_scaled<T, C, kContigB>(b.at(bi, zz, yy, xx), b.sC, false, v);
+            a_k = dot<C>(na, v) * r;
         }
-        o[k * vol] = from_float<T>(v);
+        o[k * vol] = from_float<T>(a_k);
     }
 }
 
-// kDb: also the teacher's gradient db
-template <typename T, int C, bool kDb>
+// kDb: also the teacher's gradient db. Each gathered neighbour's
+// normalisation folds into its cotangent, g * (1 / |v|), and multiplies
+// its raw values v.
+template <typename T, int C, bool kDb, bool kContigA, bool kContigB>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 cross_affinity_bwd_kernel(Emb<T> a, Emb<T> b, const T* __restrict__ g, T* __restrict__ da,
                           T* __restrict__ db, int D, int H, int W, int K, Offsets off, bool raw) {
@@ -248,9 +264,9 @@ cross_affinity_bwd_kernel(Emb<T> a, Emb<T> b, const T* __restrict__ g, T* __rest
     if (x >= W || y >= H) return;
 
     float na[C], dna[C], nb[C], dnb[C];
-    const float norm_a = load_vec<T, C>(a.at(bi, z, y, x), a.sC, raw, na);
+    const float norm_a = load_unit<T, C, kContigA>(a.at(bi, z, y, x), a.sC, raw, na);
     float norm_b = 0.f;
-    if (kDb) norm_b = load_vec<T, C>(b.at(bi, z, y, x), b.sC, raw, nb);
+    if (kDb) norm_b = load_unit<T, C, kContigB>(b.at(bi, z, y, x), b.sC, raw, nb);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
         dna[c] = 0.f;
@@ -259,28 +275,28 @@ cross_affinity_bwd_kernel(Emb<T> a, Emb<T> b, const T* __restrict__ g, T* __rest
 
     const int64_t vol = (int64_t)D * H * W;
     const T* gb = g + (int64_t)bi * K * vol;
+    const int64_t p = ((int64_t)z * H + y) * W + x;
     for (int k = 0; k < K; ++k) {
         const T* gk = gb + k * vol;
         // a_k(p) = <n_a(p), n_b(p + o_k)>
         int zz = z + off.z[k], yy = y + off.y[k], xx = x + off.x[k];
         if (inside(zz, yy, xx, D, H, W)) {
-            float nq[C];
-            load_vec<T, C>(b.at(bi, zz, yy, xx), b.sC, raw, nq);
-            axpy<C>(to_float(gk[((int64_t)z * H + y) * W + x]), nq, dna);
+            float v[C];
+            const float r = load_scaled<T, C, kContigB>(b.at(bi, zz, yy, xx), b.sC, raw, v);
+            axpy<C>(to_float(gk[p]) * r, v, dna);
         }
         if (kDb) {
             // a_k(p - o_k) = <n_a(p - o_k), n_b(p)>
             zz = z - off.z[k], yy = y - off.y[k], xx = x - off.x[k];
             if (inside(zz, yy, xx, D, H, W)) {
-                float nr[C];
-                load_vec<T, C>(a.at(bi, zz, yy, xx), a.sC, raw, nr);
-                axpy<C>(to_float(gk[((int64_t)zz * H + yy) * W + xx]), nr, dnb);
+                float v[C];
+                const float r = load_scaled<T, C, kContigA>(a.at(bi, zz, yy, xx), a.sC, raw, v);
+                axpy<C>(to_float(gk[((int64_t)zz * H + yy) * W + xx]) * r, v, dnb);
             }
         }
     }
-    const int64_t o = (int64_t)bi * C * vol + ((int64_t)z * H + y) * W + x;
-    store_grad<T, C>(na, norm_a, dna, raw, da + o, vol);
-    if (kDb) store_grad<T, C>(nb, norm_b, dnb, raw, db + o, vol);
+    store_grad<T, C>(na, norm_a, dna, raw, da + (int64_t)bi * C * vol + p, vol);
+    if (kDb) store_grad<T, C>(nb, norm_b, dnb, raw, db + (int64_t)bi * C * vol + p, vol);
 }
 
 bool bad_shape(int B, int D, int H, int W, int C, int K) {
@@ -319,12 +335,26 @@ void launch_bwd(const void* e, const int64_t* se, const void* g, void* de, int B
             emb<T>(e, se), static_cast<const T*>(g), static_cast<T*>(de), D, H, W, K, off, raw);
 }
 
+// f(std::true_type{}) or f(std::false_type{}), as v
+template <typename F>
+void with_flag(bool v, F&& f) {
+    if (v) f(std::true_type{});
+    else f(std::false_type{});
+}
+
+// each input's load mode from its own strides and address
 template <typename T, int C>
 void launch_cross_fwd(const void* a, const int64_t* sa, const void* b, const int64_t* sb,
                       void* out, int B, int D, int H, int W, int K, const Offsets& off,
                       cudaStream_t s) {
-    cross_affinity_fwd_kernel<T, C><<<grid_of(B, D, H, W), dim3(kBlockX, kBlockY), 0, s>>>(
-        emb<T>(a, sa), emb<T>(b, sb), static_cast<T*>(out), D, H, W, K, off);
+    const dim3 grid = grid_of(B, D, H, W), block(kBlockX, kBlockY);
+    with_flag(contiguous_vectors<T>(a, sa), [&](auto ca) {
+        with_flag(contiguous_vectors<T>(b, sb), [&](auto cb) {
+            constexpr bool kA = decltype(ca)::value, kB = decltype(cb)::value;
+            cross_affinity_fwd_kernel<T, C, kA, kB><<<grid, block, 0, s>>>(
+                emb<T>(a, sa), emb<T>(b, sb), static_cast<T*>(out), D, H, W, K, off);
+        });
+    });
 }
 
 template <typename T, int C>
@@ -332,14 +362,17 @@ void launch_cross_bwd(const void* a, const int64_t* sa, const void* b, const int
                       const void* g, void* da, void* db, int B, int D, int H, int W, int K,
                       const Offsets& off, bool raw, cudaStream_t s) {
     const dim3 grid = grid_of(B, D, H, W), block(kBlockX, kBlockY);
-    if (db != nullptr)
-        cross_affinity_bwd_kernel<T, C, true><<<grid, block, 0, s>>>(
-            emb<T>(a, sa), emb<T>(b, sb), static_cast<const T*>(g), static_cast<T*>(da),
-            static_cast<T*>(db), D, H, W, K, off, raw);
-    else
-        cross_affinity_bwd_kernel<T, C, false><<<grid, block, 0, s>>>(
-            emb<T>(a, sa), emb<T>(b, sb), static_cast<const T*>(g), static_cast<T*>(da),
-            nullptr, D, H, W, K, off, raw);
+    with_flag(db != nullptr, [&](auto with_db) {
+        with_flag(contiguous_vectors<T>(a, sa), [&](auto ca) {
+            with_flag(contiguous_vectors<T>(b, sb), [&](auto cb) {
+                constexpr bool kDb = decltype(with_db)::value, kA = decltype(ca)::value,
+                               kB = decltype(cb)::value;
+                cross_affinity_bwd_kernel<T, C, kDb, kA, kB><<<grid, block, 0, s>>>(
+                    emb<T>(a, sa), emb<T>(b, sb), static_cast<const T*>(g), static_cast<T*>(da),
+                    static_cast<T*>(db), D, H, W, K, off, raw);
+            });
+        });
+    });
 }
 
 // Calls L<T, C>(args...) for dtype (0 float32, 1 bfloat16) and C (8, 16).

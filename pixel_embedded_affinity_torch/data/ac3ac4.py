@@ -53,13 +53,14 @@ def convert_consistency_flip_3d_rule4(emb_bdhwc: torch.Tensor,
                                       rules_b4: torch.Tensor) -> torch.Tensor:
     """Un-flip per-sample EMA embeddings (B, D, H, W, C) by their 4-bit rules
     (z, x, y, xy-transpose; H == W): the transpose, then the y-, x- and
-    z-flips, each where the sample's bit is set."""
+    z-flips, each where the sample's bit is set. The result has the
+    input's strides, as ``consistency.convert_consistency_flip``'s."""
     r = rules_b4.bool()
 
     def bit(i):
         return r[:, i, None, None, None, None]
 
-    e = torch.where(bit(3), emb_bdhwc.transpose(2, 3), emb_bdhwc)
+    e = torch.where(~bit(3), emb_bdhwc, emb_bdhwc.transpose(2, 3))
     e = torch.where(bit(2), e.flip(2), e)
     e = torch.where(bit(1), e.flip(3), e)
     return torch.where(bit(0), e.flip(1), e)

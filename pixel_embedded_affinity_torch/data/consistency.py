@@ -34,7 +34,10 @@ def _bit(rules_b3: torch.Tensor, i: int) -> torch.Tensor:
 
 
 def convert_consistency_flip(emb_bhwc: torch.Tensor, rules_b3: torch.Tensor) -> torch.Tensor:
-    """Un-flip per-sample EMA embeddings (B, H, W, C); rules (B, 3)."""
-    e = torch.where(_bit(rules_b3, 2), emb_bhwc.transpose(1, 2), emb_bhwc)
+    """Un-flip per-sample EMA embeddings (B, H, W, C); rules (B, 3). The
+    result has the input's strides: ``torch.where`` takes the layout of its
+    first operand, so the untransposed one goes first and the affinity
+    kernels read the teacher as they read the student."""
+    e = torch.where(~_bit(rules_b3, 2), emb_bhwc, emb_bhwc.transpose(1, 2))
     e = torch.where(_bit(rules_b3, 1), e.flip(1), e)
     return torch.where(_bit(rules_b3, 0), e.flip(2), e)

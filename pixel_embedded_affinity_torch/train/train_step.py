@@ -181,7 +181,15 @@ class TrainStep2D:
 
 
 def _ncdhw(image_bdhwc: torch.Tensor) -> torch.Tensor:
-    return image_bdhwc.permute(0, 4, 1, 2, 3).contiguous()
+    """(B, D, H, W, C) -> (B, C, D, H, W) with standard NCDHW strides. At
+    C = 1 the permuted view is contiguous already, and its channel stride of
+    1 would read as channels-last to cuDNN, which converts such tensors
+    around its NCDHW float32 3D kernels; whether the view had been copied
+    would then set the embedding's layout. Standard strides keep the
+    student's and the teacher's embeddings, the affinity kernels' inputs,
+    in one layout."""
+    x = image_bdhwc.permute(0, 4, 1, 2, 3).contiguous()
+    return x.view(x.shape)
 
 
 def _bdhwc(x_ncdhw: torch.Tensor) -> torch.Tensor:

@@ -5,14 +5,19 @@
 //   harness k8 B H W c dtype K0 [K1]
 //   harness k5f B D H W C dtype layout [shift...]
 //   harness bwd B D H W C dtype layout raw [oz oy ox ...]
+//   harness xfwd B D H W C dtype layout_a layout_b [oz oy ox ...]
+//   harness xbwd B D H W C dtype layout_a layout_b raw db [oz oy ox ...]
 // (dtype 0 float32, 1 bfloat16; off 0 is the canvas mode, kept rectangle
 // [1, H - 2) x [2, W - 1); layout 0 a contiguous (B, D, H, W, C)
-// embedding, 1 the (B, C, D, H, W) one seen through permuted strides; no
-// shifts or offsets: the 3D shift table). Prints the largest error relative
-// to the largest reference output (k5f: the largest absolute error), and
-// whether every element that must be exactly 0 is: outside the canvas
-// mode's rectangle, or an affinity whose neighbour lies outside or that
-// touches the zero vector the affinity cases put at (0, 1, 3, 5).
+// embedding, 1 the (B, C, D, H, W) one seen through permuted strides, 2
+// and 3 those two stored with H and W swapped, (B, D, W, H, C) and
+// (B, C, D, W, H), as a transposed teacher; no shifts or offsets: the 3D
+// shift table; xbwd's db 0 skips the second input's gradient). Prints the
+// largest error relative to the largest reference output (k5f, xfwd: the
+// largest absolute error), and whether every element that must be exactly
+// 0 is: outside the canvas mode's rectangle, or an affinity whose
+// neighbour lies outside or that touches the zero vector the affinity
+// cases put at (0, 1, 3, 5).
 #include <algorithm>
 #include <cmath>
 #include <cstdio>
@@ -32,6 +37,14 @@ extern "C" int affinity3d_fwd(const void* e, void* out, int dtype, int B, int D,
 extern "C" int affinity_bwd(const void* e, const int64_t* se, const void* g, void* de, int dtype,
                             int B, int D, int H, int W, int C, const int32_t* offsets, int K,
                             int raw, void* stream);
+// weak: the z-walk forms (tools/affinity_zwalk.cu) have no cross kernels
+extern "C" __attribute__((weak)) int cross_affinity_fwd(
+    const void* a, const int64_t* sa, const void* b, const int64_t* sb, void* out, int dtype,
+    int B, int D, int H, int W, int C, const int32_t* offsets, int K, void* stream);
+extern "C" __attribute__((weak)) int cross_affinity_bwd(
+    const void* a, const int64_t* sa, const void* b, const int64_t* sb, const void* g, void* da,
+    void* db, int dtype, int B, int D, int H, int W, int C, const int32_t* offsets, int K,
+    int raw, void* stream);
 extern "C" int s2d_block_fwd(const void* x0, const void* w1p0, int K0, const void* x1,
                              const void* w1p1, int K1, int n_parts, const void* w2,
                              const float* h1, const float* hp, const float* h2, void* out,
@@ -169,8 +182,9 @@ static int k8(int B, int H, int W, int c, int dt, std::vector<int> Ks) {
 }
 
 // An embedding for the affinity kernels: values in logical (B, D, H, W, C)
-// order, stored contiguous (layout 0) or as (B, C, D, H, W) (layout 1), a
-// zero vector at (0, 1, 3, 5) clamped into the volume
+// order, stored contiguous (layout 0), as (B, C, D, H, W) (layout 1), or
+// as either with H and W swapped (layouts 2 and 3), a zero vector at
+// (0, 1, 3, 5) clamped into the volume
 struct Embedding {
     int B, D, H, W, C;
     Tensor t;
@@ -180,8 +194,10 @@ struct Embedding {
         : B(B), D(D), H(H), W(W), C(C), t(randn((size_t)B * D * H * W * C, 1), dt) {
         zero[0] = 0; zero[1] = std::min(1, D - 1); zero[2] = std::min(3, H - 1); zero[3] = std::min(5, W - 1);
         const int64_t vol = (int64_t)D * H * W;
-        if (layout) { s[0] = C * vol; s[1] = (int64_t)H * W; s[2] = W; s[3] = 1; s[4] = vol; }
-        else { s[4] = 1; s[3] = C; s[2] = (int64_t)W * C; s[1] = (int64_t)H * W * C; s[0] = vol * C; }
+        // a plane's y and x strides: x the faster axis, or y when swapped
+        const int64_t sy = layout >= 2 ? 1 : W, sx = layout >= 2 ? H : 1;
+        if (layout % 2) { s[0] = C * vol; s[1] = (int64_t)H * W; s[2] = sy; s[3] = sx; s[4] = vol; }
+        else { s[4] = 1; s[3] = sx * C; s[2] = sy * C; s[1] = (int64_t)H * W * C; s[0] = vol * C; }
         for (int c = 0; c < C; ++c) set(zero[0], zero[1], zero[2], zero[3], c, 0.f);
     }
     size_t at(int b, int z, int y, int x, int c) const {
@@ -243,13 +259,33 @@ static int k5f(int B, int D, int H, int W, int C, int dt, int layout, std::vecto
     return 0;
 }
 
-static int bwd(int B, int D, int H, int W, int C, int dt, int layout, int raw, std::vector<int> o) {
+// The largest error of a (B, C, D, H, W) gradient against its float64
+// reference: relative to the largest reference value, the zero vector's
+// voxel relative to its own largest
+struct GradErr {
+    double rest = 0, top = 0, zd = 0, ztop = 0;
+    void add(double got, double ref, bool at_zero) {
+        const double d = std::fabs(got - ref);
+        if (at_zero) { zd = std::max(zd, d); ztop = std::max(ztop, std::fabs(ref)); }
+        else { rest = std::max(rest, d); top = std::max(top, std::fabs(ref)); }
+    }
+    double rel() const { return rest / top; }
+    double at_zero() const { return ztop > 0 ? zd / ztop : zd; }
+};
+
+// the 3D shift table as (oz, oy, ox) offsets when o is empty
+static std::vector<int> offsets_or_3d(std::vector<int> o) {
     if (o.empty())
         for (int k = 0; k < 12; ++k) {
             int v[3] = {0, 0, 0};
             v[k % 3] = -kShifts3D[k];
             o.insert(o.end(), v, v + 3);
         }
+    return o;
+}
+
+static int bwd(int B, int D, int H, int W, int C, int dt, int layout, int raw, std::vector<int> o) {
+    o = offsets_or_3d(o);
     const int K = (int)o.size() / 3;
     Embedding e(B, D, H, W, C, dt, layout);
     const size_t vol = (size_t)D * H * W;
@@ -258,7 +294,7 @@ static int bwd(int B, int D, int H, int W, int C, int dt, int layout, int raw, s
                                  raw, nullptr);
     if (err) { std::printf("launch error %d\n", err); return 1; }
     auto G = [&](int b, int k, int z, int y, int x) { return (double)g.f[(((size_t)b * K + k) * D + z) * H * W + (size_t)y * W + x]; };
-    double rest = 0, top = 0, zd = 0, ztop = 0;
+    GradErr err_de;
     std::vector<double> n0, nq, dn(C);
     for (int b = 0; b < B; ++b)
         for (int z = 0; z < D; ++z)
@@ -281,15 +317,99 @@ static int bwd(int B, int D, int H, int W, int C, int dt, int layout, int raw, s
                     if (!raw && norm >= 1e-12)
                         for (int c = 0; c < C; ++c) proj += n0[c] * dn[c];
                     const double mm = raw ? 1.0 : std::max(norm, 1e-12);
-                    for (int c = 0; c < C; ++c) {
-                        const double ref = (dn[c] - n0[c] * proj) / mm;
-                        const double d = std::fabs(de.at((((size_t)b * C + c) * D + z) * H * W + (size_t)y * W + x) - ref);
-                        if (e.is_zero(b, z, y, x)) { zd = std::max(zd, d); ztop = std::max(ztop, std::fabs(ref)); }
-                        else { rest = std::max(rest, d); top = std::max(top, std::fabs(ref)); }
+                    for (int c = 0; c < C; ++c)
+                        err_de.add(de.at((((size_t)b * C + c) * D + z) * H * W + (size_t)y * W + x),
+                                   (dn[c] - n0[c] * proj) / mm, e.is_zero(b, z, y, x));
+                }
+    std::printf("rel_err %.6e zeros_outside 1 (rest %.3e, zero vector %.3e)\n",
+                std::max(err_de.rel(), err_de.at_zero()), err_de.rel(), err_de.at_zero());
+    return 0;
+}
+
+// a_k(p) = <n_a(p), n_b(p + o_k)>, 0 outside, against cross_affinity_fwd
+static int xfwd(int B, int D, int H, int W, int C, int dt, int la, int lb, std::vector<int> o) {
+    if (!cross_affinity_fwd) { std::printf("no cross kernels\n"); return 1; }
+    o = offsets_or_3d(o);
+    const int K = (int)o.size() / 3;
+    Embedding a(B, D, H, W, C, dt, la), b(B, D, H, W, C, dt, lb);
+    Tensor out((size_t)B * K * D * H * W, dt);
+    const int err = cross_affinity_fwd(a.t.ptr(), a.s, b.t.ptr(), b.s, out.ptr(), dt, B, D, H, W,
+                                       C, o.data(), K, nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    double worst = 0;
+    bool zeros = true;
+    std::vector<double> na, nb;
+    for (int bi = 0; bi < B; ++bi)
+        for (int z = 0; z < D; ++z)
+            for (int y = 0; y < H; ++y)
+                for (int x = 0; x < W; ++x) {
+                    a.vec(bi, z, y, x, false, na);
+                    for (int k = 0; k < K; ++k) {
+                        const int zz = z + o[3 * k], yy = y + o[3 * k + 1], xx = x + o[3 * k + 2];
+                        const bool in = b.inside(zz, yy, xx);
+                        double ref = 0;
+                        if (in) {
+                            b.vec(bi, zz, yy, xx, false, nb);
+                            for (int c = 0; c < C; ++c) ref += na[c] * nb[c];
+                        }
+                        const float got = out.at(((((size_t)bi * K + k) * D + z) * H + y) * W + x);
+                        if (!in || a.is_zero(bi, z, y, x) || b.is_zero(bi, zz, yy, xx))
+                            zeros &= got == 0.f;
+                        worst = std::max(worst, std::fabs(got - ref));
                     }
                 }
-    const double at_zero = ztop > 0 ? zd / ztop : zd;
-    std::printf("rel_err %.6e zeros_outside 1 (rest %.3e, zero vector %.3e)\n", std::max(rest / top, at_zero), rest / top, at_zero);
+    std::printf("abs_err %.6e zeros_outside %d\n", worst, (int)zeros);
+    return 0;
+}
+
+// (da, db) of sum(g * a) for the cross affinities, against cross_affinity_bwd
+static int xbwd(int B, int D, int H, int W, int C, int dt, int la, int lb, int raw, int with_db,
+                std::vector<int> o) {
+    if (!cross_affinity_bwd) { std::printf("no cross kernels\n"); return 1; }
+    o = offsets_or_3d(o);
+    const int K = (int)o.size() / 3;
+    Embedding a(B, D, H, W, C, dt, la), b(B, D, H, W, C, dt, lb);
+    const size_t vol = (size_t)D * H * W;
+    Tensor g(randn((size_t)B * K * vol, 1), dt), da((size_t)B * C * vol, dt), db((size_t)B * C * vol, dt);
+    const int err = cross_affinity_bwd(a.t.ptr(), a.s, b.t.ptr(), b.s, g.ptr(), da.ptr(),
+                                       with_db ? db.ptr() : nullptr, dt, B, D, H, W, C, o.data(),
+                                       K, raw, nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    auto G = [&](int bi, int k, int z, int y, int x) { return (double)g.f[(((size_t)bi * K + k) * D + z) * H * W + (size_t)y * W + x]; };
+    GradErr ea, eb;
+    std::vector<double> n0, nq, dn(C);
+    // the gradient of one input e at one voxel: its dn from the other input o's neighbours at
+    // p + sign * o_k, each with the cotangent at the pair's first voxel, then the VJP
+    auto grad = [&](const Embedding& e, const Embedding& other, int sign, const Tensor& out,
+                    GradErr& ge, int bi, int z, int y, int x) {
+        const double norm = e.vec(bi, z, y, x, raw, n0);
+        std::fill(dn.begin(), dn.end(), 0.0);
+        for (int k = 0; k < K; ++k) {
+            const int zz = z + sign * o[3 * k], yy = y + sign * o[3 * k + 1], xx = x + sign * o[3 * k + 2];
+            if (!other.inside(zz, yy, xx)) continue;
+            other.vec(bi, zz, yy, xx, raw, nq);
+            const double gk = sign > 0 ? G(bi, k, z, y, x) : G(bi, k, zz, yy, xx);
+            for (int c = 0; c < C; ++c) dn[c] += gk * nq[c];
+        }
+        double proj = 0;
+        if (!raw && norm >= 1e-12)
+            for (int c = 0; c < C; ++c) proj += n0[c] * dn[c];
+        const double mm = raw ? 1.0 : std::max(norm, 1e-12);
+        for (int c = 0; c < C; ++c)
+            ge.add(out.at((((size_t)bi * C + c) * D + z) * H * W + (size_t)y * W + x),
+                   (dn[c] - n0[c] * proj) / mm, e.is_zero(bi, z, y, x));
+    };
+    for (int bi = 0; bi < B; ++bi)
+        for (int z = 0; z < D; ++z)
+            for (int y = 0; y < H; ++y)
+                for (int x = 0; x < W; ++x) {
+                    grad(a, b, 1, da, ea, bi, z, y, x);
+                    if (with_db) grad(b, a, -1, db, eb, bi, z, y, x);
+                }
+    double rel = std::max(ea.rel(), ea.at_zero());
+    if (with_db) rel = std::max(rel, std::max(eb.rel(), eb.at_zero()));
+    std::printf("rel_err %.6e zeros_outside 1 (da %.3e, %.3e at the zero vector; db %.3e, %.3e)\n",
+                rel, ea.rel(), ea.at_zero(), with_db ? eb.rel() : 0.0, with_db ? eb.at_zero() : 0.0);
     return 0;
 }
 
@@ -303,7 +423,13 @@ int main(int argc, char** argv) {
         return k5f(a[0], a[1], a[2], a[3], a[4], a[5], a[6], std::vector<int>(a.begin() + 7, a.end()));
     if (argc >= 10 && std::string(argv[1]) == "bwd")
         return bwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], std::vector<int>(a.begin() + 8, a.end()));
+    if (argc >= 10 && std::string(argv[1]) == "xfwd")
+        return xfwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], std::vector<int>(a.begin() + 8, a.end()));
+    if (argc >= 12 && std::string(argv[1]) == "xbwd")
+        return xbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
+                    std::vector<int>(a.begin() + 10, a.end()));
     std::fprintf(stderr, "usage: harness conv B H W Cin Cout off relu dtype | k8 B H W c dtype K0 [K1]"
-                         " | k5f B D H W C dtype layout [shift...] | bwd B D H W C dtype layout raw [oz oy ox...]\n");
+                         " | k5f B D H W C dtype layout [shift...] | bwd B D H W C dtype layout raw [oz oy ox...]"
+                         " | xfwd B D H W C dtype la lb [oz oy ox...] | xbwd B D H W C dtype la lb raw db [oz oy ox...]\n");
     return 2;
 }

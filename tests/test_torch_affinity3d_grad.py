@@ -272,6 +272,24 @@ def test_rule4_flips_match_jax_exactly_and_invert_each_other():
     np.testing.assert_array_equal(back.numpy(), x)
 
 
+@pytest.mark.parametrize("rule", [None] + [tuple(int(v) for v in r) for r in RULES4],
+                         ids=lambda r: "mixed" if r is None else "rule-%d%d%d%d" % r)
+def test_rule4_unflip_keeps_the_students_layout(rule):
+    """On the 3D model's channels-last NCDHW output seen as (B, D, H, W, C),
+    the un-flipped teacher has the student's strides for every rule, one
+    for the batch or each sample its own, and still equals JAX's bit for
+    bit."""
+    rules = RULES4 if rule is None else np.asarray([rule, rule], np.float32)
+    x = np.random.default_rng(15).normal(size=(len(rules), 3, 7, 7, 4)).astype(np.float32)
+    ncdhw = T(np.ascontiguousarray(x.transpose(0, 4, 1, 2, 3))).contiguous(
+        memory_format=torch.channels_last_3d)
+    student = ncdhw.permute(0, 2, 3, 4, 1)
+    got = convert_consistency_flip_3d_rule4(student, T(rules))
+    assert got.stride() == student.stride()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        convert_consistency_flip_jax_3d_rule4(jnp.asarray(x), jnp.asarray(rules))))
+
+
 def _ks_uniform(x, lo, hi):
     x = np.sort((np.asarray(x, np.float64) - lo) / (hi - lo))
     return float(np.max(np.abs(np.arange(1, len(x) + 1) / len(x) - x)))

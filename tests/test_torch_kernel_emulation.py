@@ -179,9 +179,7 @@ _BWD_IDS = ["view", "small", "c8", "raw", "odd", "2d-n4", "2d-n8"]
 
 
 def _bwd(exe, b, d, h, w, c, layout, raw, offsets, dtype):
-    if isinstance(offsets, str):
-        offsets = _offsets_2d(int(offsets[1:]))
-    err, _ = _run(exe, "bwd", b, d, h, w, c, dtype, layout, raw, *offsets)
+    err, _ = _run(exe, "bwd", b, d, h, w, c, dtype, layout, raw, *_table(offsets))
     assert err <= {0: 1e-5, 1: 8e-3}[dtype]
 
 
@@ -189,6 +187,61 @@ def _bwd(exe, b, d, h, w, c, layout, raw, offsets, dtype):
 @pytest.mark.parametrize("b,d,h,w,c,layout,raw,offsets", _BWD_CASES, ids=_BWD_IDS)
 def test_affinity_bwd_kernel_emulated(harness, b, d, h, w, c, layout, raw, offsets, dtype):
     _bwd(harness, b, d, h, w, c, layout, raw, offsets, dtype)
+
+
+# layouts of the cross kernels' two inputs (the harness's numbering)
+CL, VIEW, CL_SWAPPED, VIEW_SWAPPED = 0, 1, 2, 3
+
+_XFWD_CASES = [
+    (2, 6, 21, 35, 16, VIEW, VIEW, ()),        # the 3D table: ragged tiles, NCDHW views
+    (2, 5, 17, 19, 16, CL, CL, ()),            # the 3D step: channels-last both
+    (1, 5, 17, 19, 16, CL, CL_SWAPPED, ()),    # the H/W-swapped teacher
+    (1, 5, 17, 19, 16, CL, VIEW, ()),          # an NCDHW-view teacher
+    (2, 3, 20, 25, 16, VIEW, CL, ()),          # D < 4, H, W < 27
+    (1, 5, 17, 19, 8, CL, CL_SWAPPED, ()),     # C = 8
+    (1, 5, 17, 19, 8, VIEW, CL, ()),
+    (1, 7, 18, 20, 16, CL, VIEW, _ODD_OFFSETS),
+    (2, 1, 37, 29, 16, VIEW, VIEW_SWAPPED, "n4"),  # D = 1: K4's offsets, the 2D swapped teacher
+    (2, 1, 37, 29, 16, VIEW, VIEW, "n8"),          # neighbor 8's diagonals
+]
+_XFWD_IDS = ["view", "cl", "cl-swapped", "cl-view", "small", "c8", "c8-view-cl", "odd",
+             "2d-n4-swapped", "2d-n8"]
+
+
+def _table(offsets):
+    return _offsets_2d(int(offsets[1:])) if isinstance(offsets, str) else offsets
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,h,w,c,la,lb,offsets", _XFWD_CASES, ids=_XFWD_IDS)
+def test_cross_affinity_fwd_kernel_emulated(harness, b, d, h, w, c, la, lb, offsets, dtype):
+    err, zeros = _run(harness, "xfwd", b, d, h, w, c, dtype, la, lb, *_table(offsets))
+    assert err <= {0: 1e-6, 1: 8e-3}[dtype]
+    assert zeros
+
+
+_XBWD_CASES = [
+    (2, 6, 21, 35, 16, VIEW, VIEW, 0, 0, ()),       # the 3D step's call: no db
+    (2, 5, 17, 19, 16, CL, CL, 0, 1, ()),           # channels-last both, db
+    (1, 5, 17, 19, 16, CL, CL_SWAPPED, 0, 1, ()),   # the H/W-swapped teacher
+    (1, 5, 17, 19, 16, CL, VIEW, 0, 0, ()),
+    (2, 3, 20, 25, 16, VIEW, CL, 0, 1, ()),         # D < 4, H, W < 27
+    (1, 5, 17, 19, 8, CL, CL_SWAPPED, 0, 1, ()),    # C = 8
+    (1, 5, 17, 19, 16, VIEW, CL, 1, 1, ()),         # raw
+    (1, 7, 18, 20, 16, CL, VIEW, 0, 1, _ODD_OFFSETS),
+    (2, 1, 37, 29, 16, VIEW, VIEW_SWAPPED, 0, 1, "n4"),  # D = 1: K4b
+    (2, 1, 37, 29, 16, VIEW, VIEW, 0, 0, "n8"),
+]
+_XBWD_IDS = ["view", "cl-db", "cl-swapped-db", "cl-view", "small-db", "c8-db", "raw-db",
+             "odd-db", "2d-n4-swapped-db", "2d-n8"]
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,h,w,c,la,lb,raw,db,offsets", _XBWD_CASES, ids=_XBWD_IDS)
+def test_cross_affinity_bwd_kernel_emulated(harness, b, d, h, w, c, la, lb, raw, db, offsets,
+                                            dtype):
+    err, _ = _run(harness, "xbwd", b, d, h, w, c, dtype, la, lb, raw, db, *_table(offsets))
+    assert err <= {0: 1e-5, 1: 8e-3}[dtype]
 
 
 # 40 random shifts and offsets, |dz| <= 5, |dy|, |dx| <= 12: far terms

@@ -231,6 +231,23 @@ def test_unflip_matches_jax_exactly():
     np.testing.assert_array_equal(view, exp)
 
 
+@pytest.mark.parametrize("rule", [None] + [tuple(int(v) for v in r) for r in RULES],
+                         ids=lambda r: "mixed" if r is None else "rule-%d%d%d" % r)
+def test_unflip_keeps_the_students_layout(rule):
+    """On the model's NCHW output seen as (B, H, W, C), the un-flipped
+    teacher has the student's strides (the affinity kernels then read both
+    alike) for every rule, one for the batch or each sample its own, and
+    still equals JAX's bit for bit."""
+    rules = RULES if rule is None else np.asarray([rule, rule], np.float32)
+    nchw = np.random.default_rng(3).normal(size=(len(rules), 5, 12, 12)).astype(np.float32)
+    student = T(nchw).permute(0, 2, 3, 1)
+    got = convert_consistency_flip(student, T(rules))
+    assert got.stride() == student.stride()
+    exp = convert_consistency_flip_jax(jnp.asarray(nchw.transpose(0, 2, 3, 1)),
+                                       jnp.asarray(rules))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
 def test_flip_2d_matches_jax_and_is_undone():
     img = np.random.default_rng(2).random((8, 10, 10, 3)).astype(np.float32)
     got = flip_2d(T(img), T(RULES))

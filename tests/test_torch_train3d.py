@@ -38,11 +38,14 @@ from pixel_embedded_affinity_tpu.train.train_step import (
 from pixel_embedded_affinity_torch.config import load_config
 from pixel_embedded_affinity_torch.convert import train_state_from_flax, unet_pni_deep_from_flax
 from pixel_embedded_affinity_torch.data import AC3AC4ValidVolume, synthesize_volume
+from pixel_embedded_affinity_torch.data.ac3ac4 import convert_consistency_flip_3d_rule4
+from pixel_embedded_affinity_torch.data.device_aug import flip_3d_rule4
 from pixel_embedded_affinity_torch.models import UNetPNIEmbeddingDeep
 from pixel_embedded_affinity_torch.ops import (
     affinity_bwd, cross_affinity_bwd, cross_affinity_fwd, fused_affinity_3d)
 from pixel_embedded_affinity_torch.train import (
     AMSGrad, TrainState, TrainStep3D, check_train_config, load_checkpoint, train)
+from pixel_embedded_affinity_torch.train.train_step import _bdhwc, _ncdhw
 
 from synth import tile_labels_3d
 
@@ -242,6 +245,25 @@ def test_train_3d_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
         for k, v in st.items():
             assert (torch.equal(v, b["optimizer"]["state"][i][k]) if torch.is_tensor(v)
                     else v == b["optimizer"]["state"][i][k]), (i, k)
+
+
+def test_step_inputs_give_student_and_teacher_one_layout():
+    """The step hands the model its (B, D, H, W, 1) image and the EMA view,
+    whose flip leaves other strides, with standard NCDHW strides, so the
+    student's and the un-flipped teacher's embeddings share one layout (the
+    cross kernels read both alike)."""
+    img = torch.from_numpy(np.random.default_rng(6).random((2,) + CROP + (1,), np.float32))
+    rules = torch.tensor([[1.0, 0.0, 1.0, 1.0], [0.0, 1.0, 0.0, 0.0]])
+    ema = flip_3d_rule4(img, rules)
+    for x in (img, ema):
+        t = _ncdhw(x)
+        assert t.stride() == torch.empty(t.shape).stride()
+        assert torch.equal(t, x.permute(0, 4, 1, 2, 3))
+    model = UNetPNIEmbeddingDeep(1, FILTERS, 16).eval()
+    with torch.no_grad():
+        student = _bdhwc(model(_ncdhw(img))[4])
+        teacher = convert_consistency_flip_3d_rule4(_bdhwc(model(_ncdhw(ema))[4]), rules)
+    assert teacher.stride() == student.stride()
 
 
 @pytest.mark.parametrize("override", [
