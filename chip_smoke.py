@@ -18,8 +18,10 @@ Phases, each of which exits nonzero when it fails:
      returned it before (x and y strides swapped), neighbor 4 and 8,
      float32 and bfloat16, with a zero vector, and their times on both
      teachers with L2 flushed; K2f/K2b at the five training scales and
-     K3f/K3b at full scale, on the NCHW view, with a zero vector, K3's
-     times also on the swapped teacher;
+     K3f/K3b at full scale, on the NCHW view, with a zero vector, K3b
+     without db (the training steps' form) and with it, K3's times also
+     on the swapped teacher; none of K2b and the two K3b forms may
+     spill registers;
   4. fixture: the port's model on the reference golden
      (tests/fixtures/resunet2d_deep.npz) with TF32 off, and the kernel's
      affinities against the golden's circular ones outside the wrap band;
@@ -32,8 +34,9 @@ Phases, each of which exits nonzero when it fails:
      the device-resident sampler over 4 synthetic leaf images (uint8,
      padded to 544x544), validation on 2 images and a checkpoint,
      with every kernel's launch count read around the run; the reloaded
-     checkpoint's next-step loss; the device time of one step by kernel;
-     (K3f, K3b: each launch of the wmse kernels in order) and one step's
+     checkpoint's next-step loss; the device time of one step by kernel
+     (K3f, K3b: each launch of the wmse kernels in order; the step must
+     run K3b without db, once) and one step's
      parameter gradients against the same step in float64
      through the plain path; then 3 steps through the host provider
      (data.device_resident False, worker processes) with the launches
@@ -165,8 +168,11 @@ WMSE_REPLACES = {
     "K3f": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:1009",
     "K3b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:1096",
 }
-# the CUDA kernels of K2f/K3f (one) and K2b/K3b (K3b: wmse_bwd_kernel<false>)
+# the CUDA kernels of K2f/K3f (one) and K2b/K3b: wmse_bwd_kernel<kSelf, kDb>,
+# K2b <true, false>, K3b without db (the training steps') <false, false>,
+# with db <false, true>
 WMSE_KERNELS = ("wmse_fwd_kernel", "wmse_bwd_kernel")
+K3B_KERNEL = "wmse_bwd_kernel<false, false>"
 WMSE_NAMES = {"K2f": "affinity_wmse2d_fwd", "K2b": "affinity_wmse2d_bwd",
               "K3f": "cross_affinity_wmse2d_fwd", "K3b": "cross_affinity_wmse2d_bwd"}
 # K2/K3 against their plain versions: affinities at F32_ATOL; the sums S
@@ -635,7 +641,8 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
     records). For each name part in ``in_order``, the device time of each
     launch of a kernel whose name holds it, in launch order, medians over
     the calls (one kernel that serves several calls of the path, told apart
-    by their order)."""
+    by their order). Returns the rows (ms a unit, launches a call, kernel
+    name), longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -661,7 +668,7 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
     check(not missing, f"{label}: the profiler recorded no device time for {missing}")
     if busy == 0:
         print(f"[profile] {label}: the profiler recorded no device time")
-        return
+        return rows
     per_img_wall = wall_ms / iters / images
     print(f"[profile] {label}: device busy {busy:.4f} ms/{unit} of "
           f"{per_img_wall:.4f} ms/{unit} wall (idle share "
@@ -694,6 +701,7 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
         print(f"[profile] {label}: the port's kernels {tot:.4f} ms/{unit}, {tot / busy:.2%}:")
         for ms, calls, name in mine:
             print(f"[profile]   {ms:.4f} ms/{unit}  {ms / busy:6.2%}  x{calls}  {name[:110]}")
+    return rows
 
 
 def phase_k1_grad() -> float:
@@ -912,6 +920,14 @@ def phase_wmse_kernels() -> dict:
         gs = torch.rand((k,), generator=gen, device="cuda") / (2 * side) + 1e-4
         return es, (t, w, m), gs
 
+    # no spills in K2b and both forms of K3b (phase 2 printed their registers)
+    ptxas = ptxas_info(WMSE_SOURCE)
+    for name, nice in zip(ptxas, demangled(ptxas)):
+        if "wmse_bwd_kernel" in nice:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas[name])
+            check(spills is not None and spills.groups() == ("0", "0"),
+                  f"{nice[:60]}: ptxas {ptxas[name]}")
+
     cases = [("K2", side, k) for side, k in TRAIN_SCALES] + [("K3", 544, 10)]
     for kind, side, k in cases:
         offsets = offsets_all[:k]
@@ -923,15 +939,21 @@ def phase_wmse_kernels() -> dict:
             s_ref, affs_ref = W.affinity_wmse_2d_plain(req[0], *maps, offsets)
         else:
             s, affs = W.cross_wmse2d_fwd(es[0], es[1], *maps, offsets)
-            grads = list(W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets))
+            # without db (the training steps' call), then da and db
+            da, no_db = W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets, need_db=False)
+            check(no_db is None, "K3b without db returned a db")
+            grads = [da, *W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets)]
             s_ref, affs_ref = W.cross_affinity_wmse_2d_plain(req[0], req[1], *maps, offsets)
         refs = torch.autograd.grad(s_ref, req, gs)
+        if kind == "K3":
+            refs = [refs[0], *refs]
         torch.cuda.synchronize()
         err_a = (affs - affs_ref).abs().max().item()
         err_s = ((s - s_ref).abs() / s_ref.abs()).max().item()
         gerrs = [_grad_err(g, r, zero_px) for g, r in zip(grads, refs)]
         print(f"[kernels] {kind} B=2 {side}x{side} C=16 K={k}: affs {err_a:.3e}, "
-              f"S rel {err_s:.3e}, grads rel (rest, zero-vector pixel, abs) "
+              f"S rel {err_s:.3e}, grads rel (rest, zero-vector pixel, abs)"
+              + (" of da without db, da and db with it: " if kind == "K3" else ": ")
               + ", ".join(f"({a:.3e}, {z:.3e}, {x:.3e})" for a, z, x in gerrs))
         check(bool((affs[zero_px[0], :, zero_px[1], zero_px[2]] == 0).all()),
               f"{kind} nonzero affinity at a zero vector")
@@ -955,32 +977,58 @@ def phase_wmse_kernels() -> dict:
         else:
             t = kernel_times({
                 "fwd_ms": lambda: W.cross_wmse2d_fwd(es[0], es[1], *maps, offsets),
-                "bwd_ms": lambda: W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets)}, flush)
+                "bwd_ms": lambda: W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets,
+                                                     need_db=False),
+                "db_ms": lambda: W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets)}, flush)
             p_f = timed_ms(lambda: W.cross_affinity_wmse_2d_plain(es[0], es[1], *maps,
                                                                   offsets),
                            flush_bytes=flush)
-        s_g = (W.affinity_wmse_2d_plain(*req, *maps, offsets) if kind == "K2"
-               else W.cross_affinity_wmse_2d_plain(*req, *maps, offsets))[0]
-        p_b = timed_ms(lambda: torch.autograd.grad(s_g, req, gs, retain_graph=True),
+        # the plain backward of the main path's call: K3's with the teacher
+        # detached, as the training step has it
+        s_g = (W.affinity_wmse_2d_plain(req[0], *maps, offsets) if kind == "K2"
+               else W.cross_affinity_wmse_2d_plain(req[0], es[1], *maps, offsets))[0]
+        p_b = timed_ms(lambda: torch.autograd.grad(s_g, req[:1], gs, retain_graph=True),
                        flush_bytes=flush)
         if kind == "K3":  # the teacher as the un-flip returned it before: H stride 1
             old = swapped_view(es[1])
             t["fwd_swapped_ms"] = graph_ms(lambda: W.cross_wmse2d_fwd(es[0], old, *maps, offsets),
                                            flush_bytes=flush)
             t["bwd_swapped_ms"] = graph_ms(
-                lambda: W.cross_wmse2d_bwd(es[0], old, *maps, gs, offsets), flush_bytes=flush)
-        for name, part, p, n_out in [(fwd, "fwd", p_f, 0), (bwd, "bwd", p_b, n_in)]:
+                lambda: W.cross_wmse2d_bwd(es[0], old, *maps, gs, offsets, need_db=False),
+                flush_bytes=flush)
+            s_db = W.cross_affinity_wmse_2d_plain(*req, *maps, offsets)[0]
+            db_bound = wmse_bound(2, 544, 16, k, n_in, 2)[0]
+            res[bwd].update(
+                db_ms=t["db_ms"], db_event_ms=t["db_event_ms"], db_bound_ms=db_bound,
+                db_plain_ms=timed_ms(lambda: torch.autograd.grad(s_db, req, gs,
+                                                                 retain_graph=True),
+                                     flush_bytes=flush))
+            print(f"[kernels] K3b with db time B=2 544x544 C=16 K=10 (ms, L2 flushed, median "
+                  f"of 20): kernel {t['db_ms']:.4f} by graph replay, {t['db_event_ms']:.4f} by "
+                  f"events, plain {res[bwd]['db_plain_ms']:.4f}, bound {db_bound:.4f} (bytes); "
+                  f"{card_line()}")
+        for name, part, p, n_out in [(fwd, "fwd", p_f, 0), (bwd, "bwd", p_b, 1)]:
             bound, by = wmse_bound(2, 544, 16, k, n_in, n_out)
             res[name].update(ms=t[f"{part}_ms"], event_ms=t[f"{part}_event_ms"], plain_ms=p,
                              bound_ms=bound, bound_by=by)
             if kind == "K3":
                 res[name]["swapped_ms"] = t[f"{part}_swapped_ms"]
             print(f"[kernels] {name} time B=2 544x544 C=16 K=10 (ms, L2 flushed, median of "
-                  f"20): kernel {res[name]['ms']:.4f} by graph replay, "
-                  f"{res[name]['event_ms']:.4f} by events, plain {p:.4f}, bound {bound:.4f} "
-                  f"({by}); the teacher with H stride 1: {res[name].get('swapped_ms')}; "
-                  f"{card_line()}")
+                  f"20{', without db' if name == 'K3b' else ''}): kernel "
+                  f"{res[name]['ms']:.4f} by graph replay, {res[name]['event_ms']:.4f} by "
+                  f"events, plain {p:.4f}, bound {bound:.4f} ({by}); the teacher with H stride "
+                  f"1: {res[name].get('swapped_ms')}; {card_line()}")
     return res
+
+
+def check_k3b_form(rows, label: str):
+    """Print the instantiation of K3b that a profiled training step ran and
+    fail unless it is the one without db, once a step (the teacher is
+    detached)."""
+    forms = [(calls, re.search(r"wmse_bwd_kernel<[^>]*>", name).group(0))
+             for _, calls, name in rows if "wmse_bwd_kernel<false" in name]
+    print(f"[profile] {label}: K3b ran " + "; ".join(f"{f} x{c} a step" for c, f in forms))
+    check(forms == [(1, K3B_KERNEL)], f"{label}: K3b ran {forms}, not {K3B_KERNEL} once a step")
 
 
 class LeafSet:
@@ -1120,9 +1168,10 @@ def phase_train() -> dict:
     check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
 
     # K2f and K3f are one kernel: K3f is each step's last launch of it
-    device_breakdown(lambda: step(loaded, batch), 1, iters=3,
-                     label="train step B=2 544x544", unit="step", ours=("wmse",),
-                     require=WMSE_KERNELS, in_order=WMSE_KERNELS)
+    rows = device_breakdown(lambda: step(loaded, batch), 1, iters=3,
+                            label="train step B=2 544x544", unit="step", ours=("wmse",),
+                            require=WMSE_KERNELS, in_order=WMSE_KERNELS)
+    check_k3b_form(rows, "train step B=2 544x544")
     train_precision(state.model, batch,
                     lambda use_pallas: TrainStep2D(offsets, use_pallas=use_pallas,
                                                    device_ema=False), BIAS_BEFORE_BN)
@@ -1906,10 +1955,11 @@ def phase_train_bbbc(arrays, valid) -> dict:
     la, lb = next_loss(state.model), next_loss(loaded.model)
     print(f"[bbbc-train] next-step loss: trained state {la!r}, reloaded checkpoint {lb!r}")
     check(la == lb and loaded.step == state.step == TRAIN_STEPS, "checkpoint reload differs")
-    device_breakdown(lambda: step(loaded, batch), 1, iters=3,
-                     label="bbbc train step B=2 256x256", unit="step",
-                     ours=("wmse", "affinity2d_fwd_kernel"), require=WMSE_KERNELS,
-                     in_order=WMSE_KERNELS)
+    rows = device_breakdown(lambda: step(loaded, batch), 1, iters=3,
+                            label="bbbc train step B=2 256x256", unit="step",
+                            ours=("wmse", "affinity2d_fwd_kernel"), require=WMSE_KERNELS,
+                            in_order=WMSE_KERNELS)
+    check_k3b_form(rows, "bbbc train step B=2 256x256")
     sampler_ms = timed_ms(lambda: sample_bbbc_batch(
         images, labels, sampler_generator(0, 1), 2, size=cfg.data.size,
         padding=cfg.data.bbbc_padding), n=10)
@@ -3056,6 +3106,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+        if k == "K3b":  # ms: without db, the training steps' form; db_*: with db
+            kernels[-1].update({f: r[f] for f in ("db_ms", "db_event_ms", "db_plain_ms",
+                                                  "db_bound_ms")})
     kernels.append({
         "name": "affinity3d_fwd", "route": "cuda", "source": K5_SOURCE,
         "replaces": K5_REPLACES, "launches": serve3d["launches"] + train3d_launches["K5f"],

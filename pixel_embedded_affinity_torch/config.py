@@ -32,7 +32,8 @@ class ModelConfig:
     # the JAX package's TPU serving choices for the tiled 3D predictor
     # (bf16 compute; the folded-BN z-concat graph of fast_forward3d.py),
     # both on there by default. Not ported: the port serves the dense
-    # model in float32, and True raises (ROADMAP.md item 8)
+    # model in float32, and True raises (ROADMAP.md, Modules still to
+    # port, 3D extras)
     bf16_tiled_infer: bool = False
     fast_tiled_infer: bool = False
 

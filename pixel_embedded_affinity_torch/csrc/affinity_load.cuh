@@ -1,6 +1,8 @@
-// What the affinity kernels of affinity3d.cu and affinity_grad.cu share:
-// float32 views of float32 and bfloat16 values, and the load of one
-// voxel's C embedding values from a (B, D, H, W, C) view with any strides.
+// What the affinity kernels of affinity3d.cu, affinity_grad.cu and
+// affinity_wmse2d.cu share: float32 views of float32 and bfloat16 values,
+// the load of one voxel's C embedding values from a view with any strides,
+// and the arithmetic of a gathered neighbour (its raw values and one
+// reciprocal of its norm) and of the normalisation's VJP.
 
 #pragma once
 
@@ -52,6 +54,63 @@ __device__ __forceinline__ void load_values(const T* __restrict__ p, int64_t sC,
             }
         }
     }
+}
+
+// the dot of u and v in four independent sums
+template <int C>
+__device__ __forceinline__ float dot(const float* u, const float* v) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c % 4] += u[c] * v[c];
+    return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+template <int C>
+__device__ __forceinline__ void axpy(float a, const float* x, float* y) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[c] += a * x[c];
+}
+
+// 1 / max(|v|, eps) of the C values v by one reciprocal square root
+// (within 2^-22.9 of the quotient; min(rsqrt, 1e12) is 1 / max(sqrt, eps)
+// for every sum of squares), or 1 when raw
+template <int C>
+__device__ __forceinline__ float inv_norm(const float* v, bool raw) {
+    return raw ? 1.f : fminf(rsqrtf(dot<C>(v, v) + 1e-36f), 1e12f);
+}
+
+// v = the C values at p; returns inv_norm(v)
+template <typename T, int C, bool kContig>
+__device__ __forceinline__ float load_scaled(const T* __restrict__ p, int64_t sC, bool raw,
+                                             float* v) {
+    load_values<T, C, kContig>(p, sC, v);
+    return inv_norm<C>(v, raw);
+}
+
+// n = the C values at p times 1 / max(|v|, eps), one division (as they are
+// when raw); returns |v| = sqrt(sum v^2 + 1e-36) for the VJP
+template <typename T, int C, bool kContig>
+__device__ __forceinline__ float load_unit(const T* __restrict__ p, int64_t sC, bool raw,
+                                           float* n) {
+    load_values<T, C, kContig>(p, sC, n);
+    const float norm = sqrtf(dot<C>(n, n) + 1e-36f);
+    if (!raw) {
+        const float inv = 1.f / fmaxf(norm, 1e-12f);
+#pragma unroll
+        for (int c = 0; c < C; ++c) n[c] *= inv;
+    }
+    return norm;
+}
+
+// out[c * vol] = (dn[c] - n[c] <n, dn> [norm >= eps]) / max(norm, eps) by
+// one division, or dn[c] when raw
+template <typename T, int C>
+__device__ __forceinline__ void store_grad(const float* n, float norm, const float* dn, bool raw,
+                                           T* __restrict__ out, int64_t vol) {
+    const float inv = raw ? 1.f : 1.f / fmaxf(norm, 1e-12f);
+    const float proj = (!raw && norm >= 1e-12f) ? dot<C>(n, dn) : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c * vol] = from_float<T>((dn[c] - n[c] * proj) * inv);
 }
 
 // whether every voxel's C values of the view at p with element strides s

@@ -27,29 +27,59 @@
 //     dn_a(p) = sum_k g_k(p) n_b(p + o_k),   dn_b(p) = sum_k g_k(p - o_k) n_a(p - o_k)
 // and the normalisation's VJP, de = (dn - n <n, dn> [|e| >= eps]) / max(|e|, eps).
 // The self loss (a == b) writes de = VJP(dn_a + dn_b); the cross loss
-// writes da and db. Gradients go to contiguous (B, C, H, W) buffers, the
-// layout of the model's NCHW output.
+// writes da, and db only when the caller asks for it (db non-null): the
+// training step's teacher is detached, so its call skips db.
+// Gradients go to contiguous (B, C, H, W) buffers, the layout of the
+// model's NCHW output.
 //
-// Bound (B=2, 544x544, C=16, K=10, f32, HBM at 3.35 TB/s). Forward: read e
-// (37.9 MB, twice that for cross) and t/w/m (71.0 MB), write affs (23.7 MB):
-// ~133 MB, ~40 us self, ~51 us cross. Backward: read e and t/w/m, write de:
-// ~147 MB, ~44 us; cross reads two embeddings and writes two: ~223 MB,
-// ~66 us. The arithmetic (~2-4 x (3C + 2CK) flops per pixel) needs < 10 us
-// at the 67 TFLOP/s float32 rate, so bytes bound all four.
+// Bound (B=2, 544x544, C=16, K=10, f32, HBM at 3.35 TB/s; each input read
+// once, each output written once). Forward: read e (37.9 MB, twice that
+// for cross) and t/w/m (71.0 MB), write affs (23.7 MB): ~133 MB, ~40 us
+// self, ~51 us cross. Backward: self reads e and t/w/m and writes de:
+// 146.8 MB, 43.8 us; cross without db reads a, b and t/w/m and writes da:
+// 184.6 MB, 55.1 us; with db it also writes db: 222.5 MB, 66.4 us. The
+// arithmetic (~2-4 x (3C + 2CK) flops per pixel) needs < 10 us at the 67
+// TFLOP/s float32 rate, so bytes bound all four.
 //
-// Design, the simple first version, as K1 (affinity2d.cu): one thread per
-// pixel, 32x8 blocks along x so loads and stores of a warp are contiguous in
-// NCHW, bounds checks in place of the TPU's zero pad and row-tile halo. The
-// forward reduces S inside the block (warp shuffles, then one shared-memory
-// row per warp). The backward recomputes each neighbour's normalised vector
-// for every offset (2K neighbour loads per pixel, mostly from L1/L2); a
-// shared-memory tile with the 27-pixel halo is left to a later version.
+// Design. One thread per pixel, 32x8 blocks along x so a warp's loads and
+// stores of one channel are contiguous in NCHW, bounds checks in place of
+// the TPU's zero pad and row-tile halo. The forward (K2f/K3f, unchanged
+// since its first version) reduces S inside the block (warp shuffles, then
+// one shared-memory row per warp) and normalises each gathered neighbour by
+// C divisions (load_normalized). The backward (K2b/K3b) gathers each
+// neighbour through L1/L2 as the 3D backwards of affinity_grad.cu do, with
+// their helpers (affinity_load.cuh): it loads the neighbour's raw values v
+// plane-wise through the view's strides, takes r = inv_norm(v), one
+// reciprocal square root, forms the affinity as <n_own, v> r and its
+// cotangent g, and adds (g r) v to dn, so no value is divided; the pixel's
+// own vector is normalised, and its VJP scaled, by one reciprocal each.
+// The self form gathers 2K neighbours, the cross form K without db (only
+// b at p + o_k) and 2K with it. A shared-memory tile was not built: its
+// halo would be 27 pixels, and the staged forms of the 3D kernels lost to
+// this gather by 1.45-3.2x (tools/affinity_zwalk.cu).
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (B=2 544x544, C=16, K=10, float32,
+// the model's NCHW output permuted, L2 flushed, CUDA graph replay, median
+// of 20; tools/wmse_ab.py, six runs, three of them beside the first
+// version, which divided every value it normalised and always wrote db):
+// K2b 0.1286-0.1341 ms (0.2195-0.2252 before; bound 0.0438), K3b without
+// db 0.1005-0.1053 (bound 0.0551; 0.1154 uncapped at 77 registers), K3b
+// with db 0.2064-0.2132 (0.3398-0.3423 before; bound 0.0664); K2f and
+// K3f, unchanged, 0.1302-0.1397. In the training steps (torch.profiler,
+// chip_smoke.py): K3b 0.0969-0.0971 ms at 544x544 (0.3370 before) and
+// 0.0239-0.0253 at 256x256 (0.0760). A teacher with H stride 1 costs K3b 0.3986 without
+// db: each warp load of a channel then touches 32 sectors.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "affinity_load.cuh"
+
 namespace {
+
+using namespace affinity_load;
 
 constexpr int C = 16;  // embedding channels
 constexpr int kMaxOffsets = 16;
@@ -90,7 +120,8 @@ __device__ __forceinline__ float load_normalized(const float* __restrict__ v, in
     return norm;
 }
 
-__device__ __forceinline__ float dot(const float* u, const float* v) {
+// the forward's dot, in one sum
+__device__ __forceinline__ float dot_serial(const float* u, const float* v) {
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) s += u[c] * v[c];
@@ -100,16 +131,6 @@ __device__ __forceinline__ float dot(const float* u, const float* v) {
 __device__ __forceinline__ float wmse_grad(float gs, float a, float t, float w, float m) {
     const float d = a * m - t * m;
     return gs * 2.0f * w * m * d;
-}
-
-// de[c] = (dn[c] - n[c] <n, dn> [norm >= eps]) / max(norm, eps), written
-// to a contiguous (B, C, H, W) buffer at out + c * plane
-__device__ __forceinline__ void store_normalize_vjp(const float* n, float norm, const float* dn,
-                                                    float* __restrict__ out, int64_t plane) {
-    const float mm = fmaxf(norm, 1e-12f);
-    const float proj = norm >= 1e-12f ? dot(n, dn) : 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c * plane] = (dn[c] - n[c] * proj) / mm;
 }
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
@@ -141,7 +162,7 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
             if (inside(yy, xx, H, W)) {
                 float nb[C];
                 load_normalized(b.at(bi, yy, xx), b.sC, nb);
-                v = dot(na, nb);
+                v = dot_serial(na, nb);
             }
             const int64_t i = pix + k * plane;
             affs[i] = v;
@@ -163,30 +184,41 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
     }
 }
 
-// kSelf: a == b, one output de = VJP(dn_a + dn_b); else da and db
-template <bool kSelf>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// The blocks an SM the backward asks ptxas to fit: 4 (64 registers a
+// thread, 32 warps an SM) for the cross form without db, which then spills
+// nothing and takes 13% less time than with the 77 registers it takes
+// unbounded (tools/wmse_ab.py); the self and db forms would spill under
+// that cap (16 and 232 bytes) and keep the default.
+template <bool kSelf, bool kDb>
+constexpr int kBwdMinBlocks = kSelf || kDb ? 1 : 4;
+
+// kSelf: a == b, one output de = VJP(dn_a + dn_b); else da, and with kDb
+// also db. Each gathered neighbour's raw values v are scaled by one
+// reciprocal r = 1 / |v|: its affinity is <n, v> r, and g r multiplies v.
+template <bool kSelf, bool kDb>
+__global__ void __launch_bounds__(kBlockX * kBlockY, (kBwdMinBlocks<kSelf, kDb>))
 wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __restrict__ w,
                 const float* __restrict__ m, const float* __restrict__ gs,
                 float* __restrict__ da, float* __restrict__ db,
                 int H, int W, int K, Offsets off) {
+    static_assert(!(kSelf && kDb), "the self loss has one gradient");
     const int x = blockIdx.x * kBlockX + threadIdx.x;
     const int y = blockIdx.y * kBlockY + threadIdx.y;
     const int bi = blockIdx.z;
     if (x >= W || y >= H) return;
 
-    float na[C], nb[C], dna[C], dnb[C];
-    const float norm_a = load_normalized(a.at(bi, y, x), a.sC, na);
-    float norm_b = norm_a;
+    float na[C], dna[C], nb[C], dnb[C];
+    const float norm_a = load_unit<float, C, false>(a.at(bi, y, x), a.sC, false, na);
+    float norm_b = 0.f;
+    if (kDb) norm_b = load_unit<float, C, false>(b.at(bi, y, x), b.sC, false, nb);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-        nb[c] = na[c];
         dna[c] = 0.f;
         dnb[c] = 0.f;
     }
-    if (!kSelf) norm_b = load_normalized(b.at(bi, y, x), b.sC, nb);
 
     const int64_t plane = (int64_t)H * W;
+    const int64_t p = (int64_t)y * W + x;
     for (int k = 0; k < K; ++k) {
         const float gsk = gs[k];
         const int64_t ik = ((int64_t)bi * K + k) * plane;
@@ -194,33 +226,27 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         int yy = y + off.dy[k];
         int xx = x + off.dx[k];
         if (inside(yy, xx, H, W)) {
-            float nq[C];
-            load_normalized(b.at(bi, yy, xx), b.sC, nq);
-            const int64_t i = ik + (int64_t)y * W + x;
-            const float g = wmse_grad(gsk, dot(na, nq), t[i], w[i], m[i]);
-#pragma unroll
-            for (int c = 0; c < C; ++c) dna[c] += g * nq[c];
+            float v[C];
+            const float r = load_scaled<float, C, false>(b.at(bi, yy, xx), b.sC, false, v);
+            const int64_t i = ik + p;
+            axpy<C>(wmse_grad(gsk, dot<C>(na, v) * r, t[i], w[i], m[i]) * r, v, dna);
         }
-        // the pair (p - o_k, p): a_k(p - o_k) = <n_a(p - o_k), n_b(p)>
-        yy = y - off.dy[k];
-        xx = x - off.dx[k];
-        if (inside(yy, xx, H, W)) {
-            float nr[C];
-            load_normalized(a.at(bi, yy, xx), a.sC, nr);
-            const int64_t i = ik + (int64_t)yy * W + xx;
-            const float g = wmse_grad(gsk, dot(nr, nb), t[i], w[i], m[i]);
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-                if (kSelf)
-                    dna[c] += g * nr[c];
-                else
-                    dnb[c] += g * nr[c];
+        if (kSelf || kDb) {
+            // the pair (p - o_k, p): a_k(p - o_k) = <n_a(p - o_k), n_b(p)>
+            yy = y - off.dy[k];
+            xx = x - off.dx[k];
+            if (inside(yy, xx, H, W)) {
+                float v[C];
+                const float r = load_scaled<float, C, false>(a.at(bi, yy, xx), a.sC, false, v);
+                const int64_t i = ik + (int64_t)yy * W + xx;
+                const float g = wmse_grad(gsk, dot<C>(v, kSelf ? na : nb) * r, t[i], w[i], m[i]);
+                axpy<C>(g * r, v, kSelf ? dna : dnb);
             }
         }
     }
-    const int64_t out = (int64_t)bi * C * plane + (int64_t)y * W + x;
-    store_normalize_vjp(na, norm_a, dna, da + out, plane);
-    if (!kSelf) store_normalize_vjp(nb, norm_b, dnb, db + out, plane);
+    const int64_t out = (int64_t)bi * C * plane + p;
+    store_grad<float, C>(na, norm_a, dna, false, da + out, plane);
+    if (kDb) store_grad<float, C>(nb, norm_b, dnb, false, db + out, plane);
 }
 
 dim3 grid_of(int B, int H, int W) {
@@ -250,7 +276,7 @@ int fwd(View a, View b, const float* t, const float* w, const float* m, float* a
     return (int)cudaGetLastError();
 }
 
-template <bool kSelf>
+template <bool kSelf, bool kDb>
 int bwd(View a, View b, const float* t, const float* w, const float* m, const float* gs,
         float* da, float* db, int B, int H, int W, int c, const int32_t* offsets, int K,
         void* stream) {
@@ -258,8 +284,8 @@ int bwd(View a, View b, const float* t, const float* w, const float* m, const fl
     const Offsets off = to_offsets(offsets, K);
     const dim3 block(kBlockX, kBlockY);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    wmse_bwd_kernel<kSelf><<<grid_of(B, H, W), block, 0, s>>>(a, b, t, w, m, gs, da, db, H, W, K,
-                                                              off);
+    wmse_bwd_kernel<kSelf, kDb><<<grid_of(B, H, W), block, 0, s>>>(a, b, t, w, m, gs, da, db, H,
+                                                                   W, K, off);
     return (int)cudaGetLastError();
 }
 
@@ -294,16 +320,19 @@ int wmse2d_bwd(const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
                const float* t, const float* w, const float* m, const float* gs, float* de,
                int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
     const View v{e, sB, sH, sW, sC};
-    return bwd<true>(v, v, t, w, m, gs, de, nullptr, B, H, W, c, offsets, K, stream);
+    return bwd<true, false>(v, v, t, w, m, gs, de, nullptr, B, H, W, c, offsets, K, stream);
 }
 
+// db may be null: the teacher's gradient is then skipped.
 int cross_wmse2d_bwd(const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
                      const float* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
                      const float* t, const float* w, const float* m, const float* gs,
                      float* da, float* db,
                      int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
-    return bwd<false>(View{a, saB, saH, saW, saC}, View{b, sbB, sbH, sbW, sbC}, t, w, m, gs,
-                      da, db, B, H, W, c, offsets, K, stream);
+    const View va{a, saB, saH, saW, saC}, vb{b, sbB, sbH, sbW, sbC};
+    if (db == nullptr)
+        return bwd<false, false>(va, vb, t, w, m, gs, da, nullptr, B, H, W, c, offsets, K, stream);
+    return bwd<false, true>(va, vb, t, w, m, gs, da, db, B, H, W, c, offsets, K, stream);
 }
 
 }  // extern "C"

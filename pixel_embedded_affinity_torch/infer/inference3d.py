@@ -69,8 +69,9 @@ def run_inference_3d(cfg: Config, state_dict: dict | None, volume: np.ndarray,
     if cfg.model.bf16_tiled_infer or cfg.model.fast_tiled_infer:
         raise NotImplementedError(
             "model.bf16_tiled_infer / model.fast_tiled_infer are the JAX "
-            "package's TPU serving choices and are not ported (ROADMAP.md "
-            "item 8): the port serves the dense model in float32")
+            "package's TPU serving choices and are not ported (ROADMAP.md, "
+            "Modules still to port, 3D extras): the port serves the dense "
+            "model in float32")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     predict = build_tiled_predictor(build_model(cfg, state_dict, dev))

@@ -12,11 +12,14 @@ JAX contract. t, w and m get no gradient.
 On a CUDA tensor each is a ``torch.autograd.Function`` whose forward
 launches K2f/K3f and whose backward launches K2b/K3b, all in
 ``csrc/affinity_wmse2d.cu`` (built with nvcc at first use, see
-:mod:`..cuda_build`). On a CPU tensor each runs its plain version, written
-with :mod:`.emb2aff` and differentiated by autograd. The four launchers
-``wmse2d_fwd``, ``wmse2d_bwd``, ``cross_wmse2d_fwd`` and
-``cross_wmse2d_bwd`` each count their launches in ``.launches``. Design
-notes and the kernels' bounds are in the CUDA source.
+:mod:`..cuda_build`). K3b computes the teacher's gradient db only when the
+teacher needs one (``b.requires_grad``); the training step's teacher is
+detached, so its backward gathers only the student's side and writes da.
+On a CPU tensor each runs its plain version, written with :mod:`.emb2aff`
+and differentiated by autograd. The four launchers ``wmse2d_fwd``,
+``wmse2d_bwd``, ``cross_wmse2d_fwd`` and ``cross_wmse2d_bwd`` each count
+their launches in ``.launches``. Design notes and the kernels' bounds are
+in the CUDA source.
 """
 
 from __future__ import annotations
@@ -50,10 +53,9 @@ def cross_affinity_wmse_2d_plain(a: torch.Tensor, b: torch.Tensor, t, w, m, offs
     return _wmse_sums(affs, t, w, m), affs.detach()
 
 
-def _lib() -> ctypes.CDLL:
-    from .. import cuda_build
-
-    lib = cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the ctypes signatures of a build of SOURCE's C entries, once;
+    returns lib."""
     if lib.wmse2d_fwd.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         view = [p, i64, i64, i64, i64]
@@ -68,6 +70,12 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = args + tail
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    from .. import cuda_build
+
+    return bind(cuda_build.load(SOURCE))
 
 
 def _check(embs, maps, offsets):
@@ -99,34 +107,38 @@ def _check(embs, maps, offsets):
     return offs
 
 
-def _launch(name: str, *args):
-    lib = _lib()
+def _launch(lib: ctypes.CDLL, name: str, *args):
     err = getattr(lib, name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _fwd(entry: str, embs, t, w, m, offsets):
-    """Launch a forward entry: (S (K,), affs (B, K, H, W))."""
+def _fwd(entry: str, embs, t, w, m, offsets, lib=None):
+    """Launch a forward entry of the package's build, or of ``lib``, another
+    build of SOURCE's C interface (``bind``): (S (K,), affs (B, K, H, W))."""
+    lib = _lib() if lib is None else lib
     offs = _check(embs, [t, w, m], offsets)
     b, h, wd, c = embs[0].shape
     k = offs.shape[0]
     dev = embs[0].device
     affs = torch.empty((b, k, h, wd), dtype=torch.float32, device=dev)
-    partial = torch.empty((_lib().wmse2d_partial_rows(b, h, wd), k),
+    partial = torch.empty((lib.wmse2d_partial_rows(b, h, wd), k),
                           dtype=torch.float32, device=dev)
     views = [v for e in embs for v in (e.data_ptr(), *e.stride())]
     with torch.cuda.device(dev):
-        _launch(entry, *views, t.data_ptr(), w.data_ptr(), m.data_ptr(),
+        _launch(lib, entry, *views, t.data_ptr(), w.data_ptr(), m.data_ptr(),
                 affs.data_ptr(), partial.data_ptr(), b, h, wd, c, offs.ctypes.data,
                 k, torch.cuda.current_stream(dev).cuda_stream)
     return partial.sum(dim=0), affs
 
 
-def _bwd(entry: str, embs, t, w, m, g_s, offsets):
-    """Launch a backward entry: one gradient per embedding, each written
-    to a contiguous (B, C, H, W) buffer and returned as its (B, H, W, C)
-    view, the layout of the model's NCHW gradient."""
+def _bwd(entry: str, embs, t, w, m, g_s, offsets, n_grads: int, lib=None):
+    """Launch a backward entry (of ``lib`` as in ``_fwd``): the gradients of
+    the first ``n_grads`` embeddings, each written to a contiguous (B, C, H,
+    W) buffer and returned as its (B, H, W, C) view, the layout of the
+    model's NCHW gradient; the entry gets a null pointer for each gradient
+    skipped."""
+    lib = _lib() if lib is None else lib
     offs = _check(embs, [t, w, m], offsets)
     b, h, wd, c = embs[0].shape
     k = offs.shape[0]
@@ -134,11 +146,13 @@ def _bwd(entry: str, embs, t, w, m, g_s, offsets):
     g_s = g_s.to(device=dev, dtype=torch.float32).contiguous()
     if g_s.shape != (k,):
         raise ValueError(f"gS must be ({k},), got {tuple(g_s.shape)}")
-    grads = [torch.empty((b, c, h, wd), dtype=torch.float32, device=dev) for _ in embs]
+    grads = [torch.empty((b, c, h, wd), dtype=torch.float32, device=dev)
+             for _ in range(n_grads)]
+    ptrs = [g.data_ptr() for g in grads] + [None] * (len(embs) - n_grads)
     views = [v for e in embs for v in (e.data_ptr(), *e.stride())]
     with torch.cuda.device(dev):
-        _launch(entry, *views, t.data_ptr(), w.data_ptr(), m.data_ptr(), g_s.data_ptr(),
-                *(g.data_ptr() for g in grads), b, h, wd, c, offs.ctypes.data, k,
+        _launch(lib, entry, *views, t.data_ptr(), w.data_ptr(), m.data_ptr(), g_s.data_ptr(),
+                *ptrs, b, h, wd, c, offs.ctypes.data, k,
                 torch.cuda.current_stream(dev).cuda_stream)
     return [g.permute(0, 2, 3, 1) for g in grads]
 
@@ -159,16 +173,18 @@ def cross_wmse2d_fwd(a, b, t, w, m, offsets):
 
 def wmse2d_bwd(e, t, w, m, g_s, offsets):
     """K2b: d(sum_k gS_k S_k)/de."""
-    (de,) = _bwd("wmse2d_bwd", [e], t, w, m, g_s, offsets)
+    (de,) = _bwd("wmse2d_bwd", [e], t, w, m, g_s, offsets, 1)
     wmse2d_bwd.launches += 1
     return de
 
 
-def cross_wmse2d_bwd(a, b, t, w, m, g_s, offsets):
-    """K3b: (da, db)."""
-    da, db = _bwd("cross_wmse2d_bwd", [a, b], t, w, m, g_s, offsets)
+def cross_wmse2d_bwd(a, b, t, w, m, g_s, offsets, need_db: bool = True):
+    """K3b: (da, db), or (da, None) without ``need_db``: the kernel then
+    gathers only b's neighbours of each pixel and allocates and writes no
+    db."""
+    grads = _bwd("cross_wmse2d_bwd", [a, b], t, w, m, g_s, offsets, 2 if need_db else 1)
     cross_wmse2d_bwd.launches += 1
-    return da, db
+    return grads[0], (grads[1] if need_db else None)
 
 
 for _fn in (wmse2d_fwd, wmse2d_bwd, cross_wmse2d_fwd, cross_wmse2d_bwd):
@@ -202,9 +218,9 @@ class _CrossAffinityWMSE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_s, _g_affs):
         a, b, t, w, m = ctx.saved_tensors
-        da, db = cross_wmse2d_bwd(a, b, t, w, m, g_s, ctx.offsets)
-        return (da if ctx.needs_input_grad[0] else None,
-                db if ctx.needs_input_grad[1] else None, None, None, None, None)
+        da, db = cross_wmse2d_bwd(a, b, t, w, m, g_s, ctx.offsets,
+                                  need_db=ctx.needs_input_grad[1])
+        return (da if ctx.needs_input_grad[0] else None, db, None, None, None, None)
 
 
 def _offsets_tuple(offsets):
@@ -232,7 +248,8 @@ def fused_cross_affinity_wmse_2d(a: torch.Tensor, b: torch.Tensor,
                                  t: torch.Tensor, w: torch.Tensor,
                                  m: torch.Tensor, offsets):
     """Cross-view (student a, teacher b) variant of
-    :func:`fused_affinity_wmse_2d`; the backward gives both da and db."""
+    :func:`fused_affinity_wmse_2d`; the backward gives da, and db where b
+    requires grad."""
     if _device_type(a) == "cpu":
         return cross_affinity_wmse_2d_plain(a, b, t, w, m, offsets)
     return _CrossAffinityWMSE.apply(a, b, t, w, m, _offsets_tuple(offsets))

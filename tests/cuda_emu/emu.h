@@ -24,14 +24,14 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
-#define __shared__
+#define __shared__ static  // a static __shared__ array: one for the blocks, which run in turn
 #define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
     unsigned x, y, z;
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline dim3 threadIdx, blockIdx, blockDim;
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -102,6 +102,16 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
     return got;
 }
 
+inline float __shfl_down_sync(unsigned, float v, int delta) {
+    float* row = emu_shfl[emu_cur >> 5];
+    const int lane = emu_cur & 31;
+    row[lane] = v;
+    emu_warp_sync();
+    const float got = lane + delta < 32 ? row[lane + delta] : v;
+    emu_warp_sync();
+    return got;
+}
+
 inline void emu_entry() {
     (*emu_fn)();
     emu_threads[emu_cur].state = kDone;
@@ -166,6 +176,7 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
     emu_smem_bytes = smem;
     emu_fn = &fn;
     blockDim = block;
+    gridDim = grid;
     for (unsigned z = 0; z < grid.z; ++z)
         for (unsigned y = 0; y < grid.y; ++y)
             for (unsigned x = 0; x < grid.x; ++x) {

@@ -7,12 +7,18 @@
 //   harness bwd B D H W C dtype layout raw [oz oy ox ...]
 //   harness xfwd B D H W C dtype layout_a layout_b [oz oy ox ...]
 //   harness xbwd B D H W C dtype layout_a layout_b raw db [oz oy ox ...]
+//   harness wfwd B H W cross layout_a layout_b soft dy dx [dy dx ...]
+//   harness wbwd B H W cross layout_a layout_b db soft dy dx [dy dx ...]
 // (dtype 0 float32, 1 bfloat16; off 0 is the canvas mode, kept rectangle
 // [1, H - 2) x [2, W - 1); layout 0 a contiguous (B, D, H, W, C)
 // embedding, 1 the (B, C, D, H, W) one seen through permuted strides, 2
 // and 3 those two stored with H and W swapped, (B, D, W, H, C) and
 // (B, C, D, W, H), as a transposed teacher; no shifts or offsets: the 3D
-// shift table; xbwd's db 0 skips the second input's gradient). Prints the
+// shift table; xbwd's db 0 skips the second input's gradient; wfwd and
+// wbwd: the loss-fused WMSE kernels of affinity_wmse2d.cu, float32, C =
+// 16, D = 1, the self form (cross 0, one embedding) or the cross one, a
+// mask of 0s and 1s or, with soft, uniform in [0, 1); wfwd also prints the
+// largest relative error of the per-offset sums S). Prints the
 // largest error relative to the largest reference output (k5f, xfwd: the
 // largest absolute error), and whether every element that must be exactly
 // 0 is: outside the canvas mode's rectangle, or an affinity whose
@@ -45,6 +51,26 @@ extern "C" __attribute__((weak)) int cross_affinity_bwd(
     const void* a, const int64_t* sa, const void* b, const int64_t* sb, const void* g, void* da,
     void* db, int dtype, int B, int D, int H, int W, int C, const int32_t* offsets, int K,
     int raw, void* stream);
+// weak: only the package's build has the WMSE kernels
+extern "C" __attribute__((weak)) int64_t wmse2d_partial_rows(int B, int H, int W);
+extern "C" __attribute__((weak)) int wmse2d_fwd(
+    const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC, const float* t, const float* w,
+    const float* m, float* affs, float* partial, int B, int H, int W, int c,
+    const int32_t* offsets, int K, void* stream);
+extern "C" __attribute__((weak)) int cross_wmse2d_fwd(
+    const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC, const float* b,
+    int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC, const float* t, const float* w,
+    const float* m, float* affs, float* partial, int B, int H, int W, int c,
+    const int32_t* offsets, int K, void* stream);
+extern "C" __attribute__((weak)) int wmse2d_bwd(
+    const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC, const float* t, const float* w,
+    const float* m, const float* gs, float* de, int B, int H, int W, int c,
+    const int32_t* offsets, int K, void* stream);
+extern "C" __attribute__((weak)) int cross_wmse2d_bwd(
+    const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC, const float* b,
+    int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC, const float* t, const float* w,
+    const float* m, const float* gs, float* da, float* db, int B, int H, int W, int c,
+    const int32_t* offsets, int K, void* stream);
 extern "C" int s2d_block_fwd(const void* x0, const void* w1p0, int K0, const void* x1,
                              const void* w1p1, int K1, int n_parts, const void* w2,
                              const float* h1, const float* hp, const float* h2, void* out,
@@ -413,6 +439,169 @@ static int xbwd(int B, int D, int H, int W, int C, int dt, int la, int lb, int r
     return 0;
 }
 
+// The loss-fused WMSE case's inputs: embeddings a and b (b is a for the
+// self form), each a D = 1 Embedding of C = 16 in its layout, the (dy, dx)
+// table, and t, w, m (B, K, H, W) and gS (K,)
+struct WmseCase {
+    int B, H, W, K;
+    bool cross;
+    Embedding a, b;
+    std::vector<int> o;
+    std::vector<float> t, w, m, gs;
+    WmseCase(int B, int H, int W, int cross, int la, int lb, int soft, std::vector<int> offs)
+        : B(B), H(H), W(W), K((int)offs.size() / 2), cross(cross != 0),
+          a(B, 1, H, W, 16, 0, la), b(B, 1, H, W, 16, 0, lb), o(std::move(offs)) {
+        const size_t n = (size_t)B * K * H * W;
+        std::uniform_real_distribution<float> u(0.f, 1.f);
+        t.resize(n), w.resize(n), m.resize(n), gs.resize(K);
+        for (size_t i = 0; i < n; ++i) {
+            t[i] = u(rng) > 0.5f ? 1.f : 0.f;
+            w[i] = u(rng) * 2.f + 0.05f;
+            m[i] = soft ? u(rng) : (u(rng) > 0.2f ? 1.f : 0.f);
+        }
+        for (auto& g : gs) g = u(rng) / (2.f * W) + 1e-4f;
+    }
+    const Embedding& second() const { return cross ? b : a; }
+    size_t at(int bi, int k, int y, int x) const { return (((size_t)bi * K + k) * H + y) * W + x; }
+    bool inside(int y, int x) const { return y >= 0 && y < H && x >= 0 && x < W; }
+    // a_k(p) = <n_a(p), n_b(p + o_k)> in float64, 0 outside
+    double aff(int bi, int k, int y, int x) const {
+        const int yy = y + o[2 * k], xx = x + o[2 * k + 1];
+        if (!inside(yy, xx)) return 0;
+        std::vector<double> na, nb;
+        a.vec(bi, 0, y, x, false, na);
+        second().vec(bi, 0, yy, xx, false, nb);
+        double s = 0;
+        for (int c = 0; c < 16; ++c) s += na[c] * nb[c];
+        return s;
+    }
+    // the WMSE cotangent g_k(q) in float64
+    double cot(int bi, int k, int y, int x) const {
+        const size_t i = at(bi, k, y, x);
+        return gs[k] * 2.0 * w[i] * m[i] * (aff(bi, k, y, x) * m[i] - (double)t[i] * m[i]);
+    }
+};
+
+// affs and S of wmse2d_fwd / cross_wmse2d_fwd against float64
+static int wfwd(int B, int H, int W, int cross, int la, int lb, int soft, std::vector<int> o) {
+    if (!wmse2d_fwd) { std::printf("no WMSE kernels\n"); return 1; }
+    WmseCase cs(B, H, W, cross, la, lb, soft, o);
+    const int K = cs.K;
+    std::vector<float> affs((size_t)B * K * H * W, -1.f);
+    std::vector<float> partial((size_t)wmse2d_partial_rows(B, H, W) * K);
+    const int64_t* sa = cs.a.s;
+    const int64_t* sb = cs.second().s;
+    const int err = cross
+        ? cross_wmse2d_fwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.b.t.f.data(), sb[0],
+                           sb[2], sb[3], sb[4], cs.t.data(), cs.w.data(), cs.m.data(), affs.data(),
+                           partial.data(), B, H, W, 16, cs.o.data(), K, nullptr)
+        : wmse2d_fwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.t.data(), cs.w.data(),
+                     cs.m.data(), affs.data(), partial.data(), B, H, W, 16, cs.o.data(), K,
+                     nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    double worst = 0, s_rel = 0, p_rel = 0;
+    bool zeros = true;
+    std::vector<double> S(K, 0.0);
+    for (int bi = 0; bi < B; ++bi)
+        for (int k = 0; k < K; ++k)
+            for (int y = 0; y < H; ++y)
+                for (int x = 0; x < W; ++x) {
+                    const size_t i = cs.at(bi, k, y, x);
+                    const double ref = cs.aff(bi, k, y, x);
+                    const int yy = y + o[2 * k], xx = x + o[2 * k + 1];
+                    if (!cs.inside(yy, xx) || cs.a.is_zero(bi, 0, y, x) ||
+                        cs.second().is_zero(bi, 0, yy, xx))
+                        zeros &= affs[i] == 0.f;
+                    worst = std::max(worst, std::fabs(affs[i] - ref));
+                    const double d = ref * cs.m[i] - (double)cs.t[i] * cs.m[i];
+                    S[k] += cs.w[i] * d * d;
+                }
+    // S_k as the wrapper sums it, the partials in float32; and their sum in
+    // float64, the kernel's block sums alone
+    const size_t rows = partial.size() / K;
+    for (int k = 0; k < K; ++k) {
+        float f = 0.f;
+        double dsum = 0;
+        for (size_t r = 0; r < rows; ++r) {
+            f += partial[r * K + k];
+            dsum += partial[r * K + k];
+        }
+        s_rel = std::max(s_rel, std::fabs(f - S[k]) / S[k]);
+        p_rel = std::max(p_rel, std::fabs(dsum - S[k]) / S[k]);
+    }
+    std::printf("abs_err %.6e zeros_outside %d s_rel %.6e partial_rel %.6e\n", worst, (int)zeros,
+                s_rel, p_rel);
+    return 0;
+}
+
+// de (self) or da and, with db, db (cross) of sum_k gS_k S_k against
+// wmse2d_bwd / cross_wmse2d_bwd
+static int wbwd(int B, int H, int W, int cross, int la, int lb, int with_db, int soft,
+                std::vector<int> o) {
+    if (!wmse2d_bwd) { std::printf("no WMSE kernels\n"); return 1; }
+    WmseCase cs(B, H, W, cross, la, lb, soft, o);
+    const int K = cs.K;
+    const size_t n = (size_t)B * 16 * H * W;
+    std::vector<float> da(n, NAN), db(n, NAN);
+    const int64_t* sa = cs.a.s;
+    const int64_t* sb = cs.second().s;
+    const int err = cross
+        ? cross_wmse2d_bwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.b.t.f.data(), sb[0],
+                           sb[2], sb[3], sb[4], cs.t.data(), cs.w.data(), cs.m.data(),
+                           cs.gs.data(), da.data(), with_db ? db.data() : nullptr, B, H, W, 16,
+                           cs.o.data(), K, nullptr)
+        : wmse2d_bwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.t.data(), cs.w.data(),
+                     cs.m.data(), cs.gs.data(), da.data(), B, H, W, 16, cs.o.data(), K, nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    // float64 cotangents, once
+    std::vector<double> g((size_t)B * K * H * W);
+    for (int bi = 0; bi < B; ++bi)
+        for (int k = 0; k < K; ++k)
+            for (int y = 0; y < H; ++y)
+                for (int x = 0; x < W; ++x) g[cs.at(bi, k, y, x)] = cs.cot(bi, k, y, x);
+    GradErr ea, eb;
+    std::vector<double> n0, nq, dna(16), dnb(16);
+    // the normalisation's VJP of dn at one pixel of e, against out
+    auto vjp = [&](const Embedding& e, const std::vector<double>& dn, const std::vector<float>& out,
+                   GradErr& ge, int bi, int y, int x) {
+        const double norm = e.vec(bi, 0, y, x, false, n0);
+        double proj = 0;
+        if (norm >= 1e-12)
+            for (int c = 0; c < 16; ++c) proj += n0[c] * dn[c];
+        for (int c = 0; c < 16; ++c)
+            ge.add(out[(((size_t)bi * 16 + c) * H + y) * W + x],
+                   (dn[c] - n0[c] * proj) / std::max(norm, 1e-12), e.is_zero(bi, 0, y, x));
+    };
+    for (int bi = 0; bi < B; ++bi)
+        for (int y = 0; y < H; ++y)
+            for (int x = 0; x < W; ++x) {
+                std::fill(dna.begin(), dna.end(), 0.0);
+                std::fill(dnb.begin(), dnb.end(), 0.0);
+                for (int k = 0; k < K; ++k) {
+                    const int dy = o[2 * k], dx = o[2 * k + 1];
+                    if (cs.inside(y + dy, x + dx)) {  // dn_a(p) += g_k(p) n_b(p + o_k)
+                        cs.second().vec(bi, 0, y + dy, x + dx, false, nq);
+                        for (int c = 0; c < 16; ++c) dna[c] += g[cs.at(bi, k, y, x)] * nq[c];
+                    }
+                    if (cs.inside(y - dy, x - dx)) {  // dn_b(p) += g_k(p - o_k) n_a(p - o_k)
+                        cs.a.vec(bi, 0, y - dy, x - dx, false, nq);
+                        for (int c = 0; c < 16; ++c)
+                            dnb[c] += g[cs.at(bi, k, y - dy, x - dx)] * nq[c];
+                    }
+                }
+                if (!cross)
+                    for (int c = 0; c < 16; ++c) dna[c] += dnb[c];
+                vjp(cs.a, dna, da, ea, bi, y, x);
+                if (cross && with_db) vjp(cs.b, dnb, db, eb, bi, y, x);
+            }
+    const bool two = cross && with_db;
+    double rel = std::max(ea.rel(), ea.at_zero());
+    if (two) rel = std::max(rel, std::max(eb.rel(), eb.at_zero()));
+    std::printf("rel_err %.6e zeros_outside 1 (da %.3e, %.3e at the zero vector; db %.3e, %.3e)\n",
+                rel, ea.rel(), ea.at_zero(), two ? eb.rel() : 0.0, two ? eb.at_zero() : 0.0);
+    return 0;
+}
+
 int main(int argc, char** argv) {
     std::vector<int> a;
     for (int i = 2; i < argc; ++i) a.push_back(std::atoi(argv[i]));
@@ -428,8 +617,14 @@ int main(int argc, char** argv) {
     if (argc >= 12 && std::string(argv[1]) == "xbwd")
         return xbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
                     std::vector<int>(a.begin() + 10, a.end()));
+    if (argc >= 11 && std::string(argv[1]) == "wfwd")
+        return wfwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], std::vector<int>(a.begin() + 7, a.end()));
+    if (argc >= 12 && std::string(argv[1]) == "wbwd")
+        return wbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7],
+                    std::vector<int>(a.begin() + 8, a.end()));
     std::fprintf(stderr, "usage: harness conv B H W Cin Cout off relu dtype | k8 B H W c dtype K0 [K1]"
                          " | k5f B D H W C dtype layout [shift...] | bwd B D H W C dtype layout raw [oz oy ox...]"
-                         " | xfwd B D H W C dtype la lb [oz oy ox...] | xbwd B D H W C dtype la lb raw db [oz oy ox...]\n");
+                         " | xfwd B D H W C dtype la lb [oz oy ox...] | xbwd B D H W C dtype la lb raw db [oz oy ox...]"
+                         " | wfwd B H W cross la lb soft dy dx [dy dx...] | wbwd B H W cross la lb db soft dy dx [dy dx...]\n");
     return 2;
 }

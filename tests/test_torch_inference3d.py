@@ -140,7 +140,7 @@ def test_decoders_match_jax():
 def test_tpu_serving_options_refused(case):
     for field in ("bf16_tiled_infer", "fast_tiled_infer"):
         cfg = load_config("ac3ac4", {"model": {"filters": FILTERS, field: True}})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="3D extras"):
             run_inference_3d(cfg, case["sd"], case["vol"], decoders=(), device="cpu",
                              **GEOMETRY)
 

@@ -1,27 +1,36 @@
 """The port's tensor-core kernels, ``csrc/conv3x3.cu`` (K7/K9a/K9b) and
 ``csrc/s2d_block.cu`` (K8), and its affinity kernels, ``csrc/affinity3d.cu``
-(K5f) and ``affinity_bwd`` of ``csrc/affinity_grad.cu`` (K5b, K1b at D = 1),
-which gather each neighbour through the cache, one thread a voxel, compiled
-with g++ and run on the CPU against a float64 reference: ``tests/cuda_emu``
-stands in for the CUDA runtime (each CUDA thread a coroutine, barriers and
-warp shuffles released by a scheduler) and for the instructions that
-``csrc/mma_tc.cuh`` wraps (cp.async, cvt.rna.tf32, mma.sync and ldmatrix,
-by the PTX ISA's fragment layouts). The kernels' own source is used
-unchanged apart from its asm wrappers, so their tiling, staging,
-pipelines, s2d address map, ring and epilogues are checked here; the
-card's timing and the hardware's own rounding are not (chip_smoke.py
-holds the kernels against their plain versions on the card). Small shapes,
-ragged tiles, Cin = 3 (the plain-load path), split K8 inputs and the canvas
-mode's exact zeros; float32 at the card's 1e-5 gate, bf16 at 8e-3. The
-affinity kernels: ragged tiles, D < 4 and H, W < 27 (whole channels
-outside), a zero vector, C = 8, the permuted NCDHW view, other shift and
-offset tables (negative, zero, diagonal, far z), neighbor 4 and 8 at D = 1,
-the raw form, bf16; K5f at the card's 1e-6 gate and its exact zeros, the
-backward at 1e-5 of the largest gradient (and at the zero vector's voxel,
-of its own). The same cases, and a walk over z chunks and tables longer
-than the staged cotangents, hold the staged z-walk forms of the two
-affinity kernels in ``tools/affinity_zwalk.cu`` (the design that
-``tools/affinity_zwalk.py`` times against the package's)."""
+(K5f), ``csrc/affinity_grad.cu`` (K5b, K1b at D = 1, the cross kernels)
+and ``csrc/affinity_wmse2d.cu`` (the loss-fused K2f/K2b, K3f/K3b), which
+gather each neighbour through the cache, one thread a voxel or pixel,
+compiled with g++ and run on the CPU against a float64 reference:
+``tests/cuda_emu`` stands in for the CUDA runtime (each CUDA thread a
+coroutine, barriers and warp shuffles released by a scheduler) and for
+the instructions that ``csrc/mma_tc.cuh`` wraps (cp.async, cvt.rna.tf32,
+mma.sync and ldmatrix, by the PTX ISA's fragment layouts). The kernels'
+own source is used unchanged apart from its asm wrappers, so their
+tiling, staging, pipelines, s2d address map, ring and epilogues are
+checked here; the card's timing and the hardware's own rounding are not
+(chip_smoke.py holds the kernels against their plain versions on the
+card). Small shapes, ragged tiles, Cin = 3 (the plain-load path), split
+K8 inputs and the canvas mode's exact zeros; float32 at the card's 1e-5
+gate, bf16 at 8e-3. The affinity kernels: ragged tiles, D < 4 and H, W <
+27 (whole channels outside), a zero vector, C = 8, the permuted NCDHW
+view, other shift and offset tables (negative, zero, diagonal, far z),
+neighbor 4 and 8 at D = 1, the raw form, bf16; K5f at the card's 1e-6
+gate and its exact zeros, the backward at 1e-5 of the largest gradient
+(and at the zero vector's voxel, of its own). The same cases, and a walk
+over z chunks and tables longer than the staged cotangents, hold the
+staged z-walk forms of the two affinity kernels in
+``tools/affinity_zwalk.cu`` (the design that ``tools/affinity_zwalk.py``
+times against the package's). The WMSE kernels (float32, C = 16): the
+self and cross forms, K3b without db (the training step's call) and with
+it, ragged tiles, H, W < 27, a zero vector, K = 1, neighbor 4's 10
+offsets and neighbor 8's diagonals, a teacher with H stride 1,
+channels-last embeddings and a non-binary mask; the affinities at 1e-5
+with their exact zeros, the sums S at 1e-5 relative (the block partials
+summed in float32, as the wrapper sums them, and in float64), the
+gradients as the affinity backward's."""
 
 import os
 import re
@@ -51,7 +60,7 @@ def _emulated_header(text: str) -> str:
 def _emulated_kernel(text: str) -> str:
     text = text.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
                         "using ::smem_raw;")
-    return re.sub(r"(\w+<[^<>]*>)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&] { \1(\3); });",
+    return re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&] { \1(\3); });",
                   text, flags=re.S)
 
 
@@ -88,7 +97,8 @@ def _build(out, affinity_sources):
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("cuda_emu"),
-                  [os.path.join(cuda_build.CSRC, f"{n}.cu") for n in ("affinity3d", "affinity_grad")])
+                  [os.path.join(cuda_build.CSRC, f"{n}.cu")
+                   for n in ("affinity3d", "affinity_grad", "affinity_wmse2d")])
 
 
 @pytest.fixture(scope="module")
@@ -242,6 +252,79 @@ def test_cross_affinity_bwd_kernel_emulated(harness, b, d, h, w, c, la, lb, raw,
                                             dtype):
     err, _ = _run(harness, "xbwd", b, d, h, w, c, dtype, la, lb, raw, db, *_table(offsets))
     assert err <= {0: 1e-5, 1: 8e-3}[dtype]
+
+
+def _offsets_wmse(table):
+    """The (dy, dx) table of a WMSE case: "n4" the main path's 10 offsets
+    (neighbor 4 at shifts 1, 3, 5, 9, 27), "k1" its first, "n8" neighbor 8
+    at shifts 1 and 3 (diagonals with dx > 0)."""
+    from pixel_embedded_affinity_torch.ops import multi_offset
+
+    offs = {"n4": multi_offset([1, 3, 5, 9, 27], 4), "k1": multi_offset([1, 3, 5, 9, 27], 4)[:1],
+            "n8": multi_offset([1, 3], 8)}[table]
+    return [int(v) for o in offs for v in o]
+
+
+# (B, H, W, cross, layout of a, layout of b, soft mask, table): the loss-fused
+# WMSE kernels of csrc/affinity_wmse2d.cu (C = 16, float32); b's layout is
+# unused by the self form
+_WMSE_CASES = [
+    (2, 37, 29, 0, VIEW, VIEW, 0, "n4"),          # the self loss: ragged tiles, the NCHW view
+    (1, 20, 25, 0, VIEW, VIEW, 0, "n4"),          # H, W < 27: whole offsets outside
+    (2, 19, 35, 0, VIEW, VIEW, 1, "k1"),          # K = 1, a non-binary mask
+    (1, 21, 33, 0, VIEW, VIEW, 0, "n8"),          # diagonals with dx > 0
+    (2, 37, 29, 1, VIEW, VIEW, 0, "n4"),          # the cross loss: the step's views
+    (1, 37, 29, 1, VIEW, VIEW_SWAPPED, 1, "n4"),  # a teacher with H stride 1
+    (1, 20, 25, 1, VIEW, VIEW, 0, "n4"),
+    (2, 19, 35, 1, VIEW, VIEW, 1, "k1"),
+    (1, 21, 33, 1, CL, CL, 0, "n8"),              # channels-last both, plane-wise loads
+]
+_WMSE_IDS = ["self", "self-small", "self-k1-soft", "self-n8", "cross", "cross-swapped-soft",
+             "cross-small", "cross-k1-soft", "cross-cl-n8"]
+
+
+@pytest.mark.parametrize("b,h,w,cross,la,lb,soft,table", _WMSE_CASES, ids=_WMSE_IDS)
+def test_wmse_fwd_kernel_emulated(harness, b, h, w, cross, la, lb, soft, table):
+    """K2f/K3f: the affinities at 1e-5 (and exact zeros outside and at the
+    zero vector), the sums S relative at 1e-5, both as the wrapper sums the
+    block partials (float32) and as their float64 sum."""
+    proc = subprocess.run([harness, "wfwd", *map(str, (b, h, w, cross, la, lb, soft)),
+                           *map(str, _offsets_wmse(table))],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    m = re.search(r"abs_err (\S+) zeros_outside (\d) s_rel (\S+) partial_rel (\S+)", proc.stdout)
+    err, zeros, s_rel, p_rel = float(m.group(1)), m.group(2) == "1", float(m.group(3)), float(m.group(4))
+    assert err <= 1e-5 and zeros
+    assert s_rel <= 1e-5 and p_rel <= 1e-5
+
+
+# (B, H, W, cross, layout of a, layout of b, db, soft mask, table): K2b, and
+# K3b without db (the training step's call) and with it
+_WMSE_BWD_CASES = [
+    (2, 37, 29, 0, VIEW, VIEW, 0, 0, "n4"),
+    (1, 20, 25, 0, VIEW, VIEW, 0, 0, "n4"),
+    (2, 19, 35, 0, VIEW, VIEW, 0, 1, "k1"),
+    (1, 21, 33, 0, VIEW, VIEW, 0, 0, "n8"),
+    (2, 37, 29, 1, VIEW, VIEW, 0, 0, "n4"),
+    (2, 37, 29, 1, VIEW, VIEW, 1, 0, "n4"),
+    (1, 37, 29, 1, VIEW, VIEW_SWAPPED, 0, 1, "n4"),
+    (1, 37, 29, 1, VIEW, VIEW_SWAPPED, 1, 1, "n4"),
+    (1, 20, 25, 1, VIEW, VIEW, 1, 0, "n4"),
+    (2, 19, 35, 1, VIEW, VIEW, 0, 1, "k1"),
+    (2, 19, 35, 1, VIEW, VIEW, 1, 1, "k1"),
+    (1, 21, 33, 1, CL, CL, 1, 0, "n8"),
+]
+_WMSE_BWD_IDS = _WMSE_IDS[:4] + ["cross", "cross-db", "cross-swapped-soft",
+                                 "cross-swapped-soft-db", "cross-small-db", "cross-k1-soft",
+                                 "cross-k1-soft-db", "cross-cl-n8-db"]
+
+
+@pytest.mark.parametrize("b,h,w,cross,la,lb,db,soft,table", _WMSE_BWD_CASES, ids=_WMSE_BWD_IDS)
+def test_wmse_bwd_kernel_emulated(harness, b, h, w, cross, la, lb, db, soft, table):
+    """K2b/K3b: each gradient at 1e-5 of its largest, and at the zero
+    vector's pixel of its own largest."""
+    err, _ = _run(harness, "wbwd", b, h, w, cross, la, lb, db, soft, *_offsets_wmse(table))
+    assert err <= 1e-5
 
 
 # 40 random shifts and offsets, |dz| <= 5, |dy|, |dx| <= 12: far terms

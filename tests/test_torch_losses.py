@@ -14,6 +14,8 @@
   ``tests/test_aug_distributions.py`` tests the JAX package's.
 * AMSGrad against optax over 3 steps at atol 1e-7 (parameters kept in
   (-1, 1), where one float32 ulp is at most 6e-8).
+* On a CUDA card only (skipped here): K3b without db against its db form,
+  and db through autograd for a teacher that requires grad.
 """
 
 import numpy as np
@@ -39,7 +41,8 @@ from pixel_embedded_affinity_torch.data.device_aug import (
 from pixel_embedded_affinity_torch.ops import (
     cross_affinity_2d, fused_affinity_wmse_2d, fused_cross_affinity_wmse_2d, multi_offset)
 from pixel_embedded_affinity_torch.ops import losses as L
-from pixel_embedded_affinity_torch.ops.emb2aff_wmse_cuda import wmse2d_fwd
+from pixel_embedded_affinity_torch.ops.emb2aff_wmse_cuda import (
+    cross_affinity_wmse_2d_plain, cross_wmse2d_bwd, wmse2d_fwd)
 from pixel_embedded_affinity_torch.ops.targets import build_targets_2d, gen_affs
 from pixel_embedded_affinity_torch.train.optim import AMSGrad
 
@@ -112,6 +115,40 @@ def test_wmse_plain_matches_pallas_interpret(wmse_jax, idx):
         np.testing.assert_allclose(b.grad.numpy(), gb_j, atol=1e-5)
     else:
         assert b.grad is None
+
+
+def _rel_err(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="K3b runs only on a CUDA card")
+def test_cross_wmse_bwd_kernel_computes_db_only_when_asked():
+    """K3b without db gives the db form's da and no db; through autograd a
+    teacher that requires grad gets the plain version's db (1e-5 of the
+    largest gradient, chip_smoke's GRAD_RTOL; the two kernel forms are
+    compiled apart, so their da agree to rounding)."""
+    rng = np.random.default_rng(11)
+    b, h, w = 2, 37, 29
+    offsets = multi_offset([1, 3, 5, 9, 27], 4)
+    k = len(offsets)
+    # the model's NCHW output permuted to (B, H, W, C), as the step hands it
+    a, bb = (T(rng.normal(size=(b, 16, h, w)).astype(np.float32)).cuda().permute(0, 2, 3, 1)
+             for _ in range(2))
+    maps = [T(x).cuda() for x in _maps(rng, b, k, h, w)]
+    gs = T(((rng.random(k) + 0.5) / (b * w)).astype(np.float32)).cuda()
+    da, no_db = cross_wmse2d_bwd(a, bb, *maps, gs, offsets, need_db=False)
+    da_with, db = cross_wmse2d_bwd(a, bb, *maps, gs, offsets)
+    assert no_db is None and db is not None
+    assert _rel_err(da, da_with) <= 1e-6
+
+    got = [x.detach().clone().requires_grad_() for x in (a, bb)]
+    ref = [x.detach().clone().requires_grad_() for x in (a, bb)]
+    s, _ = fused_cross_affinity_wmse_2d(*got, *maps, offsets)
+    torch.sum(s * gs).backward()
+    s_ref, _ = cross_affinity_wmse_2d_plain(*ref, *maps, offsets)
+    torch.sum(s_ref * gs).backward()
+    for g, r in zip(got, ref):
+        assert _rel_err(g.grad, r.grad) <= 1e-5
 
 
 @pytest.mark.parametrize("neighbor", [4, 8])
