@@ -20,8 +20,8 @@ Phases, each of which exits nonzero when it fails:
      teachers with L2 flushed; K2f/K2b at the five training scales and
      K3f/K3b at full scale, on the NCHW view, with a zero vector, K3b
      without db (the training steps' form) and with it, K3's times also
-     on the swapped teacher; none of K2b and the two K3b forms may
-     spill registers;
+     on the swapped teacher; no form of K1f, K2f/K3f, K2b or K3b may
+     spill registers (K1f's registers printed beside its times);
   4. fixture: the port's model on the reference golden
      (tests/fixtures/resunet2d_deep.npz) with TF32 off, and the kernel's
      affinities against the golden's circular ones outside the wrap band;
@@ -398,6 +398,20 @@ def phase_build() -> float:
     return secs
 
 
+def no_spills(source: str) -> dict:
+    """Fail unless ptxas spilled nothing in every kernel of ``csrc/<source>``
+    (phase 2 printed them); returns {kernel: registers}."""
+    info = ptxas_info(source)
+    regs = {}
+    for name, nice in zip(info, demangled(info)):
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info[name])
+        check(spills is not None and spills.groups() == ("0", "0"),
+              f"{nice[:60]}: ptxas {info[name]}")
+        used = re.search(r"Used (\d+) registers", info[name])
+        regs[nice] = int(used.group(1)) if used else None
+    return regs
+
+
 def phase_kernels(main_embedding) -> dict:
     """K1 against its plain version on the card; returns its errors/times."""
     import torch
@@ -443,6 +457,12 @@ def phase_kernels(main_embedding) -> dict:
     check(err <= F32_ATOL, f"K1 error on the main path's embedding {err}")
     max_err = max(max_err, err)
 
+    # every form (f32/bf16 x C 8/16) spills nothing; its registers beside
+    # the times
+    regs = no_spills(K1_SOURCE)
+    print(f"[kernels] K1 registers (ptxas, no spills): {json.dumps(regs)}")
+    f32_regs = next((r for k, r in regs.items() if "<float, 16>" in k), None)
+
     # times with L2 flushed before each call; "view" is the main path's
     # layout (the model's NCHW output permuted to (B, H, W, C), no copy),
     # "nhwc" a contiguous channels-last tensor; the kernel's by CUDA graph
@@ -463,7 +483,8 @@ def phase_kernels(main_embedding) -> dict:
         t["bf16_bound_ms"] = affinity_bound(view.shape, len(offsets), 2)[0]
         times[b] = t
         print(f"[kernels] K1 time B={b} 544x544 C=16 K=10 (ms, L2 flushed, median of 20; "
-              f"the kernel by CUDA graph replay, view_event and plain by CUDA events): "
+              f"the kernel by CUDA graph replay, view_event and plain by CUDA events; "
+              f"{f32_regs} registers at f32, C=16): "
               f"{json.dumps(t)}")
     return {"max_abs_err": max_err, "times": times}
 
@@ -920,13 +941,9 @@ def phase_wmse_kernels() -> dict:
         gs = torch.rand((k,), generator=gen, device="cuda") / (2 * side) + 1e-4
         return es, (t, w, m), gs
 
-    # no spills in K2b and both forms of K3b (phase 2 printed their registers)
-    ptxas = ptxas_info(WMSE_SOURCE)
-    for name, nice in zip(ptxas, demangled(ptxas)):
-        if "wmse_bwd_kernel" in nice:
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas[name])
-            check(spills is not None and spills.groups() == ("0", "0"),
-                  f"{nice[:60]}: ptxas {ptxas[name]}")
+    # no spills in K2f/K3f, K2b and both forms of K3b (phase 2 printed
+    # their registers)
+    no_spills(WMSE_SOURCE)
 
     cases = [("K2", side, k) for side, k in TRAIN_SCALES] + [("K3", 544, 10)]
     for kind, side, k in cases:

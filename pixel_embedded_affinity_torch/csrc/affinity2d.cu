@@ -17,64 +17,64 @@
 // in and out). The arithmetic, about 3*C + 2*C*K flops per pixel, needs
 // ~1.6 us at the 67 TFLOP/s float32 rate, so bytes bound it.
 //
-// Design, the simple first version: one thread per output pixel, threads
-// of a warp along x so the output stores coalesce. The thread keeps its own
-// normalised vector in registers and, for each offset, loads the
-// neighbour's C values, normalises them and takes the dot. What it gives
-// up: every neighbour vector is loaded and normalised K times (the repeats
-// mostly hit L1/L2, not HBM), and no shared-memory tile with a 27-pixel
-// halo is staged.
+// Design. One thread per output pixel, 32x8 blocks with a warp along x,
+// so that a warp's load of one channel plane and its store of one output
+// plane are each contiguous in the NCHW view the callers pass. The thread
+// normalises its own vector once (load_unit: one reciprocal of the norm)
+// and, for each offset, gathers the neighbour's raw values v plane-wise
+// through the view's strides and takes a_k = <n, v> r with r = inv_norm(v),
+// one reciprocal square root (affinity_load.cuh): no value is divided. The
+// exact zeros need no branch: a zero neighbour gives <n, v> = 0, times r =
+// 1e12, and a zero own vector n = 0. The repeats of a neighbour's loads
+// (each pixel is gathered by K others) mostly hit L1/L2, not HBM; no
+// shared-memory tile is staged, since its halo would be 27 pixels and the
+// staged forms of the 3D kernels lost to this gather by 1.45-3.2x
+// (tools/affinity_zwalk.cu).
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (544x544, C=16, neighbor 4's 10
+// offsets, the NCHW view, L2 flushed, CUDA graph replay, median of 20;
+// tools/wmse_ab.py, two runs beside the first version, which divided
+// every value it normalised): float32 B=1 0.0344-0.0370 ms (before
+// 0.0490-0.0520; bound 0.0092), B=4 0.0912-0.0920 (0.1575-0.1601; bound
+// 0.0367), B=8 0.1668-0.1718 (0.2997-0.3090; bound 0.0735); bfloat16 by
+// the same factors, B=1 0.0341-0.0346 (0.0485-0.0518). ptxas: 42
+// registers in float32 at C=16, 40 in bfloat16, 32 at C=8, no spills
+// (before 56, 53, 40). 32x4 blocks tied at B=1 and 8 and lost 4% at B=4 in
+// float32; a cap of 40 registers (6 blocks an SM) spilled 4 bytes and lost
+// up to 11%: neither ships.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "affinity_load.cuh"
+
 namespace {
 
+using namespace affinity_load;
+
 constexpr int kMaxOffsets = 64;
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
 
 struct Offsets {
     int dy[kMaxOffsets];
     int dx[kMaxOffsets];
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
-
-// n[c] = v[c] / max(sqrt(sum v^2 + 1e-36), 1e-12), in float32
 template <typename T, int C>
-__device__ __forceinline__ void load_normalized(const T* __restrict__ v, int64_t sC, float* n) {
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-        n[c] = to_float(v[c * sC]);
-        ss += n[c] * n[c];
-    }
-    const float d = fmaxf(sqrtf(ss + 1e-36f), 1e-12f);
-#pragma unroll
-    for (int c = 0; c < C; ++c) n[c] = n[c] / d;
-}
-
-template <typename T, int C>
-__global__ void affinity2d_fwd_kernel(const T* __restrict__ e, T* __restrict__ out,
-                                      int H, int W, int K,
-                                      int64_t sB, int64_t sH, int64_t sW, int64_t sC,
-                                      Offsets off) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+affinity2d_fwd_kernel(const T* __restrict__ e, T* __restrict__ out, int H, int W, int K,
+                      int64_t sB, int64_t sH, int64_t sW, int64_t sC, Offsets off) {
+    const int x = blockIdx.x * kBlockX + threadIdx.x;
+    const int y = blockIdx.y * kBlockY + threadIdx.y;
     const int b = blockIdx.z;
     if (x >= W || y >= H) return;
 
     const T* eb = e + b * sB;
-    float n0[C];
-    load_normalized<T, C>(eb + y * sH + x * sW, sC, n0);
+    float n[C];
+    load_unit<T, C, false>(eb + y * sH + x * sW, sC, false, n);
 
     const int64_t plane = (int64_t)H * W;
     T* o = out + (int64_t)b * K * plane + (int64_t)y * W + x;
@@ -83,10 +83,9 @@ __global__ void affinity2d_fwd_kernel(const T* __restrict__ e, T* __restrict__ o
         const int xx = x + off.dx[k];
         float a = 0.f;
         if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-            float n1[C];
-            load_normalized<T, C>(eb + yy * sH + xx * sW, sC, n1);
-#pragma unroll
-            for (int c = 0; c < C; ++c) a += n0[c] * n1[c];
+            float v[C];
+            const float r = load_scaled<T, C, false>(eb + yy * sH + xx * sW, sC, false, v);
+            a = dot<C>(n, v) * r;
         }
         o[k * plane] = from_float<T>(a);
     }
@@ -96,8 +95,8 @@ template <typename T>
 cudaError_t launch(const void* e, void* out, int B, int H, int W, int C,
                    int64_t sB, int64_t sH, int64_t sW, int64_t sC,
                    const Offsets& off, int K, cudaStream_t stream) {
-    const dim3 block(32, 8);
-    const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, B);
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY, B);
     const T* ep = static_cast<const T*>(e);
     T* op = static_cast<T*>(out);
     switch (C) {

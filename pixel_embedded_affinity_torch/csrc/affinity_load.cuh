@@ -1,8 +1,11 @@
-// What the affinity kernels of affinity3d.cu, affinity_grad.cu and
-// affinity_wmse2d.cu share: float32 views of float32 and bfloat16 values,
-// the load of one voxel's C embedding values from a view with any strides,
-// and the arithmetic of a gathered neighbour (its raw values and one
-// reciprocal of its norm) and of the normalisation's VJP.
+// What the affinity kernels of affinity2d.cu, affinity3d.cu,
+// affinity_grad.cu and affinity_wmse2d.cu share: float32 views of float32
+// and bfloat16 values, the load of one voxel's C embedding values from a
+// view with any strides, and the arithmetic of a gathered neighbour (its
+// raw values and one reciprocal square root of its norm) and of the
+// normalisation's VJP. Through these helpers no affinity kernel of the
+// package divides an embedding value: a vector is scaled by one
+// reciprocal of its norm, a gathered neighbour's dot by inv_norm.
 
 #pragma once
 

@@ -43,32 +43,35 @@
 //
 // Design. One thread per pixel, 32x8 blocks along x so a warp's loads and
 // stores of one channel are contiguous in NCHW, bounds checks in place of
-// the TPU's zero pad and row-tile halo. The forward (K2f/K3f, unchanged
-// since its first version) reduces S inside the block (warp shuffles, then
-// one shared-memory row per warp) and normalises each gathered neighbour by
-// C divisions (load_normalized). The backward (K2b/K3b) gathers each
-// neighbour through L1/L2 as the 3D backwards of affinity_grad.cu do, with
+// the TPU's zero pad and row-tile halo. Every kernel gathers each
+// neighbour through L1/L2 as the 3D kernels of affinity_grad.cu do, with
 // their helpers (affinity_load.cuh): it loads the neighbour's raw values v
-// plane-wise through the view's strides, takes r = inv_norm(v), one
-// reciprocal square root, forms the affinity as <n_own, v> r and its
-// cotangent g, and adds (g r) v to dn, so no value is divided; the pixel's
-// own vector is normalised, and its VJP scaled, by one reciprocal each.
-// The self form gathers 2K neighbours, the cross form K without db (only
-// b at p + o_k) and 2K with it. A shared-memory tile was not built: its
-// halo would be 27 pixels, and the staged forms of the 3D kernels lost to
-// this gather by 1.45-3.2x (tools/affinity_zwalk.cu).
+// plane-wise through the view's strides and takes r = inv_norm(v), one
+// reciprocal square root, so its affinity is <n_own, v> r and no value is
+// divided; the pixel's own vector is normalised by one reciprocal. The
+// forward (K2f/K3f) writes the affinity and reduces S inside the block
+// (warp shuffles per offset, then one shared-memory row per warp). The
+// backward (K2b/K3b) forms the cotangent g and adds (g r) v to dn, and
+// scales the VJP by one reciprocal. The self form gathers 2K neighbours,
+// the cross form K without db (only b at p + o_k) and 2K with it. A
+// shared-memory tile was not built: its halo would be 27 pixels, and the
+// staged forms of the 3D kernels lost to this gather by 1.45-3.2x
+// (tools/affinity_zwalk.cu).
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (B=2 544x544, C=16, K=10, float32,
 // the model's NCHW output permuted, L2 flushed, CUDA graph replay, median
-// of 20; tools/wmse_ab.py, six runs, three of them beside the first
-// version, which divided every value it normalised and always wrote db):
-// K2b 0.1286-0.1341 ms (0.2195-0.2252 before; bound 0.0438), K3b without
-// db 0.1005-0.1053 (bound 0.0551; 0.1154 uncapped at 77 registers), K3b
-// with db 0.2064-0.2132 (0.3398-0.3423 before; bound 0.0664); K2f and
-// K3f, unchanged, 0.1302-0.1397. In the training steps (torch.profiler,
-// chip_smoke.py): K3b 0.0969-0.0971 ms at 544x544 (0.3370 before) and
-// 0.0239-0.0253 at 256x256 (0.0760). A teacher with H stride 1 costs K3b 0.3986 without
-// db: each warp load of a channel then touches 32 sectors.
+// of 20; tools/wmse_ab.py beside the first versions, which divided every
+// value they normalised and always wrote db): K2f 0.0985-0.1020 ms
+// (0.1297-0.1328 before; bound 0.0396), K3f 0.1102-0.1120 (0.1351-0.1391;
+// bound 0.0509), both at 48 registers (64 before), no spills; capped at 40
+// (6 blocks an SM) they spilled nothing and tied, so no cap ships. K2b
+// 0.1286-0.1341 (0.2195-0.2252 before; bound 0.0438), K3b without db
+// 0.1005-0.1053 (bound 0.0551; 0.1154 uncapped at 77 registers), K3b with
+// db 0.2064-0.2132 (0.3398-0.3423 before; bound 0.0664). In the training
+// steps (torch.profiler, chip_smoke.py): K3b 0.0969-0.0971 ms at 544x544
+// (0.3370 before) and 0.0239-0.0253 at 256x256 (0.0760). A teacher with H
+// stride 1 costs K3b 0.3986 without db: each warp load of a channel then
+// touches 32 sectors.
 
 #include <cstdint>
 
@@ -105,29 +108,6 @@ __device__ __forceinline__ bool inside(int y, int x, int H, int W) {
     return y >= 0 && y < H && x >= 0 && x < W;
 }
 
-// n[c] = v[c] / max(sqrt(sum v^2 + 1e-36), 1e-12); returns the sqrt
-__device__ __forceinline__ float load_normalized(const float* __restrict__ v, int64_t sC, float* n) {
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-        n[c] = v[c * sC];
-        ss += n[c] * n[c];
-    }
-    const float norm = sqrtf(ss + 1e-36f);
-    const float d = fmaxf(norm, 1e-12f);
-#pragma unroll
-    for (int c = 0; c < C; ++c) n[c] = n[c] / d;
-    return norm;
-}
-
-// the forward's dot, in one sum
-__device__ __forceinline__ float dot_serial(const float* u, const float* v) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) s += u[c] * v[c];
-    return s;
-}
-
 __device__ __forceinline__ float wmse_grad(float gs, float a, float t, float w, float m) {
     const float d = a * m - t * m;
     return gs * 2.0f * w * m * d;
@@ -147,7 +127,7 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
     float na[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) na[c] = 0.f;
-    if (in_img) load_normalized(a.at(bi, y, x), a.sC, na);
+    if (in_img) load_unit<float, C, false>(a.at(bi, y, x), a.sC, false, na);
 
     const int64_t plane = (int64_t)H * W;
     const int64_t pix = (int64_t)bi * K * plane + (int64_t)y * W + x;
@@ -160,9 +140,9 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
             const int xx = x + off.dx[k];
             float v = 0.f;
             if (inside(yy, xx, H, W)) {
-                float nb[C];
-                load_normalized(b.at(bi, yy, xx), b.sC, nb);
-                v = dot_serial(na, nb);
+                float vb[C];
+                const float r = load_scaled<float, C, false>(b.at(bi, yy, xx), b.sC, false, vb);
+                v = dot<C>(na, vb) * r;
             }
             const int64_t i = pix + k * plane;
             affs[i] = v;

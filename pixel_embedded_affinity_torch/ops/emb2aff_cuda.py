@@ -51,10 +51,9 @@ def cross_affinity_2d_plain(a: torch.Tensor, b: torch.Tensor, offsets) -> torch.
     return cross_affinity_2d(a.float(), b.float(), offsets).to(a.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    from .. import cuda_build
-
-    lib = cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the ctypes signature of a build of SOURCE's C entry, once;
+    returns lib."""
     fn = lib.affinity2d_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -64,8 +63,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _affinity_2d_fwd(embedding: torch.Tensor, offsets) -> torch.Tensor:
-    """K1f on a CUDA (B, H, W, C) view."""
+def _lib() -> ctypes.CDLL:
+    from .. import cuda_build
+
+    return bind(cuda_build.load(SOURCE))
+
+
+def _affinity_2d_fwd(embedding: torch.Tensor, offsets, lib=None) -> torch.Tensor:
+    """K1f on a CUDA (B, H, W, C) view, launched from the package's build
+    or from ``lib``, another build of SOURCE's C interface (``bind``)."""
     if embedding.dtype not in _DTYPES:
         raise TypeError(f"dtype {embedding.dtype} not supported (float32, bfloat16)")
     b, h, w, c = embedding.shape
@@ -78,7 +84,7 @@ def _affinity_2d_fwd(embedding: torch.Tensor, offsets) -> torch.Tensor:
     out = torch.empty((b, k, h, w), dtype=embedding.dtype, device=embedding.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     stream = torch.cuda.current_stream(embedding.device).cuda_stream
     with torch.cuda.device(embedding.device):
         err = lib.affinity2d_fwd(

@@ -1,8 +1,9 @@
-// One case of the port's conv3x3, s2d_block, affinity3d or affinity_grad
-// kernel on the CPU stand-in, against a float64 reference on the same
-// (float32 or bf16-rounded) inputs:
+// One case of the port's conv3x3, s2d_block, affinity2d, affinity3d,
+// affinity_grad or affinity_wmse2d kernel on the CPU stand-in, against a
+// float64 reference on the same (float32 or bf16-rounded) inputs:
 //   harness conv B H W Cin Cout off relu dtype
 //   harness k8 B H W c dtype K0 [K1]
+//   harness k1f B H W C dtype layout dy dx [dy dx ...]
 //   harness k5f B D H W C dtype layout [shift...]
 //   harness bwd B D H W C dtype layout raw [oz oy ox ...]
 //   harness xfwd B D H W C dtype layout_a layout_b [oz oy ox ...]
@@ -14,16 +15,17 @@
 // embedding, 1 the (B, C, D, H, W) one seen through permuted strides, 2
 // and 3 those two stored with H and W swapped, (B, D, W, H, C) and
 // (B, C, D, W, H), as a transposed teacher; no shifts or offsets: the 3D
-// shift table; xbwd's db 0 skips the second input's gradient; wfwd and
-// wbwd: the loss-fused WMSE kernels of affinity_wmse2d.cu, float32, C =
-// 16, D = 1, the self form (cross 0, one embedding) or the cross one, a
-// mask of 0s and 1s or, with soft, uniform in [0, 1); wfwd also prints the
-// largest relative error of the per-offset sums S). Prints the
-// largest error relative to the largest reference output (k5f, xfwd: the
-// largest absolute error), and whether every element that must be exactly
-// 0 is: outside the canvas mode's rectangle, or an affinity whose
-// neighbour lies outside or that touches the zero vector the affinity
-// cases put at (0, 1, 3, 5).
+// shift table; k1f: the 2D affinity forward at D = 1; xbwd's db 0 skips
+// the second input's gradient; wfwd and wbwd: the loss-fused WMSE kernels
+// of affinity_wmse2d.cu, float32, C = 16, D = 1, the self form (cross 0,
+// one embedding) or the cross one, a mask of 0s and 1s or, with soft,
+// uniform in [0, 1); wfwd also prints the largest relative error of the
+// per-offset sums S). Prints the largest error relative to the largest
+// reference output (k1f, k5f, xfwd: the largest absolute error), and
+// whether every element that must be exactly 0 is: outside the canvas
+// mode's rectangle, or an affinity whose neighbour lies outside or that
+// touches the zero vector the affinity cases put at (0, 1, 3, 5) (at
+// (0, 0, 3, 5) where D = 1).
 #include <algorithm>
 #include <cmath>
 #include <cstdio>
@@ -37,6 +39,10 @@
 extern "C" int conv3x3_fwd(const void* x, const void* w, const float* scale, const float* shift,
                            void* out, int dtype, int B, int H, int W, int Cin, int Cout, int off,
                            int r0, int r1, int c0, int c1, int relu, void* stream);
+// weak: the z-walk forms (tools/affinity_zwalk.cu) have no 2D kernel
+extern "C" __attribute__((weak)) int affinity2d_fwd(
+    const void* e, void* out, int dtype, int B, int H, int W, int C, int64_t sB, int64_t sH,
+    int64_t sW, int64_t sC, const int32_t* offsets, int K, void* stream);
 extern "C" int affinity3d_fwd(const void* e, void* out, int dtype, int B, int D, int H, int W,
                               int C, int64_t sB, int64_t sD, int64_t sH, int64_t sW, int64_t sC,
                               const int32_t* shifts, int K, void* stream);
@@ -247,6 +253,41 @@ struct Embedding {
         return b == zero[0] && z == zero[1] && y == zero[2] && x == zero[3];
     }
 };
+
+// a_k(p) = <n(p), n(p + o_k)>, 0 outside, against affinity2d_fwd (D = 1,
+// offsets (dy, dx))
+static int k1f(int B, int H, int W, int C, int dt, int layout, std::vector<int> o) {
+    if (!affinity2d_fwd) { std::printf("no 2D kernel\n"); return 1; }
+    const int K = (int)o.size() / 2;
+    Embedding e(B, 1, H, W, C, dt, layout);
+    Tensor out((size_t)B * K * H * W, dt);
+    const int err = affinity2d_fwd(e.t.ptr(), out.ptr(), dt, B, H, W, C, e.s[0], e.s[2], e.s[3],
+                                   e.s[4], o.data(), K, nullptr);
+    if (err) { std::printf("launch error %d\n", err); return 1; }
+    double worst = 0;
+    bool zeros = true;
+    std::vector<double> n0, n1;
+    for (int b = 0; b < B; ++b)
+        for (int y = 0; y < H; ++y)
+            for (int x = 0; x < W; ++x) {
+                e.vec(b, 0, y, x, false, n0);
+                for (int k = 0; k < K; ++k) {
+                    const int yy = y + o[2 * k], xx = x + o[2 * k + 1];
+                    const bool in = e.inside(0, yy, xx);
+                    double a = 0;
+                    if (in) {
+                        e.vec(b, 0, yy, xx, false, n1);
+                        for (int c = 0; c < C; ++c) a += n0[c] * n1[c];
+                    }
+                    const float got = out.at((((size_t)b * K + k) * H + y) * W + x);
+                    if (!in || e.is_zero(b, 0, y, x) || e.is_zero(b, 0, yy, xx))
+                        zeros &= got == 0.f;
+                    worst = std::max(worst, std::fabs(got - a));
+                }
+            }
+    std::printf("abs_err %.6e zeros_outside %d\n", worst, (int)zeros);
+    return 0;
+}
 
 static const int kShifts3D[12] = {1, 1, 1, 2, 3, 3, 3, 9, 9, 4, 27, 27};
 
@@ -608,6 +649,8 @@ int main(int argc, char** argv) {
     if (argc >= 10 && std::string(argv[1]) == "conv") return conv(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7]);
     if (argc >= 8 && std::string(argv[1]) == "k8")
         return k8(a[0], a[1], a[2], a[3], a[4], std::vector<int>(a.begin() + 5, a.end()));
+    if (argc >= 10 && std::string(argv[1]) == "k1f")
+        return k1f(a[0], a[1], a[2], a[3], a[4], a[5], std::vector<int>(a.begin() + 6, a.end()));
     if (argc >= 9 && std::string(argv[1]) == "k5f")
         return k5f(a[0], a[1], a[2], a[3], a[4], a[5], a[6], std::vector<int>(a.begin() + 7, a.end()));
     if (argc >= 10 && std::string(argv[1]) == "bwd")
@@ -623,6 +666,7 @@ int main(int argc, char** argv) {
         return wbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7],
                     std::vector<int>(a.begin() + 8, a.end()));
     std::fprintf(stderr, "usage: harness conv B H W Cin Cout off relu dtype | k8 B H W c dtype K0 [K1]"
+                         " | k1f B H W C dtype layout dy dx [dy dx...]"
                          " | k5f B D H W C dtype layout [shift...] | bwd B D H W C dtype layout raw [oz oy ox...]"
                          " | xfwd B D H W C dtype la lb [oz oy ox...] | xbwd B D H W C dtype la lb raw db [oz oy ox...]"
                          " | wfwd B H W cross la lb soft dy dx [dy dx...] | wbwd B H W cross la lb db soft dy dx [dy dx...]\n");

@@ -1,7 +1,8 @@
 """The port's tensor-core kernels, ``csrc/conv3x3.cu`` (K7/K9a/K9b) and
-``csrc/s2d_block.cu`` (K8), and its affinity kernels, ``csrc/affinity3d.cu``
-(K5f), ``csrc/affinity_grad.cu`` (K5b, K1b at D = 1, the cross kernels)
-and ``csrc/affinity_wmse2d.cu`` (the loss-fused K2f/K2b, K3f/K3b), which
+``csrc/s2d_block.cu`` (K8), and its affinity kernels, ``csrc/affinity2d.cu``
+(K1f), ``csrc/affinity3d.cu`` (K5f), ``csrc/affinity_grad.cu`` (K5b, K1b at
+D = 1, the cross kernels) and ``csrc/affinity_wmse2d.cu`` (the loss-fused
+K2f/K2b, K3f/K3b), which
 gather each neighbour through the cache, one thread a voxel or pixel,
 compiled with g++ and run on the CPU against a float64 reference:
 ``tests/cuda_emu`` stands in for the CUDA runtime (each CUDA thread a
@@ -17,8 +18,8 @@ K8 inputs and the canvas mode's exact zeros; float32 at the card's 1e-5
 gate, bf16 at 8e-3. The affinity kernels: ragged tiles, D < 4 and H, W <
 27 (whole channels outside), a zero vector, C = 8, the permuted NCDHW
 view, other shift and offset tables (negative, zero, diagonal, far z),
-neighbor 4 and 8 at D = 1, the raw form, bf16; K5f at the card's 1e-6
-gate and its exact zeros, the backward at 1e-5 of the largest gradient
+neighbor 4 and 8 at D = 1, the raw form, bf16; K1f at the card's 1e-5
+gate (64 random offsets too), K5f at its 1e-6, both with their exact zeros, the backward at 1e-5 of the largest gradient
 (and at the zero vector's voxel, of its own). The same cases, and a walk
 over z chunks and tables longer than the staged cotangents, hold the
 staged z-walk forms of the two affinity kernels in
@@ -98,7 +99,7 @@ def _build(out, affinity_sources):
 def harness(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("cuda_emu"),
                   [os.path.join(cuda_build.CSRC, f"{n}.cu")
-                   for n in ("affinity3d", "affinity_grad", "affinity_wmse2d")])
+                   for n in ("affinity2d", "affinity3d", "affinity_grad", "affinity_wmse2d")])
 
 
 @pytest.fixture(scope="module")
@@ -254,15 +255,40 @@ def test_cross_affinity_bwd_kernel_emulated(harness, b, d, h, w, c, la, lb, raw,
     assert err <= {0: 1e-5, 1: 8e-3}[dtype]
 
 
-def _offsets_wmse(table):
-    """The (dy, dx) table of a WMSE case: "n4" the main path's 10 offsets
+# 64 random 2D offsets (K1f's most), |dy|, |dx| <= 12, either sign
+_MANY_2D = np.random.default_rng(5).integers(-12, 13, size=(64, 2)).tolist()
+
+
+def _table_2d(table):
+    """The (dy, dx) table of a 2D case: "n4" the main path's 10 offsets
     (neighbor 4 at shifts 1, 3, 5, 9, 27), "k1" its first, "n8" neighbor 8
-    at shifts 1 and 3 (diagonals with dx > 0)."""
+    at shifts 1 and 3 (diagonals with dx > 0), "many" 64 random ones."""
     from pixel_embedded_affinity_torch.ops import multi_offset
 
     offs = {"n4": multi_offset([1, 3, 5, 9, 27], 4), "k1": multi_offset([1, 3, 5, 9, 27], 4)[:1],
-            "n8": multi_offset([1, 3], 8)}[table]
+            "n8": multi_offset([1, 3], 8), "many": _MANY_2D}[table]
     return [int(v) for o in offs for v in o]
+
+
+# (B, H, W, C, layout, table) of K1f, each with a zero vector at (0, 3, 5)
+# whose affinities must be exactly 0, as must those reaching outside
+_K1F_CASES = [
+    (2, 37, 29, 16, VIEW, "n4"),   # the NCHW view, ragged tiles
+    (1, 20, 25, 16, VIEW, "n4"),   # H, W < 27: whole offsets outside
+    (1, 21, 33, 8, VIEW, "n4"),    # C = 8
+    (1, 21, 33, 16, VIEW, "n8"),   # neighbor 8's diagonals
+    (2, 19, 35, 16, CL, "n4"),     # contiguous channels-last, loaded plane-wise
+    (1, 23, 31, 16, VIEW, "many"),
+]
+_K1F_IDS = ["view", "small", "c8", "n8", "cl", "many"]
+
+
+@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c,layout,table", _K1F_CASES, ids=_K1F_IDS)
+def test_affinity2d_kernel_emulated(harness, b, h, w, c, layout, table, dtype):
+    err, zeros = _run(harness, "k1f", b, h, w, c, dtype, layout, *_table_2d(table))
+    assert err <= _TOL[dtype]
+    assert zeros
 
 
 # (B, H, W, cross, layout of a, layout of b, soft mask, table): the loss-fused
@@ -289,7 +315,7 @@ def test_wmse_fwd_kernel_emulated(harness, b, h, w, cross, la, lb, soft, table):
     zero vector), the sums S relative at 1e-5, both as the wrapper sums the
     block partials (float32) and as their float64 sum."""
     proc = subprocess.run([harness, "wfwd", *map(str, (b, h, w, cross, la, lb, soft)),
-                           *map(str, _offsets_wmse(table))],
+                           *map(str, _table_2d(table))],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     m = re.search(r"abs_err (\S+) zeros_outside (\d) s_rel (\S+) partial_rel (\S+)", proc.stdout)
@@ -323,7 +349,7 @@ _WMSE_BWD_IDS = _WMSE_IDS[:4] + ["cross", "cross-db", "cross-swapped-soft",
 def test_wmse_bwd_kernel_emulated(harness, b, h, w, cross, la, lb, db, soft, table):
     """K2b/K3b: each gradient at 1e-5 of its largest, and at the zero
     vector's pixel of its own largest."""
-    err, _ = _run(harness, "wbwd", b, h, w, cross, la, lb, db, soft, *_offsets_wmse(table))
+    err, _ = _run(harness, "wbwd", b, h, w, cross, la, lb, db, soft, *_table_2d(table))
     assert err <= 1e-5
 
 
