@@ -5,7 +5,8 @@ The on-disk layout is the reference's: ``images/<name>.tif`` (16-bit
 grayscale), ``masks_instance/<name>.png`` (instance ids) and
 ``metadata/{training,validation,test}.txt`` (one ``<name>.png`` per line).
 Images are min-max normalised to [0, 1] when read; files are read with cv2,
-imported where it is used. ``synthesize_nuclei`` makes (image, label) pairs
+imported where it is used; :func:`decoded_pairs` takes the files as cv2
+decodes them in their place. ``synthesize_nuclei`` makes (image, label) pairs
 with no file and no cv2, the same kind of blobs as the JAX package's
 ``synthesize``; the datasets and the device sampler
 (:mod:`.device_data`) take such pairs in place of the files.
@@ -32,27 +33,43 @@ def split_names(data_folder: str, mode: str = "train") -> list[str]:
         return [x.strip()[:-4] for x in f if x.strip()]
 
 
-def load_pair(data_folder: str, name: str) -> tuple[np.ndarray, np.ndarray]:
-    """(image float32 (H, W) min-max normalised to [0, 1], label int32)."""
-    import cv2
-
-    path = os.path.join(data_folder, "images", name + ".tif")
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(path)
+def decoded_pair(img: np.ndarray, label: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """An image and its instance mask as cv2 decodes them
+    (``cv2.IMREAD_UNCHANGED``) -> (image float32 (H, W) min-max normalised
+    to [0, 1], label int32)."""
     img = img.astype(np.float32)
     img = (img - img.min()) / max(img.max() - img.min(), 1e-8)
-    path = os.path.join(data_folder, "masks_instance", name + ".png")
-    label = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if label is None:
-        raise FileNotFoundError(path)
     if label.ndim == 3:
         label = label[..., 0]
     return img, label.astype(np.int32)
 
 
+def load_pair(data_folder: str, name: str) -> tuple[np.ndarray, np.ndarray]:
+    """(image float32 (H, W) min-max normalised to [0, 1], label int32)."""
+    import cv2
+
+    decoded = []
+    for path in (os.path.join(data_folder, "images", name + ".tif"),
+                 os.path.join(data_folder, "masks_instance", name + ".png")):
+        a = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if a is None:
+            raise FileNotFoundError(path)
+        decoded.append(a)
+    return decoded_pair(*decoded)
+
+
 def load_pairs(data_folder: str, mode: str = "train") -> list:
     return [load_pair(data_folder, n) for n in split_names(data_folder, mode)]
+
+
+def decoded_pairs(names, images, labels, split) -> list:
+    """The pairs of a split from the files as cv2 decodes them:
+    ``images[i]`` is ``names[i]``'s ``images/<name>.tif``, ``labels[i]`` its
+    ``masks_instance/<name>.png``, ``split`` the names that
+    ``metadata/<split>.txt`` lists, in its order; as :func:`load_pairs`."""
+    index = {str(n): i for i, n in enumerate(names)}
+    return [decoded_pair(np.asarray(images[index[str(n)]]), np.asarray(labels[index[str(n)]]))
+            for n in split]
 
 
 class BBBCValidation:

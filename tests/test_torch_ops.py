@@ -181,6 +181,8 @@ def test_port_sources_do_not_import_jax():
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|pixel_embedded_affinity_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
+              if n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "pixel_embedded_affinity_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
