@@ -148,10 +148,28 @@ Phases, each of which exits nonzero when it fails:
      their counts;
      tools/quality_card.py runs the same gates on the plain path and at
      the presets' full width;
- 20. one JSON line listing each kernel: launches, error, times, bound,
+ 20. bf16 (model.dtype "bfloat16", model.bf16_tiled_infer): K2f, K2b, K3f
+     and K3b (without db and with it) in bfloat16 against their plain
+     versions at B=2 544x544, C=16, K=10 (affinities and gradients at
+     8e-3, S at 1e-5 relative), timed as in 3 beside the bound at
+     bfloat16 bytes, no bfloat16 form spilling; the full-width cvppp,
+     bbbc039v1 and ac3ac4 presets trained 8 steps each in bfloat16 from the
+     device-resident samplers (as phases 6, 10 and 11), with validation
+     and a float32 checkpoint, every kernel's launches read around each
+     run and held to its count, one step's device time by group and idle
+     share, the bfloat16 kernels it ran, the 3D step's peak memory, and the
+     first step's loss against float32's on the same weights and batch
+     (2e-2); CVPPP serving in bfloat16 at B=1 and B=4 (ms/img; affinities
+     within max 0.05 and mean 0.005 of float32's, the JAX package's bar)
+     and through run_inference_2d; the tiled 3D predictor with
+     bf16_tiled_infer (ms per batch of 4 tiles; a 20x256x256 canvas against
+     float32's at the same bar); the BBBC quality gate in bfloat16 through
+     the kernels, its floors held;
+ 21. one JSON line listing each kernel: launches, error, times, bound,
      and how the times were taken (CUDA graph replay; for the affinity
-     kernels CUDA events around the eager call beside);
- 21. the last line: {"ok": true, "device": {...}}.
+     kernels CUDA events around the eager call beside; K2f/K2b/K3f/K3b
+     with their bfloat16 forms' bf16_* fields and launches);
+ 22. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -189,11 +207,11 @@ WMSE_REPLACES = {
     "K3f": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:1009",
     "K3b": "pixel_embedded_affinity_tpu/ops/emb2aff_pallas.py:1096",
 }
-# the CUDA kernels of K2f/K3f (one) and K2b/K3b: wmse_bwd_kernel<kSelf, kDb>,
-# K2b <true, false>, K3b without db (the training steps') <false, false>,
-# with db <false, true>
+# the CUDA kernels of K2f/K3f (one) and K2b/K3b: wmse_bwd_kernel<T, kSelf,
+# kDb>, K2b <T, true, false>, K3b without db (the training steps') <T,
+# false, false>, with db <T, false, true>; T float or __nv_bfloat16
 WMSE_KERNELS = ("wmse_fwd_kernel", "wmse_bwd_kernel")
-K3B_KERNEL = "wmse_bwd_kernel<false, false>"
+STORAGE = {"float32": "float", "bfloat16": "__nv_bfloat16"}
 WMSE_NAMES = {"K2f": "affinity_wmse2d_fwd", "K2b": "affinity_wmse2d_bwd",
               "K3f": "cross_affinity_wmse2d_fwd", "K3b": "cross_affinity_wmse2d_bwd"}
 # K2/K3 against their plain versions: affinities at F32_ATOL; the sums S
@@ -906,20 +924,21 @@ def phase_k4f() -> dict:
     return res
 
 
-def wmse_bound(b: int, side: int, c: int, k: int, n_in: int, n_out: int):
+def wmse_bound(b: int, side: int, c: int, k: int, n_in: int, n_out: int, itemsize: int = 4):
     """Least time for K2/K3 on these inputs. Bytes: each embedding read
-    once, t/w/m read once, and the affinities (forward, n_out = 0) or the
-    gradients (backward, n_out embeddings) written once. Operations:
+    once (``itemsize`` bytes a value, float32 t/w/m read once), and the
+    affinities (forward, n_out = 0) or the gradients (backward, n_out
+    embeddings) written once in the embeddings' type. Operations:
     normalising each input vector once (3C), per offset a dot (2C) and the
     loss term (6) forward, or the dot, the cotangent (7) and two C-wide
     multiply-adds (4C) backward, and the normalisation's VJP (5C) per
     gradient; at the float32 rate."""
     px = b * side * side
     if n_out == 0:
-        nbytes = 4 * px * (c * n_in + 4 * k)
+        nbytes = px * (itemsize * (c * n_in + k) + 4 * 3 * k)
         ops = px * (3 * c * n_in + k * (2 * c + 6))
     else:
-        nbytes = 4 * px * (c * n_in + 3 * k + c * n_out)
+        nbytes = px * (itemsize * c * (n_in + n_out) + 4 * 3 * k)
         ops = px * (3 * c * n_in + k * (6 * c + 7) + 5 * c * n_out)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
@@ -1063,14 +1082,15 @@ def phase_wmse_kernels() -> dict:
     return res
 
 
-def check_k3b_form(rows, label: str):
+def check_k3b_form(rows, label: str, dtype: str = "float32"):
     """Print the instantiation of K3b that a profiled training step ran and
-    fail unless it is the one without db, once a step (the teacher is
-    detached)."""
+    fail unless it is the one without db of ``dtype``'s storage, once a
+    step (the teacher is detached)."""
     forms = [(calls, re.search(r"wmse_bwd_kernel<[^>]*>", name).group(0))
-             for _, calls, name in rows if "wmse_bwd_kernel<false" in name]
+             for _, calls, name in rows if re.search(r"wmse_bwd_kernel<\w+, false", name)]
     print(f"[profile] {label}: K3b ran " + "; ".join(f"{f} x{c} a step" for c, f in forms))
-    check(forms == [(1, K3B_KERNEL)], f"{label}: K3b ran {forms}, not {K3B_KERNEL} once a step")
+    k3b = f"wmse_bwd_kernel<{STORAGE[dtype]}, false, false>"
+    check(forms == [(1, k3b)], f"{label}: K3b ran {forms}, not {k3b} once a step")
 
 
 class LeafSet:
@@ -1758,19 +1778,37 @@ def _train3d_launchers():
             "K6b": cross_affinity_bwd}
 
 
+def train3d_data():
+    """((training arrays, validation volume), validation tile batches) of
+    the 3D training phases: the whole synthetic TRAIN3D_VOLUME as the
+    training split, through the loader, and a synthetic VALID3D_VOLUME."""
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import AC3AC4ValidVolume, synthesize_volume
+    from pixel_embedded_affinity_torch.data.device_data import load_ac3ac4_arrays
+    from pixel_embedded_affinity_torch.parallel import tile_grid
+    from pixel_embedded_affinity_torch.train import valid_geometry_3d
+
+    crop = load_config("ac3ac4").data.crop_size
+    arrays = load_ac3ac4_arrays("", train_split=TRAIN3D_VOLUME[0], crop_z=crop[0],
+                                arrays=synthesize_volume(*TRAIN3D_VOLUME, n_cells=TRAIN3D_CELLS,
+                                                         seed=SEED + 3))
+    valid = AC3AC4ValidVolume("", arrays=synthesize_volume(*VALID3D_VOLUME,
+                                                           n_cells=VALID3D_CELLS, seed=SEED + 4))
+    stride, pad = valid_geometry_3d(crop)
+    n_tiles = len(tile_grid(tuple(np.add(VALID3D_VOLUME, np.multiply(pad, 2))), crop, stride))
+    return (arrays, valid), -(-n_tiles // 4)
+
+
 def phase_train_3d() -> dict:
     """The 3D training main path; returns each kernel's launches in it."""
     import torch
 
     from pixel_embedded_affinity_torch.config import load_config
-    from pixel_embedded_affinity_torch.data import AC3AC4ValidVolume, synthesize_volume
     from pixel_embedded_affinity_torch.data.device_data import (
-        load_ac3ac4_arrays, sample_ac3ac4_batch, sampler_generator)
+        sample_ac3ac4_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
-    from pixel_embedded_affinity_torch.parallel import tile_grid
     from pixel_embedded_affinity_torch.train import (
-        TrainStep3D, init_state, latest_checkpoint, load_checkpoint, restore, train,
-        valid_geometry_3d)
+        TrainStep3D, init_state, latest_checkpoint, load_checkpoint, restore, train)
 
     out = os.path.join(REPO, "build", "chip_smoke_train3d")
     shutil.rmtree(out, ignore_errors=True)
@@ -1779,21 +1817,12 @@ def phase_train_3d() -> dict:
         "save_path": os.path.join(out, "models")})
     t0 = time.perf_counter()
     check(cfg.data.device_resident, "ac3ac4 preset: device_resident")
-    # the whole synthetic volume as the training split, through the loader
-    arrays = load_ac3ac4_arrays("", train_split=TRAIN3D_VOLUME[0], crop_z=cfg.data.crop_size[0],
-                                arrays=synthesize_volume(*TRAIN3D_VOLUME, n_cells=TRAIN3D_CELLS,
-                                                         seed=SEED + 3))
-    valid = AC3AC4ValidVolume("", arrays=synthesize_volume(*VALID3D_VOLUME,
-                                                           n_cells=VALID3D_CELLS, seed=SEED + 4))
-    stride, pad = valid_geometry_3d(cfg.data.crop_size)
-    n_tiles = len(tile_grid(tuple(np.add(VALID3D_VOLUME, np.multiply(pad, 2))),
-                            cfg.data.crop_size, stride))
-    valid_batches = -(-n_tiles // 4)
+    (arrays, valid), valid_batches = train3d_data()
     print(f"[train3d] ac3ac4 UNetPNIEmbeddingDeep filters {cfg.model.filters} emd "
           f"{cfg.model.emd}, B={cfg.train.batch_size} crops {cfg.data.crop_size} from the "
           f"device-resident sampler (margin {cfg.data.padding_3d}) over a synthetic "
           f"{TRAIN3D_VOLUME} volume, {TRAIN_STEPS} steps; validation on a synthetic "
-          f"{VALID3D_VOLUME} volume (AC4's is 20x1024x1024): {n_tiles} tiles, "
+          f"{VALID3D_VOLUME} volume (AC4's is 20x1024x1024): "
           f"{valid_batches} batches, decoders {cfg.train.valid_decoders}; volumes made in "
           f"{time.perf_counter() - t0:.2f} s; convs in float32 (TF32 off)")
 
@@ -3132,11 +3161,12 @@ GATES = {
 
 
 def gate_config(name: str, save_path: str, steps: int | None = None, filters=None,
-                use_pallas: bool = True):
+                use_pallas: bool = True, dtype: str | None = None):
     """The preset ``name`` with the JAX gate's overrides: ``steps`` steps
     (the gate's by default) and one validation after the last, the gate's
     seed and filters (or ``filters``); ``use_pallas`` False is the plain
-    path."""
+    path; ``dtype``, when given, the model's compute dtype (``model.dtype``;
+    the preset's "auto" else)."""
     from pixel_embedded_affinity_torch.config import load_config
 
     g = GATES[name]
@@ -3151,6 +3181,8 @@ def gate_config(name: str, save_path: str, steps: int | None = None, filters=Non
     else:
         over = {"train": {**train, "batch_size": 8}, "data": {"size": 128},
                 "model": {"filters": filters or GATE_FILTERS_2D}}
+    if dtype:
+        over["model"]["dtype"] = dtype
     return load_config(name, {**over, "save_path": save_path})
 
 
@@ -3247,19 +3279,22 @@ def batch_stats_reading(cfg, model, valid) -> dict:
 
 
 def run_gate(name: str, fixture, device: str = "cuda", steps: int | None = None,
-             filters=None, use_pallas: bool = True, out: str | None = None) -> dict:
+             filters=None, use_pallas: bool = True, out: str | None = None,
+             dtype: str | None = None) -> dict:
     """Train gate ``name`` (:func:`gate_config`, :func:`gate_data`) on
-    ``device`` and validate once after the last step; returns the run's
-    reading: the gate, its filters, the path, steps, seconds of train(),
+    ``device`` in ``dtype`` and validate once after the last step; returns
+    the run's reading: the gate, its filters, the path, the dtype, steps,
+    seconds of train(),
     steps a second (over the steps' own time), the loss at the first and
     last display, the validation's metrics, and for the 3D gate
     :func:`batch_stats_reading`. Floors and held readings are not checked
     here (:func:`gate_misses`, :func:`gate_off_plain`)."""
+    from pixel_embedded_affinity_torch.config import resolve_compute_dtype
     from pixel_embedded_affinity_torch.train import train
 
     out = out or os.path.join(REPO, "build", "quality", name)
     shutil.rmtree(out, ignore_errors=True)
-    cfg = gate_config(name, os.path.join(out, "models"), steps, filters, use_pallas)
+    cfg = gate_config(name, os.path.join(out, "models"), steps, filters, use_pallas, dtype)
     data = gate_data(cfg, fixture)
     timing: dict = {}
     t0 = time.perf_counter()
@@ -3277,7 +3312,8 @@ def run_gate(name: str, fixture, device: str = "cuda", steps: int | None = None,
           f"{name}: a non-finite reading {metrics} {losses}")
     step_s = sum(timing["data_s"]) + sum(timing["step_s"])
     return {"gate": name, "filters": list(cfg.model.filters),
-            "path": "kernels" if use_pallas else "plain", "device": device,
+            "path": "kernels" if use_pallas else "plain",
+            "dtype": resolve_compute_dtype(cfg.model), "device": device,
             "steps": cfg.train.total_iters, "seconds": seconds,
             "steps_per_s": cfg.train.total_iters / step_s,
             "valid_s": timing["valid_s"][0], "loss_first": losses[0], "loss_last": losses[-1],
@@ -3329,6 +3365,348 @@ def phase_quality() -> dict:
     return launches
 
 
+# phase 20, bf16: the loss-fused kernels' bfloat16 forms against their
+# plain versions at the CVPPP step's full scale (affinities at BF16_ATOL,
+# gradients at BF16_GRAD_RTOL, both rounded to bfloat16 at the end; S in
+# float32 from the unrounded affinities on both sides, at S_RTOL)
+BF16_SIDE, BF16_K = 544, 10
+# a bfloat16 step's loss against the float32 step's, same weights and batch
+BF16_LOSS_RTOL = 2e-2
+# served affinities and canvases in bfloat16 against float32 of the same
+# weights: the JAX package's own bar (tests/test_inference_e2e.py)
+BF16_SERVE_MAX, BF16_SERVE_MEAN = 0.05, 0.005
+# the 3D serving canvas held to float32's: AC4's 20 slices at 256x256
+BF16_CANVAS_VOLUME = (20, 256, 256)
+# a train step's device time by group (the first group one of whose name
+# parts a kernel's lower-cased name holds)
+STEP_SPLIT = (("the port's kernels", ("wmse", "affinity")), ("weight gradients", ("wgrad",)),
+              ("data gradients", ("dgrad",)),
+              ("BatchNorm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
+              ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
+              ("convs", ("fprop", "conv", "gemm", "xmma", "cutlass")),
+              ("upsampling", ("upsample",)), ("pools", ("pool",)),
+              ("copies, casts", ("copy", "cat")), ("elementwise, reductions", ("elementwise", "reduce")))
+
+
+def phase_wmse_bf16() -> dict:
+    """K2f/K2b/K3f/K3b (K3b without db, the steps' form, and with it) in
+    bfloat16 against their plain versions at B=2 544x544, C=16, K=10, on the
+    model's NCHW layout permuted, with a zero vector; their times (CUDA
+    graph replay and events, L2 flushed) against the bound at bfloat16
+    bytes; no bfloat16 form may spill. Returns each kernel's bf16_* fields."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops import multi_offset
+    from pixel_embedded_affinity_torch.ops import emb2aff_wmse_cuda as W
+
+    regs = no_spills(WMSE_SOURCE)
+    bf16_regs = {n: r for n, r in regs.items() if "__nv_bfloat16" in n}
+    print(f"[bf16] the bfloat16 WMSE kernels' registers, no spills: {json.dumps(bf16_regs)}")
+    check(len(bf16_regs) == 4, f"bfloat16 WMSE forms built: {sorted(bf16_regs)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    side, k = BF16_SIDE, BF16_K
+    offsets = multi_offset([1, 3, 5, 9, 27], 4)[:k]
+    zero_px = (0, 3, 5)
+    es = []
+    for _ in range(2):
+        e = torch.randn((2, 16, side, side), generator=gen, device="cuda").to(torch.bfloat16)
+        e[zero_px[0], :, zero_px[1], zero_px[2]] = 0.0
+        es.append(e.permute(0, 2, 3, 1))
+    shape = (2, k, side, side)
+    maps = ((torch.rand(shape, generator=gen, device="cuda") > 0.5).float(),
+            torch.rand(shape, generator=gen, device="cuda") * 2.0 + 0.05,
+            (torch.rand(shape, generator=gen, device="cuda") > 0.2).float())
+    gs = torch.rand((k,), generator=gen, device="cuda") / (2 * side) + 1e-4
+    req = [e.detach().clone().requires_grad_() for e in es]
+    got = {"K2": (*W.wmse2d_fwd(es[0], *maps, offsets), [W.wmse2d_bwd(es[0], *maps, gs, offsets)])}
+    da, no_db = W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets, need_db=False)
+    check(no_db is None, "bf16 K3b without db returned a db")
+    got["K3"] = (*W.cross_wmse2d_fwd(es[0], es[1], *maps, offsets),
+                 [da, *W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets)])
+    res = {}
+    for kind, (s, affs, grads) in got.items():
+        if kind == "K2":
+            s_ref, affs_ref = W.affinity_wmse_2d_plain(req[0], *maps, offsets)
+            refs = list(torch.autograd.grad(s_ref, req[:1], gs))
+        else:
+            s_ref, affs_ref = W.cross_affinity_wmse_2d_plain(req[0], req[1], *maps, offsets)
+            refs = list(torch.autograd.grad(s_ref, req, gs))
+            refs = [refs[0], *refs]
+        torch.cuda.synchronize()
+        check(s.dtype == torch.float32 and affs.dtype == torch.bfloat16
+              and all(g.dtype == torch.bfloat16 for g in grads), f"bf16 {kind} output dtypes")
+        err_a = (affs.float() - affs_ref.float()).abs().max().item()
+        err_s = ((s - s_ref).abs() / s_ref.abs()).max().item()
+        gerrs = [_grad_err(g, r, zero_px) for g, r in zip(grads, refs)]
+        print(f"[bf16] {kind} B=2 {side}x{side} C=16 K={k} bfloat16 vs plain: affs {err_a:.3e} "
+              f"(bound {BF16_ATOL}), S rel {err_s:.3e} (bound {S_RTOL}), grads rel (rest, "
+              f"zero-vector pixel, abs; bound {BF16_GRAD_RTOL})"
+              + (" of da without db, da and db with it: " if kind == "K3" else ": ")
+              + ", ".join(f"({a:.3e}, {z:.3e}, {x:.3e})" for a, z, x in gerrs))
+        check(bool((affs[zero_px[0], :, zero_px[1], zero_px[2]] == 0).all()),
+              f"bf16 {kind} nonzero affinity at a zero vector")
+        check(err_a <= BF16_ATOL, f"bf16 {kind} affinity error {err_a}")
+        check(err_s <= S_RTOL, f"bf16 {kind} S relative error {err_s}")
+        for a, z, _ in gerrs:
+            check(a <= BF16_GRAD_RTOL and z <= BF16_GRAD_RTOL, f"bf16 {kind} gradient error {a}, {z}")
+        res[f"{kind}f"] = {"bf16_max_abs_err": err_a}
+        res[f"{kind}b"] = {"bf16_max_abs_err": max(x for _, _, x in gerrs)}
+
+    flush = 64 << 20
+    t = kernel_times({
+        "K2f_ms": lambda: W.wmse2d_fwd(es[0], *maps, offsets),
+        "K2b_ms": lambda: W.wmse2d_bwd(es[0], *maps, gs, offsets),
+        "K3f_ms": lambda: W.cross_wmse2d_fwd(es[0], es[1], *maps, offsets),
+        "K3b_ms": lambda: W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets, need_db=False),
+        "K3bdb_ms": lambda: W.cross_wmse2d_bwd(es[0], es[1], *maps, gs, offsets)}, flush)
+    s2 = W.affinity_wmse_2d_plain(req[0], *maps, offsets)[0]
+    s3 = W.cross_affinity_wmse_2d_plain(req[0], es[1], *maps, offsets)[0]
+    s3db = W.cross_affinity_wmse_2d_plain(*req, *maps, offsets)[0]
+    plain = {
+        "K2f": lambda: W.affinity_wmse_2d_plain(es[0], *maps, offsets),
+        "K2b": lambda: torch.autograd.grad(s2, req[:1], gs, retain_graph=True),
+        "K3f": lambda: W.cross_affinity_wmse_2d_plain(es[0], es[1], *maps, offsets),
+        "K3b": lambda: torch.autograd.grad(s3, req[:1], gs, retain_graph=True),
+        "K3bdb": lambda: torch.autograd.grad(s3db, req, gs, retain_graph=True)}
+    for name, n_in, n_out in [("K2f", 1, 0), ("K2b", 1, 1), ("K3f", 2, 0), ("K3b", 2, 1),
+                              ("K3bdb", 2, 2)]:
+        bound, by = wmse_bound(2, side, 16, k, n_in, n_out, itemsize=2)
+        f32_bound = wmse_bound(2, side, 16, k, n_in, n_out)[0]
+        row = {"bf16_ms": t[f"{name}_ms"], "bf16_event_ms": t[f"{name}_event_ms"],
+               "bf16_plain_ms": timed_ms(plain[name], flush_bytes=flush),
+               "bf16_bound_ms": bound}
+        print(f"[bf16] {name}{' (with db)' if name == 'K3bdb' else ''} bfloat16 B=2 {side}x{side} "
+              f"C=16 K={k} (ms, L2 flushed, median of 20): kernel {row['bf16_ms']:.4f} by graph "
+              f"replay, {row['bf16_event_ms']:.4f} by events, plain {row['bf16_plain_ms']:.4f}, "
+              f"bound {bound:.4f} ({by}; float32's {f32_bound:.4f}); {card_line()}")
+        if name == "K3bdb":
+            res["K3b"].update({f"bf16_db_{f[5:]}": v for f, v in row.items()})
+        else:
+            res[name].update(row)
+    return res
+
+
+def _bf16_launch_names(preset: str) -> tuple:
+    """The bfloat16 instantiations a bf16 train step of ``preset`` must run."""
+    if preset == "ac3ac4":
+        return tuple(f"{n}<__nv_bfloat16" for n in (
+            "affinity3d_fwd_kernel", "affinity_bwd_kernel", "cross_affinity_fwd_kernel",
+            "cross_affinity_bwd_kernel"))
+    return ("wmse_fwd_kernel<__nv_bfloat16>", "wmse_bwd_kernel<__nv_bfloat16, true, false>",
+            "wmse_bwd_kernel<__nv_bfloat16, false, false>")
+
+
+def _train_bf16_one(preset: str, data, valid_batches: int = 0) -> dict:
+    """train() on the full-width ``preset`` in bfloat16, TRAIN_STEPS steps
+    from the device-resident sampler over ``data``'s arrays, validation and a
+    checkpoint, every kernel's count set to 0 just before and read just
+    after and held to its count; one step's device time by group, its idle
+    share, the bf16 instantiations it ran (and 3D: its peak memory); the
+    first step's loss against float32's on the same weights and batch.
+    Returns the launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops import multi_offset
+    from pixel_embedded_affinity_torch.train import (TrainStep2D, TrainStep3D, init_state,
+                                                     load_checkpoint, train)
+    from pixel_embedded_affinity_torch.train.loop import resident_sampler
+
+    is_3d = preset == "ac3ac4"
+    label = f"bf16-{preset}"
+    out = os.path.join(REPO, "build", f"chip_smoke_bf16_{preset}")
+    shutil.rmtree(out, ignore_errors=True)
+    over = {"model": {"dtype": "bfloat16"},
+            "train": {"display_freq": 1, "valid_freq": TRAIN_STEPS, "save_freq": TRAIN_STEPS},
+            "save_path": os.path.join(out, "models")}
+    cfg, cfg32 = load_config(preset, over), load_config(preset)
+    launchers = _train3d_launchers() if is_3d else _bbbc_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    timing: dict = {}
+    t0 = time.perf_counter()
+    state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=data, device="cuda",
+                           log_dir=os.path.join(out, "log"), timing=timing)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in launchers.items()}
+    print(f"[{label}] {preset} full width in bfloat16 ({cfg.model.filters}), B="
+          f"{cfg.train.batch_size}, {TRAIN_STEPS} steps from the device-resident sampler + "
+          f"validation + checkpoint: {wall:.2f} s; launches {json.dumps(launches)}")
+    if is_3d:
+        expect = {"K5f": TRAIN_STEPS + valid_batches, "K5b": TRAIN_STEPS, "K6f": TRAIN_STEPS,
+                  "K6b": TRAIN_STEPS}
+    else:
+        expect = {"K2f": 5 * TRAIN_STEPS, "K2b": 5 * TRAIN_STEPS, "K3f": TRAIN_STEPS,
+                  "K3b": TRAIN_STEPS, "K1f": len(data[1]), "K1b": 0, "K4f": 0, "K4b": 0}
+    check(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    print(f"[{label}] loss per step: {losses}")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"{label}: a non-finite loss")
+    check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values()),
+          f"{label}: validation {history}")
+    print(f"[{label}] validation ({timing['valid_s'][0]:.4f} s wall): {json.dumps(history[0])}")
+    print_step_times(label, timing, TRAIN_STEPS, HOST_DATA_MS.get(preset, float("nan")))
+    ck = load_checkpoint(os.path.join(cfg.save_path, cfg.name, f"model-{TRAIN_STEPS:06d}.ckpt"))
+    check(all(v.dtype in (torch.float32, torch.int64) for v in ck["model"].values())
+          and all(v.dtype == torch.float32 for st in ck["optimizer"]["state"].values()
+                  for v in st.values() if torch.is_tensor(v)),
+          f"{label}: the checkpoint is not float32")
+    check(all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+              for p in state.model.parameters() if p.grad is not None),
+          f"{label}: parameters or gradients not float32")
+
+    # the first step on the same weights and batch, bfloat16 against float32
+    s16, s32 = init_state(cfg, "cuda"), init_state(cfg32, "cuda")
+    batch = resident_sampler(cfg, data[0], "cuda")(0)
+    if is_3d:
+        step = TrainStep3D(ema_seed=cfg.train.random_seed)
+    else:
+        step = TrainStep2D(multi_offset(cfg.data.shifts, cfg.data.neighbor),
+                           mask_weight=cfg.train.mask_weight,
+                           imagenet_norm=preset == "cvppp", ema_seed=cfg.train.random_seed)
+    batch = step.ema_batch(batch, 0)
+    with torch.no_grad(), float32_convs():
+        l16 = step.loss(copy.deepcopy(s16.model).train(), batch)[0].item()
+        l32 = step.loss(copy.deepcopy(s32.model).train(), batch)[0].item()
+    rel = abs(l16 - l32) / abs(l32)
+    print(f"[{label}] first step's loss, same weights and batch: bfloat16 {l16!r}, float32 "
+          f"{l32!r}, rel {rel:.3e} (bound {BF16_LOSS_RTOL})")
+    check(rel <= BF16_LOSS_RTOL, f"{label}: bf16 loss off float32's by {rel}")
+
+    if is_3d:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(s16, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{label}] device memory of one step: peak {peak / 2 ** 30:.4f} GiB allocated "
+              f"({(peak - base) / 2 ** 30:.4f} GiB above the {base / 2 ** 30:.4f} GiB held before "
+              f"it), {card_line()}")
+    names = _bf16_launch_names(preset)
+    rows = device_breakdown(lambda: step(s16, batch), 1, iters=3,
+                            label=f"{label} step, {card_line()}", unit="step",
+                            ours=("wmse", "affinity"), split=STEP_SPLIT, require=names)
+    if not is_3d:
+        check_k3b_form(rows, f"{label} step", "bfloat16")
+    return launches
+
+
+def phase_train_bf16(bbbc_arrays, bbbc_valid) -> dict:
+    """CVPPP, BBBC and AC3/AC4 trained in bfloat16 on the card through the
+    kernels' bfloat16 forms; returns the launches summed over the three."""
+    from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
+
+    total: dict = {}
+    runs = [("cvppp", (pack_cvppp_arrays(leaf_pairs(4, 530, 500, SEED)),
+                       synthetic_leaves(2, 530, 500, SEED + 1)), 0),
+            ("bbbc039v1", (bbbc_arrays, bbbc_valid), 0),
+            ("ac3ac4", *train3d_data())]
+    for preset, data, valid_batches in runs:
+        for k, v in _train_bf16_one(preset, data, valid_batches).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_serving_bf16(cfg, sd, samples) -> dict:
+    """CVPPP serving in bfloat16 at B=1 and B=4 (forward+affinity device
+    ms/img; the served affinities against the float32 serve of the same
+    weights; run_inference_2d with K1f's launches), then the tiled 3D
+    predictor with bf16_tiled_infer (ms per tile batch of 4 x 18x160x160;
+    the canvas of a 20x256x256 volume against float32's). Returns K1f's
+    and K5f's launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import synthesize_volume
+    from pixel_embedded_affinity_torch.infer import (
+        build_model, build_tiled_predictor, forward_affinities, run_inference_2d,
+        run_inference_3d)
+    from pixel_embedded_affinity_torch.infer.inference3d import serving_dtype
+    from pixel_embedded_affinity_torch.ops import fused_affinity_2d, fused_affinity_3d, multi_offset
+
+    cfg16 = copy.deepcopy(cfg)
+    cfg16.model.dtype = "bfloat16"
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    m16, m32 = build_model(cfg16, sd, device="cuda"), build_model(cfg, sd, device="cuda")
+    check(m16.compute_dtype == torch.bfloat16, "the bf16 serving model's dtype")
+    x_all = torch.from_numpy(np.stack([s["image"] for s in samples])).cuda()
+    x_all = x_all.permute(0, 3, 1, 2).contiguous()
+    for bs in (1, 4):
+        x = x_all[:bs]
+        ms = timed_ms(lambda: forward_affinities(m16, x, offsets), n=20)
+        ms32 = timed_ms(lambda: forward_affinities(m32, x, offsets), n=20)
+        a16, a32 = forward_affinities(m16, x, offsets), forward_affinities(m32, x, offsets)
+        d = (a16 - a32).abs()
+        mx, mean = d.max().item(), d.mean().item()
+        print(f"[bf16-serve] CVPPP 544x544 B={bs}: forward+affinity {ms / bs:.4f} ms/img in "
+              f"bfloat16, {ms32 / bs:.4f} in float32 (TF32 off), warm median of 20; served "
+              f"affinities against float32's: max {mx:.3e}, mean {mean:.3e} (bounds "
+              f"{BF16_SERVE_MAX}, {BF16_SERVE_MEAN}); {card_line()}")
+        check(a16.dtype == torch.float32 and mx <= BF16_SERVE_MAX and mean <= BF16_SERVE_MEAN,
+              f"bf16 served affinities off float32's by {mx}, {mean}")
+        device_breakdown(lambda: forward_affinities(m16, x, offsets), bs,
+                         label=f"bf16 serving B={bs}", ours=("affinity2d_fwd_kernel",),
+                         require=("affinity2d_fwd_kernel<float",))
+    fused_affinity_2d.launches = 0
+    timing: dict = {}
+    _, agg = run_inference_2d(cfg16, sd, samples, timing=timing, batch_size=4, device="cuda")
+    k1f = fused_affinity_2d.launches
+    print(f"[bf16-serve] run_inference_2d in bfloat16, B=4: K1f launches {k1f}; timing "
+          f"{json.dumps(timing)}; metrics {json.dumps(agg)}")
+    check(k1f == 1 and all(np.isfinite(v) for v in agg.values()), f"bf16 serving {k1f} {agg}")
+
+    cfg3 = load_config("ac3ac4", {"model": {"bf16_tiled_infer": True}})
+    check(serving_dtype(cfg3) == "bfloat16", "bf16_tiled_infer serves bfloat16")
+    torch.manual_seed(SEED)
+    sd3 = build_model(load_config("ac3ac4"), device="cpu").state_dict()
+    p16 = build_tiled_predictor(build_model(cfg3, sd3, device="cuda", dtype="bfloat16"))
+    p32 = build_tiled_predictor(build_model(cfg3, sd3, device="cuda", dtype="float32"))
+    tiles = torch.rand((4, 1) + tuple(cfg3.data.crop_size), generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    ms16, ms32 = timed_ms(lambda: p16(tiles), n=20), timed_ms(lambda: p32(tiles), n=20)
+    raw, _ = synthesize_volume(*BF16_CANVAS_VOLUME, n_cells=30, seed=SEED + 4)
+    vol = raw.astype(np.float32) / 255.0
+    fused_affinity_3d.launches = 0
+    c16, _ = run_inference_3d(cfg3, sd3, vol, decoders=(), device="cuda")
+    k5f = fused_affinity_3d.launches
+    c32, _ = run_inference_3d(load_config("ac3ac4"), sd3, vol, decoders=(), device="cuda")
+    d = np.abs(c16 - c32)
+    print(f"[bf16-serve] 3D tile batch 4 x 18x160x160 (model + K5f + ReLU, warm median of 20): "
+          f"{ms16:.4f} ms with bf16_tiled_infer, {ms32:.4f} in float32; the canvas of a "
+          f"{BF16_CANVAS_VOLUME} volume ({k5f} K5f launches) against float32's: max "
+          f"{d.max():.3e}, mean {d.mean():.3e}; {card_line()}")
+    check(c16.dtype == np.float32 and d.max() <= BF16_SERVE_MAX and d.mean() <= BF16_SERVE_MEAN,
+          f"bf16 canvas off float32's by {d.max()}, {d.mean()}")
+    device_breakdown(lambda: p16(tiles), 4, iters=5, label="bf16 3D tile batch", unit="tile",
+                     ours=("affinity3d_fwd_kernel",), require=("affinity3d_fwd_kernel<float",))
+    return {"K1f": k1f, "K5f": k5f}
+
+
+def phase_gate_bf16() -> dict:
+    """The BBBC quality gate in bfloat16 through the kernels, its floors
+    asserted, its launches read around it; returns them."""
+    fixture = dict(np.load(QUALITY_FIXTURE))
+    launchers = _bbbc_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    r = run_gate("bbbc039v1", fixture, dtype="bfloat16",
+                 out=os.path.join(REPO, "build", "quality_bf16", "bbbc039v1"))
+    got = {k: fn.launches for k, fn in launchers.items()}
+    steps = r["steps"]
+    expect = {"K1f": GATE_VALID_IMAGES, "K2f": 5 * steps, "K2b": 5 * steps, "K3f": steps,
+              "K3b": steps, "K1b": 0, "K4f": 0, "K4b": 0}
+    print(f"[bf16-quality] {json.dumps(r)}")
+    print(f"[bf16-quality] bbbc039v1 in bfloat16: floors {json.dumps(GATES['bbbc039v1']['floors'])}; "
+          f"launches {json.dumps(got)}; {card_line()}")
+    check(got == expect, f"bf16 gate launches {got}, expected {expect}")
+    misses = gate_misses("bbbc039v1", r)
+    check(not misses, f"bf16 quality gate missed: {misses}")
+    return got
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -3378,7 +3756,12 @@ def main() -> int:
     p = _timed("P", phase_tile_copy)
     # 19. the quality gates
     quality = _timed("quality", phase_quality)
-    # 20. kernels line, card, 21. last line
+    # 20. bf16: the WMSE kernels' bf16 forms, training, serving, the BBBC gate
+    wmse16 = _timed("bf16 K2, K3", phase_wmse_bf16)
+    train16 = _timed("bf16 training", phase_train_bf16, arrays, valid)
+    _timed("bf16 serving", phase_serving_bf16, cfg, sd, samples)
+    gate16 = _timed("bf16 quality", phase_gate_bf16)
+    # 21. kernels line, card, 22. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -3397,7 +3780,7 @@ def main() -> int:
             "replaces": WMSE_REPLACES[k], "launches": trained[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": None, **wmse16[k], "bf16_launches": train16[k] + gate16[k]})
         if k == "K3b":  # ms: without db, the training steps' form; db_*: with db
             kernels[-1].update({f: r[f] for f in ("db_ms", "db_event_ms", "db_plain_ms",
                                                   "db_bound_ms")})

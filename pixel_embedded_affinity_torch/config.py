@@ -7,9 +7,10 @@ Field names and defaults are those of the JAX package's
 the same in both packages. The port has only the fields its code reads: a
 JAX key it lacks (``train.opt_type``, ``model.s2d_train``, ...) fails as an
 unknown config key. A few fields whose code is not ported keep their JAX
-names, and raise where a value the port does not serve would take
-effect (``model.dtype``, ``model.bf16_tiled_infer``,
-``model.fast_tiled_infer``, ``train.loop.check_train_config``).
+names, and raise where a value the port does not serve would take effect
+(``model.fast_tiled_infer``, ``train.loop.check_train_config``).
+``model.dtype`` and ``model.bf16_tiled_infer`` are served; their defaults
+give float32 compute in the port (see their comments).
 """
 
 from __future__ import annotations
@@ -26,15 +27,25 @@ class ModelConfig:
     output_nc: int = 2
     emd: int = 16
     filters: tuple = (16, 32, 64, 128, 256)
-    # "auto" resolves to float32 (resolve_compute_dtype); bf16 serving is
-    # not ported yet
+    # the compute dtype of training and serving: "float32", "bfloat16", or
+    # "auto", which resolves to float32 here (resolve_compute_dtype; the
+    # JAX package resolves it to bfloat16 on its TPU). With "bfloat16" the
+    # models compute as Flax's dtype rule has it: every conv's input,
+    # weight and bias cast to bfloat16, BatchNorm's statistics in float32,
+    # the outputs in bfloat16; parameters, gradients, optimizer state,
+    # running statistics and checkpoints stay float32, so a checkpoint
+    # serves in either dtype
     dtype: str = "auto"
-    # the JAX package's TPU serving choices for the tiled 3D predictor
-    # (bf16 compute; the folded-BN z-concat graph of fast_forward3d.py),
-    # both on there by default. Not ported: the port serves the dense
-    # model in float32, and True raises (ROADMAP.md, Modules still to
-    # port, 3D extras)
+    # the tiled 3D predictor in bfloat16, the embedding cast to float32
+    # before the affinity, as the JAX package's serving does; the predictor
+    # is bfloat16 when this is True or the dtype resolves to bfloat16, so
+    # False with "auto" serves float32 (the JAX package's "auto" is
+    # bfloat16 on its TPU, where False alone does not give float32). Off by
+    # default in the port (the JAX package's default is on)
     bf16_tiled_infer: bool = False
+    # the JAX package's folded-BN z-concat graph of the tiled 3D predictor
+    # (fast_forward3d.py), on there by default. Not ported: True raises
+    # (ROADMAP.md, Modules still to port, 3D extras)
     fast_tiled_infer: bool = False
 
 
@@ -207,6 +218,15 @@ def parse_overrides(pairs) -> dict:
     return out
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 def resolve_compute_dtype(model_cfg: ModelConfig) -> str:
-    """"auto" -> "float32"; explicit values pass through."""
-    return "float32" if model_cfg.dtype == "auto" else model_cfg.dtype
+    """"auto" -> "float32"; "float32" and "bfloat16" pass through; any other
+    value raises ValueError."""
+    d = model_cfg.dtype
+    if d == "auto":
+        return "float32"
+    if d not in COMPUTE_DTYPES:
+        raise ValueError(f"model.dtype={d!r}: expected 'auto' or one of {COMPUTE_DTYPES}")
+    return d

@@ -9,15 +9,17 @@
 //   K3b _cross_wmse_bwd_kernel    (_fused_cross_wmse_2d_bwd_impl)                   -> cross_wmse2d_bwd
 // Python wrapper: ops/emb2aff_wmse_cuda.py.
 //
-// What it computes. Embeddings a, b: (B, H, W, C) float32 with arbitrary
-// element strides (the self loss passes a == b); C = 16, the emd of the
-// cvppp preset, the only width training runs. With
+// What it computes. Embeddings a, b: (B, H, W, C) float32 or bfloat16 (T,
+// one for both) with arbitrary element strides (the self loss passes
+// a == b); C = 16, the emd of the cvppp preset, the only width training
+// runs. Every value is computed in float32. With
 //     n = e / max(sqrt(|e|^2 + 1e-36), 1e-12)
 // and offsets o_k that look up and left, the affinity is
 //     a_k(p) = <n_a(p), n_b(p + o_k)>,  0 where p + o_k lies outside the image.
 // t, w, m: (B, K, H, W) float32, contiguous (target, weight, mask).
-// Forward: affs (B, K, H, W) = a_k, and the per-offset sums
-//     S_k = sum_{b,y,x} w_k (a_k m_k - t_k m_k)^2,
+// Forward: affs (B, K, H, W) = a_k in T, and the per-offset sums
+//     S_k = sum_{b,y,x} w_k (a_k m_k - t_k m_k)^2
+// in float32 from the unrounded a_k (as the TPU kernels take them),
 // one (K,) partial per block into partial (n_blocks, K); the wrapper sums
 // the partials with torch.sum, so S is the same from run to run (no atomics).
 // Backward, given gS (K,) on the device: the WMSE cotangent
@@ -29,7 +31,7 @@
 // The self loss (a == b) writes de = VJP(dn_a + dn_b); the cross loss
 // writes da, and db only when the caller asks for it (db non-null): the
 // training step's teacher is detached, so its call skips db.
-// Gradients go to contiguous (B, C, H, W) buffers, the layout of the
+// Gradients go to contiguous (B, C, H, W) buffers of T, the layout of the
 // model's NCHW output.
 //
 // Bound (B=2, 544x544, C=16, K=10, f32, HBM at 3.35 TB/s; each input read
@@ -40,6 +42,9 @@
 // 184.6 MB, 55.1 us; with db it also writes db: 222.5 MB, 66.4 us. The
 // arithmetic (~2-4 x (3C + 2CK) flops per pixel) needs < 10 us at the 67
 // TFLOP/s float32 rate, so bytes bound all four.
+// In bfloat16 the embeddings and the outputs take half the bytes and t/w/m
+// the same (K = 10: 172 B a pixel forward, against 224 in float32), so the
+// forward's bound falls to ~0.77x its float32 one: K2f ~31 us, K3f ~36 us.
 //
 // Design. One thread per pixel, 32x8 blocks along x so a warp's loads and
 // stores of one channel are contiguous in NCHW, bounds checks in place of
@@ -95,11 +100,12 @@ struct Offsets {
     int dx[kMaxOffsets];
 };
 
-// element strides of a (B, H, W, C) view
+// element strides of a (B, H, W, C) view of T values
+template <typename T>
 struct View {
-    const float* p;
+    const T* p;
     int64_t sB, sH, sW, sC;
-    __device__ __forceinline__ const float* at(int b, int y, int x) const {
+    __device__ __forceinline__ const T* at(int b, int y, int x) const {
         return p + b * sB + y * sH + x * sW;
     }
 };
@@ -113,9 +119,10 @@ __device__ __forceinline__ float wmse_grad(float gs, float a, float t, float w, 
     return gs * 2.0f * w * m * d;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __restrict__ w,
-                const float* __restrict__ m, float* __restrict__ affs, float* __restrict__ partial,
+wmse_fwd_kernel(View<T> a, View<T> b, const float* __restrict__ t, const float* __restrict__ w,
+                const float* __restrict__ m, T* __restrict__ affs, float* __restrict__ partial,
                 int H, int W, int K, Offsets off) {
     __shared__ float red[kWarps][kMaxOffsets];
     const int x = blockIdx.x * kBlockX + threadIdx.x;
@@ -127,7 +134,7 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
     float na[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) na[c] = 0.f;
-    if (in_img) load_unit<float, C, false>(a.at(bi, y, x), a.sC, false, na);
+    if (in_img) load_unit<T, C, false>(a.at(bi, y, x), a.sC, false, na);
 
     const int64_t plane = (int64_t)H * W;
     const int64_t pix = (int64_t)bi * K * plane + (int64_t)y * W + x;
@@ -141,11 +148,11 @@ wmse_fwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
             float v = 0.f;
             if (inside(yy, xx, H, W)) {
                 float vb[C];
-                const float r = load_scaled<float, C, false>(b.at(bi, yy, xx), b.sC, false, vb);
+                const float r = load_scaled<T, C, false>(b.at(bi, yy, xx), b.sC, false, vb);
                 v = dot<C>(na, vb) * r;
             }
             const int64_t i = pix + k * plane;
-            affs[i] = v;
+            affs[i] = from_float<T>(v);
             const float mk = m[i];
             const float d = v * mk - t[i] * mk;
             s = w[i] * d * d;
@@ -175,11 +182,11 @@ constexpr int kBwdMinBlocks = kSelf || kDb ? 1 : 4;
 // kSelf: a == b, one output de = VJP(dn_a + dn_b); else da, and with kDb
 // also db. Each gathered neighbour's raw values v are scaled by one
 // reciprocal r = 1 / |v|: its affinity is <n, v> r, and g r multiplies v.
-template <bool kSelf, bool kDb>
+template <typename T, bool kSelf, bool kDb>
 __global__ void __launch_bounds__(kBlockX * kBlockY, (kBwdMinBlocks<kSelf, kDb>))
-wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __restrict__ w,
+wmse_bwd_kernel(View<T> a, View<T> b, const float* __restrict__ t, const float* __restrict__ w,
                 const float* __restrict__ m, const float* __restrict__ gs,
-                float* __restrict__ da, float* __restrict__ db,
+                T* __restrict__ da, T* __restrict__ db,
                 int H, int W, int K, Offsets off) {
     static_assert(!(kSelf && kDb), "the self loss has one gradient");
     const int x = blockIdx.x * kBlockX + threadIdx.x;
@@ -188,9 +195,9 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
     if (x >= W || y >= H) return;
 
     float na[C], dna[C], nb[C], dnb[C];
-    const float norm_a = load_unit<float, C, false>(a.at(bi, y, x), a.sC, false, na);
+    const float norm_a = load_unit<T, C, false>(a.at(bi, y, x), a.sC, false, na);
     float norm_b = 0.f;
-    if (kDb) norm_b = load_unit<float, C, false>(b.at(bi, y, x), b.sC, false, nb);
+    if (kDb) norm_b = load_unit<T, C, false>(b.at(bi, y, x), b.sC, false, nb);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
         dna[c] = 0.f;
@@ -207,7 +214,7 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         int xx = x + off.dx[k];
         if (inside(yy, xx, H, W)) {
             float v[C];
-            const float r = load_scaled<float, C, false>(b.at(bi, yy, xx), b.sC, false, v);
+            const float r = load_scaled<T, C, false>(b.at(bi, yy, xx), b.sC, false, v);
             const int64_t i = ik + p;
             axpy<C>(wmse_grad(gsk, dot<C>(na, v) * r, t[i], w[i], m[i]) * r, v, dna);
         }
@@ -217,7 +224,7 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
             xx = x - off.dx[k];
             if (inside(yy, xx, H, W)) {
                 float v[C];
-                const float r = load_scaled<float, C, false>(a.at(bi, yy, xx), a.sC, false, v);
+                const float r = load_scaled<T, C, false>(a.at(bi, yy, xx), a.sC, false, v);
                 const int64_t i = ik + (int64_t)yy * W + xx;
                 const float g = wmse_grad(gsk, dot<C>(v, kSelf ? na : nb) * r, t[i], w[i], m[i]);
                 axpy<C>(g * r, v, kSelf ? dna : dnb);
@@ -225,8 +232,8 @@ wmse_bwd_kernel(View a, View b, const float* __restrict__ t, const float* __rest
         }
     }
     const int64_t out = (int64_t)bi * C * plane + p;
-    store_grad<float, C>(na, norm_a, dna, false, da + out, plane);
-    if (kDb) store_grad<float, C>(nb, norm_b, dnb, false, db + out, plane);
+    store_grad<T, C>(na, norm_a, dna, false, da + out, plane);
+    if (kDb) store_grad<T, C>(nb, norm_b, dnb, false, db + out, plane);
 }
 
 dim3 grid_of(int B, int H, int W) {
@@ -246,27 +253,60 @@ Offsets to_offsets(const int32_t* offsets, int K) {
     return off;
 }
 
-int fwd(View a, View b, const float* t, const float* w, const float* m, float* affs,
-        float* partial, int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
+template <typename T>
+int fwd(const void* a, const int64_t* sa, const void* b, const int64_t* sb, const float* t,
+        const float* w, const float* m, void* affs, float* partial, int B, int H, int W, int c,
+        const int32_t* offsets, int K, void* stream) {
     if (bad_shape(B, H, W, c, K)) return (int)cudaErrorInvalidValue;
     const Offsets off = to_offsets(offsets, K);
+    const View<T> va{static_cast<const T*>(a), sa[0], sa[1], sa[2], sa[3]};
+    const View<T> vb{static_cast<const T*>(b), sb[0], sb[1], sb[2], sb[3]};
     const dim3 block(kBlockX, kBlockY);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    wmse_fwd_kernel<<<grid_of(B, H, W), block, 0, s>>>(a, b, t, w, m, affs, partial, H, W, K, off);
+    wmse_fwd_kernel<T><<<grid_of(B, H, W), block, 0, s>>>(va, vb, t, w, m, static_cast<T*>(affs),
+                                                          partial, H, W, K, off);
     return (int)cudaGetLastError();
 }
 
-template <bool kSelf, bool kDb>
-int bwd(View a, View b, const float* t, const float* w, const float* m, const float* gs,
-        float* da, float* db, int B, int H, int W, int c, const int32_t* offsets, int K,
-        void* stream) {
+template <typename T, bool kSelf, bool kDb>
+int bwd(const void* a, const int64_t* sa, const void* b, const int64_t* sb, const float* t,
+        const float* w, const float* m, const float* gs, void* da, void* db, int B, int H, int W,
+        int c, const int32_t* offsets, int K, void* stream) {
     if (bad_shape(B, H, W, c, K)) return (int)cudaErrorInvalidValue;
     const Offsets off = to_offsets(offsets, K);
+    const View<T> va{static_cast<const T*>(a), sa[0], sa[1], sa[2], sa[3]};
+    const View<T> vb{static_cast<const T*>(b), sb[0], sb[1], sb[2], sb[3]};
     const dim3 block(kBlockX, kBlockY);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    wmse_bwd_kernel<kSelf, kDb><<<grid_of(B, H, W), block, 0, s>>>(a, b, t, w, m, gs, da, db, H,
-                                                                   W, K, off);
+    wmse_bwd_kernel<T, kSelf, kDb><<<grid_of(B, H, W), block, 0, s>>>(
+        va, vb, t, w, m, gs, static_cast<T*>(da), static_cast<T*>(db), H, W, K, off);
     return (int)cudaGetLastError();
+}
+
+// the forward of the storage type that dtype names (0 float32, 1 bfloat16)
+int fwd_of(int dtype, const void* a, const int64_t* sa, const void* b, const int64_t* sb,
+           const float* t, const float* w, const float* m, void* affs, float* partial, int B,
+           int H, int W, int c, const int32_t* offsets, int K, void* stream) {
+    if (dtype == 0)
+        return fwd<float>(a, sa, b, sb, t, w, m, affs, partial, B, H, W, c, offsets, K, stream);
+    if (dtype == 1)
+        return fwd<__nv_bfloat16>(a, sa, b, sb, t, w, m, affs, partial, B, H, W, c, offsets, K,
+                                  stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+// the backward of that storage type
+template <bool kSelf, bool kDb>
+int bwd_of(int dtype, const void* a, const int64_t* sa, const void* b, const int64_t* sb,
+           const float* t, const float* w, const float* m, const float* gs, void* da, void* db,
+           int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
+    if (dtype == 0)
+        return bwd<float, kSelf, kDb>(a, sa, b, sb, t, w, m, gs, da, db, B, H, W, c, offsets, K,
+                                      stream);
+    if (dtype == 1)
+        return bwd<__nv_bfloat16, kSelf, kDb>(a, sa, b, sb, t, w, m, gs, da, db, B, H, W, c,
+                                              offsets, K, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -280,39 +320,47 @@ int64_t wmse2d_partial_rows(int B, int H, int W) {
 }
 
 // Each entry returns the cudaError_t of its launch (0 on success).
+// dtype: the storage of the embeddings, the affinities and the gradients,
+// 0 float32, 1 bfloat16; t, w, m, partial and gs are float32.
 // offsets: host array of K (dy, dx) pairs; gs: device pointer to K floats.
-int wmse2d_fwd(const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
-               const float* t, const float* w, const float* m, float* affs, float* partial,
-               int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
-    const View v{e, sB, sH, sW, sC};
-    return fwd(v, v, t, w, m, affs, partial, B, H, W, c, offsets, K, stream);
+int wmse2d_fwd(const void* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
+               const float* t, const float* w, const float* m, void* affs, float* partial,
+               int dtype, int B, int H, int W, int c, const int32_t* offsets, int K,
+               void* stream) {
+    const int64_t s[4] = {sB, sH, sW, sC};
+    return fwd_of(dtype, e, s, e, s, t, w, m, affs, partial, B, H, W, c, offsets, K, stream);
 }
 
-int cross_wmse2d_fwd(const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
-                     const float* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
-                     const float* t, const float* w, const float* m, float* affs, float* partial,
-                     int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
-    return fwd(View{a, saB, saH, saW, saC}, View{b, sbB, sbH, sbW, sbC}, t, w, m, affs, partial,
-               B, H, W, c, offsets, K, stream);
+int cross_wmse2d_fwd(const void* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
+                     const void* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
+                     const float* t, const float* w, const float* m, void* affs, float* partial,
+                     int dtype, int B, int H, int W, int c, const int32_t* offsets, int K,
+                     void* stream) {
+    const int64_t sa[4] = {saB, saH, saW, saC}, sb[4] = {sbB, sbH, sbW, sbC};
+    return fwd_of(dtype, a, sa, b, sb, t, w, m, affs, partial, B, H, W, c, offsets, K, stream);
 }
 
-int wmse2d_bwd(const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
-               const float* t, const float* w, const float* m, const float* gs, float* de,
-               int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
-    const View v{e, sB, sH, sW, sC};
-    return bwd<true, false>(v, v, t, w, m, gs, de, nullptr, B, H, W, c, offsets, K, stream);
+int wmse2d_bwd(const void* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC,
+               const float* t, const float* w, const float* m, const float* gs, void* de,
+               int dtype, int B, int H, int W, int c, const int32_t* offsets, int K,
+               void* stream) {
+    const int64_t s[4] = {sB, sH, sW, sC};
+    return bwd_of<true, false>(dtype, e, s, e, s, t, w, m, gs, de, nullptr, B, H, W, c, offsets,
+                               K, stream);
 }
 
 // db may be null: the teacher's gradient is then skipped.
-int cross_wmse2d_bwd(const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
-                     const float* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
+int cross_wmse2d_bwd(const void* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC,
+                     const void* b, int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC,
                      const float* t, const float* w, const float* m, const float* gs,
-                     float* da, float* db,
+                     void* da, void* db, int dtype,
                      int B, int H, int W, int c, const int32_t* offsets, int K, void* stream) {
-    const View va{a, saB, saH, saW, saC}, vb{b, sbB, sbH, sbW, sbC};
+    const int64_t sa[4] = {saB, saH, saW, saC}, sb[4] = {sbB, sbH, sbW, sbC};
     if (db == nullptr)
-        return bwd<false, false>(va, vb, t, w, m, gs, da, nullptr, B, H, W, c, offsets, K, stream);
-    return bwd<false, true>(va, vb, t, w, m, gs, da, db, B, H, W, c, offsets, K, stream);
+        return bwd_of<false, false>(dtype, a, sa, b, sb, t, w, m, gs, da, nullptr, B, H, W, c,
+                                    offsets, K, stream);
+    return bwd_of<false, true>(dtype, a, sa, b, sb, t, w, m, gs, da, db, B, H, W, c, offsets, K,
+                               stream);
 }
 
 }  // extern "C"

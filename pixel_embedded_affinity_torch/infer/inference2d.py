@@ -1,8 +1,11 @@
 """2D serving (CVPPP, BBBC039).
 
 Batches of images go through the model, the fused embedding->affinity
-kernel and a ReLU on the device, the convolutions in full float32 (TF32
-off); the host then runs mutex watershed, small-object merging and
+kernel and a ReLU on the device, the convolutions in the compute dtype
+(``model.dtype``; float32 in full, TF32 off). A bfloat16 model's embedding
+is cast to float32 before the affinity kernel and its mask logits before
+the decode, as the JAX package serves, so the host sees float32. The host
+then runs mutex watershed, small-object merging and
 relabelling, and scores SBD/|DiC|/VOI/ARAND. With ``use_fast`` the model
 runs as the folded-BatchNorm fast forward
 (:func:`..models.fast_forward.build_fast_resunet_forward`, as the JAX
@@ -48,22 +51,22 @@ def serve_batch(image_shape) -> int:
 
 
 def build_model(cfg: Config, state_dict: dict | None = None,
-                device=None) -> torch.nn.Module:
+                device=None, dtype: str | None = None) -> torch.nn.Module:
     """The serving model of ``cfg.model.arch`` (``resunet2d_deep`` or
-    ``unet_pni_deep``) in eval mode on ``device``, weights from
-    ``state_dict`` when given."""
+    ``unet_pni_deep``) in eval mode on ``device``, computing in ``dtype``
+    ("float32" or "bfloat16"; by default ``model.dtype`` resolved), its
+    float32 weights from ``state_dict`` when given."""
     if cfg.model.arch not in ("resunet2d_deep", "unet_pni_deep"):
         raise NotImplementedError(f"arch {cfg.model.arch!r} is not ported")
-    if resolve_compute_dtype(cfg.model) != "float32":
-        raise NotImplementedError("only float32 serving is ported")
+    dt = dtype or resolve_compute_dtype(cfg.model)
     dev = resolve_device(device)
     with dev:
         if cfg.model.arch == "unet_pni_deep":
             model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
-                                         cfg.model.emd)
+                                         cfg.model.emd, dtype=dt)
         else:
             model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
-                                       tuple(cfg.model.filters), cfg.model.emd)
+                                       tuple(cfg.model.filters), cfg.model.emd, dtype=dt)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model.eval()
@@ -72,20 +75,20 @@ def build_model(cfg: Config, state_dict: dict | None = None,
 @torch.no_grad()
 def forward_affinities(model: torch.nn.Module, x_nchw: torch.Tensor, offsets,
                        with_mask: bool = False):
-    """(B, 3, H, W) images -> (B, K, H, W) ReLU'd affinities, on x's
-    device; ``with_mask``: and the mask head's logits, a (B, H, W, 2)
-    view."""
+    """(B, 3, H, W) images -> (B, K, H, W) ReLU'd float32 affinities, on
+    x's device, the embedding cast to float32 before K1f; ``with_mask``:
+    and the mask head's logits in float32, a (B, H, W, 2) view."""
     with float32_convs():
         outs = model(x_nchw)
-    affs = fused_affinity_2d(outs[4].permute(0, 2, 3, 1), offsets).relu_()
-    return (affs, outs[5].permute(0, 2, 3, 1)) if with_mask else affs
+    affs = fused_affinity_2d(outs[4].float().permute(0, 2, 3, 1), offsets).relu_()
+    return (affs, outs[5].float().permute(0, 2, 3, 1)) if with_mask else affs
 
 
 def fast_affinities(fast, packed: torch.Tensor, offsets, with_mask: bool = False):
     """forward_affinities through a fast forward built with
     ``input_format="s2d"``, from the (B, H/2, W/2, 12) packed images."""
     emb, mask = fast(packed)
-    affs = fused_affinity_2d(emb, offsets).relu_()
+    affs = fused_affinity_2d(emb.float(), offsets).relu_()
     return (affs, mask) if with_mask else affs
 
 
@@ -117,8 +120,8 @@ def _served(cfg: Config, state_dict: dict, dataset, batch_size: int | None, devi
     dev = resolve_device(device)
     t0 = time.perf_counter()
     model = build_model(cfg, state_dict, dev)
-    fast = (build_fast_resunet_forward(model, input_format="s2d", head_at_fullres=True,
-                                       with_mask=with_mask)
+    fast = (build_fast_resunet_forward(model, dtype=model.compute_dtype, input_format="s2d",
+                                       head_at_fullres=True, with_mask=with_mask)
             if use_fast and cfg.model.arch == "resunet2d_deep" else None)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

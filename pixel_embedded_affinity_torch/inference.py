@@ -19,6 +19,9 @@ volume (as the JAX CLI selects it: ``-m test`` the first 100 slices of AC3,
 ``-m valid`` the last 20 of AC4, any other mode all of AC4) and prints
 VOI/ARAND per decoder and the timing split. ``--fast`` serves 2D through
 the folded-BatchNorm fast forward instead of the dense module.
+``-o model.dtype=bfloat16`` serves in bfloat16 compute (the affinities and
+the decode in float32), and for 3D ``-o model.bf16_tiled_infer=True`` does
+so for the tiled predictor alone.
 """
 
 from __future__ import annotations

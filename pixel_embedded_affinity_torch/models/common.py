@@ -1,5 +1,7 @@
 """Shared model utilities (NCHW, NCDHW): align-corners upsampling, edge
-padding, and BatchNorms (2D and 3D) whose running statistics follow Flax's."""
+padding, BatchNorms (2D and 3D) whose running statistics follow Flax's, and
+convolutions that compute in another dtype than their parameters' (Flax's
+``dtype`` beside its ``param_dtype``)."""
 
 from __future__ import annotations
 
@@ -34,6 +36,52 @@ class _FlaxRunningStats:
         with torch.no_grad():
             self.running_var.mul_((1 - inv_c) * (1 - self.momentum)).add_(rv, alpha=inv_c)
         return y
+
+
+class _CastConv:
+    """A conv whose input, weight and bias are cast to ``compute_dtype`` at
+    each call and whose output is in that dtype, as Flax's
+    ``nn.Conv(dtype=...)`` promotes them; the parameters keep their dtype,
+    and autograd returns their gradients in it. ``compute_dtype`` None (the
+    default) computes in the parameters' dtype."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype (:class:`_CastConv`)."""
+
+
+class Conv3d(_CastConv, nn.Conv3d):
+    """``nn.Conv3d`` with a compute dtype (:class:`_CastConv`)."""
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
+    """Set the compute dtype of ``model`` (a torch dtype or "float32" /
+    "bfloat16") as Flax's ``dtype`` rule has it: every conv computes in it
+    (float32: in its parameters' dtype, so ``model.double()`` computes in
+    float64), each BatchNorm normalises its input in float32 and writes
+    its output in its input's dtype, which F.batch_norm does for a bfloat16
+    input beside float32 parameters, and pooling, upsampling and the adds
+    keep their inputs' dtype. Returns ``model``."""
+    dt = DTYPES[dtype] if isinstance(dtype, str) else dtype
+    if dt not in DTYPES.values():
+        raise ValueError(f"compute dtype {dtype}: expected float32 or bfloat16")
+    model.compute_dtype = dt
+    for m in model.modules():
+        if isinstance(m, _CastConv):
+            m.compute_dtype = None if dt == torch.float32 else dt
+    return model
 
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):

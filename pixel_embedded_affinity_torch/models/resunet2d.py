@@ -6,7 +6,9 @@ skips, five 1x1 embedding heads (1/16, 1/8, 1/4, 1/2, 1/1) and a binary
 mask head. BatchNorm keeps Flax's running statistics in train mode
 (:class:`.common.BatchNorm2d`). Parameter names follow the reference implementation
 (``inconv.conv.conv.0.weight``, ``up1_emb.block...``, ``binary_seg.{0,1,3}``),
-so its checkpoints load as they are.
+so its checkpoints load as they are. ``dtype`` is the compute dtype
+(:func:`.common.set_compute_dtype`): with bfloat16 every output is
+bfloat16 and the parameters stay float32, as in the JAX package's model.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import BatchNorm2d, replication_pad_to, upsample_align_corners
+from .common import (BatchNorm2d, Conv2d, replication_pad_to, set_compute_dtype,
+                     upsample_align_corners)
 
 
 class ResidualBlock(nn.Module):
@@ -26,11 +29,11 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch),
+            Conv2d(in_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch),
             nn.ReLU(inplace=True),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch))
+            Conv2d(out_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch))
         self.project = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch))
+            Conv2d(in_ch, out_ch, 3, padding=1), BatchNorm2d(out_ch))
 
     def forward(self, x):
         return F.relu(self.conv(x) + self.project(x))
@@ -66,7 +69,7 @@ class Up(nn.Module):
 class OutConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, 1)
+        self.conv = Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x):
         return self.conv(x)
@@ -76,8 +79,8 @@ class MaskHead(nn.Sequential):
     """1x1 conv - BN - ReLU - 1x1 conv binary segmentation head."""
 
     def __init__(self, in_ch: int, hidden: int, out_ch: int):
-        super().__init__(nn.Conv2d(in_ch, hidden, 1), BatchNorm2d(hidden),
-                         nn.ReLU(inplace=True), nn.Conv2d(hidden, out_ch, 1))
+        super().__init__(Conv2d(in_ch, hidden, 1), BatchNorm2d(hidden),
+                         nn.ReLU(inplace=True), Conv2d(hidden, out_ch, 1))
 
 
 def _concat_skip(x_cur, x_prev):
@@ -89,11 +92,11 @@ def _concat_skip(x_cur, x_prev):
 class ResidualUNet2DDeep(nn.Module):
     """Returns (emb1..emb4, embedding, mask_logits), all NCHW: emb1 at 1/16
     scale ... embedding at full scale, each ``emd`` channels; mask_logits
-    has ``out_channels`` classes."""
+    has ``out_channels`` classes; all in the compute ``dtype``."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 2,
                  nfeatures: Sequence[int] = (16, 32, 64, 128, 256),
-                 emd: int = 16):
+                 emd: int = 16, dtype=torch.float32):
         super().__init__()
         f = list(nfeatures)
         self.inconv = InConv(in_channels, f[0])
@@ -111,6 +114,7 @@ class ResidualUNet2DDeep(nn.Module):
         self.outconv4 = OutConv(f[2], emd)
         self.outconv_emb = OutConv(f[1], emd)
         self.binary_seg = MaskHead(f[1], f[1], out_channels)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         x1 = self.inconv(x)

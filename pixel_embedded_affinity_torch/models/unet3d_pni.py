@@ -9,17 +9,19 @@ Parameter names are the reference implementation's (``embed_in.0``,
 ``conv0.block1.0``, ``up0.1``, ``cat0.0``, ``out_put.0``, ...), so its
 checkpoints load as they are. BatchNorm momentum is the reference's 0.001
 (Flax's 0.999), and in train mode the running statistics follow Flax's
-(:class:`.common.BatchNorm3d`).
+(:class:`.common.BatchNorm3d`). ``dtype`` is the compute dtype
+(:func:`.common.set_compute_dtype`), as in the 2D model.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import BatchNorm3d, upsample_xy_align_corners
+from .common import BatchNorm3d, Conv3d, set_compute_dtype, upsample_xy_align_corners
 
 BN_MOMENTUM = 0.001
 
@@ -34,12 +36,12 @@ class ResBlockPNI(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.block1 = nn.Sequential(
-            nn.Conv3d(in_ch, out_ch, (1, 3, 3), padding=(0, 1, 1), bias=False),
+            Conv3d(in_ch, out_ch, (1, 3, 3), padding=(0, 1, 1), bias=False),
             _bn(out_ch), nn.ELU(inplace=True))
         self.block2 = nn.Sequential(
-            nn.Conv3d(out_ch, out_ch, 3, padding=1, bias=False), _bn(out_ch),
+            Conv3d(out_ch, out_ch, 3, padding=1, bias=False), _bn(out_ch),
             nn.ELU(inplace=True),
-            nn.Conv3d(out_ch, out_ch, 3, padding=1, bias=False))
+            Conv3d(out_ch, out_ch, 3, padding=1, bias=False))
         self.block3 = _bn(out_ch)
 
     def forward(self, x):
@@ -51,7 +53,7 @@ class UpsampleConv(nn.Sequential):
     """(1, 2, 2) align-corners upsampling, then a 1x1x1 conv with bias."""
 
     def __init__(self, in_ch: int, out_ch: int):
-        super().__init__(UpsampleXY(), nn.Conv3d(in_ch, out_ch, 1))
+        super().__init__(UpsampleXY(), Conv3d(in_ch, out_ch, 1))
 
 
 class UpsampleXY(nn.Module):
@@ -68,14 +70,16 @@ class MergeBNELU(nn.Sequential):
 
 class UNetPNIEmbeddingDeep(nn.Module):
     """Returns (out1 (1/16 in y, x), out2 (1/8), out3 (1/4), out4 (1/2),
-    embedding (1/1)), each NCDHW with ``emd`` channels; z keeps its size."""
+    embedding (1/1)), each NCDHW with ``emd`` channels in the compute
+    ``dtype``; z keeps its size."""
 
     def __init__(self, in_channels: int = 1,
-                 filters: Sequence[int] = (28, 36, 48, 64, 80), emd: int = 16):
+                 filters: Sequence[int] = (28, 36, 48, 64, 80), emd: int = 16,
+                 dtype=torch.float32):
         super().__init__()
         f = [filters[0]] + list(filters)
         self.embed_in = nn.Sequential(
-            nn.Conv3d(in_channels, f[0], (1, 5, 5), padding=(0, 2, 2)),
+            Conv3d(in_channels, f[0], (1, 5, 5), padding=(0, 2, 2)),
             nn.ELU(inplace=True))
         self.conv0 = ResBlockPNI(f[0], f[1])
         self.conv1 = ResBlockPNI(f[1], f[2])
@@ -95,13 +99,14 @@ class UNetPNIEmbeddingDeep(nn.Module):
         self.cat3 = MergeBNELU(f[1])
         self.conv7 = ResBlockPNI(f[1], f[1])
         self.embed_out = nn.Sequential(
-            nn.Conv3d(f[1], f[0], (1, 5, 5), padding=(0, 2, 2)),
+            Conv3d(f[1], f[0], (1, 5, 5), padding=(0, 2, 2)),
             nn.ELU(inplace=True))
-        self.out_put = nn.Sequential(nn.Conv3d(f[0], emd, 1))
-        self.out_put1 = nn.Sequential(nn.Conv3d(f[5], emd, 1))
-        self.out_put2 = nn.Sequential(nn.Conv3d(f[4], emd, 1))
-        self.out_put3 = nn.Sequential(nn.Conv3d(f[3], emd, 1))
-        self.out_put4 = nn.Sequential(nn.Conv3d(f[2], emd, 1))
+        self.out_put = nn.Sequential(Conv3d(f[0], emd, 1))
+        self.out_put1 = nn.Sequential(Conv3d(f[5], emd, 1))
+        self.out_put2 = nn.Sequential(Conv3d(f[4], emd, 1))
+        self.out_put3 = nn.Sequential(Conv3d(f[3], emd, 1))
+        self.out_put4 = nn.Sequential(Conv3d(f[2], emd, 1))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         def pool(v):

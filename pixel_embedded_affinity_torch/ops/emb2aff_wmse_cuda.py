@@ -7,7 +7,10 @@ backward). Each returns ``(S, affs)``: the per-offset sums
 ``S_k = sum w_k (a_k m_k - t_k m_k)^2`` over batch and pixels, (K,), and
 the 'valid' affinities (B, K, H, W). Gradients flow through S only; the
 affinities are for monitoring and are marked non-differentiable, as in the
-JAX contract. t, w and m get no gradient.
+JAX contract. t, w and m get no gradient. The embeddings are float32 or
+bfloat16 (one dtype for both), t, w and m float32: the kernels compute in
+float32 and take S from the unrounded affinities, and write the affinities
+and the gradients in the embeddings' dtype, as the TPU kernels do.
 
 On a CUDA tensor each is a ``torch.autograd.Function`` whose forward
 launches K2f/K3f and whose backward launches K2b/K3b, all in
@@ -34,6 +37,7 @@ from .emb2aff import cross_affinity_2d, embedding_to_affinity_2d
 SOURCE = "affinity_wmse2d.cu"
 SUPPORTED_C = (16,)  # the cvppp preset's emd, the one width training runs
 MAX_OFFSETS = 16
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _wmse_sums(affs, t, w, m):
@@ -41,16 +45,25 @@ def _wmse_sums(affs, t, w, m):
     return torch.sum(w * d * d, dim=(0, 2, 3))
 
 
+def _widened(e: torch.Tensor) -> torch.Tensor:
+    """e in float32 at least: a bfloat16 embedding widened (autograd
+    returns its gradient in bfloat16), float32 and float64 as they are."""
+    return e.to(torch.promote_types(e.dtype, torch.float32))
+
+
 def affinity_wmse_2d_plain(e: torch.Tensor, t, w, m, offsets):
-    """K2's function in plain PyTorch: (S (K,), affs (B, K, H, W))."""
-    affs = embedding_to_affinity_2d(e, offsets, padding="valid")
-    return _wmse_sums(affs, t, w, m), affs.detach()
+    """K2's function in plain PyTorch: (S (K,), affs (B, K, H, W)),
+    computed in float32 from a bfloat16 embedding; S from the unrounded
+    affinities, the affinities in e's dtype."""
+    affs = embedding_to_affinity_2d(_widened(e), offsets, padding="valid")
+    return _wmse_sums(affs, t, w, m), affs.detach().to(e.dtype)
 
 
 def cross_affinity_wmse_2d_plain(a: torch.Tensor, b: torch.Tensor, t, w, m, offsets):
-    """K3's function in plain PyTorch: (S (K,), affs (B, K, H, W))."""
-    affs = cross_affinity_2d(a, b, offsets)
-    return _wmse_sums(affs, t, w, m), affs.detach()
+    """K3's function in plain PyTorch: (S (K,), affs (B, K, H, W)), computed
+    as :func:`affinity_wmse_2d_plain`'s, the affinities in a's dtype."""
+    affs = cross_affinity_2d(_widened(a), _widened(b), offsets)
+    return _wmse_sums(affs, t, w, m), affs.detach().to(a.dtype)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -59,7 +72,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.wmse2d_fwd.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         view = [p, i64, i64, i64, i64]
-        tail = [i, i, i, i, p, i, p]  # B, H, W, C, offsets, K, stream
+        tail = [i, i, i, i, i, p, i, p]  # dtype, B, H, W, C, offsets, K, stream
         lib.wmse2d_partial_rows.restype = i64
         lib.wmse2d_partial_rows.argtypes = [i, i, i]
         for name, args in [("wmse2d_fwd", view + [p] * 5),
@@ -102,8 +115,13 @@ def _check(embs, maps, offsets):
     for x in (*embs, *maps):
         if x.device != e0.device or x.device.type != "cuda":
             raise ValueError(f"all inputs must be on one CUDA device, got {x.device}")
+    for x in embs:
+        if x.dtype not in _DTYPES or x.dtype != e0.dtype:
+            raise TypeError(f"embedding dtype {x.dtype} not supported (float32 or bfloat16, "
+                            "one for both)")
+    for x in maps:
         if x.dtype != torch.float32:
-            raise TypeError(f"dtype {x.dtype} not supported (float32)")
+            raise TypeError(f"target/weight/mask dtype {x.dtype} not supported (float32)")
     return offs
 
 
@@ -121,23 +139,23 @@ def _fwd(entry: str, embs, t, w, m, offsets, lib=None):
     b, h, wd, c = embs[0].shape
     k = offs.shape[0]
     dev = embs[0].device
-    affs = torch.empty((b, k, h, wd), dtype=torch.float32, device=dev)
+    affs = torch.empty((b, k, h, wd), dtype=embs[0].dtype, device=dev)
     partial = torch.empty((lib.wmse2d_partial_rows(b, h, wd), k),
                           dtype=torch.float32, device=dev)
     views = [v for e in embs for v in (e.data_ptr(), *e.stride())]
     with torch.cuda.device(dev):
         _launch(lib, entry, *views, t.data_ptr(), w.data_ptr(), m.data_ptr(),
-                affs.data_ptr(), partial.data_ptr(), b, h, wd, c, offs.ctypes.data,
-                k, torch.cuda.current_stream(dev).cuda_stream)
+                affs.data_ptr(), partial.data_ptr(), _DTYPES[embs[0].dtype], b, h, wd, c,
+                offs.ctypes.data, k, torch.cuda.current_stream(dev).cuda_stream)
     return partial.sum(dim=0), affs
 
 
 def _bwd(entry: str, embs, t, w, m, g_s, offsets, n_grads: int, lib=None):
     """Launch a backward entry (of ``lib`` as in ``_fwd``): the gradients of
-    the first ``n_grads`` embeddings, each written to a contiguous (B, C, H,
-    W) buffer and returned as its (B, H, W, C) view, the layout of the
-    model's NCHW gradient; the entry gets a null pointer for each gradient
-    skipped."""
+    the first ``n_grads`` embeddings in the embeddings' dtype, each written
+    to a contiguous (B, C, H, W) buffer and returned as its (B, H, W, C)
+    view, the layout of the model's NCHW gradient; the entry gets a null
+    pointer for each gradient skipped."""
     lib = _lib() if lib is None else lib
     offs = _check(embs, [t, w, m], offsets)
     b, h, wd, c = embs[0].shape
@@ -146,13 +164,13 @@ def _bwd(entry: str, embs, t, w, m, g_s, offsets, n_grads: int, lib=None):
     g_s = g_s.to(device=dev, dtype=torch.float32).contiguous()
     if g_s.shape != (k,):
         raise ValueError(f"gS must be ({k},), got {tuple(g_s.shape)}")
-    grads = [torch.empty((b, c, h, wd), dtype=torch.float32, device=dev)
-             for _ in range(n_grads)]
+    dtype = embs[0].dtype
+    grads = [torch.empty((b, c, h, wd), dtype=dtype, device=dev) for _ in range(n_grads)]
     ptrs = [g.data_ptr() for g in grads] + [None] * (len(embs) - n_grads)
     views = [v for e in embs for v in (e.data_ptr(), *e.stride())]
     with torch.cuda.device(dev):
         _launch(lib, entry, *views, t.data_ptr(), w.data_ptr(), m.data_ptr(), g_s.data_ptr(),
-                *ptrs, b, h, wd, c, offs.ctypes.data, k,
+                *ptrs, _DTYPES[dtype], b, h, wd, c, offs.ctypes.data, k,
                 torch.cuda.current_stream(dev).cuda_stream)
     return [g.permute(0, 2, 3, 1) for g in grads]
 

@@ -28,6 +28,12 @@ targets, weights and masks (B, K, H, W) or (B, K, D, H, W). With
 
 ``mask_head_loss`` is the BBBC mask head's class-weighted cross entropy,
 with the reference's class-weight order (see its docstring).
+
+Dtypes follow the JAX package's: a bfloat16 embedding goes to the kernels
+as it is; fused, S is float32 and the affinities bfloat16; unfused, the
+affinities are bfloat16 and the criterion promotes against the float32
+targets and weights (``mask.to(affs.dtype)`` as in JAX), so every loss is
+float32.
 """
 
 from __future__ import annotations
@@ -83,10 +89,12 @@ def mask_head_loss(logits_bhwc, target_mask_bhw):
     The reference weights class 0 by count(target == 1) and class 1 by
     count(target == 0), the pixel counts in that order, and, as torch's
     CrossEntropyLoss with class weights, divides by the sum of the
-    samples' weights."""
+    samples' weights. The counts are float32 whatever the logits' dtype, as
+    in the JAX package: with bfloat16 logits the log-probabilities are
+    bfloat16 and the weighted sum float32."""
     t = target_mask_bhw.long()
-    n_fg = torch.sum(t == 1).to(logits_bhwc.dtype)
-    n_bg = torch.sum(t == 0).to(logits_bhwc.dtype)
+    n_fg = torch.sum(t == 1).to(torch.float32)
+    n_bg = torch.sum(t == 0).to(torch.float32)
     w = torch.stack([n_fg, n_bg])[t]
     pick = torch.gather(torch.log_softmax(logits_bhwc, dim=-1), -1, t[..., None])[..., 0]
     return -torch.sum(w * pick) / torch.clamp(torch.sum(w), min=1e-12)

@@ -16,7 +16,9 @@ the mask AJI/F1/PQ; 3D validation serves the validation volume tiled (K5f
 affinities) through ``train.valid_decoders`` and scores VOI/ARAND and the
 affinities' MSE and BCE against the label's. Losses
 stay on the device until a display, validation or save point fetches them
-in one copy; the watchdog then checks each one. Scalars go to
+in one copy; the watchdog then checks each one. The model computes in
+``model.dtype`` (bfloat16: Flax's dtype rule, the losses float32); the
+parameters, AMSGrad's state and the checkpoints are float32 either way. Scalars go to
 ``scalars.jsonl`` and the reference's ``loss.txt``/``valid.txt``.
 
 Data comes through ``data_override=(train, valid)``, the JAX loop's own
@@ -72,8 +74,7 @@ def check_train_config(cfg: Config):
     not_ported = []
     if cfg.model.arch not in ("resunet2d_deep",) + ARCHS_3D:
         not_ported.append(f"model.arch={cfg.model.arch!r}")
-    if resolve_compute_dtype(cfg.model) != "float32":
-        not_ported.append(f"model.dtype={cfg.model.dtype!r} (float32 only)")
+    resolve_compute_dtype(cfg.model)  # raises on a dtype that is not served
     if cfg.train.lr_mode != "fixed":
         not_ported.append(f"train.lr_mode={cfg.train.lr_mode!r} (fixed only)")
     if cfg.train.loss_func not in CRITERIA:
@@ -136,16 +137,18 @@ def resident_sampler(cfg: Config, arrays, device):
 
 
 def init_state(cfg: Config, device) -> TrainState:
-    """Model with weights drawn from ``train.random_seed`` (on the CPU, so
-    the draw is the same whatever the device), and a fresh AMSGrad."""
+    """Model in the compute dtype (``model.dtype``) with float32 weights
+    drawn from ``train.random_seed`` (on the CPU, so the draw is the same
+    whatever the device), and a fresh AMSGrad."""
+    dtype = resolve_compute_dtype(cfg.model)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.random_seed)
         if cfg.model.arch in ARCHS_3D:
             model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
-                                         cfg.model.emd)
+                                         cfg.model.emd, dtype=dtype)
         else:
             model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
-                                       tuple(cfg.model.filters), cfg.model.emd)
+                                       tuple(cfg.model.filters), cfg.model.emd, dtype=dtype)
     model = model.to(device).train()
     opt = AMSGrad(model.parameters(), lr=cfg.train.base_lr, eps=0.01,
                   weight_decay=cfg.train.weight_decay or 0.0)
@@ -159,7 +162,10 @@ def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offset
     adds the mask head's, the decode is seeded by argmax(softmax(mask
     logits)) > 0 with components under 25 pixels dropped, the small-object
     merging takes the bbbc schedule, and AJI/F1/PQ are scored on
-    ``remap_label``-ed labels, 0.0 when either is empty."""
+    ``remap_label``-ed labels, 0.0 when either is empty. In bfloat16 the
+    eval step's K1f takes the bfloat16 embedding and the softmax the
+    bfloat16 logits, as in the JAX loop; the host gets them widened to
+    float32, exactly."""
     dev = torch.device(device)
     bbbc = bool(cfg.train.mask_weight)
     scores: dict = {}
@@ -171,11 +177,11 @@ def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offset
                  "affs": affs, "wmap": weight_binary_ratio(affs), "mask": mask}
         loss, pred, _, pred_mask = eval_step(state.model, batch)
         loss = float(loss)
-        out_affs = pred[0].cpu().numpy()
+        out_affs = pred[0].float().cpu().numpy()
         gt = np.asarray(s["seg"]).astype(np.uint16)
         if bbbc:
             loss += cfg.train.mask_weight * float(mask_head_loss(pred_mask, seg_t > 0))
-            prob = torch.softmax(pred_mask[0], dim=-1).cpu().numpy()
+            prob = torch.softmax(pred_mask[0], dim=-1).float().cpu().numpy()
             fg = remove_small_object((np.argmax(prob, axis=-1) > 0).astype(np.uint8),
                                      min_size=25)
         else:
@@ -213,14 +219,16 @@ def validate_3d(cfg: Config, state: TrainState, valid_volume, device) -> dict:
     """Serve the validation volume tiled with the trained weights, decode it
     with ``train.valid_decoders`` and score it: VOI/ARAND per decoder, and
     the affinities' MSE and BCE (p clipped to [1e-6, 1 - 1e-6]) against the
-    label's 12-channel targets. Tiles: :func:`valid_geometry_3d`."""
+    label's 12-channel targets. Tiles: :func:`valid_geometry_3d`. In
+    bfloat16 K5f takes the model's bfloat16 embedding, as the JAX loop's
+    validation (its default serving graph) hands it to its kernel."""
     from ..infer.inference3d import run_inference_3d
 
     stride, padding = valid_geometry_3d(cfg.data.crop_size)
     affs, results = run_inference_3d(
         cfg, state.model.state_dict(), valid_volume.raw, gt=valid_volume.label,
         decoders=tuple(cfg.train.valid_decoders), crop_size=tuple(cfg.data.crop_size),
-        stride=stride, padding=padding, device=device)
+        stride=stride, padding=padding, device=device, float32_affinity=False)
     out = {f"valid/{dec}_{k}": float(v) for dec, (_, m) in results.items() for k, v in m.items()}
     label = torch.from_numpy(np.asarray(valid_volume.label, np.int64)[None])
     gt = seg_to_aff_3d_12ch(label)[0].numpy()

@@ -9,8 +9,14 @@ as the JAX step chains them; the teacher's embedding un-flipped; deep
 supervision of e4, e3, e2, e1 (1/2 .. 1/16 scale) against the pyramid
 levels 1..4 with ``neighbor // 2 * (4 - k)`` offsets; the full-scale self
 loss and the cross-view loss; with ``mask_weight`` (BBBC) the mask head's
-loss against the foreground; backward; AMSGrad. Every convolution, the
-backward ones too, runs in float32 with TF32 off. The model is NCHW; the
+loss against the foreground; backward; AMSGrad. The model computes in its
+dtype (``model.dtype``): in float32 every convolution, the backward ones
+too, runs with TF32 off; in bfloat16 the model casts the image at its
+first convolutions, student and teacher compute in bfloat16 as Flax's
+dtype rule has it (:func:`..models.common.set_compute_dtype`), the
+un-flip keeps the teacher's dtype, the losses hand the bfloat16
+embeddings to the kernels and come out float32, and the parameters, their
+gradients and AMSGrad's state stay float32. The model is NCHW; the
 losses take its outputs as ``permute(0, 2, 3, 1)`` views with no copy.
 
 The JAX default trains an exact twin of the model in a TPU layout

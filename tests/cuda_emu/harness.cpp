@@ -8,8 +8,8 @@
 //   harness bwd B D H W C dtype layout raw [oz oy ox ...]
 //   harness xfwd B D H W C dtype layout_a layout_b [oz oy ox ...]
 //   harness xbwd B D H W C dtype layout_a layout_b raw db [oz oy ox ...]
-//   harness wfwd B H W cross layout_a layout_b soft dy dx [dy dx ...]
-//   harness wbwd B H W cross layout_a layout_b db soft dy dx [dy dx ...]
+//   harness wfwd B H W dtype cross layout_a layout_b soft dy dx [dy dx ...]
+//   harness wbwd B H W dtype cross layout_a layout_b db soft dy dx [dy dx ...]
 // (dtype 0 float32, 1 bfloat16; off 0 is the canvas mode, kept rectangle
 // [1, H - 2) x [2, W - 1); layout 0 a contiguous (B, D, H, W, C)
 // embedding, 1 the (B, C, D, H, W) one seen through permuted strides, 2
@@ -17,7 +17,7 @@
 // (B, C, D, W, H), as a transposed teacher; no shifts or offsets: the 3D
 // shift table; k1f: the 2D affinity forward at D = 1; xbwd's db 0 skips
 // the second input's gradient; wfwd and wbwd: the loss-fused WMSE kernels
-// of affinity_wmse2d.cu, float32, C = 16, D = 1, the self form (cross 0,
+// of affinity_wmse2d.cu, C = 16, D = 1, the self form (cross 0,
 // one embedding) or the cross one, a mask of 0s and 1s or, with soft,
 // uniform in [0, 1); wfwd also prints the largest relative error of the
 // per-offset sums S). Prints the largest error relative to the largest
@@ -60,22 +60,22 @@ extern "C" __attribute__((weak)) int cross_affinity_bwd(
 // weak: only the package's build has the WMSE kernels
 extern "C" __attribute__((weak)) int64_t wmse2d_partial_rows(int B, int H, int W);
 extern "C" __attribute__((weak)) int wmse2d_fwd(
-    const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC, const float* t, const float* w,
-    const float* m, float* affs, float* partial, int B, int H, int W, int c,
+    const void* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC, const float* t, const float* w,
+    const float* m, void* affs, float* partial, int dtype, int B, int H, int W, int c,
     const int32_t* offsets, int K, void* stream);
 extern "C" __attribute__((weak)) int cross_wmse2d_fwd(
-    const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC, const float* b,
+    const void* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC, const void* b,
     int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC, const float* t, const float* w,
-    const float* m, float* affs, float* partial, int B, int H, int W, int c,
+    const float* m, void* affs, float* partial, int dtype, int B, int H, int W, int c,
     const int32_t* offsets, int K, void* stream);
 extern "C" __attribute__((weak)) int wmse2d_bwd(
-    const float* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC, const float* t, const float* w,
-    const float* m, const float* gs, float* de, int B, int H, int W, int c,
+    const void* e, int64_t sB, int64_t sH, int64_t sW, int64_t sC, const float* t, const float* w,
+    const float* m, const float* gs, void* de, int dtype, int B, int H, int W, int c,
     const int32_t* offsets, int K, void* stream);
 extern "C" __attribute__((weak)) int cross_wmse2d_bwd(
-    const float* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC, const float* b,
+    const void* a, int64_t saB, int64_t saH, int64_t saW, int64_t saC, const void* b,
     int64_t sbB, int64_t sbH, int64_t sbW, int64_t sbC, const float* t, const float* w,
-    const float* m, const float* gs, float* da, float* db, int B, int H, int W, int c,
+    const float* m, const float* gs, void* da, void* db, int dtype, int B, int H, int W, int c,
     const int32_t* offsets, int K, void* stream);
 extern "C" int s2d_block_fwd(const void* x0, const void* w1p0, int K0, const void* x1,
                              const void* w1p1, int K1, int n_parts, const void* w2,
@@ -481,17 +481,18 @@ static int xbwd(int B, int D, int H, int W, int C, int dt, int la, int lb, int r
 }
 
 // The loss-fused WMSE case's inputs: embeddings a and b (b is a for the
-// self form), each a D = 1 Embedding of C = 16 in its layout, the (dy, dx)
-// table, and t, w, m (B, K, H, W) and gS (K,)
+// self form), each a D = 1 Embedding of C = 16 in its layout and dtype,
+// the (dy, dx) table, and t, w, m (B, K, H, W) and gS (K,), float32
 struct WmseCase {
-    int B, H, W, K;
+    int B, H, W, K, dt;
     bool cross;
     Embedding a, b;
     std::vector<int> o;
     std::vector<float> t, w, m, gs;
-    WmseCase(int B, int H, int W, int cross, int la, int lb, int soft, std::vector<int> offs)
-        : B(B), H(H), W(W), K((int)offs.size() / 2), cross(cross != 0),
-          a(B, 1, H, W, 16, 0, la), b(B, 1, H, W, 16, 0, lb), o(std::move(offs)) {
+    WmseCase(int B, int H, int W, int dt, int cross, int la, int lb, int soft,
+             std::vector<int> offs)
+        : B(B), H(H), W(W), K((int)offs.size() / 2), dt(dt), cross(cross != 0),
+          a(B, 1, H, W, 16, dt, la), b(B, 1, H, W, 16, dt, lb), o(std::move(offs)) {
         const size_t n = (size_t)B * K * H * W;
         std::uniform_real_distribution<float> u(0.f, 1.f);
         t.resize(n), w.resize(n), m.resize(n), gs.resize(K);
@@ -524,20 +525,21 @@ struct WmseCase {
 };
 
 // affs and S of wmse2d_fwd / cross_wmse2d_fwd against float64
-static int wfwd(int B, int H, int W, int cross, int la, int lb, int soft, std::vector<int> o) {
+static int wfwd(int B, int H, int W, int dt, int cross, int la, int lb, int soft,
+                std::vector<int> o) {
     if (!wmse2d_fwd) { std::printf("no WMSE kernels\n"); return 1; }
-    WmseCase cs(B, H, W, cross, la, lb, soft, o);
+    WmseCase cs(B, H, W, dt, cross, la, lb, soft, o);
     const int K = cs.K;
-    std::vector<float> affs((size_t)B * K * H * W, -1.f);
+    Tensor affs(std::vector<float>((size_t)B * K * H * W, -1.f), dt);
     std::vector<float> partial((size_t)wmse2d_partial_rows(B, H, W) * K);
     const int64_t* sa = cs.a.s;
     const int64_t* sb = cs.second().s;
     const int err = cross
-        ? cross_wmse2d_fwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.b.t.f.data(), sb[0],
-                           sb[2], sb[3], sb[4], cs.t.data(), cs.w.data(), cs.m.data(), affs.data(),
-                           partial.data(), B, H, W, 16, cs.o.data(), K, nullptr)
-        : wmse2d_fwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.t.data(), cs.w.data(),
-                     cs.m.data(), affs.data(), partial.data(), B, H, W, 16, cs.o.data(), K,
+        ? cross_wmse2d_fwd(cs.a.t.ptr(), sa[0], sa[2], sa[3], sa[4], cs.b.t.ptr(), sb[0], sb[2],
+                           sb[3], sb[4], cs.t.data(), cs.w.data(), cs.m.data(), affs.ptr(),
+                           partial.data(), dt, B, H, W, 16, cs.o.data(), K, nullptr)
+        : wmse2d_fwd(cs.a.t.ptr(), sa[0], sa[2], sa[3], sa[4], cs.t.data(), cs.w.data(),
+                     cs.m.data(), affs.ptr(), partial.data(), dt, B, H, W, 16, cs.o.data(), K,
                      nullptr);
     if (err) { std::printf("launch error %d\n", err); return 1; }
     double worst = 0, s_rel = 0, p_rel = 0;
@@ -550,10 +552,11 @@ static int wfwd(int B, int H, int W, int cross, int la, int lb, int soft, std::v
                     const size_t i = cs.at(bi, k, y, x);
                     const double ref = cs.aff(bi, k, y, x);
                     const int yy = y + o[2 * k], xx = x + o[2 * k + 1];
+                    const float got = affs.at(i);
                     if (!cs.inside(yy, xx) || cs.a.is_zero(bi, 0, y, x) ||
                         cs.second().is_zero(bi, 0, yy, xx))
-                        zeros &= affs[i] == 0.f;
-                    worst = std::max(worst, std::fabs(affs[i] - ref));
+                        zeros &= got == 0.f;
+                    worst = std::max(worst, std::fabs(got - ref));
                     const double d = ref * cs.m[i] - (double)cs.t[i] * cs.m[i];
                     S[k] += cs.w[i] * d * d;
                 }
@@ -577,22 +580,23 @@ static int wfwd(int B, int H, int W, int cross, int la, int lb, int soft, std::v
 
 // de (self) or da and, with db, db (cross) of sum_k gS_k S_k against
 // wmse2d_bwd / cross_wmse2d_bwd
-static int wbwd(int B, int H, int W, int cross, int la, int lb, int with_db, int soft,
+static int wbwd(int B, int H, int W, int dt, int cross, int la, int lb, int with_db, int soft,
                 std::vector<int> o) {
     if (!wmse2d_bwd) { std::printf("no WMSE kernels\n"); return 1; }
-    WmseCase cs(B, H, W, cross, la, lb, soft, o);
+    WmseCase cs(B, H, W, dt, cross, la, lb, soft, o);
     const int K = cs.K;
     const size_t n = (size_t)B * 16 * H * W;
-    std::vector<float> da(n, NAN), db(n, NAN);
+    Tensor da(std::vector<float>(n, NAN), dt), db(std::vector<float>(n, NAN), dt);
     const int64_t* sa = cs.a.s;
     const int64_t* sb = cs.second().s;
     const int err = cross
-        ? cross_wmse2d_bwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.b.t.f.data(), sb[0],
-                           sb[2], sb[3], sb[4], cs.t.data(), cs.w.data(), cs.m.data(),
-                           cs.gs.data(), da.data(), with_db ? db.data() : nullptr, B, H, W, 16,
-                           cs.o.data(), K, nullptr)
-        : wmse2d_bwd(cs.a.t.f.data(), sa[0], sa[2], sa[3], sa[4], cs.t.data(), cs.w.data(),
-                     cs.m.data(), cs.gs.data(), da.data(), B, H, W, 16, cs.o.data(), K, nullptr);
+        ? cross_wmse2d_bwd(cs.a.t.ptr(), sa[0], sa[2], sa[3], sa[4], cs.b.t.ptr(), sb[0], sb[2],
+                           sb[3], sb[4], cs.t.data(), cs.w.data(), cs.m.data(), cs.gs.data(),
+                           da.ptr(), with_db ? db.ptr() : nullptr, dt, B, H, W, 16, cs.o.data(),
+                           K, nullptr)
+        : wmse2d_bwd(cs.a.t.ptr(), sa[0], sa[2], sa[3], sa[4], cs.t.data(), cs.w.data(),
+                     cs.m.data(), cs.gs.data(), da.ptr(), dt, B, H, W, 16, cs.o.data(), K,
+                     nullptr);
     if (err) { std::printf("launch error %d\n", err); return 1; }
     // float64 cotangents, once
     std::vector<double> g((size_t)B * K * H * W);
@@ -603,14 +607,14 @@ static int wbwd(int B, int H, int W, int cross, int la, int lb, int with_db, int
     GradErr ea, eb;
     std::vector<double> n0, nq, dna(16), dnb(16);
     // the normalisation's VJP of dn at one pixel of e, against out
-    auto vjp = [&](const Embedding& e, const std::vector<double>& dn, const std::vector<float>& out,
+    auto vjp = [&](const Embedding& e, const std::vector<double>& dn, const Tensor& out,
                    GradErr& ge, int bi, int y, int x) {
         const double norm = e.vec(bi, 0, y, x, false, n0);
         double proj = 0;
         if (norm >= 1e-12)
             for (int c = 0; c < 16; ++c) proj += n0[c] * dn[c];
         for (int c = 0; c < 16; ++c)
-            ge.add(out[(((size_t)bi * 16 + c) * H + y) * W + x],
+            ge.add(out.at((((size_t)bi * 16 + c) * H + y) * W + x),
                    (dn[c] - n0[c] * proj) / std::max(norm, 1e-12), e.is_zero(bi, 0, y, x));
     };
     for (int bi = 0; bi < B; ++bi)
@@ -660,15 +664,17 @@ int main(int argc, char** argv) {
     if (argc >= 12 && std::string(argv[1]) == "xbwd")
         return xbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
                     std::vector<int>(a.begin() + 10, a.end()));
-    if (argc >= 11 && std::string(argv[1]) == "wfwd")
-        return wfwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], std::vector<int>(a.begin() + 7, a.end()));
-    if (argc >= 12 && std::string(argv[1]) == "wbwd")
-        return wbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7],
+    if (argc >= 12 && std::string(argv[1]) == "wfwd")
+        return wfwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7],
                     std::vector<int>(a.begin() + 8, a.end()));
+    if (argc >= 13 && std::string(argv[1]) == "wbwd")
+        return wbwd(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8],
+                    std::vector<int>(a.begin() + 9, a.end()));
     std::fprintf(stderr, "usage: harness conv B H W Cin Cout off relu dtype | k8 B H W c dtype K0 [K1]"
                          " | k1f B H W C dtype layout dy dx [dy dx...]"
                          " | k5f B D H W C dtype layout [shift...] | bwd B D H W C dtype layout raw [oz oy ox...]"
                          " | xfwd B D H W C dtype la lb [oz oy ox...] | xbwd B D H W C dtype la lb raw db [oz oy ox...]"
-                         " | wfwd B H W cross la lb soft dy dx [dy dx...] | wbwd B H W cross la lb db soft dy dx [dy dx...]\n");
+                         " | wfwd B H W dtype cross la lb soft dy dx [dy dx...]"
+                         " | wbwd B H W dtype cross la lb db soft dy dx [dy dx...]\n");
     return 2;
 }

@@ -512,7 +512,7 @@ def test_bbbc_preset_matches_jax():
         for k in vars(p):
             if k == "dtype":  # "auto": float32 in the port, bfloat16 on a TPU
                 continue
-            if k in ("bf16_tiled_infer", "fast_tiled_infer"):  # 3D, off in the port
+            if k in ("bf16_tiled_infer", "fast_tiled_infer"):  # 3D, off by default in the port
                 continue
             assert getattr(p, k) == getattr(r, k), f"{sec}.{k}"
             n += 1

@@ -138,11 +138,23 @@ def test_decoders_match_jax():
 
 
 def test_tpu_serving_options_refused(case):
-    for field in ("bf16_tiled_infer", "fast_tiled_infer"):
-        cfg = load_config("ac3ac4", {"model": {"filters": FILTERS, field: True}})
-        with pytest.raises(NotImplementedError, match="3D extras"):
-            run_inference_3d(cfg, case["sd"], case["vol"], decoders=(), device="cpu",
-                             **GEOMETRY)
+    """The folded-BN serving graph (fast_tiled_infer) is not ported."""
+    cfg = load_config("ac3ac4", {"model": {"filters": FILTERS, "fast_tiled_infer": True}})
+    with pytest.raises(NotImplementedError, match="3D extras"):
+        run_inference_3d(cfg, case["sd"], case["vol"], decoders=(), device="cpu", **GEOMETRY)
+
+
+def test_bf16_tiled_infer_served(case):
+    """bf16_tiled_infer serves: a float32 canvas of the volume's shape, off
+    the float32 serve by bfloat16's rounding (tests/test_torch_bf16.py
+    holds it to the float32 canvas and JAX's at the JAX package's bar)."""
+    cfg = load_config("ac3ac4", {"model": {"filters": FILTERS, "bf16_tiled_infer": True}})
+    got, _ = run_inference_3d(cfg, case["sd"], case["vol"], decoders=(), device="cpu",
+                              **GEOMETRY)
+    ref, _ = run_inference_3d(load_config("ac3ac4", {"model": {"filters": FILTERS}}),
+                              case["sd"], case["vol"], decoders=(), device="cpu", **GEOMETRY)
+    assert got.dtype == np.float32 and got.shape == ref.shape == (12,) + case["vol"].shape
+    assert 0 < np.abs(got - ref).max() <= 0.05
 
 
 def test_synthesize_volume_matches_jax():

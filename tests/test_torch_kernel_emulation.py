@@ -24,14 +24,16 @@ gate (64 random offsets too), K5f at its 1e-6, both with their exact zeros, the 
 over z chunks and tables longer than the staged cotangents, hold the
 staged z-walk forms of the two affinity kernels in
 ``tools/affinity_zwalk.cu`` (the design that ``tools/affinity_zwalk.py``
-times against the package's). The WMSE kernels (float32, C = 16): the
-self and cross forms, K3b without db (the training step's call) and with
-it, ragged tiles, H, W < 27, a zero vector, K = 1, neighbor 4's 10
-offsets and neighbor 8's diagonals, a teacher with H stride 1,
-channels-last embeddings and a non-binary mask; the affinities at 1e-5
-with their exact zeros, the sums S at 1e-5 relative (the block partials
-summed in float32, as the wrapper sums them, and in float64), the
-gradients as the affinity backward's."""
+times against the package's). The WMSE kernels (C = 16), float32 and
+bfloat16: the self and cross forms, K3b without db (the training step's
+call) and with it, ragged tiles, H, W < 27, a zero vector, K = 1,
+neighbor 4's 10 offsets and neighbor 8's diagonals, a teacher with H
+stride 1, channels-last embeddings and a non-binary mask; the affinities
+at 1e-5 (bfloat16: 8e-3, their rounding) with their exact zeros, the sums
+S at 1e-5 relative in both dtypes (the block partials summed in float32,
+as the wrapper sums them, and in float64; bfloat16 or not, S is taken in
+float32 from the unrounded affinities of the same inputs), the gradients
+as the affinity backward's (bfloat16: 8e-3)."""
 
 import os
 import re
@@ -309,18 +311,30 @@ _WMSE_IDS = ["self", "self-small", "self-k1-soft", "self-n8", "cross", "cross-sw
              "cross-small", "cross-k1-soft", "cross-cl-n8"]
 
 
-@pytest.mark.parametrize("b,h,w,cross,la,lb,soft,table", _WMSE_CASES, ids=_WMSE_IDS)
-def test_wmse_fwd_kernel_emulated(harness, b, h, w, cross, la, lb, soft, table):
-    """K2f/K3f: the affinities at 1e-5 (and exact zeros outside and at the
-    zero vector), the sums S relative at 1e-5, both as the wrapper sums the
-    block partials (float32) and as their float64 sum."""
-    proc = subprocess.run([harness, "wfwd", *map(str, (b, h, w, cross, la, lb, soft)),
+def _with_dtypes(cases, ids):
+    """Each case in float32 (dtype 0, its own id) and in bfloat16 (1, the id
+    with "-bf16"), the dtype last."""
+    return ([(*c, 0) for c in cases] + [(*c, 1) for c in cases],
+            list(ids) + [f"{i}-bf16" for i in ids])
+
+
+_WMSE_FWD_ALL, _WMSE_FWD_ALL_IDS = _with_dtypes(_WMSE_CASES, _WMSE_IDS)
+
+
+@pytest.mark.parametrize("b,h,w,cross,la,lb,soft,table,dtype", _WMSE_FWD_ALL,
+                         ids=_WMSE_FWD_ALL_IDS)
+def test_wmse_fwd_kernel_emulated(harness, b, h, w, cross, la, lb, soft, table, dtype):
+    """K2f/K3f: the affinities at 1e-5, or 8e-3 in bfloat16 (and exact zeros
+    outside and at the zero vector), the sums S relative at 1e-5, both as
+    the wrapper sums the block partials (float32) and as their float64
+    sum."""
+    proc = subprocess.run([harness, "wfwd", *map(str, (b, h, w, dtype, cross, la, lb, soft)),
                            *map(str, _table_2d(table))],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     m = re.search(r"abs_err (\S+) zeros_outside (\d) s_rel (\S+) partial_rel (\S+)", proc.stdout)
     err, zeros, s_rel, p_rel = float(m.group(1)), m.group(2) == "1", float(m.group(3)), float(m.group(4))
-    assert err <= 1e-5 and zeros
+    assert err <= _TOL[dtype] and zeros
     assert s_rel <= 1e-5 and p_rel <= 1e-5
 
 
@@ -345,12 +359,16 @@ _WMSE_BWD_IDS = _WMSE_IDS[:4] + ["cross", "cross-db", "cross-swapped-soft",
                                  "cross-k1-soft-db", "cross-cl-n8-db"]
 
 
-@pytest.mark.parametrize("b,h,w,cross,la,lb,db,soft,table", _WMSE_BWD_CASES, ids=_WMSE_BWD_IDS)
-def test_wmse_bwd_kernel_emulated(harness, b, h, w, cross, la, lb, db, soft, table):
-    """K2b/K3b: each gradient at 1e-5 of its largest, and at the zero
-    vector's pixel of its own largest."""
-    err, _ = _run(harness, "wbwd", b, h, w, cross, la, lb, db, soft, *_table_2d(table))
-    assert err <= 1e-5
+_WMSE_BWD_ALL, _WMSE_BWD_ALL_IDS = _with_dtypes(_WMSE_BWD_CASES, _WMSE_BWD_IDS)
+
+
+@pytest.mark.parametrize("b,h,w,cross,la,lb,db,soft,table,dtype", _WMSE_BWD_ALL,
+                         ids=_WMSE_BWD_ALL_IDS)
+def test_wmse_bwd_kernel_emulated(harness, b, h, w, cross, la, lb, db, soft, table, dtype):
+    """K2b/K3b: each gradient at 1e-5 (bfloat16: 8e-3) of its largest, and
+    at the zero vector's pixel of its own largest."""
+    err, _ = _run(harness, "wbwd", b, h, w, dtype, cross, la, lb, db, soft, *_table_2d(table))
+    assert err <= _TOL[dtype]
 
 
 # 40 random shifts and offsets, |dz| <= 5, |dy|, |dx| <= 12: far terms

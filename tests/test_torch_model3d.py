@@ -180,7 +180,8 @@ def test_ac3ac4_preset_matches_jax():
         assert getattr(cfg.model, f) == getattr(jcfg.model, f), f
     for f in ("dataset_name", "crop_size", "train_split", "padding_3d"):
         assert getattr(cfg.data, f) == getattr(jcfg.data, f), f
-    # the JAX package's TPU serving choices are off, and refused when on
+    # the JAX package's TPU serving choices are off by default in the port
+    # (bf16_tiled_infer is served when set, fast_tiled_infer refused)
     assert not cfg.model.bf16_tiled_infer and not cfg.model.fast_tiled_infer
 
 

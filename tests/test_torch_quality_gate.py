@@ -75,8 +75,9 @@ FIXTURE_MAX_BYTES = 1_500_000
 # (no folder, no host sampler workers); the validation comes once after the
 # last step, as in JAX; the JAX 3D gate hands train_split and padding to its
 # host AC3AC4Train (test_3d_gate_trains_on_the_jax_gate_volume) where the
-# port's device sampler reads them from the config; the port serves 3D in
-# float32 only (ROADMAP.md, faults section, item 4)
+# port's device sampler reads them from the config; the port's 3D serving
+# defaults are float32, bf16_tiled_infer off (ROADMAP.md, faults section,
+# item 4)
 KEPT = {"train.use_pallas", "train.num_workers", "train.valid_freq", "data.data_folder",
         "data.train_split", "data.padding_3d", "model.bf16_tiled_infer",
         "model.fast_tiled_infer"}

@@ -292,10 +292,10 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
                     else v == b["optimizer"]["state"][i][k]), (i, k)
 
 
-# the EMA view's noise and blur and the device-resident sampler are ported
-# now: their cases pass the check
+# the EMA view's noise and blur, the device-resident sampler and bfloat16
+# compute are ported now: their cases pass the check
 PORTED_OPTIONS = [{"data": {"if_ema_noise": True}}, {"data": {"if_ema_blur": True}},
-                  {"data": {"device_resident": True}}]
+                  {"data": {"device_resident": True}}, {"model": {"dtype": "bfloat16"}}]
 
 
 @pytest.mark.parametrize("override", [
@@ -333,8 +333,9 @@ def test_cvppp_preset_matches_jax():
         for k in vars(p):
             if k == "dtype":  # "auto": float32 in the port, bfloat16 on a TPU
                 continue
-            # not ported, off in the port (the JAX defaults are on): the
-            # TPU's 3D serving choices
+            # the TPU's 3D serving choices, off by default in the port (the
+            # JAX defaults are on; bf16_tiled_infer is served when set,
+            # fast_tiled_infer is not ported)
             if k in ("bf16_tiled_infer", "fast_tiled_infer"):
                 assert not getattr(p, k) and getattr(r, k)
                 continue
