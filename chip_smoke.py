@@ -165,11 +165,29 @@ Phases, each of which exits nonzero when it fails:
      bf16_tiled_infer (ms per batch of 4 tiles; a 20x256x256 canvas against
      float32's at the same bar); the BBBC quality gate in bfloat16 through
      the kernels, its floors held;
- 21. one JSON line listing each kernel: launches, error, times, bound,
-     and how the times were taken (CUDA graph replay; for the affinity
-     kernels CUDA events around the eager call beside; K2f/K2b/K3f/K3b
-     with their bfloat16 forms' bf16_* fields and launches);
- 22. the last line: {"ok": true, "device": {...}}.
+ 21. training CLI (python -m pixel_embedded_affinity_torch.train, driven
+     in-process through its main): the full-width cvppp preset with a
+     YAML file (the preset and a poly schedule, warmup 2, decay to step
+     6) and -o overrides on tests/fixtures/quality_2d.npz's decoded
+     leaves, from the device-resident sampler: 8 steps uninterrupted, and
+     4 steps, a msgpack checkpoint, and a resume to 8; every step's logged
+     rate held to the schedule, steps 5-8's losses to the uninterrupted
+     run's (CLI_RESUME_RTOL), K2f/K2b/K3f/K3b (and K1f in validation)
+     held to their counts; 3 SGD steps (losses finite); then each preset
+     (cvppp, bbbc039v1 and ac3ac4 at full width) 3 steps from the host
+     samplers with the targets and the EMA view built on the host, from
+     arrays in memory, with validation: one host batch's targets against
+     the device builders on the card (affinities and masks equal, weights
+     within HOST_WEIGHT_RTOL), its loss through the kernels against the
+     plain path (HOST_PLAIN_RTOL), each kernel's launches per step equal
+     to the device-target path's, and data_s of the host samplers beside
+     the device samplers';
+ 22. one JSON line listing each kernel: launches (phase 21's also apart,
+     cli_launches), error, times, bound, and how the times were taken
+     (CUDA graph replay; for the affinity kernels CUDA events around the
+     eager call beside; K2f/K2b/K3f/K3b with their bfloat16 forms' bf16_*
+     fields and launches);
+ 23. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -3549,10 +3567,9 @@ def _train_bf16_one(preset: str, data, valid_batches: int = 0) -> dict:
     print(f"[{label}] validation ({timing['valid_s'][0]:.4f} s wall): {json.dumps(history[0])}")
     print_step_times(label, timing, TRAIN_STEPS, HOST_DATA_MS.get(preset, float("nan")))
     ck = load_checkpoint(os.path.join(cfg.save_path, cfg.name, f"model-{TRAIN_STEPS:06d}.ckpt"))
-    check(all(v.dtype in (torch.float32, torch.int64) for v in ck["model"].values())
-          and all(v.dtype == torch.float32 for st in ck["optimizer"]["state"].values()
-                  for v in st.values() if torch.is_tensor(v)),
-          f"{label}: the checkpoint is not float32")
+    check(all(v.dtype == (np.int32 if path[-1] in ("count", "step") else np.float32)
+              for path, v in tree_items(ck)),
+          f"{label}: the checkpoint is not float32 (its counts int32)")
     check(all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
               for p in state.model.parameters() if p.grad is not None),
           f"{label}: parameters or gradients not float32")
@@ -3707,6 +3724,346 @@ def phase_gate_bf16() -> dict:
     return got
 
 
+# ------------------------------------------------------------- 21. training CLI
+CLI_STEPS, CLI_SPLIT, HOST_STEPS = 8, 4, 3
+CLI_SCHEDULE = {"lr_mode": "poly", "base_lr": 1e-4, "end_lr": 1e-6, "warmup_iters": 2,
+                "decay_iters": 6, "power": 1.5}
+# steps 5-8 after the resume, and the validation loss after step 8,
+# against the uninterrupted run: the batches and EMA views are the same
+# draws, the checkpoint's state the same bits, but two runs differ by the
+# bilinear upsampling's backward, which sums with atomics (7.4e-5 and
+# 1.3e-4 between the two runs in two calls on an H100); a resume that
+# drops the optimizer state or the schedule's count moves them by 7.4e-3
+# and 8.0e-3 (a CPU mutation check at filters 4..16)
+CLI_RESUME_RTOL = 1e-3
+# the host-built targets against the device builders: affinities and masks
+# equal, the weights at 1e-5 relative (the host takes each class fraction
+# in float64, the device in float32, and the majority class's weight
+# f / (1 - f) carries its error times 1 / (1 - f);
+# tests/test_torch_samplers.py); one host batch's loss through the kernels
+# against the plain path
+HOST_WEIGHT_RTOL, HOST_PLAIN_RTOL = 1e-5, 1e-5
+HOST_3D_VOLUME, HOST_3D_CELLS, HOST_3D_VALID = (20, 280, 280), 40, (20, 160, 160)
+HOST_BBBC_IMAGES = 2
+
+
+def tree_items(tree, path=()):
+    """(key path, leaf) of a nested dict, depth first."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _all_launchers():
+    """Each kernel wrapper once: affinity_bwd is K1b's and K5b's,
+    cross_affinity_bwd K4b's and K6b's."""
+    from pixel_embedded_affinity_torch.ops import fused_affinity_2d, fused_cross_affinity_2d
+
+    return {**_wmse_launchers(), "K1f": fused_affinity_2d, "K4f": fused_cross_affinity_2d,
+            **_train3d_launchers()}
+
+
+def _counted(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with every kernel's count set to 0 just before;
+    (result, launches, seconds)."""
+    launchers = _all_launchers()
+    for f in launchers.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, {k: f.launches for k, f in launchers.items()}, time.perf_counter() - t0
+
+
+def _per_step(is_3d: bool, steps: int, valid: int) -> dict:
+    """The launches of ``steps`` steps of the device-target path and
+    ``valid`` K1f (2D) or K5f (3D) validation launches."""
+    out = {k: 0 for k in _all_launchers()}
+    if is_3d:
+        out.update(K5f=steps + valid, K5b=steps, K6f=steps, K6b=steps)
+    else:
+        out.update(K2f=5 * steps, K2b=5 * steps, K3f=steps, K3b=steps, K1f=valid)
+    return out
+
+
+def _logged(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "log", "scalars.jsonl")) as f:
+        return [json.loads(ln) for ln in f if '"lr"' in ln]
+
+
+def _cli_yaml(path: str):
+    """The cvppp preset with CLI_SCHEDULE as a YAML file: ``-c`` a file
+    applies it over the defaults, as the JAX CLI reads it."""
+    import yaml
+
+    from pixel_embedded_affinity_torch.config import PRESETS
+
+    def plain(x):
+        if isinstance(x, dict):
+            return {k: plain(v) for k, v in x.items()}
+        return list(x) if isinstance(x, tuple) else x
+
+    tree = plain(PRESETS["cvppp"])
+    tree["train"].update(CLI_SCHEDULE)
+    with open(path, "w") as f:
+        f.write("# the cvppp preset, with a poly schedule\n")
+        f.write(yaml.safe_dump(tree, default_flow_style=None, sort_keys=False))
+
+
+def _host_setup(preset: str, fixture, out: str):
+    """(config, training sampler, validation set, device-resident arrays,
+    validation launches) of ``preset`` with the targets and the EMA view
+    built on the host, from arrays in memory."""
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data import synthesize_nuclei, synthesize_volume
+    from pixel_embedded_affinity_torch.data.cvppp import decoded_split
+    from pixel_embedded_affinity_torch.data.device_data import (
+        load_ac3ac4_arrays, pack_cvppp_arrays, pad_bbbc_arrays)
+    from pixel_embedded_affinity_torch.parallel import tile_grid
+    from pixel_embedded_affinity_torch.train import build_dataset, valid_geometry_3d
+
+    cfg = load_config(preset, {
+        "data": {"device_resident": False, "device_gt": False, "device_ema": False},
+        "train": {"display_freq": 1, "valid_freq": HOST_STEPS, "save_freq": 10 ** 6},
+        "save_path": os.path.join(out, f"host_{preset}")})
+    if preset == "cvppp":
+        decoded = decoded_split(fixture["cvppp_names"], fixture["cvppp_bgr"],
+                                fixture["cvppp_label"], fixture["cvppp_valid_names"])
+        arrays = pack_cvppp_arrays(decoded[0], cfg.data.padding)
+    elif preset == "bbbc039v1":
+        decoded = (synthesize_nuclei(HOST_BBBC_IMAGES, *BBBC_SHAPE, seed=SEED + 6),
+                   synthesize_nuclei(1, *BBBC_SHAPE, seed=SEED + 7))
+        arrays = pad_bbbc_arrays(decoded[0], cfg.data.bbbc_padding)
+    else:
+        volume = synthesize_volume(*HOST_3D_VOLUME, n_cells=HOST_3D_CELLS, seed=SEED + 3)
+        decoded = (volume, synthesize_volume(*HOST_3D_VALID, n_cells=VALID3D_CELLS,
+                                             seed=SEED + 4))
+        cfg.data.train_split = HOST_3D_VOLUME[0]
+        arrays = load_ac3ac4_arrays("", train_split=HOST_3D_VOLUME[0],
+                                    crop_z=cfg.data.crop_size[0], arrays=volume)
+    train_ds, valid = build_dataset(cfg, decoded)
+    if preset == "ac3ac4":
+        stride, pad = valid_geometry_3d(cfg.data.crop_size)
+        tiles = len(tile_grid(tuple(np.add(HOST_3D_VALID, np.multiply(pad, 2))),
+                              cfg.data.crop_size, stride))
+        valid_launches = -(-tiles // 4)
+    else:
+        valid_launches = len(valid)
+    return cfg, train_ds, valid, arrays, valid_launches
+
+
+def _host_batch_checks(cfg, train_ds, label: str) -> dict:
+    """One host batch on the card: its targets against the device builders,
+    its loss through the kernels against the plain path; returns the
+    errors."""
+    import torch
+
+    from pixel_embedded_affinity_torch.data.provider import collate, to_device
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops.targets import build_targets_2d, build_targets_3d
+    from pixel_embedded_affinity_torch.train import init_state, make_train_step
+    from pixel_embedded_affinity_torch.train.train_step import batch_targets_2d, batch_targets_3d
+
+    is_3d = cfg.data.dataset == "ac3ac4"
+    rng = np.random.default_rng(SEED + 21)
+    batch = to_device(collate([train_ds.sample(rng) for _ in range(cfg.train.batch_size)]),
+                      "cuda")
+    seg = batch["seg"].long()
+    if is_3d:
+        host, dev = batch_targets_3d(batch), build_targets_3d(seg)
+        pairs = [("affs", host[0], dev[0], "equal"), ("wmap", host[1], dev[1], "weight")]
+        for k, ((ta, wa), (tb, wb)) in enumerate(zip(host[2], dev[2])):
+            pairs += [(f"down{k + 1}", ta, tb, "equal"), (f"down{k + 1} w", wa, wb, "weight")]
+    else:
+        step = make_train_step(cfg)
+        host = batch_targets_2d(batch, cfg.data.neighbor // 2)
+        dev = build_targets_2d(seg, step.offsets, neighbor=cfg.data.neighbor)
+        pairs = [("affs", host[0], dev[0], "equal"), ("wmap", host[1], dev[1], "weight"),
+                 ("mask", host[2], dev[2], "equal")]
+        for k, (a, b) in enumerate(zip(host[3], dev[3])):
+            pairs += [(f"down{k + 1} t", a[0], b[0], "equal"),
+                      (f"down{k + 1} w", a[1], b[1], "weight"),
+                      (f"down{k + 1} m", a[2], b[2], "equal")]
+    worst = 0.0
+    for name, a, b, kind in pairs:
+        check(a.shape == b.shape, f"{label}: {name} shapes {tuple(a.shape)} {tuple(b.shape)}")
+        if kind == "equal":
+            check(torch.equal(a, b), f"{label}: host {name} differs from the device builder's")
+        else:
+            rel = float(((a - b).abs() / b.abs()).max())
+            worst = max(worst, rel)
+            check(rel <= HOST_WEIGHT_RTOL, f"{label}: host {name} off by {rel:.3e} relative")
+    model = init_state(cfg, "cuda").model
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.train.use_pallas = False
+    losses = []
+    for c in (cfg, plain_cfg):
+        with torch.no_grad(), float32_convs():
+            losses.append(make_train_step(c).loss(copy.deepcopy(model).train(), batch)[0].item())
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"[{label}] one host batch on the card: affinities and masks equal to the device "
+          f"builders', weights within {worst:.3e} relative (bound {HOST_WEIGHT_RTOL}); loss "
+          f"through the kernels {losses[0]!r}, plain {losses[1]!r}, rel {rel:.3e} (bound "
+          f"{HOST_PLAIN_RTOL}); {card_line()}")
+    check(rel <= HOST_PLAIN_RTOL, f"{label}: kernels' loss off the plain path by {rel}")
+    return {"weight_rel": worst, "loss_rel": rel}
+
+
+def _device_data_ms(cfg, arrays, draws: int = 4) -> tuple:
+    """The device sampler's data_s for ``cfg`` (ms, median of draws 2..):
+    the host's time to launch a batch, as train() times it, and to the
+    batch's completion."""
+    import torch
+
+    from pixel_embedded_affinity_torch.train.loop import resident_sampler
+
+    dcfg = copy.deepcopy(cfg)
+    dcfg.data.device_resident = dcfg.data.device_gt = dcfg.data.device_ema = True
+    next_batch = resident_sampler(dcfg, arrays, "cuda")
+    enq, done = [], []
+    for i in range(draws):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next_batch(i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append(1e3 * (t1 - t0))
+        done.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(enq[1:])), float(np.median(done[1:]))
+
+
+def phase_training_cli() -> dict:
+    """Phase 21: the training command line, the schedules, the msgpack
+    checkpoints, SGD and the host samplers (see the module's docstring);
+    returns each kernel's launches over the phase's runs."""
+    import torch
+
+    from pixel_embedded_affinity_torch.checkpoint import load_jax_checkpoint
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.train import train
+    from pixel_embedded_affinity_torch.train.__main__ import main
+    from pixel_embedded_affinity_torch.train.optim import SGD, make_schedule
+
+    out = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    total = {k: 0 for k in _all_launchers()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    card = card_line()
+    fixture = dict(np.load(QUALITY_FIXTURE))
+    cvppp_cfg = load_config("cvppp")
+    data = gate_data(cvppp_cfg, fixture)
+    yml = os.path.join(out, "cvppp_poly.yaml")
+    _cli_yaml(yml)
+
+    def argv(save, iters, *extra):
+        return ["-c", yml, "-i", str(iters), "-o", f"save_path={save}",
+                "train.display_freq=1", f"train.valid_freq={CLI_STEPS}",
+                f"train.save_freq={CLI_SPLIT}", *extra]
+
+    # (a) 8 steps uninterrupted; 4 steps, a checkpoint, a resume to 8
+    full_dir, split_dir = os.path.join(out, "full"), os.path.join(out, "split")
+    (state, history), got, sec = _counted(main, argv(full_dir, CLI_STEPS), data_override=data)
+    full_valid = history[0]["valid/loss"] if history else float("nan")
+    check(state.step == CLI_STEPS and len(history) == 1
+          and all(np.isfinite(v) for v in history[0].values()), f"cli: validation {history}")
+    expect = _per_step(False, CLI_STEPS, len(data[1]))
+    print(f"[cli] -c {os.path.basename(yml)} (cvppp, {json.dumps(CLI_SCHEDULE)}) -i {CLI_STEPS}: "
+          f"{sec:.2f} s with validation; launches {json.dumps(got)}; {card}")
+    check(got == expect, f"cli: launches {got}, expected {expect}")
+    add(got)
+    (_, _), got_a, _ = _counted(main, argv(split_dir, CLI_SPLIT), data_override=data)
+    ck = os.path.join(split_dir, "cvppp", f"model-{CLI_SPLIT:06d}.ckpt")
+    with open(ck, "rb") as f:
+        head = f.read(1)
+    tree = load_jax_checkpoint(ck)
+    check(head == b"\x84" and sorted(tree) == ["batch_stats", "opt_state", "params", "step"]
+          and int(tree["step"]) == CLI_SPLIT and int(tree["opt_state"]["2"]["count"]) == CLI_SPLIT,
+          f"cli: {ck} is not the JAX package's msgpack train state")
+    (state, history), got_b, sec = _counted(main, argv(split_dir, CLI_STEPS, "train.resume=True"),
+                                            data_override=data)
+    check(state.step == CLI_STEPS and len(history) == 1, f"cli: resumed run {history}")
+    valid_rel = abs(history[0]["valid/loss"] - full_valid) / abs(full_valid)
+    expect = _per_step(False, CLI_SPLIT, 0)
+    check(got_a == expect, f"cli: launches of the first half {got_a}, expected {expect}")
+    expect = _per_step(False, CLI_STEPS - CLI_SPLIT, len(data[1]))
+    check(got_b == expect, f"cli: launches after the resume {got_b}, expected {expect}")
+    add(got_a)
+    add(got_b)
+    sched = make_schedule(**{k: CLI_SCHEDULE[k] for k in CLI_SCHEDULE if k != "lr_mode"},
+                          lr_mode="poly", total_iters=cvppp_cfg.train.total_iters)
+    full = _logged(os.path.join(full_dir, "cvppp"))
+    split = _logged(os.path.join(split_dir, "cvppp"))
+    for rows, name in ((full, "uninterrupted"), (split, "resumed")):
+        check([r["step"] for r in rows] == list(range(1, CLI_STEPS + 1)),
+              f"cli: {name} run logged steps {[r['step'] for r in rows]}")
+        off = [r["step"] for r in rows if r["lr"] != sched(r["step"] - 1)]
+        check(not off, f"cli: {name} run's rate off the schedule at steps {off}")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(split[CLI_SPLIT:], full[CLI_SPLIT:])]
+    print(f"[cli] rate per step {[r['lr'] for r in full]} (schedule(step - 1) at every step, "
+          f"both runs); losses {[r['loss'] for r in full]}")
+    print(f"[cli] resumed at step {CLI_SPLIT} from {os.path.relpath(ck, REPO)} (msgpack, "
+          f"{os.path.getsize(ck)} bytes): steps {CLI_SPLIT + 1}-{CLI_STEPS} "
+          f"{[r['loss'] for r in split[CLI_SPLIT:]]}, max rel {max(rel):.3e} against the "
+          f"uninterrupted run; validation loss rel {valid_rel:.3e} (bound {CLI_RESUME_RTOL}); "
+          f"{card}")
+    check(max(rel) <= CLI_RESUME_RTOL, f"cli: resumed losses off by {max(rel)}")
+    check(valid_rel <= CLI_RESUME_RTOL, f"cli: resumed validation loss off by {valid_rel}")
+
+    # (b) SGD
+    sgd_dir = os.path.join(out, "sgd")
+    (state, _), got, sec = _counted(
+        main, ["-c", "cvppp", "-i", str(HOST_STEPS), "-o", f"save_path={sgd_dir}",
+               "train.opt_type=sgd", "train.display_freq=1", "train.if_valid=False"],
+        data_override=data)
+    losses = [r["loss"] for r in _logged(os.path.join(sgd_dir, "cvppp"))]
+    moved = all(torch.count_nonzero(st["trace"]) > 0 for st in state.optimizer.state.values())
+    print(f"[cli-sgd] -c cvppp -o train.opt_type=sgd -i {HOST_STEPS}: {sec:.2f} s, losses "
+          f"{losses}; launches {json.dumps(got)}; {card}")
+    check(isinstance(state.optimizer, SGD) and moved and len(losses) == HOST_STEPS
+          and all(np.isfinite(losses)), "cli-sgd: a non-finite loss or no momentum")
+    check(got == _per_step(False, HOST_STEPS, 0), f"cli-sgd: launches {got}")
+    add(got)
+
+    # (c) the host samplers, targets and EMA views built on the host
+    for preset in ("cvppp", "bbbc039v1", "ac3ac4"):
+        label = f"host-{preset}"
+        t0 = time.perf_counter()
+        cfg, train_ds, valid, arrays, valid_launches = _host_setup(preset, fixture, out)
+        made = time.perf_counter() - t0
+        _host_batch_checks(cfg, train_ds, label)
+        timing: dict = {}
+        (state, history), got, sec = _counted(train, cfg, max_iters=HOST_STEPS,
+                                              data_override=(train_ds, valid), device="cuda",
+                                              timing=timing)
+        losses = [r["loss"] for r in _logged(os.path.join(cfg.save_path, cfg.name))]
+        expect = _per_step(preset == "ac3ac4", HOST_STEPS, valid_launches)
+        host_ms = 1e3 * float(np.median(timing["data_s"][1:]))
+        step_ms = 1e3 * float(np.median(timing["step_s"][1:]))
+        dev_enq, dev_done = _device_data_ms(cfg, arrays)
+        print(f"[{label}] {preset} full width ({cfg.model.filters}), B={cfg.train.batch_size}, "
+              f"{HOST_STEPS} steps from the host sampler (device_resident, device_gt, device_ema "
+              f"False; data made in {made:.2f} s) + validation: {sec:.2f} s; losses {losses}; "
+              f"launches {json.dumps(got)}")
+        print(f"[{label}] data_s (median of steps 2..{HOST_STEPS}): host sampler "
+              f"{host_ms:.4f} ms (2 sample threads, the batch's wait and copy), device sampler "
+              f"{dev_enq:.4f} ms to launch, {dev_done:.4f} ms to completion; step "
+              f"{step_ms:.4f} ms; {card}")
+        check(len(losses) == HOST_STEPS and all(np.isfinite(losses)), f"{label}: losses {losses}")
+        check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values()),
+              f"{label}: validation {history}")
+        check(got == expect, f"{label}: launches {got}, expected {expect}")
+        add(got)
+    print(f"[cli] phase 21 launches {json.dumps(total)}")
+    return total
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -3761,7 +4118,9 @@ def main() -> int:
     train16 = _timed("bf16 training", phase_train_bf16, arrays, valid)
     _timed("bf16 serving", phase_serving_bf16, cfg, sd, samples)
     gate16 = _timed("bf16 quality", phase_gate_bf16)
-    # 21. kernels line, card, 22. last line
+    # 21. the training CLI, SGD, the host samplers
+    cli = _timed("training CLI", phase_training_cli)
+    # 22. kernels line, card, 23. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -3769,7 +4128,7 @@ def main() -> int:
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (sum(launches.values()) + trained["K1f"] + serve_bbbc["launches"]
-                     + fast["launches"]["K1f"]),
+                     + fast["launches"]["K1f"] + cli["K1f"]), "cli_launches": cli["K1f"],
         "max_abs_err": k1["max_abs_err"], "ms": t1["view"], "event_ms": t1["view_event"],
         "plain_ms": t1["plain_view"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None}]
@@ -3777,7 +4136,8 @@ def main() -> int:
         r = wmse[k]
         kernels.append({
             "name": name, "route": "cuda", "source": WMSE_SOURCE,
-            "replaces": WMSE_REPLACES[k], "launches": trained[k],
+            "replaces": WMSE_REPLACES[k], "launches": trained[k] + cli[k],
+            "cli_launches": cli[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, **wmse16[k], "bf16_launches": train16[k] + gate16[k]})
@@ -3787,7 +4147,8 @@ def main() -> int:
     kernels.append({
         "name": "affinity3d_fwd", "route": "cuda", "source": K5_SOURCE,
         "replaces": K5_REPLACES,
-        "launches": serve3d["launches"] + train3d_launches["K5f"] + quality["K5f"],
+        "launches": serve3d["launches"] + train3d_launches["K5f"] + quality["K5f"] + cli["K5f"],
+        "cli_launches": cli["K5f"],
         "max_abs_err": max(k5["max_abs_err"], serve3d["max_abs_err"]), "ms": k5["ms"],
         "event_ms": k5["event_ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None})
@@ -3798,7 +4159,8 @@ def main() -> int:
         r = grad[k]
         kernels.append({
             "name": name, "route": "cuda", "source": GRAD_SOURCE, "replaces": GRAD_REPLACES[k],
-            "launches": train3d_launches[k] + in_2d[k] + quality[k],
+            "launches": train3d_launches[k] + in_2d[k] + quality[k] + cli[k],
+            "cli_launches": cli[k],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
@@ -3807,7 +4169,8 @@ def main() -> int:
                 t: r[f"{t}_ms"] for t in ("ndhwc", "swapped", "view")}
     kernels.append({
         "name": "cross_affinity_fwd_2d", "route": "cuda", "source": GRAD_SOURCE,
-        "replaces": K4F_REPLACES, "launches": trained["K4f"], "max_abs_err": k4f["max_abs_err"],
+        "replaces": K4F_REPLACES, "launches": trained["K4f"] + cli["K4f"],
+        "cli_launches": cli["K4f"], "max_abs_err": k4f["max_abs_err"],
         "ms": k4f["ms"], "event_ms": k4f["event_ms"], "plain_ms": k4f["plain_ms"],
         "bound_ms": k4f["bound_ms"], "bound_by": k4f["bound_by"], "library_ms": None,
         "swapped_ms": k4f["swapped_ms"]})

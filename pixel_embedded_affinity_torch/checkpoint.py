@@ -1,11 +1,13 @@
-"""Read the JAX package's msgpack checkpoints without JAX or Flax.
+"""Read and write the JAX package's msgpack checkpoints without JAX or Flax.
 
 The JAX package writes ``flax.serialization.msgpack_serialize`` of its train
-state: nested maps whose array leaves are msgpack ext type 1, each holding
-the msgpack triple ``(shape, dtype name, C-order bytes)``; numpy scalars are
-ext type 3 with the same payload. Parameters are float32 (Flax's
-``param_dtype``), so no bfloat16 leaf needs decoding. Decoding this here
-lets one checkpoint serve both packages.
+state: ``msgpack.packb(tree, strict_types=True)`` of nested maps with str
+keys (sorted, as JAX's pytree flattening orders them), whose array leaves
+are msgpack ext type 1, each holding the msgpack triple ``(shape, dtype
+name, C-order bytes)``; numpy scalars are ext type 3 with the same
+payload. Parameters are float32 (Flax's ``param_dtype``), so no bfloat16
+leaf needs decoding. Coding this here lets one checkpoint serve and
+resume in both packages.
 """
 
 from __future__ import annotations
@@ -34,3 +36,28 @@ def load_jax_checkpoint(fname: str) -> dict:
 
     with open(fname, "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+
+
+def sorted_tree(tree):
+    """A nested dict with every map's keys in sorted order, the order in
+    which Flax's serialisation writes them."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def write_jax_checkpoint(fname: str, tree: dict):
+    """Write ``tree`` (nested dicts of numpy leaves) as the JAX package's
+    ``save_checkpoint`` does, the bytes of Flax's ``msgpack_serialize``."""
+    import msgpack
+
+    def ext_pack(x):
+        if isinstance(x, (np.ndarray, np.generic)):
+            a = np.asarray(x)
+            payload = msgpack.packb((a.shape, a.dtype.name, a.tobytes("C")), use_bin_type=True)
+            return msgpack.ExtType(_EXT_NDARRAY if isinstance(x, np.ndarray) else _EXT_NPSCALAR,
+                                   payload)
+        return x
+
+    with open(fname, "wb") as f:
+        f.write(msgpack.packb(sorted_tree(tree), default=ext_pack, strict_types=True))

@@ -1,12 +1,14 @@
 """Config: the fields and the presets the serving and training paths read:
 ``cvppp`` and ``bbbc039v1`` (2D serving and training) and ``ac3ac4`` (3D
-serving and training).
+serving and training), with YAML overlays.
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
 the same in both packages. The port has only the fields its code reads: a
-JAX key it lacks (``train.opt_type``, ``model.s2d_train``, ...) fails as an
-unknown config key. A few fields whose code is not ported keep their JAX
+JAX key it lacks (``train.steps_per_call``, ``model.s2d_train``, ...) fails as an
+unknown config key. :func:`load_config` applies the preset, then a YAML
+file (``yaml.safe_load``), then the overrides, as the JAX package's does.
+A few fields whose code is not ported keep their JAX
 names, and raise where a value the port does not serve would take effect
 (``model.fast_tiled_infer``, ``train.loop.check_train_config``).
 ``model.dtype`` and ``model.bf16_tiled_infer`` are served; their defaults
@@ -63,10 +65,20 @@ class TrainConfig:
     # 3D: the full-scale loss, norm5 (the shift table) at 5, norm1 (unit
     # shifts) at any other value
     embedding_mode: int = 5
-    # only "fixed" is ported
+    # "adam" (AMSGrad, as the reference's Adam(amsgrad=True)) or "sgd"
+    # (momentum 0.9, weight decay 1e-4), as the JAX make_optimizer builds
+    opt_type: str = "adam"
+    # the schedule of the learning rate (train/optim.py::make_schedule):
+    # "fixed" (and "cosine", which the reference runs at base_lr), "poly"
+    # (warmup_iters, decay_iters, power, end_lr), "steplr",
+    # "multi_steplr", "explr", "lambdalr"
     lr_mode: str = "fixed"
     base_lr: float = 1e-4
+    end_lr: float = 1e-4
     total_iters: int = 200000
+    warmup_iters: int = 0
+    decay_iters: int = 100000
+    power: float = 1.5
     weight_decay: float = 1e-6
     batch_size: int = 2
     num_workers: int = 2
@@ -95,6 +107,8 @@ class DataConfig:
     neighbor: int = 4
     strides: tuple = (5, 5)
     padding: bool = True
+    # the 2D host targets: one class-balancing weight map per offset
+    separate_weight: bool = True
     valid_set: str = "local_20_1"
     if_ema_noise: bool = False
     if_ema_blur: bool = False
@@ -102,13 +116,14 @@ class DataConfig:
     if_ema_mask: bool = True
     if_ema_flip: bool = True
     # targets and the EMA view built on the device from the labels and the
-    # clean image; the port has no host-side path for either
+    # clean image; False: the host samplers build them (data/cvppp.py,
+    # bbbc.py, ac3ac4.py) and the step takes them from the batch
     device_gt: bool = False
     device_ema: bool = False
     # the whole training set resident on the device, sampled and augmented
     # there (data/device_data.py: the cvppp, bbbc039v1 and ac3ac4
     # samplers), on in the three presets as in JAX; False trains from the
-    # host samples passed through train()'s data_override
+    # host samplers, on data_folder's files or on train()'s data_override
     device_resident: bool = False
     # bbbc039v1: the reflect padding around the images before the random
     # crop
@@ -187,12 +202,20 @@ PRESETS: dict[str, dict[str, Any]] = {
 }
 
 
-def load_config(preset: str | None = None, overrides: dict | None = None) -> Config:
+def load_config(preset: str | None = None, overrides: dict | None = None,
+                yaml_path: str | None = None) -> Config:
+    """The preset, then the YAML file's keys, then ``overrides``; an
+    unknown key raises KeyError."""
     cfg = Config()
     if preset is not None:
         if preset not in PRESETS:
             raise KeyError(f"unknown preset {preset!r}; have {sorted(PRESETS)}")
         _apply(cfg, PRESETS[preset])
+    if yaml_path is not None:
+        import yaml
+
+        with open(yaml_path) as f:
+            _apply(cfg, yaml.safe_load(f))
     if overrides:
         _apply(cfg, overrides)
     return cfg

@@ -6,8 +6,10 @@ and ``convert_unet_pni_deep``: Flax conv kernels (kh, kw, I, O) or
 (kd, kh, kw, I, O) become (O, I, kh, kw) or (O, I, kd, kh, kw); BatchNorm
 scale/bias/mean/var become weight/bias/running_mean/running_var.
 ``train_state_from_flax`` carries a JAX train state (parameters, BatchNorm
-statistics, the AMSGrad moments and the step) of either model into the
-port's model and optimizer. ``load_torch_state_dict`` reads a reference
+statistics, the optimizer chain's state and the step) of either model,
+held in memory or read from its msgpack file, into the port's model and
+optimizer, and ``train_state_to_flax`` carries the port's back, in the
+tree the JAX package's checkpoints hold. ``load_torch_state_dict`` reads a reference
 ``.ckpt`` file.
 """
 
@@ -123,29 +125,158 @@ def unet_pni_deep_from_flax(variables: dict) -> dict:
     return _with_stats(list(_pni_layout()), variables)
 
 
-def train_state_from_flax(state, model: torch.nn.Module, optimizer) -> int:
-    """Load a JAX ``TrainState`` (params, batch_stats, opt_state, step;
-    numpy leaves) of ResidualUNet2DDeep or UNetPNIEmbeddingDeep into the
-    port's model of the same kind and :class:`train.optim.AMSGrad`; returns
-    the step. The optimizer chain must be the JAX ``make_optimizer``'s
-    (decayed weights, AMSGrad, lr), whose one stateful link is optax's
-    ``ScaleByAmsgradState(count, mu, nu, nu_max)``."""
+def _layout_of(model: torch.nn.Module) -> list:
     from .models import UNetPNIEmbeddingDeep
 
-    layout = list(_pni_layout() if isinstance(model, UNetPNIEmbeddingDeep) else _layout())
-    model.load_state_dict(_with_stats(layout, {"params": state.params,
-                                               "batch_stats": state.batch_stats}))
-    ams = next(s for s in state.opt_state if hasattr(s, "nu_max"))
-    moments = {k: _params_from_flax(layout, getattr(ams, k)) for k in ("mu", "nu", "nu_max")}
-    count = int(np.asarray(ams.count))
+    return list(_pni_layout() if isinstance(model, UNetPNIEmbeddingDeep) else _layout())
+
+
+def _put(tree: dict, path, leaf):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+
+
+def _flax_tree(layout, tensors: dict, stats: bool = False) -> dict:
+    """The inverse of :func:`_params_from_flax` (``stats``: of the
+    BatchNorm statistics): {torch name: tensor} -> a Flax tree of numpy
+    float32 leaves; conv weights (O, I, *k) become kernels (*k, I, O)."""
+    tree: dict = {}
+    for key, path, kind in layout:
+        if stats:
+            if kind == "bn":
+                _put(tree, path + ("mean",), _np(tensors[f"{key}.running_mean"]))
+                _put(tree, path + ("var",), _np(tensors[f"{key}.running_var"]))
+        elif kind == "conv":
+            w = _np(tensors[f"{key}.weight"])
+            _put(tree, path + ("kernel",),
+                 np.ascontiguousarray(np.transpose(w, (*range(2, w.ndim), 1, 0))))
+            if f"{key}.bias" in tensors:
+                _put(tree, path + ("bias",), _np(tensors[f"{key}.bias"]))
+        else:
+            _put(tree, path + ("scale",), _np(tensors[f"{key}.weight"]))
+            _put(tree, path + ("bias",), _np(tensors[f"{key}.bias"]))
+    return tree
+
+
+def _state_dict_tree(x):
+    """An optax state held in memory (tuples of named tuples) or restored
+    from a file (dicts) -> Flax's ``to_state_dict`` form: named tuples as
+    dicts of their fields, tuples as dicts keyed '0', '1', ..., array
+    leaves as numpy."""
+    if hasattr(x, "_asdict"):
+        return {k: _state_dict_tree(v) for k, v in x._asdict().items()}
+    if isinstance(x, (tuple, list)):
+        return {str(i): _state_dict_tree(v) for i, v in enumerate(x)}
+    if isinstance(x, dict):
+        return {str(k): _state_dict_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def _count(c: int) -> np.ndarray:
+    return np.asarray(c, np.int32)
+
+
+def opt_state_to_flax(model: torch.nn.Module, optimizer) -> dict:
+    """The port's optimizer state in the ``to_state_dict`` layout of the
+    optax chain the JAX ``make_optimizer`` builds for the same config:
+    links '0', '1', ... in chain order, ``{}`` for a stateless link,
+    AMSGrad's ``count``/``mu``/``nu``/``nu_max``, SGD's ``trace`` (inside
+    ``optax.sgd``'s own chain) and the schedule's ``count``. A parameter
+    that never had a gradient holds zero moments, as a fresh state does."""
+    from .train.optim import SGD
+
+    layout = _layout_of(model)
+    named = list(model.named_parameters())
+
+    def moments(key):
+        return _flax_tree(layout, {n: optimizer.state.get(p, {}).get(key, torch.zeros_like(p))
+                                   for n, p in named})
+
+    lr_link = {"count": _count(optimizer.count)} if optimizer.schedule is not None else {}
+    if isinstance(optimizer, SGD):
+        return {"0": {}, "1": {"0": {"trace": moments("trace")}, "1": lr_link}}
+    # optax keeps one count; a parameter without a gradient is not stepped
+    # here (ROADMAP.md, differences kept), so the stepped ones' count is the
+    # chain's
+    counts = [optimizer.state[p]["count"] for _, p in named
+              if "count" in optimizer.state.get(p, {})]
+    ams = {"count": _count(max(counts, default=0)),
+           **{k: moments(k) for k in ("mu", "nu", "nu_max")}}
+    links = ([{}] if optimizer.param_groups[0]["weight_decay"] else []) + [ams, lr_link]
+    return {str(i): link for i, link in enumerate(links)}
+
+
+def _structure(tree):
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    return None
+
+
+def opt_state_from_flax(opt_state, model: torch.nn.Module, optimizer):
+    """Load an optax chain's state (in memory, or a restored dict) into the
+    port's optimizer. ValueError when its tree does not have the keys of
+    the configured chain's (:func:`opt_state_to_flax`), the case in which
+    Flax's ``from_state_dict`` raises in the JAX loop."""
+    from .train.optim import SGD
+
+    got = _state_dict_tree(opt_state)
+    want = opt_state_to_flax(model, optimizer)
+    if _structure(got) != _structure(want):
+        raise ValueError("the optimizer state's tree does not match the configured chain's")
+    layout = _layout_of(model)
+    if isinstance(optimizer, SGD):
+        lr_link = got["1"]["1"]
+        fields = {"trace": _params_from_flax(layout, got["1"]["0"]["trace"])}
+        count = None
+    else:
+        ams = got["1"] if optimizer.param_groups[0]["weight_decay"] else got["0"]
+        lr_link = got[str(len(got) - 1)]
+        fields = {k: _params_from_flax(layout, ams[k]) for k in ("mu", "nu", "nu_max")}
+        count = int(ams["count"])
     dev = next(model.parameters()).device
     per_param = {}
     for i, (name, _) in enumerate(model.named_parameters()):
-        per_param[i] = {"count": count,
-                        **{k: moments[k][name].to(dev) for k in moments}}
-    sd = optimizer.state_dict()
-    optimizer.load_state_dict({"state": per_param, "param_groups": sd["param_groups"]})
-    return int(np.asarray(state.step))
+        per_param[i] = {k: fields[k][name].to(dev) for k in fields}
+        if count is not None:
+            per_param[i]["count"] = count
+    optimizer.load_state_dict({"state": per_param,
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+    optimizer.count = int(lr_link["count"]) if lr_link else (count or 0)
+
+
+def load_flax_variables(model: torch.nn.Module, variables: dict):
+    """Load Flax ``{params, batch_stats}`` (numpy or array leaves) into the
+    port's model of the same kind."""
+    model.load_state_dict(_with_stats(_layout_of(model), variables))
+
+
+def train_state_from_flax(state, model: torch.nn.Module, optimizer) -> int:
+    """Load a JAX ``TrainState`` (params, batch_stats, opt_state, step),
+    held in memory or restored from its msgpack file as a dict, of
+    ResidualUNet2DDeep or UNetPNIEmbeddingDeep into the port's model of the
+    same kind and its optimizer (:mod:`.train.optim`, configured as the
+    JAX chain was); returns the step. The optimizer state must have the
+    configured chain's tree (:func:`opt_state_from_flax`)."""
+    get = state.get if isinstance(state, dict) else lambda k: getattr(state, k)
+    load_flax_variables(model, {"params": get("params"), "batch_stats": get("batch_stats")})
+    opt_state_from_flax(get("opt_state"), model, optimizer)
+    return int(np.asarray(get("step")))
+
+
+def train_state_to_flax(model: torch.nn.Module, optimizer, step: int) -> dict:
+    """The inverse of :func:`train_state_from_flax`: the tree the JAX
+    package's ``save_checkpoint`` writes, ``to_state_dict`` of its
+    ``TrainState`` (params, batch_stats, opt_state, step) with numpy
+    float32 leaves and int32 counts."""
+    layout = _layout_of(model)
+    sd = model.state_dict()
+    return {"params": _flax_tree(layout, sd), "batch_stats": _flax_tree(layout, sd, stats=True),
+            "opt_state": opt_state_to_flax(model, optimizer), "step": _count(step)}
 
 
 def strip_module_prefix(sd: dict) -> dict:

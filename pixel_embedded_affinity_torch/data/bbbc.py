@@ -1,5 +1,6 @@
-"""BBBC039V1 nuclei data: the JAX package's ``data/bbbc.py`` for serving
-and validation, and synthetic nuclei made in memory.
+"""BBBC039V1 nuclei data: the JAX package's ``data/bbbc.py`` for training
+(the host sampler ``BBBCTrain``), serving and validation, and synthetic
+nuclei made in memory.
 
 The on-disk layout is the reference's: ``images/<name>.tif`` (16-bit
 grayscale), ``masks_instance/<name>.png`` (instance ids) and
@@ -10,6 +11,14 @@ decodes them in their place. ``synthesize_nuclei`` makes (image, label) pairs
 with no file and no cv2, the same kind of blobs as the JAX package's
 ``synthesize``; the datasets and the device sampler
 (:mod:`.device_data`) take such pairs in place of the files.
+
+:class:`BBBCTrain` is the JAX package's host sampler: a random training
+image reflect-padded, a random (size + 2 padding)^2 crop, at p = 0.8 the
+augmentation mix (flips, rotation, rescale, elastic, grayscale, each at
+0.5), the centre size^2, repeated to 3 channels; then, as CVPPP's, the
+labels alone with ``light``, the EMA view unless ``device_ema``, or every
+target on the host. Draws from a ``np.random.Generator`` in the JAX
+sampler's order; warps without cv2 (:mod:`.augment2d`).
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import numpy as np
 
 from ..ops.affinity_np import gen_affs, weight_binary_ratio
 from ..ops.offsets import multi_offset
+from .augment2d import (center_crop_pad, elastic_deform, random_flips, random_grayscale_adjust,
+                        random_rescale, random_rotate)
 
 SPLITS = {"train": "training.txt", "validation": "validation.txt", "test": "test.txt"}
 # the validation geometry: each image constant-padded to 704x704, then the
@@ -70,6 +81,86 @@ def decoded_pairs(names, images, labels, split) -> list:
     index = {str(n): i for i, n in enumerate(names)}
     return [decoded_pair(np.asarray(images[index[str(n)]]), np.asarray(labels[index[str(n)]]))
             for n in split]
+
+
+def build_bbbc_targets(image_hwc, label, offsets, nb_half, separate_weight, rng,
+                       ema_intensity=True, ema_mask=True, ema_flip=True) -> dict:
+    """Every target of a sample built on the host, and the EMA view (on the
+    [0, 1] image: BBBC is not ImageNet-normalised)."""
+    from .cvppp import host_ema_view, host_targets_2d
+
+    out = host_targets_2d(label, offsets, nb_half, separate_weight)
+    ema, rule = host_ema_view(image_hwc, label, rng, normalized=False,
+                            ema_intensity=ema_intensity, ema_mask=ema_mask, ema_flip=ema_flip)
+    return {"image": np.ascontiguousarray(image_hwc, np.float32), **out,
+            "seg": label.astype(np.int32), "ema_image": ema, "rules": rule}
+
+
+class BBBCTrain:
+    """The training sampler: ``sample(rng)`` -> one sample dict (see the
+    module's docstring). ``pairs``, the training split's (image, label)
+    as :func:`decoded_pairs` gives them, stands in for the files."""
+
+    def __init__(self, data_folder: str = "", size: int = 256, padding: int = 30,
+                 shifts=(1, 3, 5, 9, 11), neighbor: int = 4, separate_weight: bool = True,
+                 aug_prob: float = 0.8, ema_intensity: bool = True, ema_mask: bool = True,
+                 ema_flip: bool = True, light: bool = False, device_ema: bool = False,
+                 seed: int = 555, pairs=None):
+        self.data_folder = data_folder
+        self.size, self.padding = size, padding
+        self.offsets = multi_offset(list(shifts), neighbor=neighbor)
+        self.nb_half = neighbor // 2
+        self.separate_weight = separate_weight
+        self.aug_prob = aug_prob
+        self.ema = dict(ema_intensity=ema_intensity, ema_mask=ema_mask, ema_flip=ema_flip)
+        self.light, self.device_ema = light, device_ema
+        self.rng = np.random.default_rng(seed)
+        self.pairs = pairs
+        self.names = split_names(data_folder, "train") if pairs is None else None
+
+    def __len__(self):
+        return len(self.pairs if self.pairs is not None else self.names)
+
+    def _load(self, k: int):
+        if self.pairs is not None:
+            img, label = self.pairs[k]
+            return np.asarray(img, np.float32), np.asarray(label).astype(np.int32)
+        return load_pair(self.data_folder, self.names[k])
+
+    def sample(self, rng: np.random.Generator | None = None) -> dict:
+        rng = rng or self.rng
+        img, label = self._load(int(rng.integers(0, len(self))))
+        pad = self.padding
+        img = np.pad(img, pad, mode="reflect")
+        label = np.pad(label, pad, mode="reflect")
+        crop = self.size + 2 * pad
+        rx = int(rng.integers(0, img.shape[0] - crop + 1))
+        ry = int(rng.integers(0, img.shape[1] - crop + 1))
+        img, label = img[rx:rx + crop, ry:ry + crop], label[rx:rx + crop, ry:ry + crop]
+        if rng.random() < self.aug_prob:
+            if rng.random() > 0.5:
+                img, label = random_flips(img, label, rng)
+            if rng.random() > 0.5:
+                img, label = random_rotate(img, label, rng)
+            if rng.random() < 0.5:
+                img, label = random_rescale(img, label, rng)
+            if rng.random() < 0.5:
+                img, label = elastic_deform(img, label, rng, alpha=16, sigma=4.0)
+            if rng.random() < 0.5:
+                img = random_grayscale_adjust(img, rng)
+        img = center_crop_pad(img, self.size, self.size)
+        label = center_crop_pad(label, self.size, self.size)
+        image = np.repeat(img[..., None], 3, axis=-1).astype(np.float32)
+        if self.light:
+            if self.device_ema:
+                return {"image": np.ascontiguousarray(image), "seg": label.astype(np.int32)}
+            from .cvppp import host_ema_view
+
+            ema, rule = host_ema_view(image, label, rng, normalized=False, **self.ema)
+            return {"image": np.ascontiguousarray(image), "ema_image": ema,
+                    "seg": label.astype(np.int32), "rules": rule}
+        return build_bbbc_targets(image, label, self.offsets, self.nb_half,
+                                  self.separate_weight, rng, **self.ema)
 
 
 class BBBCValidation:

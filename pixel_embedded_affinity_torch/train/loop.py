@@ -5,7 +5,10 @@ The port of the JAX package's ``train/loop.py`` for the ``cvppp`` and
 ``data.device_resident`` (the presets' default, as in JAX) the training set
 lives on the device and each step's batch is picked, cropped and augmented
 there (:mod:`..data.device_data`); without it, host sample workers feed
-batches (copied to the card from pinned memory). Each step runs
+batches (copied to the card from pinned memory) from the host samplers
+(:func:`build_dataset`), which build the targets and the EMA view on the
+host unless ``data.device_gt`` and ``data.device_ema`` leave them to the
+step. Each step runs
 :class:`.train_step.TrainStep2D` or :class:`.train_step.TrainStep3D`, every
 ``valid_freq`` steps the validation data is decoded and scored, and every
 ``save_freq`` steps and at the end a checkpoint is written. 2D validation
@@ -16,10 +19,15 @@ the mask AJI/F1/PQ; 3D validation serves the validation volume tiled (K5f
 affinities) through ``train.valid_decoders`` and scores VOI/ARAND and the
 affinities' MSE and BCE against the label's. Losses
 stay on the device until a display, validation or save point fetches them
-in one copy; the watchdog then checks each one. The model computes in
-``model.dtype`` (bfloat16: Flax's dtype rule, the losses float32); the
-parameters, AMSGrad's state and the checkpoints are float32 either way. Scalars go to
-``scalars.jsonl`` and the reference's ``loss.txt``/``valid.txt``.
+in one copy; the watchdog then checks each one. The optimizer is
+``train.opt_type``'s (AMSGrad or SGD) at ``train.lr_mode``'s schedule
+(:mod:`.optim`); each display logs the rate of its step. The model
+computes in ``model.dtype`` (bfloat16: Flax's dtype rule, the losses
+float32); the parameters, the optimizer's state and the checkpoints are
+float32 either way. Checkpoints are the JAX package's msgpack
+(:mod:`.checkpoint`), and ``train.resume`` follows the JAX loop's rule.
+Scalars go to ``scalars.jsonl`` and the reference's
+``loss.txt``/``valid.txt``.
 
 Data comes through ``data_override=(train, valid)``, the JAX loop's own
 hook, or from ``data.data_folder``. With ``data.device_resident``,
@@ -28,11 +36,15 @@ hook, or from ``data.data_folder``. With ``data.device_resident``,
 :func:`..data.device_data.pad_bbbc_arrays` (bbbc039v1) or
 :func:`..data.device_data.load_ac3ac4_arrays` (ac3ac4) give them; without
 ``data_override`` the dataset's loader reads the folder (cv2, or h5py for
-AC3/AC4). Without ``data.device_resident``, ``train.sample(rng)`` gives
-``{"image": (H, W, 3) float32, ImageNet-normalised for cvppp and in [0, 1]
-for bbbc039v1, "seg": (H, W) int}`` (2D) or ``{"image": (D, H, W, 1)
-float32 in [0, 1], "seg": (D, H, W) int}`` (3D), and ``data_override`` is
-needed: the host disk samplers are not ported. ``valid`` is a list (or
+AC3/AC4). Without ``data.device_resident`` (or with it, but without
+``device_gt`` and ``device_ema``, where the JAX loop also takes the host
+sampler), ``train.sample(rng)`` gives ``{"image": (H, W, 3) float32,
+ImageNet-normalised for cvppp and in [0, 1] for bbbc039v1, "seg": (H, W)
+int}`` (2D) or ``{"image": (D, H, W, 1) float32 in [0, 1], "seg": (D, H,
+W) int}`` (3D), with the targets and the EMA view that ``device_gt`` and
+``device_ema`` leave to the host (:class:`..data.cvppp.CVPPPTrain`,
+:class:`..data.bbbc.BBBCTrain`, :class:`..data.ac3ac4.AC3AC4Train`, which
+:func:`build_dataset` builds on ``data.data_folder``). ``valid`` is a list (or
 indexable) of 2D samples (``CVPPPValidation``, ``BBBCValidation``), or a
 volume with ``raw`` (D, H, W) float32 in [0, 1] and ``label`` (D, H, W)
 int (:class:`..data.AC3AC4ValidVolume`).
@@ -60,7 +72,7 @@ from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
 from ..postproc import merge_func, remove_small_object, seg_mutex
 from ..utils.guards import LossWatchdog
 from .checkpoint import latest_checkpoint, load_checkpoint, restore, save_checkpoint
-from .optim import AMSGrad
+from .optim import make_optimizer
 from .train_step import TrainState, TrainStep2D, TrainStep3D, make_eval_step_2d
 
 ARCHS_3D = ("unet_pni_deep",)
@@ -75,16 +87,60 @@ def check_train_config(cfg: Config):
     if cfg.model.arch not in ("resunet2d_deep",) + ARCHS_3D:
         not_ported.append(f"model.arch={cfg.model.arch!r}")
     resolve_compute_dtype(cfg.model)  # raises on a dtype that is not served
-    if cfg.train.lr_mode != "fixed":
-        not_ported.append(f"train.lr_mode={cfg.train.lr_mode!r} (fixed only)")
     if cfg.train.loss_func not in CRITERIA:
         not_ported.append(f"train.loss_func={cfg.train.loss_func!r}")
     if cfg.data.dataset not in DATASETS:
         not_ported.append(f"data.dataset={cfg.data.dataset!r}")
-    if not (cfg.data.device_gt and cfg.data.device_ema):
-        not_ported.append("host-built targets or EMA views (data.device_gt/device_ema)")
     if not_ported:
         raise NotImplementedError("not ported: " + "; ".join(not_ported))
+
+
+def uses_resident_sampler(cfg: Config) -> bool:
+    """The JAX loop's rule: the device-resident sampler with
+    ``data.device_resident``, ``device_gt`` and ``device_ema`` together."""
+    d = cfg.data
+    return bool(d.device_resident and d.device_gt and d.device_ema)
+
+
+def build_dataset(cfg: Config, decoded=None):
+    """(host training sampler, validation set) of ``cfg.data.dataset`` on
+    ``data.data_folder``, as the JAX loop's ``build_dataset``: the sampler
+    builds targets on the host unless ``device_gt`` (``light``), and the EMA
+    view unless ``device_ema``. ``decoded=(train, valid)`` stands in for the
+    files: CVPPP's and BBBC's (image, label) pairs as
+    :func:`..data.cvppp.decoded_split` and :func:`..data.bbbc.decoded_pairs`
+    give them, AC3/AC4's (raw, label) volumes (the training volume, and the
+    one whose last 20 slices validate)."""
+    d, seed = cfg.data, cfg.train.random_seed
+    train_in, valid_in = decoded if decoded is not None else (None, None)
+    if d.dataset == "cvppp":
+        from ..data.cvppp import CVPPPTrain, CVPPPValidation
+
+        return (CVPPPTrain(d.data_folder, size=d.size, shifts=tuple(d.shifts),
+                           neighbor=d.neighbor, padding=d.padding,
+                           separate_weight=d.separate_weight, valid_set=d.valid_set,
+                           ema_noise=d.if_ema_noise, ema_blur=d.if_ema_blur,
+                           ema_intensity=d.if_ema_intensity, ema_mask=d.if_ema_mask,
+                           ema_flip=d.if_ema_flip, light=d.device_gt,
+                           device_ema=d.device_ema, seed=seed, pairs=train_in),
+                CVPPPValidation(d.data_folder, valid_set=d.valid_set, padding=d.padding,
+                                pairs=valid_in))
+    if d.dataset == "bbbc039v1":
+        from ..data.bbbc import BBBCTrain, BBBCValidation
+
+        return (BBBCTrain(d.data_folder, size=d.size, padding=d.bbbc_padding,
+                          shifts=tuple(d.shifts), neighbor=d.neighbor, light=d.device_gt,
+                          device_ema=d.device_ema, seed=seed, pairs=train_in),
+                BBBCValidation(d.data_folder, shifts=tuple(d.shifts), neighbor=d.neighbor,
+                               pairs=valid_in))
+    from ..data.ac3ac4 import AC3AC4Train, AC3AC4ValidVolume
+
+    return (AC3AC4Train(d.data_folder, dataset_name=d.dataset_name, train_split=d.train_split,
+                        crop_size=tuple(d.crop_size), padding=d.padding_3d,
+                        light=d.device_gt, device_ema=d.device_ema, seed=seed,
+                        arrays=train_in),
+            AC3AC4ValidVolume(d.data_folder, dataset_name=d.dataset_name, mode="valid",
+                              arrays=valid_in))
 
 
 def load_resident_data(cfg: Config):
@@ -136,10 +192,33 @@ def resident_sampler(cfg: Config, arrays, device):
     return next_batch
 
 
+def make_train_step(cfg: Config):
+    """The train step of a config, as :func:`train` runs it: 3D for the
+    PNI arch, else 2D, with the config's loss, kernels (``use_pallas``),
+    and targets and EMA view on the device or from the batch
+    (``data.device_gt``, ``data.device_ema``)."""
+    d, t = cfg.data, cfg.train
+    ema_flags = dict(ema_seed=t.random_seed, ema_intensity=d.if_ema_intensity,
+                     ema_mask=d.if_ema_mask, ema_flip=d.if_ema_flip)
+    if cfg.model.arch in ARCHS_3D:
+        return TrainStep3D(criterion=CRITERIA[t.loss_func], affs0_weight=t.affs0_weight,
+                           embedding_mode=t.embedding_mode, use_pallas=t.use_pallas,
+                           device_gt=d.device_gt, device_ema=d.device_ema, **ema_flags)
+    return TrainStep2D(
+        multi_offset(list(d.shifts), neighbor=d.neighbor), neighbor=d.neighbor,
+        criterion=CRITERIA[t.loss_func], affs0_weight=t.affs0_weight,
+        deep_weight=t.deep_weight, self_emb=t.self_emb, cross_emb=t.cross_emb,
+        mask_weight=t.mask_weight, ct_weight=t.ct_weight, use_pallas=t.use_pallas,
+        fuse_loss=t.fuse_loss, imagenet_norm=d.dataset == "cvppp", device_gt=d.device_gt,
+        device_ema=d.device_ema, ema_noise=d.if_ema_noise, ema_blur=d.if_ema_blur,
+        **ema_flags)
+
+
 def init_state(cfg: Config, device) -> TrainState:
     """Model in the compute dtype (``model.dtype``) with float32 weights
     drawn from ``train.random_seed`` (on the CPU, so the draw is the same
-    whatever the device), and a fresh AMSGrad."""
+    whatever the device), and a fresh optimizer (``train.opt_type`` at
+    ``train.lr_mode``'s schedule)."""
     dtype = resolve_compute_dtype(cfg.model)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.random_seed)
@@ -150,9 +229,7 @@ def init_state(cfg: Config, device) -> TrainState:
             model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
                                        tuple(cfg.model.filters), cfg.model.emd, dtype=dtype)
     model = model.to(device).train()
-    opt = AMSGrad(model.parameters(), lr=cfg.train.base_lr, eps=0.01,
-                  weight_decay=cfg.train.weight_decay or 0.0)
-    return TrainState(model, opt, 0)
+    return TrainState(model, make_optimizer(model.parameters(), cfg.train), 0)
 
 
 def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offsets,
@@ -268,65 +345,55 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
 
     ``device``: CUDA unless "cpu" is asked for. ``timing``, when given,
     receives per-step host seconds, ``data_s`` (batch wait and device copy,
-    or the device sampler's launches) and ``step_s`` (the step, synchronised after it: timing costs the
-    overlap of one step's host work with the previous step's kernels), and
-    ``valid_s``, the seconds of each validation.
+    or the device sampler's launches) and ``step_s`` (the step, synchronised
+    after it: timing costs the overlap of one step's host work with the
+    previous step's kernels), ``valid_s``, the seconds of each validation,
+    and ``lr``, the rate of each step.
     """
     check_train_config(cfg)
+    dev = resolve_device(device)
     is_3d = cfg.model.arch in ARCHS_3D
+    resident = uses_resident_sampler(cfg)
+    if cfg.data.device_resident and not resident:
+        log.info("device_resident needs data.device_gt and data.device_ema; "
+                 "using the host sampler")
     if data_override is not None:
         train_ds, valid_ds = data_override
-    elif cfg.data.device_resident:
+    elif resident:
         train_ds, valid_ds = load_resident_data(cfg)
     else:
-        name = {"ac3ac4": "AC3/AC4 (h5py, cv2)", "cvppp": "CVPPP (cv2)"}.get(
-            cfg.data.dataset, f"{cfg.data.dataset} host (cv2)")
-        raise NotImplementedError(
-            f"the {name} disk sampler is not ported; pass "
-            "data_override=(train_dataset, valid) or set data.device_resident")
-    if cfg.data.device_resident and not (isinstance(train_ds, (tuple, list))
-                                         and len(train_ds) == 2):
+        train_ds, valid_ds = build_dataset(cfg)
+    if resident and not (isinstance(train_ds, (tuple, list)) and len(train_ds) == 2):
         raise TypeError("with data.device_resident the training set is an (images, labels) "
                         "pair of arrays; a dataset with .sample() trains with "
                         "data.device_resident=False")
-    dev = resolve_device(device)
+    if not resident and not hasattr(train_ds, "sample"):
+        raise TypeError("the host sampler's training set is a dataset with .sample(rng); "
+                        "an (images, labels) pair trains with data.device_resident, "
+                        "data.device_gt and data.device_ema")
     total_iters = max_iters or cfg.train.total_iters
     state = init_state(cfg, dev)
     save_path = os.path.join(cfg.save_path, cfg.name)
     if cfg.train.resume:
         ck = latest_checkpoint(save_path)
         if ck:
+            # an optimizer state that does not fit the chain: a warning, a fresh one
             restore(state, load_checkpoint(ck))
             log.info("resumed from %s", ck)
 
-    criterion = CRITERIA[cfg.train.loss_func]
-    ema_flags = dict(ema_seed=cfg.train.random_seed, ema_intensity=cfg.data.if_ema_intensity,
-                     ema_mask=cfg.data.if_ema_mask, ema_flip=cfg.data.if_ema_flip)
+    step_fn = make_train_step(cfg)
     if is_3d:
-        step_fn = TrainStep3D(
-            criterion=criterion, affs0_weight=cfg.train.affs0_weight,
-            embedding_mode=cfg.train.embedding_mode, use_pallas=cfg.train.use_pallas,
-            device_ema=True, **ema_flags)
-
         def validate():
             return validate_3d(cfg, state, valid_ds, dev)
     else:
-        offsets = multi_offset(list(cfg.data.shifts), neighbor=cfg.data.neighbor)
-        step_fn = TrainStep2D(
-            offsets, neighbor=cfg.data.neighbor, criterion=criterion,
-            affs0_weight=cfg.train.affs0_weight, deep_weight=cfg.train.deep_weight,
-            self_emb=cfg.train.self_emb, cross_emb=cfg.train.cross_emb,
-            mask_weight=cfg.train.mask_weight, ct_weight=cfg.train.ct_weight,
-            use_pallas=cfg.train.use_pallas, fuse_loss=cfg.train.fuse_loss,
-            imagenet_norm=cfg.data.dataset == "cvppp", device_ema=True,
-            ema_noise=cfg.data.if_ema_noise, ema_blur=cfg.data.if_ema_blur, **ema_flags)
-        eval_step = make_eval_step_2d(offsets, criterion=criterion,
+        offsets = step_fn.offsets
+        eval_step = make_eval_step_2d(offsets, criterion=step_fn.criterion,
                                       use_pallas=cfg.train.use_pallas)
 
         def validate():
             return validate_2d(cfg, eval_step, state, valid_ds, offsets, dev)
 
-    if cfg.data.device_resident:
+    if resident:
         provider = None
         next_batch = resident_sampler(cfg, train_ds, dev)
     else:
@@ -345,6 +412,8 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     display_freq, valid_freq, save_freq = (
         cfg.train.display_freq, cfg.train.valid_freq, cfg.train.save_freq)
 
+    opt, group = state.optimizer, state.optimizer.param_groups[0]
+
     def drain():
         nonlocal sum_loss
         if not pending:
@@ -360,6 +429,7 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
             t0 = time.perf_counter()
             batch = next_batch(it)
             t1 = time.perf_counter()
+            lr = opt.lr(group)
             _, metrics = step_fn(state, batch)
             it += 1
             pending.append(metrics["loss"])
@@ -368,13 +438,14 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
                     torch.cuda.synchronize(dev)
                 timing.setdefault("data_s", []).append(t1 - t0)
                 timing.setdefault("step_s", []).append(time.perf_counter() - t1)
+                timing.setdefault("lr", []).append(lr)
 
             if it % display_freq == 0 or it <= 1:
                 drain()
                 dt = time.time() - t_start
                 avg = sum_loss / (display_freq if it > 1 else max(it, 1))
                 log.info("step %d, loss=%.6f (%.2f s)", it, avg, dt)
-                logger.add(it, loss=avg, sec_per_iter=dt / max(it, 1))
+                logger.add(it, loss=avg, lr=lr, sec_per_iter=dt / max(it, 1))
                 sum_loss = 0.0
             if cfg.train.if_valid and _has_valid(valid_ds) and it % valid_freq == 0 and it > 1:
                 drain()

@@ -1,8 +1,9 @@
 """The train steps, 2D (CVPPP, BBBC039) and 3D (AC3/AC4), and the 2D eval step.
 
 One train step, as the JAX package's ``make_train_step_2d``:
-targets built on the device from the labels; the EMA view drawn on the
-device for this step (or taken from the batch); the student forward, then
+targets built on the device from the labels (``device_gt``), or taken
+from the batch that a host sampler built them into; the EMA view drawn on
+the device for this step (``device_ema``), or taken from the batch; the student forward, then
 the EMA view's forward under ``no_grad`` (the JAX step stop-gradients the
 teacher), so the BatchNorm running statistics update twice, in that order,
 as the JAX step chains them; the teacher's embedding un-flipped; deep
@@ -23,8 +24,9 @@ The JAX default trains an exact twin of the model in a TPU layout
 (``models/resunet2d_s2d.py``); the port has the one model.
 
 The 3D step, as ``make_train_step_3d``: the 12-channel targets and their
-pyramid built on the device; the EMA view (intensity, cutout, 4-bit flip)
-drawn on the device; the student forward, then the teacher's under
+pyramid built on the device (or taken from the batch); the EMA view
+(intensity, cutout, 4-bit flip) drawn on the device (or taken from the
+batch); the student forward, then the teacher's under
 ``no_grad``; the teacher un-flipped by its rule; the norm5 self and cross
 losses through the 3D kernels (with another ``embedding_mode`` than 5,
 norm1 at full scale, as the JAX step chooses); norm1 deep supervision of e1..e4 (1/16 .. 1/2 in y,
@@ -65,6 +67,28 @@ def deep_weight_factors(deep_weight) -> list[float]:
     return [float(deep_weight), 1.0, 1.0, 1.0, 1.0]
 
 
+def batch_targets_2d(batch: dict, nb_half: int):
+    """(affs, wmap, mask, downs) from a batch a host sampler built: the
+    JAX layout's ``down1..4`` (B, 3 n, h, w), the level's targets, weights
+    and masks along channels, split into contiguous (t, w, m), and the
+    uint8 masks as float32, the forms :func:`build_targets_2d` gives."""
+    downs = []
+    for lvl in range(4):
+        n = nb_half * (4 - lvl)
+        d = batch[f"down{lvl + 1}"].float()
+        downs.append(tuple(d[:, i * n:(i + 1) * n].contiguous() for i in range(3)))
+    return (batch["affs"].float(), batch["wmap"].float(), batch["mask"].float(), downs)
+
+
+def batch_targets_3d(batch: dict):
+    """(affs, wmap, downs) from a batch a host sampler built: ``down1..4``
+    (B, 6, D, h, w) split into contiguous (targets, weights), the forms
+    :func:`build_targets_3d` gives."""
+    downs = [tuple(batch[f"down{k}"][:, i * 3:(i + 1) * 3].float().contiguous()
+                   for i in range(2)) for k in range(1, 5)]
+    return batch["affs"].float(), batch["wmap"].float(), downs
+
+
 def _nchw(image_bhwc: torch.Tensor) -> torch.Tensor:
     return image_bhwc.permute(0, 3, 1, 2).contiguous()
 
@@ -78,10 +102,12 @@ class TrainStep2D:
 
     ``batch``: tensors on one device, ``image`` (B, H, W, 3), ImageNet-
     normalised with ``imagenet_norm`` (the cvppp pipeline's) or in [0, 1]
-    without (BBBC's), ``seg`` (B, H, W) integer labels, and, when
-    ``device_ema`` is False, ``ema_image`` and ``rules`` (B, 3). ``pred``
-    is relu of the full-scale affinities (monitoring); ``metrics`` holds 0-d
-    tensors (loss, loss_embedding, loss_cross[, loss_mask][, loss_ct]).
+    without (BBBC's), ``seg`` (B, H, W) integer labels, when ``device_ema``
+    is False ``ema_image`` and ``rules`` (B, 3), and when ``device_gt`` is
+    False the host-built ``affs``, ``wmap``, ``mask`` and ``down1..4``
+    (:func:`batch_targets_2d`). ``pred`` is relu of the full-scale
+    affinities (monitoring); ``metrics`` holds 0-d tensors (loss,
+    loss_embedding, loss_cross[, loss_mask][, loss_ct]).
 
     ``use_pallas=False`` is the plain path. With ``use_pallas`` the
     WeightedMSE loss goes through the loss-fused kernels K2/K3
@@ -95,7 +121,7 @@ class TrainStep2D:
                  affs0_weight: float = 1.0, deep_weight=1, self_emb: float = 1.0,
                  cross_emb: float = 1.0, mask_weight: float = 0.0, ct_weight: float = 0.0,
                  use_pallas: bool = True, fuse_loss: bool = True, imagenet_norm: bool = True,
-                 device_ema: bool = True, ema_seed: int = 0,
+                 device_gt: bool = True, device_ema: bool = True, ema_seed: int = 0,
                  ema_noise: bool = False, ema_blur: bool = False,
                  ema_intensity: bool = True, ema_mask: bool = True,
                  ema_flip: bool = True):
@@ -108,6 +134,7 @@ class TrainStep2D:
         self.mask_weight, self.ct_weight = mask_weight, ct_weight
         self.use_pallas, self.fuse_loss = use_pallas, fuse_loss
         self.imagenet_norm = imagenet_norm
+        self.device_gt = device_gt
         self.device_ema, self.ema_seed = device_ema, ema_seed
         self.ema_flags = dict(noise=ema_noise, blur=ema_blur, intensity=ema_intensity,
                               mask=ema_mask, flip=ema_flip)
@@ -131,8 +158,11 @@ class TrainStep2D:
         offsets, nb_half = self.offsets, self.neighbor // 2
         kw = dict(criterion=self.criterion, use_pallas=self.use_pallas,
                   fuse_loss=self.fuse_loss)
-        affs_t, wmap_t, mask_t, downs = build_targets_2d(batch["seg"], offsets,
-                                                         neighbor=self.neighbor)
+        if self.device_gt:
+            affs_t, wmap_t, mask_t, downs = build_targets_2d(batch["seg"], offsets,
+                                                             neighbor=self.neighbor)
+        else:
+            affs_t, wmap_t, mask_t, downs = batch_targets_2d(batch, nb_half)
         outs = model(_nchw(batch["image"]))
         with torch.no_grad():
             ema = model(_nchw(batch["ema_image"]))[4]
@@ -206,20 +236,22 @@ class TrainStep3D:
     """``step(state, batch) -> (pred, metrics)`` updates ``state`` in place.
 
     ``batch``: tensors on one device, ``image`` (B, D, H, W, 1) in [0, 1],
-    ``seg`` (B, D, H, W) integer labels, and, when ``device_ema`` is
-    False, ``ema_image`` and ``rules`` (B, 4). ``pred`` is relu of the
-    full-scale self affinities (B, K, D, H, W) after the boundary fill;
-    ``metrics`` holds 0-d tensors (loss, loss_embedding, loss_cross,
-    loss_deep). ``use_pallas=False`` is the plain path.
+    ``seg`` (B, D, H, W) integer labels, when ``device_ema`` is False
+    ``ema_image`` and ``rules`` (B, 4), and when ``device_gt`` is False the
+    host-built ``affs``, ``wmap`` and ``down1..4`` (:func:`batch_targets_3d`).
+    ``pred`` is relu of the full-scale self affinities (B, K, D, H, W) after
+    the boundary fill; ``metrics`` holds 0-d tensors (loss, loss_embedding,
+    loss_cross, loss_deep). ``use_pallas=False`` is the plain path.
     """
 
     def __init__(self, *, criterion=weighted_mse, affs0_weight: float = 1.0,
-                 embedding_mode: int = 5, use_pallas: bool = True,
+                 embedding_mode: int = 5, use_pallas: bool = True, device_gt: bool = True,
                  device_ema: bool = True, ema_seed: int = 0, ema_intensity: bool = True,
                  ema_mask: bool = True, ema_flip: bool = True):
         self.criterion, self.affs0_weight = criterion, affs0_weight
         self.embedding_mode = embedding_mode
         self.use_pallas = use_pallas
+        self.device_gt = device_gt
         self.device_ema, self.ema_seed = device_ema, ema_seed
         self.ema_flags = dict(intensity=ema_intensity, mask=ema_mask, flip=ema_flip)
 
@@ -233,7 +265,10 @@ class TrainStep3D:
     def loss(self, model, batch: dict):
         """(loss, pred, metrics) of a batch that carries ``ema_image`` and
         ``rules``, with the autograd graph; run it under float32_convs."""
-        affs_t, wmap_t, downs = build_targets_3d(batch["seg"])
+        if self.device_gt:
+            affs_t, wmap_t, downs = build_targets_3d(batch["seg"])
+        else:
+            affs_t, wmap_t, downs = batch_targets_3d(batch)
         outs = model(_ncdhw(batch["image"]))
         with torch.no_grad():
             ema = model(_ncdhw(batch["ema_image"]))[4]

@@ -6,10 +6,16 @@ them on the CPU: K7 (``conv3x3_fused``), K9a (``conv3x3_blocked``), K9b
 JAX tests' own (the two sum the taps in another order). On these CPU
 tensors the wrappers run the plain versions and count no launch."""
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 import jax.numpy as jnp
 

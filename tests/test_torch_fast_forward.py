@@ -12,10 +12,16 @@ embeddings of magnitude ~7 (the two sum convs in other orders: ~4e-6
 apart here). The JAX "pallas" block runs K8 in interpret mode.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp

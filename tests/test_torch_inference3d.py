@@ -6,12 +6,17 @@ weights (Flax variables drawn from a seeded numpy generator and carried
 across by ``unet_pni_deep_from_flax``), at narrow widths.
 """
 
+import os
 import json
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 h5py = pytest.importorskip("h5py")
 
 import jax

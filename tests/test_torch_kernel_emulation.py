@@ -20,11 +20,9 @@ gate, bf16 at 8e-3. The affinity kernels: ragged tiles, D < 4 and H, W <
 view, other shift and offset tables (negative, zero, diagonal, far z),
 neighbor 4 and 8 at D = 1, the raw form, bf16; K1f at the card's 1e-5
 gate (64 random offsets too), K5f at its 1e-6, both with their exact zeros, the backward at 1e-5 of the largest gradient
-(and at the zero vector's voxel, of its own). The same cases, and a walk
-over z chunks and tables longer than the staged cotangents, hold the
-staged z-walk forms of the two affinity kernels in
-``tools/affinity_zwalk.cu`` (the design that ``tools/affinity_zwalk.py``
-times against the package's). The WMSE kernels (C = 16), float32 and
+(and at the zero vector's voxel, of its own). The staged z-walk forms of
+the two affinity kernels (``tools/affinity_zwalk.cu``) run the same cases
+in ``test_torch_kernel_emulation_zwalk.py``. The WMSE kernels (C = 16), float32 and
 bfloat16: the self and cross forms, K3b without db (the training step's
 call) and with it, ragged tiles, H, W < 27, a zero vector, K = 1,
 neighbor 4's 10 offsets and neighbor 8's diagonals, a teacher with H
@@ -102,11 +100,6 @@ def harness(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("cuda_emu"),
                   [os.path.join(cuda_build.CSRC, f"{n}.cu")
                    for n in ("affinity2d", "affinity3d", "affinity_grad", "affinity_wmse2d")])
-
-
-@pytest.fixture(scope="module")
-def harness_zwalk(tmp_path_factory):
-    return _build(tmp_path_factory.mktemp("cuda_emu_zwalk"), [ZWALK])
 
 
 def _run(exe, *args):
@@ -370,33 +363,3 @@ def test_wmse_bwd_kernel_emulated(harness, b, h, w, cross, la, lb, db, soft, tab
     err, _ = _run(harness, "wbwd", b, h, w, dtype, cross, la, lb, db, soft, *_table_2d(table))
     assert err <= _TOL[dtype]
 
-
-# 40 random shifts and offsets, |dz| <= 5, |dy|, |dx| <= 12: far terms
-# beyond those read ahead, and (backward, C = 16) more channels than the
-# staged cotangents; 18 slices on a 9 x 33 slice: three z chunks on the
-# emulated card's three SMs, each warming its ring up
-_RNG = np.random.default_rng(3)
-_MANY_SHIFTS = tuple(int(v) for v in _RNG.integers(-12, 13, size=40))
-_MANY_OFFSETS = tuple(int(v) for _ in range(40) for v in (
-    _RNG.integers(-5, 6), _RNG.integers(-12, 13), _RNG.integers(-12, 13)))
-
-
-@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,d,h,w,c,layout,shifts", _K5F_CASES + [
-    (1, 7, 18, 20, 16, 1, _MANY_SHIFTS),
-    (1, 18, 9, 33, 16, 1, ()),
-], ids=_K5F_IDS + ["many-shifts", "z-chunks"])
-def test_zwalk_affinity3d_kernel_emulated(harness_zwalk, b, d, h, w, c, layout, shifts, dtype):
-    err, zeros = _run(harness_zwalk, "k5f", b, d, h, w, c, dtype, layout, *shifts)
-    assert err <= {0: 1e-6, 1: 8e-3}[dtype]
-    assert zeros
-
-
-@pytest.mark.parametrize("dtype", [0, 1], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,d,h,w,c,layout,raw,offsets", _BWD_CASES + [
-    (1, 7, 18, 20, 16, 1, 0, _MANY_OFFSETS),
-    (1, 18, 9, 33, 16, 0, 0, ()),
-], ids=_BWD_IDS + ["many-offsets", "z-chunks"])
-def test_zwalk_affinity_bwd_kernel_emulated(harness_zwalk, b, d, h, w, c, layout, raw, offsets,
-                                            dtype):
-    _bwd(harness_zwalk, b, d, h, w, c, layout, raw, offsets, dtype)

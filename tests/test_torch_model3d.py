@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp
@@ -185,10 +189,11 @@ def test_ac3ac4_preset_matches_jax():
     assert not cfg.model.bf16_tiled_infer and not cfg.model.fast_tiled_infer
 
 
-def test_train_refuses_3d():
+def test_train_refuses_3d(tmp_path):
     """3D training is ported: the ac3ac4 preset's train fields are the JAX
-    preset's, and ``train`` refuses only what is not ported, the AC3/AC4
-    host disk sampler (device_resident off, it needs h5py and cv2)."""
+    preset's, and with device_resident off ``train`` builds the AC3/AC4
+    host disk sampler (ported too), which reads data.data_folder's HDF5
+    volumes: a folder without them raises."""
     from pixel_embedded_affinity_torch.train import train
 
     cfg, jcfg = load_config("ac3ac4"), jax_load_config("ac3ac4")
@@ -200,7 +205,8 @@ def test_train_refuses_3d():
     # the device-resident sampler is ported: on in both presets
     assert jcfg.data.device_resident and cfg.data.device_resident
     cfg.data.device_resident = False
-    with pytest.raises(NotImplementedError, match="disk sampler"):
+    cfg.data.data_folder = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="AC4_inputs.h5"):
         train(cfg, max_iters=1, device="cpu")
 
 

@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 import jax.numpy as jnp
 
@@ -166,6 +170,12 @@ def test_port_imports_without_jax():
         "from pixel_embedded_affinity_torch.infer import fast_affinities\n"
         "import pixel_embedded_affinity_torch.ops.tile_copy_cuda\n"
         "import pixel_embedded_affinity_torch.utils.profile_arrange\n"
+        "import pixel_embedded_affinity_torch.train.__main__\n"
+        "import pixel_embedded_affinity_torch.train.optim\n"
+        "import pixel_embedded_affinity_torch.data.augment2d\n"
+        "from pixel_embedded_affinity_torch.data.cvppp import CVPPPTrain\n"
+        "from pixel_embedded_affinity_torch.data.bbbc import BBBCTrain\n"
+        "from pixel_embedded_affinity_torch.data.ac3ac4 import AC3AC4Train\n"
         "from pixel_embedded_affinity_torch.data.device_data import (\n"
         "    sample_cvppp_batch, sample_ac3ac4_batch, load_ac3ac4_arrays)\n"
         "synthesize_nuclei(1, 40, 48)\n"
@@ -185,6 +195,12 @@ def test_port_sources_do_not_import_jax():
               if n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "pixel_embedded_affinity_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    # the training CLI, the optimizers and the host samplers are scanned too
+    port = os.path.join(REPO, "pixel_embedded_affinity_torch")
+    for rel in ("train/__main__.py", "train/optim.py", "train/checkpoint.py",
+                "data/augment2d.py", "data/cvppp.py", "data/bbbc.py", "data/ac3ac4.py",
+                "data/consistency.py", "ops/affinity_np.py"):
+        assert os.path.join(port, rel) in files, rel
     for path in files:
         with open(path) as f:
             bad = [ln for ln in f if pat.match(ln)]

@@ -38,6 +38,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 pytest.importorskip("cv2")
 
 import jax

@@ -3,10 +3,16 @@
 ``ops/s2d.py``: the same numpy inputs, bit-equal outputs (every function is
 a gather of its input, so no rounding can differ)."""
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 import jax.numpy as jnp
 

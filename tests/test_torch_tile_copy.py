@@ -11,10 +11,16 @@ by ``chip_smoke.py``. The probe's four variants run at a tiny width and
 return finite times.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 from pixel_embedded_affinity_torch.ops import tile_copy, tile_copy_plain
 from pixel_embedded_affinity_torch.utils import profile_arrange

@@ -38,6 +38,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a test worker: tier 1 runs six xdist workers on the
+# host's cores, and oversubscribed OpenMP threads slow a step 50-fold
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp
@@ -284,18 +288,19 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
     assert state_b.step == 3
     a = load_checkpoint(os.path.join(run, "model-000003.ckpt"))
     b = load_checkpoint(os.path.join(run_b, "model-000003.ckpt"))
-    for k, v in a["model"].items():
-        assert torch.equal(v, b["model"][k]), k
-    for i, st in a["optimizer"]["state"].items():
-        for k, v in st.items():
-            assert (torch.equal(v, b["optimizer"]["state"][i][k]) if torch.is_tensor(v)
-                    else v == b["optimizer"]["state"][i][k]), (i, k)
+    # the msgpack trees (params, batch_stats, opt_state, step), bit for bit
+    la, lb = (jax.tree_util.tree_flatten_with_path(t)[0] for t in (a, b))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        assert np.array_equal(x, y), jax.tree_util.keystr(p)
 
 
-# the EMA view's noise and blur, the device-resident sampler and bfloat16
-# compute are ported now: their cases pass the check
+# the EMA view's noise and blur, the device-resident sampler, bfloat16
+# compute, the schedules and the host-built targets are ported now: their
+# cases pass the check
 PORTED_OPTIONS = [{"data": {"if_ema_noise": True}}, {"data": {"if_ema_blur": True}},
-                  {"data": {"device_resident": True}}, {"model": {"dtype": "bfloat16"}}]
+                  {"data": {"device_resident": True}}, {"model": {"dtype": "bfloat16"}},
+                  {"train": {"lr_mode": "poly"}}, {"data": {"device_gt": False}}]
 
 
 @pytest.mark.parametrize("override", [
@@ -316,12 +321,13 @@ def test_unported_train_options_raise(override):
         check_train_config(cfg)
 
 
-def test_train_without_data_override_raises():
-    """Without the device-resident sampler the host disk sampler is asked
-    for, and it is not ported."""
-    with pytest.raises(NotImplementedError, match="data_override"):
-        train(load_config("cvppp", {"data": {"device_resident": False}}), max_iters=1,
-              device="cpu")
+def test_train_without_data_override_raises(tmp_path):
+    """Without the device-resident sampler and without data_override the
+    host disk sampler reads data.data_folder: a missing folder raises."""
+    missing = str(tmp_path / "no_such_folder")
+    with pytest.raises(FileNotFoundError, match="no_such_folder"):
+        train(load_config("cvppp", {"data": {"device_resident": False, "data_folder": missing}}),
+              max_iters=1, device="cpu")
 
 
 def test_cvppp_preset_matches_jax():
