@@ -63,11 +63,16 @@ Phases, each of which exits nonzero when it fails:
   9. 3D serving: AC3/AC4 serving at full width (ac3ac4 preset, filters
      28..80, emd 16, seeded random weights) on a synthetic 20x1024x1024
      volume (the AC4 validation geometry: 338 tiles, 85 batches), through
-     run_inference_3d with the three decoders and K5f's launch count read
-     around the run; device time per tile batch and a profile of a few
-     batches; one batch's affinities against float64; the canvas against
-     the same run through the plain affinity; the decoders' time on a noisy
-     label-derived canvas of the first 10x512x512;
+     run_inference_3d's defaults (the dense module through the engine's
+     run) with the three decoders and K5f's launch count read around the
+     run; device time per tile batch, the dense module against the
+     folded-BatchNorm fast graph (fast_tiled_infer), in float32 and
+     bfloat16, and a profile of a few batches; K5f on each graph's
+     embedding against its plain version; one batch's affinities through
+     each graph against the dense module in float64; the canvas against
+     the same run through the plain affinity, and the fast graph's canvas
+     and forward seconds against the main path's; the decoders' time on a
+     noisy label-derived canvas of the first 10x512x512;
  10. 3D training: train() on the full-width ac3ac4 preset, B=2 crops of
      18x160x160 from the device-resident sampler over a synthetic
      36x320x320 volume (through load_ac3ac4_arrays), 8 steps, validation
@@ -182,12 +187,22 @@ Phases, each of which exits nonzero when it fails:
      plain path (HOST_PLAIN_RTOL), each kernel's launches per step equal
      to the device-target path's, and data_s of the host samplers beside
      the device samplers';
- 22. one JSON line listing each kernel: launches (phase 21's also apart,
+ 22. the model families: the full-width cvppp_resnet50 (8 steps) and
+     cvppp_resnet101 (3 steps) presets trained B=2 544x544 from the device
+     sampler with the discriminative term, K2f/K2b/K3f/K3b and the
+     validation's K1f held to their counts, the first loss through the
+     kernels against the plain path's, loss_disc finite, step times, one
+     step's device time by group, peak memory; 4 images served through
+     ResNet-50 at B=1 with K1f's launches; MALA (widths 12..1500) at the
+     reference geometry, (1, 1, 53, 268, 268) -> (1, 16, 25, 56, 56),
+     against its float64 run on the card, with its time and peak memory,
+     and the small golden (tests/fixtures/unet3d_mala_small.npz);
+ 23. one JSON line listing each kernel: launches (phase 21's also apart,
      cli_launches), error, times, bound, and how the times were taken
      (CUDA graph replay; for the affinity kernels CUDA events around the
      eager call beside; K2f/K2b/K3f/K3b with their bfloat16 forms' bf16_*
      fields and launches);
- 23. the last line: {"ok": true, "device": {...}}.
+ 24. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -270,6 +285,9 @@ FIXTURE3D_TOL = dict(atol=1e-3, rtol=1e-4)
 # the canvas through K5f against the same run through the plain affinity:
 # the two differ by f32 rounding of the dot, blended
 CANVAS_ATOL = 1e-5
+# the fast graph's canvas against the dense module's: float32 sums folded
+# and re-associated (the CPU tests' bound, tests/test_torch_fast_forward3d.py)
+FAST_CANVAS_ATOL = 1e-4
 # the AC4 validation volume: 20 slices of 1024x1024, padded (4, 48, 48) to
 # 28x1120x1120, a (2, 13, 13) grid of 18x160x160 tiles in batches of 4
 VOLUME_3D = (20, 1024, 1024)
@@ -1664,40 +1682,46 @@ def phase_fixture_3d():
 
 
 def phase_serving_3d() -> dict:
-    """The 3D serving main path; returns K5f's launches in it and its error
-    against the plain version on a served embedding."""
+    """The 3D serving main path, the defaults (the dense module through the
+    engine's run); returns K5f's launches in it and its error against the
+    plain version on a served embedding. The folded-BatchNorm fast graph
+    (fast_tiled_infer) is held and timed beside it."""
     import torch
     import torch.nn.functional as F
 
     from pixel_embedded_affinity_torch.config import load_config
     from pixel_embedded_affinity_torch.data import synthesize_volume
     from pixel_embedded_affinity_torch.device import float32_convs
-    from pixel_embedded_affinity_torch.infer import (
-        build_model, build_tiled_predictor, run_inference_3d)
+    from pixel_embedded_affinity_torch.infer import build_model, run_inference_3d
+    from pixel_embedded_affinity_torch.infer.inference3d import build_tiled_predictor, serves_fast
+    from pixel_embedded_affinity_torch.models import build_fast_pni_forward
     from pixel_embedded_affinity_torch.ops import (
         SHIFTS_3D, affinity_3d_plain, embedding_to_affinity_3d, fused_affinity_3d)
     from pixel_embedded_affinity_torch.parallel import TiledInference3D, tile_grid
 
     cfg = load_config("ac3ac4")
+    check(not serves_fast(cfg), "ac3ac4 preset: the dense module serves by default")
     torch.manual_seed(SEED)
     sd = build_model(cfg, device="cpu").state_dict()
     t0 = time.perf_counter()
     raw, label = synthesize_volume(*VOLUME_3D, n_cells=VOLUME_CELLS, seed=SEED)
     vol = raw.astype(np.float32) / 255.0
+    crop, stride, padding = tuple(cfg.data.crop_size), (10, 80, 80), (4, 48, 48)
     print(f"[serve3d] ac3ac4 UNetPNIEmbeddingDeep filters {cfg.model.filters} emd "
           f"{cfg.model.emd}; synthetic volume {vol.shape}, {VOLUME_CELLS} cells, made in "
-          f"{time.perf_counter() - t0:.2f} s; tiles {cfg.data.crop_size}, stride (10, 80, 80), "
-          f"padding (4, 48, 48), batch 4; convs in float32 (TF32 off)")
+          f"{time.perf_counter() - t0:.2f} s; tiles {crop}, stride {stride}, padding {padding}, "
+          f"batch 4; the dense module through the engine's run; convs in float32 (TF32 off)")
 
     model = build_model(cfg, sd, device="cuda")
-    predict = build_tiled_predictor(model)
+    fast, dense = build_tiled_predictor(model, fast=True), build_tiled_predictor(model)
     # warm-up (cuDNN picks its algorithms at the first call of a shape) and
     # profile on a sub-volume whose 18 tiles end in a short batch of 2, as
     # the full volume's 338 do
     sub = np.ascontiguousarray(vol[:, :224, :224])
-    engine = TiledInference3D(crop_size=cfg.data.crop_size, batch_size=4)
-    engine.run(sub, predict, len(SHIFTS_3D), device="cuda")
-    device_breakdown(lambda: engine.run(sub, predict, len(SHIFTS_3D), device="cuda"), 5,
+    engine = TiledInference3D(crop_size=crop, batch_size=4)
+    for p in (dense, fast):
+        engine.run(sub, p, len(SHIFTS_3D), device="cuda")
+    device_breakdown(lambda: engine.run(sub, dense, len(SHIFTS_3D), device="cuda"), 5,
                      iters=2, label="3D engine, 18 tiles in 5 batches", unit="batch",
                      ours=("affinity3d_fwd_kernel",), require=("affinity3d_fwd_kernel",))
 
@@ -1723,48 +1747,71 @@ def phase_serving_3d() -> dict:
         check(seg.shape == VOLUME_3D, f"{dec} segmentation shape")
         check(len(m) == 4 and all(np.isfinite(v) for v in m.values()), f"{dec} metrics {m}")
 
-    # one tile batch: device time, K5f on its embedding, float64
-    volp = F.pad(torch.from_numpy(vol).cuda()[None, None], (48, 48, 48, 48, 4, 4),
+    # one tile batch: the two graphs' device time in float32 and bfloat16,
+    # K5f on each graph's embedding, both graphs against float64
+    pz, py, px = padding
+    volp = F.pad(torch.from_numpy(vol).cuda()[None, None], (px, px, py, py, pz, pz),
                  mode="reflect")[0, 0]
-    pos = tile_grid(tuple(volp.shape), cfg.data.crop_size, (10, 80, 80))
+    pos = tile_grid(tuple(volp.shape), crop, stride)
     check(len(pos) == TILES_3D, f"{len(pos)} tiles")
-    cz, cy, cx = cfg.data.crop_size
+    cz, cy, cx = crop
     tiles = torch.stack([volp[z:z + cz, y:y + cy, x:x + cx] for z, y, x in pos[:4]])[:, None]
-    ms = timed_ms(lambda: predict(tiles), n=20)
+    m16 = build_model(cfg, sd, device="cuda", dtype="bfloat16")
+    fast16, dense16 = build_tiled_predictor(m16, fast=True), build_tiled_predictor(m16)
+    ms = {name: timed_ms(lambda p=p: p(tiles), n=10) for name, p in
+          (("fast", fast), ("dense", dense), ("fast bf16", fast16), ("dense bf16", dense16))}
 
-    def predict_tf32():
+    def dense_tf32():
         with torch.no_grad():
             emb = tf32_convs(lambda: model(tiles)[4])()
             return fused_affinity_3d(emb.permute(0, 2, 3, 4, 1)).relu_()
 
-    tf32_ms = timed_ms(predict_tf32, n=20)
+    tf32_ms = timed_ms(dense_tf32, n=10)
     gflop = model_gflop(cfg, tuple(tiles.shape))
-    print(f"[serve3d] device ms per tile batch (4 tiles, model + K5f + ReLU, warm median of "
-          f"20): {ms:.4f} float32, {tf32_ms:.4f} with TF32 convs (for reference); the model "
-          f"is {gflop:.4f} GFLOP a batch: {gflop / ms:.4f} and {gflop / tf32_ms:.4f} TFLOP/s; "
-          f"{card_line()}")
+    print(f"[serve3d] device ms per tile batch (4 tiles, predictor + K5f + ReLU, warm median "
+          f"of 10): dense {ms['dense']:.4f} (the main path), fast {ms['fast']:.4f} in "
+          f"float32; dense {ms['dense bf16']:.4f}, fast {ms['fast bf16']:.4f} in bfloat16; "
+          f"dense {tf32_ms:.4f} with TF32 convs (for reference); the dense module is "
+          f"{gflop:.4f} GFLOP a batch: {gflop / ms['dense']:.4f} TFLOP/s; {card_line()}")
     with torch.no_grad(), float32_convs():
-        emb = model(tiles)[4].permute(0, 2, 3, 4, 1)
-        err_k = (fused_affinity_3d(emb) - affinity_3d_plain(emb)).abs().max().item()
+        emb_d = model(tiles)[4].permute(0, 2, 3, 4, 1)
+        emb_f = build_fast_pni_forward(model)(tiles.permute(0, 2, 3, 4, 1))
+        err_k = (fused_affinity_3d(emb_d) - affinity_3d_plain(emb_d)).abs().max().item()
+        err_kf = (fused_affinity_3d(emb_f) - affinity_3d_plain(emb_f)).abs().max().item()
         emb64 = copy.deepcopy(model).double()(tiles.double())[4]
         ref = embedding_to_affinity_3d(emb64.permute(0, 2, 3, 4, 1)).relu()
-    err = (predict(tiles).double() - ref).abs().max().item()
-    err_tf32 = (predict_tf32().double() - ref).abs().max().item()
-    print(f"[serve3d] K5f on a served embedding vs plain: {err_k:.3e}; served affinities vs "
-          f"float64, one batch: {err:.3e} (a TF32 run: {err_tf32:.3e})")
+    err = {name: (p(tiles).double() - ref).abs().max().item()
+           for name, p in (("dense", dense), ("fast", fast))}
+    err_tf32 = (dense_tf32().double() - ref).abs().max().item()
+    print(f"[serve3d] K5f vs plain on the dense module's embedding (strides "
+          f"{tuple(emb_d.stride())}): {err_k:.3e}, on the fast graph's (strides "
+          f"{tuple(emb_f.stride())}): {err_kf:.3e}; one batch's affinities vs the dense "
+          f"module in float64: dense {err['dense']:.3e}, fast {err['fast']:.3e} (a TF32 "
+          f"run: {err_tf32:.3e}; bound {AFF_ATOL})")
     check(err_k <= K5_F32_ATOL, f"K5f off its plain version by {err_k} on the main path")
-    check(err <= AFF_ATOL, f"served 3D affinities off the float64 run by {err}")
+    check(err_kf <= K5_F32_ATOL, f"K5f off its plain version by {err_kf} on the fast graph")
+    for name, e in err.items():
+        check(e <= AFF_ATOL, f"served 3D affinities ({name}) off the float64 run by {e}")
 
     @torch.no_grad()
     def predict_plain(t):
         with float32_convs():
             return affinity_3d_plain(model(t)[4].permute(0, 2, 3, 4, 1)).relu_()
 
-    plain = TiledInference3D(crop_size=cfg.data.crop_size, batch_size=4).run(
+    plain = TiledInference3D(crop_size=crop, batch_size=4).run(
         vol, predict_plain, len(SHIFTS_3D), device="cuda")
     err_c = float(np.abs(affs - plain).max())
     print(f"[serve3d] canvas vs the same run through the plain affinity: {err_c:.3e}")
     check(err_c <= CANVAS_ATOL, f"canvas off the plain run by {err_c}")
+    # the fast graph's canvas (fast_tiled_infer) against the main path's
+    tf: dict = {}
+    fast_affs, _ = run_inference_3d(load_config("ac3ac4", {"model": {"fast_tiled_infer": True}}),
+                                    sd, vol, decoders=(), timing=tf, device="cuda")
+    err_fd = float(np.abs(fast_affs - affs).max())
+    print(f"[serve3d] fast canvas vs the dense module's: {err_fd:.3e} (bound "
+          f"{FAST_CANVAS_ATOL}); forward s (upload, run, fetch): dense {timing['forward_s']:.4f} "
+          f"(the main path), fast {tf['forward_s']:.4f}; {card_line()}")
+    check(err_fd <= FAST_CANVAS_ATOL, f"the fast canvas off the dense one by {err_fd}")
     decode_labels_canvas(label)
     return {"launches": launches, "max_abs_err": err_k, "volume": (raw, label)}
 
@@ -2195,19 +2242,20 @@ def phase_serving_bbbc() -> dict:
     model = build_model(cfg, sd, device="cuda")
     # B=4 takes ~1 s a call at this size (cuDNN's FFT-tiled choice): fewer
     # repeats there
-    for bs, n in ((1, 20), (4, 5)):
+    for bs, n in ((1, 20), (4, 2)):
         x = x_all[:bs]
         ms = timed_ms(lambda: forward_affinities(model, x, offsets, with_mask=True), n=n)
         print(f"[bbbc-serve] forward + affinity + mask logits B={bs}: {ms / bs:.4f} ms/img, "
               f"warm median of {n}, {card_line()}")
         device_breakdown(lambda: forward_affinities(model, x, offsets, with_mask=True), bs,
-                         iters=5 if bs == 1 else 2, label=f"bbbc serve B={bs} 520x696",
+                         iters=5 if bs == 1 else 1, label=f"bbbc serve B={bs} 520x696",
                          ours=("affinity2d_fwd_kernel",))
     # cuDNN's own algorithm search, for reference (the server runs its
-    # heuristics' choice)
+    # heuristics' choice); at B=1 only (B=4's search and calls took ~10 s:
+    # 201.6 ms/img, no better than its heuristics' 170.8; PERF.md)
     torch.backends.cudnn.benchmark = True
     try:
-        for bs, n in ((1, 10), (4, 3)):
+        for bs, n in ((1, 10),):
             x = x_all[:bs]
             ms = timed_ms(lambda: forward_affinities(model, x, offsets, with_mask=True), n=n)
             print(f"[bbbc-serve] with cudnn.benchmark, B={bs}: {ms / bs:.4f} ms/img, median "
@@ -3691,7 +3739,8 @@ def phase_serving_bf16(cfg, sd, samples) -> dict:
     k5f = fused_affinity_3d.launches
     c32, _ = run_inference_3d(load_config("ac3ac4"), sd3, vol, decoders=(), device="cuda")
     d = np.abs(c16 - c32)
-    print(f"[bf16-serve] 3D tile batch 4 x 18x160x160 (model + K5f + ReLU, warm median of 20): "
+    print(f"[bf16-serve] 3D tile batch 4 x 18x160x160 (the dense module + K5f + ReLU, warm "
+          f"median of 20; phase 9 also times the fast graph): "
           f"{ms16:.4f} ms with bf16_tiled_infer, {ms32:.4f} in float32; the canvas of a "
           f"{BF16_CANVAS_VOLUME} volume ({k5f} K5f launches) against float32's: max "
           f"{d.max():.3e}, mean {d.mean():.3e}; {card_line()}")
@@ -4064,6 +4113,167 @@ def phase_training_cli() -> dict:
     return total
 
 
+# the model families' phase: the ResNet presets' steps (the first loss
+# through the kernels against the plain path's, as HOST_PLAIN_RTOL), MALA at
+# the reference geometry against its float64 run, relative to the largest
+# output (float32 sums of up to 1500 x 27 products, TF32 off)
+RESNET_STEPS = {"cvppp_resnet50": 8, "cvppp_resnet101": 3}
+RESNET_PLAIN_RTOL = 1e-5
+MALA_INPUT, MALA_OUTPUT = (1, 1, 53, 268, 268), (1, 16, 25, 56, 56)
+MALA_F64_RTOL = 1e-4
+
+
+def _train_resnet(name: str, arrays, valid, samples) -> dict:
+    """train() on the full-width ``name`` preset from the device sampler,
+    every 2D kernel's count set to 0 just before and read just after; the
+    first step's loss through the kernels against the plain path, loss_disc
+    finite, one step's device time and peak memory; for ResNet-50, 4
+    images served at B=1 through K1f. Returns the launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data.device_data import (
+        sample_cvppp_batch, sampler_generator)
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.infer import run_inference_2d
+    from pixel_embedded_affinity_torch.ops import fused_affinity_2d
+    from pixel_embedded_affinity_torch.train import init_state, make_train_step, train
+
+    steps = RESNET_STEPS[name]
+    out = os.path.join(REPO, "build", f"chip_smoke_{name}")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config(name, {"train": {"display_freq": 1, "valid_freq": steps,
+                                       "save_freq": 10 ** 6},
+                             "save_path": os.path.join(out, "models")})
+    print(f"[{name}] {cfg.model.arch}, loss_mode {cfg.train.loss_mode} (disc_weight "
+          f"{cfg.train.disc_weight}), B={cfg.train.batch_size} 544x544 from the device sampler "
+          f"over {len(arrays[0])} leaf images, {steps} steps, validation on {len(valid)}, convs "
+          f"in float32 (TF32 off)")
+
+    # the first step's loss at the initial weights, through the kernels and
+    # the plain path, on the sampler's first batch and EMA view
+    state = init_state(cfg, "cuda")
+    step = make_train_step(cfg)
+    images, labels = (torch.from_numpy(a).cuda() for a in arrays)
+    batch = step.ema_batch(sample_cvppp_batch(images, labels,
+                                              sampler_generator(cfg.train.random_seed, 0),
+                                              cfg.train.batch_size, out=cfg.data.size), 0)
+    first = {}
+    for use_pallas in (True, False):
+        step.use_pallas = use_pallas
+        with torch.no_grad(), float32_convs():
+            loss, _, metrics = step.loss(copy.deepcopy(state.model).train(), batch)
+        first[use_pallas] = (loss.item(), metrics["loss_disc"].item())
+    step.use_pallas = True
+    rel = abs(first[True][0] - first[False][0]) / abs(first[False][0])
+    print(f"[{name}] first loss {first[True][0]!r} through the kernels, {first[False][0]!r} "
+          f"plain ({rel:.2e} relative, bound {RESNET_PLAIN_RTOL}); loss_disc {first[True][1]!r}")
+    check(rel <= RESNET_PLAIN_RTOL, f"{name}: first loss off the plain path's by {rel}")
+    check(np.isfinite(first[True][1]) and first[True][1] > 0, f"{name}: loss_disc {first}")
+
+    launchers = {**_wmse_launchers(), "K1f": fused_affinity_2d}
+    for fn in launchers.values():
+        fn.launches = 0
+    timing: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained, history = train(cfg, max_iters=steps, data_override=(arrays, valid),
+                             device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: fn.launches for k, fn in launchers.items()}
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    print(f"[{name}] {wall:.2f} s for {steps} steps + validation + checkpoint; peak device "
+          f"memory {peak:.4f} GiB; launches {json.dumps(launches)}; loss per step {losses}; "
+          f"validation {json.dumps(history)}")
+    for k, per_step in (("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1)):
+        check(launches[k] == per_step * steps, f"{name}: {k} launched {launches[k]} times")
+    check(launches["K1f"] == len(valid), f"{name}: K1f launched {launches['K1f']} times")
+    check(len(losses) == steps and all(np.isfinite(losses)), f"{name}: losses {losses}")
+    check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values()),
+          f"{name}: validation {history}")
+    print_step_times(name, timing, steps, HOST_DATA_MS["cvppp"])
+    device_breakdown(lambda: step(trained, batch), 1, iters=2, label=f"{name} step B=2 544x544",
+                     unit="step", ours=("wmse",), split=STEP_SPLIT, require=WMSE_KERNELS)
+    if name != "cvppp_resnet50":
+        return launches
+    sd = trained.model.state_dict()
+    run_inference_2d(cfg, sd, samples[:1], batch_size=1, device="cuda")  # warm-up
+    fused_affinity_2d.launches = 0
+    served: dict = {}
+    _, agg = run_inference_2d(cfg, sd, samples, timing=served, batch_size=1, device="cuda")
+    k1f = fused_affinity_2d.launches
+    print(f"[{name}] served {len(samples)} images at B=1: K1f launches {k1f}; timing "
+          f"{json.dumps(served)}; metrics {json.dumps(agg)}; {card_line()}")
+    check(k1f == len(samples) and all(np.isfinite(v) for v in agg.values()),
+          f"{name} serving: {k1f} launches, {agg}")
+    launches["K1f"] += k1f
+    return launches
+
+
+def phase_model_families(samples) -> dict:
+    """The ResNet-50/101 presets trained at full width through K2f/K2b/
+    K3f/K3b with the discriminative term (ResNet-50 validated and served
+    through K1f), and MALA at the reference geometry against float64, with
+    the small golden; returns the kernels' launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.models import UNet3DMALADeep
+
+    arrays = pack_cvppp_arrays(leaf_pairs(4, 530, 500, SEED))
+    valid = synthetic_leaves(2, 530, 500, SEED + 1)
+    launches: dict = {}
+    for name in RESNET_STEPS:
+        for k, n in _train_resnet(name, arrays, valid, samples).items():
+            launches[k] = launches.get(k, 0) + n
+        torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED)
+    model = UNet3DMALADeep(16).cuda().eval()
+    x = torch.rand(MALA_INPUT, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                   device="cuda")
+    with torch.no_grad(), float32_convs():
+        out = model(x)  # cuDNN plans the 1500-channel convs at the first call
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed_ms(lambda: model(x), n=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = model(x)
+        t0 = time.perf_counter()
+        ref = copy.deepcopy(model).double()(x.double())
+        torch.cuda.synchronize()
+        s64 = time.perf_counter() - t0
+    err = (out.double() - ref).abs().max().item() / ref.abs().max().item()
+    print(f"[mala] UNet3DMALADeep widths (12, 60, 300, 1500), emd 16: {tuple(x.shape)} -> "
+          f"{tuple(out.shape)}; {ms:.4f} ms a forward (warm median of 5, TF32 off), peak "
+          f"device memory {peak:.4f} GiB; against float64 on the card ({s64:.2f} s): "
+          f"{err:.3e} of the largest output (bound {MALA_F64_RTOL}); {card_line()}")
+    check(tuple(out.shape) == MALA_OUTPUT, f"MALA output {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()) and err <= MALA_F64_RTOL, f"MALA off float64 by {err}")
+    del model, ref
+    torch.cuda.empty_cache()
+
+    data = np.load(os.path.join(REPO, "tests", "fixtures", "unet3d_mala_small.npz"))
+    sd = {k[3:]: torch.from_numpy(data[k]) for k in data.files if k.startswith("sd/")}
+    small = UNet3DMALADeep(int(data["emd"][0]), tuple(int(v) for v in data["widths"]))
+    small.load_state_dict(sd)
+    small = small.cuda().eval()
+    xs = np.random.default_rng(int(data["input_seed"][0])).standard_normal(
+        tuple(data["input_shape"])).astype(np.float32)
+    with torch.no_grad(), float32_convs():
+        got = small(torch.from_numpy(xs).cuda()).cpu().numpy()
+    gerr = float(np.abs(got - data["out/0"]).max())
+    print(f"[mala] the small golden (widths {tuple(int(v) for v in data['widths'])}, "
+          f"{xs.shape} -> "
+          f"{got.shape}): max error {gerr:.3e} (bound atol {FIXTURE_TOL['atol']}, rtol "
+          f"{FIXTURE_TOL['rtol']})")
+    check(got.shape == data["out/0"].shape and np.allclose(got, data["out/0"], **FIXTURE_TOL),
+          f"MALA golden off by {gerr}")
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -4120,9 +4330,11 @@ def main() -> int:
     gate16 = _timed("bf16 quality", phase_gate_bf16)
     # 21. the training CLI, SGD, the host samplers
     cli = _timed("training CLI", phase_training_cli)
-    # 22. kernels line, card, 23. last line
+    # 22. the model families: ResNet-50/101, MALA
+    families = _timed("model families", phase_model_families, samples)
+    # 23. kernels line, card, 24. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
-               + quality.get(k, 0) for k in bbbc["launches"]}
+               + quality.get(k, 0) + families.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
     kernels = [{
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,

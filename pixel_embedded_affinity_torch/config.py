@@ -1,6 +1,8 @@
 """Config: the fields and the presets the serving and training paths read:
-``cvppp`` and ``bbbc039v1`` (2D serving and training) and ``ac3ac4`` (3D
-serving and training), with YAML overlays.
+``cvppp`` and ``bbbc039v1`` (2D serving and training), ``cvppp_resnet50``
+and ``cvppp_resnet101`` (the ResNet embedding nets on CVPPP, trained with
+the discriminative term) and ``ac3ac4`` (3D serving and training), with
+YAML overlays.
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
@@ -8,11 +10,10 @@ the same in both packages. The port has only the fields its code reads: a
 JAX key it lacks (``train.steps_per_call``, ``model.s2d_train``, ...) fails as an
 unknown config key. :func:`load_config` applies the preset, then a YAML
 file (``yaml.safe_load``), then the overrides, as the JAX package's does.
-A few fields whose code is not ported keep their JAX
-names, and raise where a value the port does not serve would take effect
-(``model.fast_tiled_infer``, ``train.loop.check_train_config``).
-``model.dtype`` and ``model.bf16_tiled_infer`` are served; their defaults
-give float32 compute in the port (see their comments).
+Values whose code is not ported raise where they would take effect
+(``train.loop.check_train_config``). ``model.dtype`` and
+``model.bf16_tiled_infer`` are served; their defaults give float32 compute
+in the port (see their comments).
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from typing import Any
 
 @dataclass
 class ModelConfig:
+    # resunet2d_deep | resnet50_embedding | resnet101_embedding (2D),
+    # unet_pni_deep | unet3d_mala (3D; MALA is built, not trained or
+    # served tiled, as in the JAX package)
     arch: str = "resunet2d_deep"
     input_nc: int = 3
     output_nc: int = 2
@@ -45,15 +49,22 @@ class ModelConfig:
     # bfloat16 on its TPU, where False alone does not give float32). Off by
     # default in the port (the JAX package's default is on)
     bf16_tiled_infer: bool = False
-    # the JAX package's folded-BN z-concat graph of the tiled 3D predictor
-    # (fast_forward3d.py), on there by default. Not ported: True raises
-    # (ROADMAP.md, Modules still to port, 3D extras)
+    # the tiled 3D predictor of unet_pni_deep as the folded-BatchNorm
+    # z-concat 2D-conv graph (models/fast_forward3d.py), exact math; False
+    # serves the dense module. Off by default in the port (the JAX
+    # package's default is on): on the H100 the dense module is faster
+    # (PERF.md, Findings)
     fast_tiled_infer: bool = False
 
 
 @dataclass
 class TrainConfig:
     loss_func: str = "WeightedMSELoss"
+    # "affinity" (the embedding->affinity losses only) or "discriminative",
+    # which adds disc_weight x the pull/push/reg discriminative loss of the
+    # full-scale embedding to the 2D step (the ResNet presets' recipe)
+    loss_mode: str = "affinity"
+    disc_weight: float = 1.0
     affs0_weight: float = 1.0
     deep_weight: int = 1
     self_emb: float = 1.0
@@ -183,6 +194,28 @@ PRESETS: dict[str, dict[str, Any]] = {
                   "base_lr": 1e-4, "batch_size": 2},
         "data": {"dataset": "bbbc039v1", "size": 256,
                  "shifts": (1, 3, 5, 9, 11), "strides": (10, 10),
+                 "device_gt": True, "device_ema": True,
+                 "device_resident": True},
+    },
+    # the JAX package's ResNet-50/101 presets (BASELINE configs 3 and 4):
+    # CVPPP training with the discriminative and affinity losses
+    "cvppp_resnet50": {
+        "name": "cvppp_resnet50",
+        "model": {"arch": "resnet50_embedding", "input_nc": 3, "output_nc": 2},
+        "train": {"loss_mode": "discriminative", "disc_weight": 1.0,
+                  "lr_mode": "fixed", "base_lr": 1e-4, "batch_size": 2},
+        "data": {"dataset": "cvppp", "size": 544,
+                 "shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
+                 "device_gt": True, "device_ema": True,
+                 "device_resident": True},
+    },
+    "cvppp_resnet101": {
+        "name": "cvppp_resnet101",
+        "model": {"arch": "resnet101_embedding", "input_nc": 3, "output_nc": 2},
+        "train": {"loss_mode": "discriminative", "disc_weight": 1.0,
+                  "lr_mode": "fixed", "base_lr": 1e-4, "batch_size": 2},
+        "data": {"dataset": "cvppp", "size": 544,
+                 "shifts": (1, 3, 5, 9, 27), "strides": (5, 5),
                  "device_gt": True, "device_ema": True,
                  "device_resident": True},
     },

@@ -1,10 +1,14 @@
 """Weight carry-across between the Flax parameter tree and torch state dicts.
 
-``resunet2d_deep_from_flax`` and ``unet_pni_deep_from_flax`` are the
-inverses of the JAX package's ``train/convert_torch.py::convert_resunet2d_deep``
-and ``convert_unet_pni_deep``: Flax conv kernels (kh, kw, I, O) or
+``resunet2d_deep_from_flax``, ``unet_pni_deep_from_flax`` and
+``unet3d_mala_from_flax`` are the inverses of the JAX package's
+``train/convert_torch.py::convert_resunet2d_deep``, ``convert_unet_pni_deep``
+and ``convert_unet3d_mala_deep``: Flax conv kernels (kh, kw, I, O) or
 (kd, kh, kw, I, O) become (O, I, kh, kw) or (O, I, kd, kh, kw); BatchNorm
-scale/bias/mean/var become weight/bias/running_mean/running_var.
+scale/bias/mean/var become weight/bias/running_mean/running_var; MALA's
+depthwise (3, 3, C) kernels become the grouped ConvTranspose3d's
+(C, 1, 1, 3, 3). ``resnet_embedding_from_flax`` maps ResNetEmbedding's tree,
+whose scopes are the port's module names.
 ``train_state_from_flax`` carries a JAX train state (parameters, BatchNorm
 statistics, the optimizer chain's state and the step) of either model,
 held in memory or read from its msgpack file, into the port's model and
@@ -70,10 +74,18 @@ def _at(tree, path):
     return tree
 
 
+def _dconv(sd: dict, key: str, p: dict):
+    """MALA's depthwise transpose: kernel (3, 3, C) -> weight (C, 1, 1, 3, 3)."""
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 0, 1))[:, None, None])
+
+
+_FROM_FLAX = {"conv": _conv, "bn": _bn_params, "dconv": _dconv}
+
+
 def _params_from_flax(layout, params: dict) -> dict:
     sd: dict = {}
     for key, path, kind in layout:
-        (_conv if kind == "conv" else _bn_params)(sd, key, _at(params, path))
+        _FROM_FLAX[kind](sd, key, _at(params, path))
     return sd
 
 
@@ -125,10 +137,53 @@ def unet_pni_deep_from_flax(variables: dict) -> dict:
     return _with_stats(list(_pni_layout()), variables)
 
 
-def _layout_of(model: torch.nn.Module) -> list:
-    from .models import UNetPNIEmbeddingDeep
+def _module_layout(model: torch.nn.Module):
+    """(torch module key, Flax path, kind) of every conv and BatchNorm of a
+    model whose module names are its Flax scopes (ResNetEmbedding)."""
+    for name, m in model.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            yield name, path, "conv"
+        elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            yield name, path, "bn"
 
-    return list(_pni_layout() if isinstance(model, UNetPNIEmbeddingDeep) else _layout())
+
+def _mala_layout():
+    """(torch module key, Flax path, kind) of UNet3DMALADeep's layers."""
+    for i in range(1, 19):
+        yield f"conv{i}", (f"conv{i}",), "conv"
+    for i in range(1, 4):
+        yield f"dconv{i}", (f"dconv{i}",), "dconv"
+
+
+def resnet_embedding_from_flax(variables: dict, depth: int = 50,
+                               local_attention: bool = False) -> dict:
+    """Flax ``{'params', 'batch_stats'}`` of ResNetEmbedding (numpy or
+    array leaves) -> state dict of :class:`models.ResNetEmbedding` of that
+    ``depth`` (and ``local_attention``)."""
+    from .models import ResNetEmbedding
+
+    with torch.device("meta"):
+        model = ResNetEmbedding(depth, local_attention=local_attention)
+    return _with_stats(list(_module_layout(model)), variables)
+
+
+def unet3d_mala_from_flax(variables: dict) -> dict:
+    """Flax ``{'params'}`` of UNet3DMALADeep (no BatchNorm) -> state dict
+    of :class:`models.UNet3DMALADeep` (the reference's names)."""
+    return _params_from_flax(list(_mala_layout()), variables["params"])
+
+
+def _layout_of(model: torch.nn.Module) -> list:
+    from .models import ResidualUNet2DDeep, UNet3DMALADeep, UNetPNIEmbeddingDeep
+
+    if isinstance(model, UNetPNIEmbeddingDeep):
+        return list(_pni_layout())
+    if isinstance(model, ResidualUNet2DDeep):
+        return list(_layout())
+    if isinstance(model, UNet3DMALADeep):
+        return list(_mala_layout())
+    return list(_module_layout(model))
 
 
 def _put(tree: dict, path, leaf):

@@ -31,7 +31,7 @@ from ..config import Config, resolve_compute_dtype
 from ..device import float32_convs, resolve_device
 from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
                        pixel_f1, remap_label, symmetric_best_dice, voi)
-from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
+from ..models import model_from_config
 from ..models.fast_forward import build_fast_resunet_forward, pack_image_s2d
 from ..ops import fused_affinity_2d, multi_offset, relabel
 from ..postproc import merge_func, remove_small_object, seg_mutex
@@ -52,21 +52,16 @@ def serve_batch(image_shape) -> int:
 
 def build_model(cfg: Config, state_dict: dict | None = None,
                 device=None, dtype: str | None = None) -> torch.nn.Module:
-    """The serving model of ``cfg.model.arch`` (``resunet2d_deep`` or
-    ``unet_pni_deep``) in eval mode on ``device``, computing in ``dtype``
-    ("float32" or "bfloat16"; by default ``model.dtype`` resolved), its
-    float32 weights from ``state_dict`` when given."""
-    if cfg.model.arch not in ("resunet2d_deep", "unet_pni_deep"):
-        raise NotImplementedError(f"arch {cfg.model.arch!r} is not ported")
+    """The model of ``cfg.model.arch`` (:func:`..models.model_from_config`:
+    ``resunet2d_deep``, ``resnet50_embedding``, ``resnet101_embedding``,
+    ``unet_pni_deep``, ``unet3d_mala``) in eval mode on ``device``,
+    computing in ``dtype`` ("float32" or "bfloat16"; by default
+    ``model.dtype`` resolved), its float32 weights from ``state_dict`` when
+    given. The ResNet archs serve 2D through the dense module and K1f."""
     dt = dtype or resolve_compute_dtype(cfg.model)
     dev = resolve_device(device)
     with dev:
-        if cfg.model.arch == "unet_pni_deep":
-            model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
-                                         cfg.model.emd, dtype=dt)
-        else:
-            model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
-                                       tuple(cfg.model.filters), cfg.model.emd, dtype=dt)
+        model = model_from_config(cfg.model, dt)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model.eval()

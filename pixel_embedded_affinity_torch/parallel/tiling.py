@@ -7,7 +7,9 @@ through the predictor ``batch_size`` at a time; each tile's prediction times
 a Gaussian weight is added into a float32 canvas, and the weight into a
 weight map, tile by tile in grid order; the canvas is divided by the weight
 map on the device and fetched once. The last batch is short: no tile is
-predicted or added twice.
+predicted or added twice. In eager PyTorch this loop already queues every
+batch with no host synchronisation, so the JAX package's one-dispatch
+sweeps (``run_device_resident``) are not ported.
 """
 
 from __future__ import annotations
@@ -68,10 +70,17 @@ class TiledInference3D:
 
     predict_fn: (B, 1, d, h, w) float32 tiles on the device -> (B, K, d, h, w)
     affinities on the device.
+
+    ``mesh`` (JAX's tile parallelism over devices) waits for the port's
+    multi-GPU work and raises.
     """
 
     def __init__(self, crop_size=(18, 160, 160), stride=(10, 80, 80),
-                 padding=(4, 48, 48), batch_size: int = 8):
+                 padding=(4, 48, 48), batch_size: int = 8, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh (tile parallelism over devices) is not ported: it waits for "
+                "torch.distributed (ROADMAP.md, Modules still to port, item 5)")
         self.crop_size = tuple(crop_size)
         self.stride = tuple(stride)
         self.padding = tuple(padding)

@@ -1,7 +1,8 @@
 """Training loop: data -> train step -> validation -> checkpoints.
 
-The port of the JAX package's ``train/loop.py`` for the ``cvppp`` and
-``bbbc039v1`` (2D) and ``ac3ac4`` (3D) presets. With
+The port of the JAX package's ``train/loop.py`` for the ``cvppp``,
+``bbbc039v1``, ``cvppp_resnet50`` and ``cvppp_resnet101`` (2D) and
+``ac3ac4`` (3D) presets. With
 ``data.device_resident`` (the presets' default, as in JAX) the training set
 lives on the device and each step's batch is picked, cropped and augmented
 there (:mod:`..data.device_data`); without it, host sample workers feed
@@ -65,7 +66,7 @@ from ..data.provider import Provider, to_device
 from ..device import resolve_device
 from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
                        pixel_f1, remap_label, symmetric_best_dice, voi)
-from ..models import ResidualUNet2DDeep, UNetPNIEmbeddingDeep
+from ..models import ARCHS_2D, model_from_config
 from ..ops import multi_offset, relabel
 from ..ops.losses import CRITERIA, mask_head_loss
 from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
@@ -77,15 +78,25 @@ from .train_step import TrainState, TrainStep2D, TrainStep3D, make_eval_step_2d
 
 ARCHS_3D = ("unet_pni_deep",)
 DATASETS = ("cvppp", "bbbc039v1", "ac3ac4")
+LOSS_MODES = ("affinity", "discriminative")
+# why neither package trains MALA
+MALA_NOT_TRAINED = (
+    "unet3d_mala is not trained: the 3D train step reads the five outputs and the "
+    "BatchNorm statistics of unet_pni_deep, and MALA returns one embedding and has no "
+    "BatchNorm (the JAX package's step cannot train it either)")
 
 log = logging.getLogger("pea")
 
 
 def check_train_config(cfg: Config):
     """Raise NotImplementedError for the options whose code is not ported."""
+    if cfg.model.arch == "unet3d_mala":
+        raise NotImplementedError(MALA_NOT_TRAINED)
     not_ported = []
-    if cfg.model.arch not in ("resunet2d_deep",) + ARCHS_3D:
+    if cfg.model.arch not in ARCHS_2D + ARCHS_3D:
         not_ported.append(f"model.arch={cfg.model.arch!r}")
+    if cfg.train.loss_mode not in LOSS_MODES:
+        not_ported.append(f"train.loss_mode={cfg.train.loss_mode!r}")
     resolve_compute_dtype(cfg.model)  # raises on a dtype that is not served
     if cfg.train.loss_func not in CRITERIA:
         not_ported.append(f"train.loss_func={cfg.train.loss_func!r}")
@@ -208,7 +219,8 @@ def make_train_step(cfg: Config):
         multi_offset(list(d.shifts), neighbor=d.neighbor), neighbor=d.neighbor,
         criterion=CRITERIA[t.loss_func], affs0_weight=t.affs0_weight,
         deep_weight=t.deep_weight, self_emb=t.self_emb, cross_emb=t.cross_emb,
-        mask_weight=t.mask_weight, ct_weight=t.ct_weight, use_pallas=t.use_pallas,
+        mask_weight=t.mask_weight, ct_weight=t.ct_weight, loss_mode=t.loss_mode,
+        disc_weight=t.disc_weight, use_pallas=t.use_pallas,
         fuse_loss=t.fuse_loss, imagenet_norm=d.dataset == "cvppp", device_gt=d.device_gt,
         device_ema=d.device_ema, ema_noise=d.if_ema_noise, ema_blur=d.if_ema_blur,
         **ema_flags)
@@ -222,12 +234,7 @@ def init_state(cfg: Config, device) -> TrainState:
     dtype = resolve_compute_dtype(cfg.model)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.random_seed)
-        if cfg.model.arch in ARCHS_3D:
-            model = UNetPNIEmbeddingDeep(cfg.model.input_nc, tuple(cfg.model.filters),
-                                         cfg.model.emd, dtype=dtype)
-        else:
-            model = ResidualUNet2DDeep(cfg.model.input_nc, cfg.model.output_nc,
-                                       tuple(cfg.model.filters), cfg.model.emd, dtype=dtype)
+        model = model_from_config(cfg.model, dtype)
     model = model.to(device).train()
     return TrainState(model, make_optimizer(model.parameters(), cfg.train), 0)
 
@@ -296,16 +303,17 @@ def validate_3d(cfg: Config, state: TrainState, valid_volume, device) -> dict:
     """Serve the validation volume tiled with the trained weights, decode it
     with ``train.valid_decoders`` and score it: VOI/ARAND per decoder, and
     the affinities' MSE and BCE (p clipped to [1e-6, 1 - 1e-6]) against the
-    label's 12-channel targets. Tiles: :func:`valid_geometry_3d`. In
-    bfloat16 K5f takes the model's bfloat16 embedding, as the JAX loop's
-    validation (its default serving graph) hands it to its kernel."""
+    label's 12-channel targets. Tiles: :func:`valid_geometry_3d`. The
+    volume is served as :func:`..infer.run_inference_3d` serves it, as the
+    JAX loop's validation is: the predictor of ``model.fast_tiled_infer``,
+    the embedding cast to float32 before K5f in bfloat16 too."""
     from ..infer.inference3d import run_inference_3d
 
     stride, padding = valid_geometry_3d(cfg.data.crop_size)
     affs, results = run_inference_3d(
         cfg, state.model.state_dict(), valid_volume.raw, gt=valid_volume.label,
         decoders=tuple(cfg.train.valid_decoders), crop_size=tuple(cfg.data.crop_size),
-        stride=stride, padding=padding, device=device, float32_affinity=False)
+        stride=stride, padding=padding, device=device)
     out = {f"valid/{dec}_{k}": float(v) for dec, (_, m) in results.items() for k, v in m.items()}
     label = torch.from_numpy(np.asarray(valid_volume.label, np.int64)[None])
     gt = seg_to_aff_3d_12ch(label)[0].numpy()

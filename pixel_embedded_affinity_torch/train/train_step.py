@@ -9,11 +9,13 @@ teacher), so the BatchNorm running statistics update twice, in that order,
 as the JAX step chains them; the teacher's embedding un-flipped; deep
 supervision of e4, e3, e2, e1 (1/2 .. 1/16 scale) against the pyramid
 levels 1..4 with ``neighbor // 2 * (4 - k)`` offsets; the full-scale self
-loss and the cross-view loss; with ``mask_weight`` (BBBC) the mask head's
-loss against the foreground; backward; AMSGrad. The model computes in its
-dtype (``model.dtype``): in float32 every convolution, the backward ones
-too, runs with TF32 off; in bfloat16 the model casts the image at its
-first convolutions, student and teacher compute in bfloat16 as Flax's
+loss and the cross-view loss; with ``loss_mode="discriminative"`` (the
+ResNet presets) ``disc_weight`` times the discriminative loss of the
+full-scale embedding against the labels; with ``mask_weight`` (BBBC) the
+mask head's loss against the foreground; backward; AMSGrad. The model
+computes in its dtype (``model.dtype``): in float32 every convolution, the
+backward ones too, runs with TF32 off; in bfloat16 the model casts the
+image at its first convolutions, student and teacher compute in bfloat16 as Flax's
 dtype rule has it (:func:`..models.common.set_compute_dtype`), the
 un-flip keeps the teacher's dtype, the losses hand the bfloat16
 embeddings to the kernels and come out float32, and the parameters, their
@@ -49,6 +51,7 @@ from ..data.device_aug import ema_generator, ema_view_2d, ema_view_3d
 from ..device import float32_convs
 from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
                           embedding_loss_norm5, mask_head_loss, weighted_mse)
+from ..ops.losses_extra import discriminative_loss
 from ..ops.targets import build_targets_2d, build_targets_3d
 
 
@@ -107,19 +110,22 @@ class TrainStep2D:
     False the host-built ``affs``, ``wmap``, ``mask`` and ``down1..4``
     (:func:`batch_targets_2d`). ``pred`` is relu of the full-scale
     affinities (monitoring); ``metrics`` holds 0-d tensors (loss,
-    loss_embedding, loss_cross[, loss_mask][, loss_ct]).
+    loss_embedding, loss_cross[, loss_disc][, loss_mask][, loss_ct]).
 
     ``use_pallas=False`` is the plain path. With ``use_pallas`` the
     WeightedMSE loss goes through the loss-fused kernels K2/K3
     (``fuse_loss=True``); unfused (``fuse_loss=False``, or another
     criterion) the affinities come from K1 and K4, forward and backward,
     and the criterion is applied to them. ``mask_weight`` adds
-    ``mask_weight * mask_head_loss`` of the mask head against ``seg > 0``.
+    ``mask_weight * mask_head_loss`` of the mask head against ``seg > 0``,
+    and ``loss_mode="discriminative"`` adds ``disc_weight *
+    discriminative_loss`` of the full-scale embedding against ``seg``.
     """
 
     def __init__(self, offsets, *, neighbor: int = 4, criterion=weighted_mse,
                  affs0_weight: float = 1.0, deep_weight=1, self_emb: float = 1.0,
                  cross_emb: float = 1.0, mask_weight: float = 0.0, ct_weight: float = 0.0,
+                 loss_mode: str = "affinity", disc_weight: float = 1.0,
                  use_pallas: bool = True, fuse_loss: bool = True, imagenet_norm: bool = True,
                  device_gt: bool = True, device_ema: bool = True, ema_seed: int = 0,
                  ema_noise: bool = False, ema_blur: bool = False,
@@ -132,6 +138,7 @@ class TrainStep2D:
         self.dwf = deep_weight_factors(deep_weight)
         self.self_emb, self.cross_emb = self_emb, cross_emb
         self.mask_weight, self.ct_weight = mask_weight, ct_weight
+        self.loss_mode, self.disc_weight = loss_mode, disc_weight
         self.use_pallas, self.fuse_loss = use_pallas, fuse_loss
         self.imagenet_norm = imagenet_norm
         self.device_gt = device_gt
@@ -186,6 +193,10 @@ class TrainStep2D:
         loss = loss_self * self.self_emb + loss_cross_total
         metrics = {"loss_embedding": (loss_self * self.self_emb).detach(),
                    "loss_cross": loss_cross_total.detach()}
+        if self.loss_mode == "discriminative":
+            ld = discriminative_loss(embedding, batch["seg"])
+            loss = loss + self.disc_weight * ld
+            metrics["loss_disc"] = ld.detach()
         if self.mask_weight:
             lm = mask_head_loss(_bhwc(outs[5]), batch["seg"] > 0)
             loss = loss + self.mask_weight * lm

@@ -142,13 +142,6 @@ def test_decoders_match_jax():
         assert len(np.unique(got)) >= 10, (dec, len(np.unique(got)))
 
 
-def test_tpu_serving_options_refused(case):
-    """The folded-BN serving graph (fast_tiled_infer) is not ported."""
-    cfg = load_config("ac3ac4", {"model": {"filters": FILTERS, "fast_tiled_infer": True}})
-    with pytest.raises(NotImplementedError, match="3D extras"):
-        run_inference_3d(cfg, case["sd"], case["vol"], decoders=(), device="cpu", **GEOMETRY)
-
-
 def test_bf16_tiled_infer_served(case):
     """bf16_tiled_infer serves: a float32 canvas of the volume's shape, off
     the float32 serve by bfloat16's rounding (tests/test_torch_bf16.py

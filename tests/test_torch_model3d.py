@@ -185,7 +185,8 @@ def test_ac3ac4_preset_matches_jax():
     for f in ("dataset_name", "crop_size", "train_split", "padding_3d"):
         assert getattr(cfg.data, f) == getattr(jcfg.data, f), f
     # the JAX package's TPU serving choices are off by default in the port
-    # (bf16_tiled_infer is served when set, fast_tiled_infer refused)
+    # and served when set (fast_tiled_infer: the dense module is the faster
+    # graph on the H100)
     assert not cfg.model.bf16_tiled_infer and not cfg.model.fast_tiled_infer
 
 

@@ -146,6 +146,12 @@ def test_port_imports_without_jax():
         "import pixel_embedded_affinity_torch.data.ac3ac4\n"
         "import pixel_embedded_affinity_torch.infer.inference3d\n"
         "import pixel_embedded_affinity_torch.parallel.tiling\n"
+        "import pixel_embedded_affinity_torch.models.fast_forward3d\n"
+        "import pixel_embedded_affinity_torch.models.resnet_embed\n"
+        "import pixel_embedded_affinity_torch.models.unet3d_mala\n"
+        "import pixel_embedded_affinity_torch.ops.losses_extra\n"
+        "from pixel_embedded_affinity_torch.convert import (\n"
+        "    resnet_embedding_from_flax, unet3d_mala_from_flax)\n"
         "import pixel_embedded_affinity_torch.models.unet3d_pni\n"
         "import pixel_embedded_affinity_torch.ops.emb2aff3d_cuda\n"
         "import pixel_embedded_affinity_torch.ops.emb2aff_cuda\n"
@@ -199,7 +205,9 @@ def test_port_sources_do_not_import_jax():
     port = os.path.join(REPO, "pixel_embedded_affinity_torch")
     for rel in ("train/__main__.py", "train/optim.py", "train/checkpoint.py",
                 "data/augment2d.py", "data/cvppp.py", "data/bbbc.py", "data/ac3ac4.py",
-                "data/consistency.py", "ops/affinity_np.py"):
+                "data/consistency.py", "ops/affinity_np.py", "models/fast_forward3d.py",
+                "models/resnet_embed.py", "models/unet3d_mala.py", "ops/losses_extra.py",
+                "parallel/tiling.py"):
         assert os.path.join(port, rel) in files, rel
     for path in files:
         with open(path) as f:

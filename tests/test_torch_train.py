@@ -296,11 +296,12 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
 
 
 # the EMA view's noise and blur, the device-resident sampler, bfloat16
-# compute, the schedules and the host-built targets are ported now: their
-# cases pass the check
+# compute, the schedules, the host-built targets and the ResNet archs are
+# ported now: their cases pass the check
 PORTED_OPTIONS = [{"data": {"if_ema_noise": True}}, {"data": {"if_ema_blur": True}},
                   {"data": {"device_resident": True}}, {"model": {"dtype": "bfloat16"}},
-                  {"train": {"lr_mode": "poly"}}, {"data": {"device_gt": False}}]
+                  {"train": {"lr_mode": "poly"}}, {"data": {"device_gt": False}},
+                  {"model": {"arch": "resnet50_embedding"}}]
 
 
 @pytest.mark.parametrize("override", [
@@ -340,8 +341,7 @@ def test_cvppp_preset_matches_jax():
             if k == "dtype":  # "auto": float32 in the port, bfloat16 on a TPU
                 continue
             # the TPU's 3D serving choices, off by default in the port (the
-            # JAX defaults are on; bf16_tiled_infer is served when set,
-            # fast_tiled_infer is not ported)
+            # JAX defaults are on; both are served when set)
             if k in ("bf16_tiled_infer", "fast_tiled_infer"):
                 assert not getattr(p, k) and getattr(r, k)
                 continue

@@ -144,6 +144,19 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["-c", "cvppp", "-i", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-c", "cvppp_resnet50", "-i", "1"])
+    # the 3D serving graph and the tiled engine default to CUDA too
+    from pixel_embedded_affinity_torch.infer import build_model, run_inference_3d
+    from pixel_embedded_affinity_torch.parallel import TiledInference3D
+
+    vol = np.zeros((20, 64, 64), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_inference_3d(load_config("ac3ac4"), None, vol, decoders=())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TiledInference3D().run(vol, lambda t: t, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(load_config("cvppp_resnet101"))
 
 
 def test_cli_distributed_is_not_ported():
