@@ -32,8 +32,9 @@ Phases, each of which exits nonzero when it fails:
      one image against the same model run in float64 on the card;
   6. training: train() on the full-width cvppp preset, B=2, 8 steps from
      the device-resident sampler over 4 synthetic leaf images (uint8,
-     padded to 544x544), validation on 2 images and a checkpoint,
-     with every kernel's launch count read around the run; the reloaded
+     padded to 544x544), validation on 2 images (writing its montage)
+     and a checkpoint, with every kernel's launch count (the upsampling
+     backward's too) read around the run; the reloaded
      checkpoint's next-step loss; the device time of one step by kernel
      (K3f, K3b: each launch of the wmse kernels in order; the step must
      run K3b without db, once) and one step's
@@ -197,12 +198,35 @@ Phases, each of which exits nonzero when it fails:
      reference geometry, (1, 1, 53, 268, 268) -> (1, 16, 25, 56, 56),
      against its float64 run on the card, with its time and peak memory,
      and the small golden (tests/fixtures/unet3d_mala_small.npz);
- 23. one JSON line listing each kernel: launches (phase 21's also apart,
+ 23. the host library: the deterministic upsampling backward
+     (csrc/upsample_bwd.cu, no TPU kernel: the gather that replaces
+     F.interpolate's atomic backward in the decoders; phases 6 and 10 hold
+     its launches, UP_PER_STEP a step) against its plain version at the
+     decoders' eight shapes in float32, bfloat16 and float64, against
+     PyTorch's own backward, twice bit for bit, and timed beside both and
+     its bound; the ablation losses (the cosine, distance, rescaled and
+     orthogonal affinities, the discriminative, local, deep-supervision and
+     superpixel losses at B=2 544x544, emd 16, the 10 CVPPP offsets; norm6
+     and its EMA form at B=2 18x160x160 with the 23 mutex offsets) forward
+     and backward in float32 against float64, with their ms; the decoders
+     (seg_waterz, agglomerate_multi at 0.3/0.5/0.7, multicut_multi on the
+     waterz fragments, LmcSuperpixel with the long-range channels;
+     malis_weights on its first 10 slices) on a 20x512x512 crop of phase
+     9's canvas, with seconds
+     and VOI/ARAND; cluster_embeddings (DBSCAN, MeanShift) on the card over
+     a 544x544 embedding of separable leaves, its clusters the leaves;
+     phase 6's validation montage pixel-equal to the host's val_show of
+     the same arrays; utils/flops.py's GFLOP beside measured TFLOP/s and
+     the share of the float32 peak (CVPPP serving B=4, a 3D tile batch,
+     both training steps); phase 10's 3D training run again from its seed,
+     losses and parameters bit for bit (else the first operation that
+     differs);
+ 24. one JSON line listing each kernel: launches (phase 21's also apart,
      cli_launches), error, times, bound, and how the times were taken
      (CUDA graph replay; for the affinity kernels CUDA events around the
      eager call beside; K2f/K2b/K3f/K3b with their bfloat16 forms' bf16_*
-     fields and launches);
- 24. the last line: {"ok": true, "device": {...}}.
+     fields and launches), the upsampling backward last;
+ 25. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -220,8 +244,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, float32 outside the tensor cores
+from pixel_embedded_affinity_torch.utils.flops import H100_PEAKS
+
+# the H100 SXM data sheet's rates (utils/flops.py)
+HBM_BYTES_PER_S = H100_PEAKS["hbm"]
+F32_FLOPS_PER_S = H100_PEAKS["f32"]  # float32 outside the tensor cores
 SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
 F32_ATOL = 1e-5
@@ -256,6 +283,9 @@ GRAD_RTOL = 1e-5
 # the training shapes at B=2, C=16: (side, offsets) of the five scales
 TRAIN_SCALES = [(544, 10), (272, 8), (136, 6), (68, 4), (34, 2)]
 TRAIN_STEPS = 8
+# the upsampling backward (csrc/upsample_bwd.cu) a training step: the
+# student's four decoder upsamplings (2D and 3D); the teacher takes no gradient
+UP_PER_STEP = 4
 # steps of the short run through the host provider (data.device_resident
 # False) after each of phases 6 and 10
 PROVIDER_STEPS = 3
@@ -324,10 +354,10 @@ K8_REPLACES = "pixel_embedded_affinity_tpu/ops/s2d_block_pallas.py:210"
 # outputs (and K8's bfloat16 y1) rounded to 2^-8
 CONV_F32_RTOL = 1e-5
 CONV_BF16_RTOL = 8e-3
-BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+BF16_FLOPS_PER_S = H100_PEAKS["bf16"]  # dense bf16 tensor cores
 # K7/K9 and K8 run float32 as three TF32 passes (hi*hi + hi*lo + lo*hi) on
-# the tensor cores: 495 TFLOP/s (H100 SXM data sheet, dense TF32) over 3
-TF32X3_FLOPS_PER_S = 495e12 / 3
+# the tensor cores: the dense TF32 rate over 3
+TF32X3_FLOPS_PER_S = H100_PEAKS["tf32"] / 3
 # K7/K9a at the fast forward's direct-stage convs (B=1; conv1 and project
 # fused on Cout) and a few more: (B, H, W, Cin, Cout, relu)
 K7_SHAPES = [(1, 136, 136, 64, 256, False), (1, 136, 136, 128, 128, True),
@@ -459,12 +489,12 @@ def phase_build() -> float:
     from pixel_embedded_affinity_torch import cuda_build
     from pixel_embedded_affinity_torch.ops import (
         conv3x3_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda, s2d_block_cuda,
-        tile_copy_cuda)
+        tile_copy_cuda, upsample_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
     sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE,
                emb2aff3d_cuda.GRAD_SOURCE, conv3x3_cuda.SOURCE, s2d_block_cuda.SOURCE,
-               tile_copy_cuda.SOURCE]
+               tile_copy_cuda.SOURCE, upsample_cuda.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -1200,6 +1230,7 @@ def phase_train() -> dict:
         pack_cvppp_arrays, sample_cvppp_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
     from pixel_embedded_affinity_torch.ops import fused_affinity_2d, multi_offset
+    from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
     from pixel_embedded_affinity_torch.train import (
         TrainStep2D, init_state, latest_checkpoint, load_checkpoint, restore, train)
 
@@ -1222,15 +1253,18 @@ def phase_train() -> dict:
     for fn in launchers.values():
         fn.launches = 0
     fused_affinity_2d.launches = 0
+    upsample_bwd.launches = 0
     t0 = time.perf_counter()
     state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(arrays, valid),
                            device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launchers.items()}
     launches["K1f"] = fused_affinity_2d.launches
+    launches["UPb"] = upsample_bwd.launches
     print(f"[train] {wall:.2f} s for {TRAIN_STEPS} steps + validation + checkpoint; "
           f"launches {json.dumps(launches)}")
-    for k, per_step in [("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1)]:
+    for k, per_step in [("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1),
+                        ("UPb", UP_PER_STEP)]:
         check(launches[k] == per_step * TRAIN_STEPS,
               f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps")
     check(launches["K1f"] == len(valid), f"K1f launched {launches['K1f']} times")
@@ -1276,7 +1310,10 @@ def phase_train() -> dict:
     # the host provider's path, on the serving phase's leaf samples
     host = provider_run("cvppp", LeafSet(synthetic_leaves(4, 530, 500, SEED)), launchers,
                         {"K2f": 5, "K2b": 5, "K3f": 1, "K3b": 1}, "train")
-    return {k: launches[k] + host.get(k, 0) for k in launches}
+    step_ms = 1e3 * float(np.median(timing["step_s"][1:]))
+    return {"launches": {k: launches[k] + host.get(k, 0) for k in launches},
+            "montage": {"cfg": cfg, "state": state, "valid": valid, "run": out},
+            "step_ms": step_ms}
 
 
 def print_step_times(label: str, timing: dict, steps: int, host_data_ms: float):
@@ -1813,7 +1850,9 @@ def phase_serving_3d() -> dict:
           f"(the main path), fast {tf['forward_s']:.4f}; {card_line()}")
     check(err_fd <= FAST_CANVAS_ATOL, f"the fast canvas off the dense one by {err_fd}")
     decode_labels_canvas(label)
-    return {"launches": launches, "max_abs_err": err_k, "volume": (raw, label)}
+    z, y, x = DECODE_CROP
+    return {"launches": launches, "max_abs_err": err_k, "volume": (raw, label),
+            "crop": (affs[:, :z, :y, :x].copy(), label[:z, :y, :x].copy())}
 
 
 class VolumeCrops:
@@ -1872,6 +1911,7 @@ def phase_train_3d() -> dict:
     from pixel_embedded_affinity_torch.data.device_data import (
         sample_ac3ac4_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
     from pixel_embedded_affinity_torch.train import (
         TrainStep3D, init_state, latest_checkpoint, load_checkpoint, restore, train)
 
@@ -1894,16 +1934,18 @@ def phase_train_3d() -> dict:
     launchers = _train3d_launchers()
     for fn in launchers.values():
         fn.launches = 0
+    upsample_bwd.launches = 0
     timing: dict = {}
     t0 = time.perf_counter()
     state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(arrays, valid),
                            device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launchers.items()}
+    launches["UPb"] = upsample_bwd.launches
     print(f"[train3d] {wall:.2f} s for {TRAIN_STEPS} steps + validation + checkpoint; "
           f"launches {json.dumps(launches)}")
     for k, n in [("K5f", TRAIN_STEPS + valid_batches), ("K5b", TRAIN_STEPS),
-                 ("K6f", TRAIN_STEPS), ("K6b", TRAIN_STEPS)]:
+                 ("K6f", TRAIN_STEPS), ("K6b", TRAIN_STEPS), ("UPb", UP_PER_STEP * TRAIN_STEPS)]:
         check(launches[k] == n, f"{k} launched {launches[k]} times, expected {n}")
     with open(os.path.join(out, "log", "scalars.jsonl")) as f:
         losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
@@ -1972,7 +2014,10 @@ def phase_train_3d() -> dict:
     # the host provider's path, on crops of the same training volume
     host = provider_run("ac3ac4", VolumeCrops(*arrays, cfg.data.crop_size), launchers,
                         {"K5f": 1, "K5b": 1, "K6f": 1, "K6b": 1}, "train3d")
-    return {k: launches[k] + host[k] for k in launches}
+    run = {"cfg": cfg, "data": (arrays, valid), "losses": losses,
+           "state": {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+           "step_ms": 1e3 * float(np.median(timing["step_s"][1:]))}
+    return {"launches": {k: launches[k] + host.get(k, 0) for k in launches}, "run": run}
 
 
 def _bbbc_launchers():
@@ -2307,6 +2352,12 @@ def rel_err(got, ref) -> float:
     """max |got - ref| relative to max |ref|."""
     ref = ref.float()
     return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def rel_err64(got, ref) -> float:
+    """:func:`rel_err` in float64 (rel_err rounds both to float32 first)."""
+    ref = ref.double()
+    return ((got.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
 
 
 def conv_bound(n_px: int, cin: int, cout: int, taps: int, itemsize: int, n_ops_px=None,
@@ -4274,6 +4325,554 @@ def phase_model_families(samples) -> dict:
     return launches
 
 
+# ---- 23. the host library: the ablation losses, the decoders, clustering,
+# the validation montage, FLOP counts, the deterministic step
+
+# the decoders' crop of phase 9's served canvas, and waterz's thresholds
+DECODE_CROP = (20, 512, 512)
+DECODE_THRESHOLDS = (0.3, 0.5, 0.7)
+MALIS_SLICES = 10
+# LmcSuperpixel's long-range offsets ((-2, 0, 0), (0, -9, 0), (0, 0, -9)) are
+# channels 3, 7 and 8 of the 12-channel canvas (channel i shifts axis i % 3
+# by SHIFTS_3D[i])
+LMC_LONG_CHANNELS = (3, 7, 8)
+# the upsampling backward against its plain version's function (My^T g Mx
+# with the forward's own weights on the card, the products in float64) on
+# the same inputs, relative to the largest gradient: float32 sums of up to
+# 5 x 5 products, the kernels' float32 gate; bfloat16 outputs rounded to
+# 2^-8; float64 its own rounding. (Weights from a formula instead differ
+# from the card's forward at some sizes by an ulp of the source index:
+# 1.5e-5 of the gradient at 136 -> 272 on an H100, PERF.md.)
+UPB_RTOL = {"float32": 1e-5, "bfloat16": 8e-3, "float64": 1e-12}
+# its inputs at full width: the CVPPP model's four decoder upsamplings at
+# B=2 544x544 (NCHW: up1..up4) and the 3D model's at B=2 18x160x160
+# (NCDHW: up0..up3); timed at the largest, (2, 96, 272, 272)
+UPB_SHAPES = [(2, 256, 34, 34), (2, 384, 68, 68), (2, 192, 136, 136), (2, 96, 272, 272),
+              (2, 80, 18, 10, 10), (2, 64, 18, 20, 20), (2, 48, 18, 40, 40),
+              (2, 36, 18, 80, 80)]
+UPB_TIMED = 3
+UPB_SOURCE = "pixel_embedded_affinity_torch/csrc/upsample_bwd.cu"
+# each ablation loss in float32 (TF32 off) against the same loss in float64
+# on the card: sums over ~6e6 terms in another precision
+HOSTLIB_LOSS_RTOL = 1e-5
+# the clustering's embedding: a 544x544 leaf image, each leaf's pixels at
+# a random centre (16 channels, spread 3 per channel) plus Gaussian noise
+# of CLUSTER_NOISE, far inside DBSCAN's eps 0.3 (pairs within a leaf
+# ~0.11 apart) and MeanShift's bandwidth; MeanShift with that bandwidth,
+# since the estimate (quantile 0.3) spans several leaves
+CLUSTER_NOISE = 0.02
+CLUSTER_MIN_PIXELS = 400
+MEANSHIFT_BANDWIDTH = 1.0
+
+
+def _ms(fn, dev) -> float:
+    """fn's time in ms: CUDA events on the card (median of 5, after a
+    warm-up), the host clock elsewhere."""
+    if str(dev).startswith("cuda"):
+        return timed_ms(fn, n=5)
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_upsample_bwd() -> dict:
+    """The deterministic upsampling backward (csrc/upsample_bwd.cu) against
+    its plain version at the decoders' shapes, float32, bfloat16 and
+    float64, and against PyTorch's own (atomic) backward of F.interpolate;
+    each shape's kernel run twice, bit for bit; its time at the largest 2D
+    shape with L2 flushed beside the plain version's, PyTorch's backward
+    (library_ms) and the bound. Returns the kernel line's fields."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops.upsample_cuda import (forward_matrix, upsample_bwd,
+                                                                 upsample_bwd_plain,
+                                                                 upsample_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    worst, worst_plain, worst_lib = {}, {}, {}
+    atomic_repeats = 0
+    for shape in UPB_SHAPES:
+        out_shape = shape[:-2] + (2 * shape[-2], 2 * shape[-1])
+        for name, rtol in UPB_RTOL.items():
+            dt = getattr(torch, name)
+            g = torch.randn(out_shape, generator=gen, device="cuda").to(dt)
+            got, again = upsample_bwd(g), upsample_bwd(g)
+            check(torch.equal(got, again), f"upsample_bwd {shape} {name}: two runs differ")
+            # the plain version's function on the same inputs: the forward's
+            # matrices on the card (float32 weights for float32 and
+            # bfloat16), the products in float64
+            acc = torch.float64 if name == "float64" else torch.float32
+            my, mx = (forward_matrix(out_shape[ax] // 2, ax, len(shape), "cuda", acc).double()
+                      for ax in (-2, -1))
+            ref = my.t() @ g.double() @ mx
+            err = rel_err64(got, ref)
+            plain = rel_err64(upsample_bwd_plain(g), ref)
+            check(err <= rtol, f"upsample_bwd {shape} {name}: {err:.3e} off the plain version "
+                  f"(its products in float64; the plain version in {name}: {plain:.3e})")
+            # PyTorch's own backward, held in float32, the training dtype:
+            # in bfloat16 its atomics round each partial sum to bfloat16,
+            # and in float64 its weights differ from its forward's by ~1e-8
+            # on an H100, where the kernel takes the forward's
+            x = torch.zeros(shape, dtype=dt, device="cuda", requires_grad=True)
+            upsample_fwd(x).backward(g)
+            lib = rel_err64(got, x.grad)
+            check(name != "float32" or lib <= rtol, f"upsample_bwd {shape} {name}: "
+                  f"{lib:.3e} off F.interpolate's backward")
+            worst_lib[name] = max(worst_lib.get(name, 0.0), lib)
+            x2 = torch.zeros(shape, dtype=dt, device="cuda", requires_grad=True)
+            upsample_fwd(x2).backward(g)
+            atomic_repeats += not torch.equal(x.grad, x2.grad)
+            worst[name] = max(worst.get(name, 0.0), err)
+            worst_plain[name] = max(worst_plain.get(name, 0.0), plain)
+    torch.cuda.synchronize()
+    print(f"[upsample] the deterministic upsampling backward against its plain version "
+          f"(products in float64) at {len(UPB_SHAPES)} decoder shapes: max rel error "
+          f"{json.dumps(worst)} "
+          f"(the plain version in each dtype: {json.dumps(worst_plain)}; PyTorch's "
+          f"backward, against the kernel: {json.dumps(worst_lib)}), two runs "
+          f"bit-equal at every shape; PyTorch's own backward gave two different results at "
+          f"{atomic_repeats} of {3 * len(UPB_SHAPES)} shape and dtype pairs")
+    shape = UPB_SHAPES[UPB_TIMED]
+    out_shape = shape[:-2] + (2 * shape[-2], 2 * shape[-1])
+    g = torch.randn(out_shape, generator=gen, device="cuda")
+    g16 = g.bfloat16()
+    flush = 64 << 20
+
+    def library():
+        return torch.ops.aten.upsample_bilinear2d_backward(
+            g, list(out_shape[-2:]), list(shape), True, None, None)
+
+    t = {"ms": graph_ms(lambda: upsample_bwd(g), flush_bytes=flush),
+         "event_ms": timed_ms(lambda: upsample_bwd(g), flush_bytes=flush),
+         "plain_ms": timed_ms(lambda: upsample_bwd_plain(g), flush_bytes=flush),
+         "library_ms": graph_ms(library, flush_bytes=flush),
+         "bf16_ms": graph_ms(lambda: upsample_bwd(g16), flush_bytes=flush)}
+    n_in = int(np.prod(shape))
+    t_bytes = (g.numel() + n_in) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * g.numel() / F32_FLOPS_PER_S * 1e3  # 4 multiply-adds an output gradient
+    t["bound_ms"], t["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t["max_abs_err"] = worst["float32"]
+    print(f"[upsample] {shape} -> {out_shape} float32, L2 flushed: kernel {t['ms']:.4f} ms "
+          f"(graph replay; events {t['event_ms']:.4f}), bf16 {t['bf16_ms']:.4f}, plain {t['plain_ms']:.4f}, PyTorch's atomic backward {t['library_ms']:.4f}, "
+          f"bound {t['bound_ms']:.4f} ({t['bound_by']}); {card_line()}")
+    return t
+
+
+def _loss_cases(dev, dtype):
+    """(name, fn) pairs: each ablation loss of the port's host library on
+    full-width inputs in ``dtype`` on ``dev``, every input made from SEED
+    on the host; fn() -> (loss, leaf tensors that take gradients)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.ops import losses as L, losses_extra as X, spixel
+    from pixel_embedded_affinity_torch.ops import multi_offset
+    from pixel_embedded_affinity_torch.ops.affinity_np import gen_affs_mutex_3d
+    from pixel_embedded_affinity_torch.ops.offsets import shift_channels_offsets
+    from pixel_embedded_affinity_torch.ops.targets import gen_affs, weight_binary_ratio
+
+    cfg = load_config("cvppp")
+    offsets = multi_offset(list(cfg.data.shifts), cfg.data.neighbor)
+    rng = np.random.default_rng(SEED + 41)
+    side = HOSTLIB_SIDE
+    seg_np = np.stack([lab for _, lab in leaf_pairs(2, side, side, SEED + 42)])
+    seg = torch.from_numpy(seg_np).to(dev)
+    affs, mask = gen_affs(seg, offsets)
+    weight = weight_binary_ratio(affs)
+    affs, mask, weight = (t.to(dtype) for t in (affs, mask, weight))
+
+    def emb(shape, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)).to(
+            dev, dtype).requires_grad_(True)
+
+    e2 = emb((2, side, side, 16), SEED + 43)
+
+    def affinity_loss(a):
+        return sum(L.weighted_mse(a[:, i] * mask[:, i], affs[:, i] * mask[:, i], weight[:, i])
+                   for i in range(a.shape[1]))
+
+    cases = [
+        ("cosine_affinity_2d", lambda: (affinity_loss(X.cosine_affinity_2d(e2, offsets)), [e2])),
+        ("embeddings_to_affinities_distance",
+         lambda: (affinity_loss(X.embeddings_to_affinities_distance(e2, offsets)), [e2])),
+        ("rescaled_affinity", lambda: (affinity_loss(X.rescaled_affinity(
+            L.embedding_loss_2d(e2, affs, weight, mask, offsets, use_pallas=False)[1])), [e2])),
+        ("embedding_loss_orthogonal", lambda: (X.embedding_loss_orthogonal(
+            e2, affs, weight, mask, L.weighted_mse, offsets)[0], [e2])),
+        ("discriminative_loss", lambda: (X.discriminative_loss(e2, seg), [e2])),
+    ]
+    n_rows = int(seg_np.max())
+    neigh = torch.from_numpy(np.stack([X.instance_neighbor_lists(s, n_rows, 8)
+                                       for s in seg_np])).to(dev)
+    cases.append(("local_embedding_loss", lambda: (X.local_embedding_loss(e2, seg, neigh),
+                                                   [e2])))
+    # deep supervision: the four auxiliary heads at 1/2 .. 1/16 with their
+    # offsets' targets packed (affs | weights | masks)
+    heads, downs = [], []
+    for k in range(4):
+        s_k = side >> (k + 1)
+        n_off = 2 * (4 - k)
+        seg_k = seg[:, ::2 ** (k + 1), ::2 ** (k + 1)]
+        a_k, m_k = gen_affs(seg_k, offsets[:n_off])
+        downs.append(torch.cat([a_k, weight_binary_ratio(a_k), m_k.to(a_k.dtype)], 1).to(dtype))
+        heads.append(emb((2, s_k, s_k, 16), SEED + 44 + k))
+    cases.append(("deep_supervision_losses_2d", lambda: (L.deep_supervision_losses_2d(
+        heads, downs, offsets, use_pallas=False), heads)))
+    # the superpixel loss: 16x16 cells, the leaves one-hot and the (x, y)
+    # position features
+    logits = emb((2, 9, side, side), SEED + 48)
+    onehot = F.one_hot(seg.long(), n_rows + 1).permute(0, 3, 1, 2).to(dtype)
+    yy, xx = torch.meshgrid(torch.arange(side, device=dev, dtype=dtype),
+                            torch.arange(side, device=dev, dtype=dtype), indexing="ij")
+    xy = torch.stack([xx, yy])[None].expand(2, -1, -1, -1) / 16
+    labxy = torch.cat([onehot, xy], 1)
+    cases.append(("compute_semantic_pos_loss", lambda: (spixel.compute_semantic_pos_loss(
+        torch.softmax(logits, 1), labxy)[0], [logits])))
+    # norm6 at the 3D training crop, the 23 mutex offsets, with its EMA form
+    d3, s3 = HOSTLIB_3D
+    offs3 = shift_channels_offsets(23)
+    seg3 = np.stack([synthesize_labels_3d(d3, s3, SEED + 49 + i) for i in range(2)])
+    t3 = torch.from_numpy(np.stack([gen_affs_mutex_3d(v, offs3) for v in seg3])).to(dev, dtype)
+    w3 = weight_binary_ratio(t3, dims=(-3, -2, -1))
+    e3 = emb((2, d3, s3, s3, 16), SEED + 51)
+    ema3 = torch.from_numpy(rng.standard_normal((2, d3, s3, s3, 16))).to(dev, dtype)
+    cases.append(("embedding_loss_norm6", lambda: (X.embedding_loss_norm6(
+        e3, t3, w3, L.weighted_mse, offs3)[0], [e3])))
+    cases.append(("embedding_loss_norm6 (EMA)", lambda: (X.embedding_loss_norm6(
+        e3, t3, w3, L.weighted_mse, offs3, ema_embedding=ema3)[0], [e3])))
+    return cases
+
+
+def synthesize_labels_3d(d: int, side: int, seed: int) -> np.ndarray:
+    """A (d, side, side) label volume of the 3D synthesizer's cells."""
+    from pixel_embedded_affinity_torch.data import synthesize_volume
+
+    return synthesize_volume(d, side, side, n_cells=40, seed=seed)[1].astype(np.int64)
+
+
+# the losses' sizes: 2D at the CVPPP training batch, 3D at the training crop
+HOSTLIB_SIDE = 544
+HOSTLIB_3D = (18, 160)
+
+
+def hostlib_losses(dev="cuda"):
+    """Each ablation loss forward and backward at full width in float32
+    (TF32 off) against the same in float64 on ``dev``; its ms a forward and
+    backward by CUDA events."""
+    import torch
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+
+    with float32_convs():
+        cases32 = _loss_cases(dev, torch.float32)
+        cases64 = dict(_loss_cases(dev, torch.float64))
+        for name, fn in cases32:
+            loss, leaves = fn()
+            ref, ref_leaves = cases64[name]()
+            for t in leaves + ref_leaves:  # the cases share their embeddings
+                t.grad = None
+            loss.backward()
+            ref.backward()
+            err = abs(loss.item() - ref.item()) / max(abs(ref.item()), 1e-30)
+            gerr = max(rel_err(a.grad.double(), b.grad) for a, b in zip(leaves, ref_leaves))
+
+            def fwd_bwd():
+                for t in leaves:
+                    t.grad = None
+                fn()[0].backward()
+
+            ms = _ms(fwd_bwd, dev)
+            print(f"[hostlib] {name}: loss {loss.item():.6f}, rel {err:.3e} off float64 "
+                  f"(gradient {gerr:.3e}); {ms:.4f} ms a forward and backward")
+            check(np.isfinite(loss.item()) and err <= HOSTLIB_LOSS_RTOL,
+                  f"{name}: {err:.3e} off float64")
+
+
+def hostlib_decoders(canvas, label):
+    """The host decoders on a crop of phase 9's served canvas: seg_waterz,
+    agglomerate_multi, multicut_multi on the waterz fragments,
+    LmcSuperpixel with the canvas' long-range channels, MALIS weights;
+    seconds and VOI/ARAND against the crop's labels."""
+    from pixel_embedded_affinity_torch.metrics import adapted_rand_error, voi
+    from pixel_embedded_affinity_torch.postproc import (agglomerate_multi, multicut_multi,
+                                                        seg_waterz, watershed_from_affs)
+    from pixel_embedded_affinity_torch.postproc.malis import malis_weights
+    from pixel_embedded_affinity_torch.postproc.mc_baselines import LmcSuperpixel
+
+    affs = np.ascontiguousarray(canvas[:3])
+    lab = label.astype(np.int64)
+
+    def scored(name, fn):
+        t0 = time.perf_counter()
+        seg = fn()
+        sec = time.perf_counter() - t0
+        segs = seg if isinstance(seg, list) else [seg]
+        scores = []
+        for s in segs:
+            check(s.shape == lab.shape, f"{name}: {s.shape}")
+            vs, vm = voi(lab, s.astype(np.int64))
+            scores.append((round(vs + vm, 6), round(adapted_rand_error(lab, s.astype(np.int64))[0],
+                                                    6)))
+        print(f"[hostlib] {name} on {lab.shape}: {sec:.3f} s, (VOI, ARAND) {scores}")
+        return seg
+
+    scored("seg_waterz", lambda: seg_waterz(affs, 0.5))
+    frags = watershed_from_affs(affs)
+    scored(f"agglomerate_multi {DECODE_THRESHOLDS}",
+           lambda: agglomerate_multi(affs, frags, DECODE_THRESHOLDS))
+    scored("multicut_multi (given the waterz fragments)", lambda: multicut_multi(affs, frags))
+    scored("LmcSuperpixel", lambda: LmcSuperpixel()(affs, canvas[list(LMC_LONG_CHANNELS)]))
+    # MALIS on the crop's first MALIS_SLICES slices: its Kruskal passes over
+    # all 20 (15.7e6 edges) took 21.9 s on the H100's host (PERF.md)
+    t0 = time.perf_counter()
+    w = malis_weights(affs[:, :MALIS_SLICES], label[:MALIS_SLICES].astype(np.uint32))
+    print(f"[hostlib] malis_weights on {lab[:MALIS_SLICES].shape}: "
+          f"{time.perf_counter() - t0:.3f} s, "
+          f"weights sum {float(w.sum()):.6f}, max {float(w.max()):.3e}")
+    check(np.isfinite(w).all() and w.min() >= 0, "malis weights")
+
+
+def cluster_leaves(side: int, seed: int):
+    """(embedding (side, side, 16) float32, leaf labels): each leaf's pixels
+    at its own random centre plus CLUSTER_NOISE."""
+    _, lab = leaf_pairs(1, side, side, seed)[0]
+    # leaves that later ones cover but for a sliver are background: DBSCAN
+    # rightly calls a leaf of fewer than min_samples sampled pixels noise
+    ids, counts = np.unique(lab, return_counts=True)
+    lab[np.isin(lab, ids[(ids > 0) & (counts < CLUSTER_MIN_PIXELS)])] = 0
+    rng = np.random.default_rng(seed + 1)
+    centres = rng.uniform(-3, 3, (int(lab.max()) + 1, 16))
+    emb = centres[lab] + CLUSTER_NOISE * rng.standard_normal((side, side, 16))
+    return emb.astype(np.float32), lab
+
+
+def _same_partition(a: np.ndarray, b: np.ndarray) -> bool:
+    """a and b split their pixels alike (a bijection between the labels)."""
+    pairs = np.unique(np.stack([a.ravel(), b.ravel()]), axis=1)
+    return len(np.unique(pairs[0])) == len(np.unique(pairs[1])) == pairs.shape[1]
+
+
+def hostlib_cluster(dev="cuda", side=HOSTLIB_SIDE):
+    """cluster_embeddings on ``dev`` over a side x side embedding of
+    separable leaves, DBSCAN (its defaults) and MeanShift (bandwidth
+    MEANSHIFT_BANDWIDTH): the clustered pixels' partition must equal the
+    leaves'; seconds, and the share of the foreground the expansion labels
+    as its leaf."""
+    import torch
+
+    from pixel_embedded_affinity_torch.postproc.cluster import (cluster_embeddings,
+                                                                estimate_bandwidth)
+
+    emb, lab = cluster_leaves(side, SEED + 52)
+    fg = (lab > 0).astype(np.uint8)
+    ys, xs = np.nonzero(fg)
+    for method, kw in (("dbscan", {}), ("meanshift", {"bandwidth": MEANSHIFT_BANDWIDTH})):
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seeds = cluster_embeddings(emb, fg, method=method, expand=False, device=dev, **kw)
+        sec = time.perf_counter() - t0
+        at = (ys[::4], xs[::4])
+        check((seeds[at] > 0).all() and _same_partition(seeds[at], lab[at]),
+              f"{method}: the clusters are not the leaves")
+        full = cluster_embeddings(emb, fg, method=method, device=dev, **kw)
+        share = float(np.mean(
+            [np.mean(full[lab == i] == np.bincount(full[lab == i]).argmax())
+             for i in range(1, int(lab.max()) + 1) if (lab == i).any()]))
+        print(f"[hostlib] cluster_embeddings {method} on {dev}: {len(at[0])} points of a "
+              f"{side}x{side} embedding, {int(seeds.max())} clusters = the "
+              f"{len(np.unique(lab)) - 1} leaves, {sec:.3f} s; after the watershed expansion {share:.4f} of each leaf's "
+              f"pixels (mean) in its majority label")
+    x = torch.from_numpy(emb[ys[::4], xs[::4]].astype(np.float64)).to(dev)
+    t0 = time.perf_counter()
+    bw = estimate_bandwidth(x)
+    print(f"[hostlib] estimate_bandwidth (quantile 0.3) over {x.shape[0]} points: {bw:.6f} in "
+          f"{time.perf_counter() - t0:.3f} s (it spans several leaves, so MeanShift ran at "
+          f"{MEANSHIFT_BANDWIDTH})")
+
+
+def hostlib_montage(montage: dict):
+    """Phase 6's validation montage against the one built on the host from
+    the same arrays: the trained state's eval step on the first validation
+    image, its decode, val_show."""
+    import cv2
+    import torch
+
+    from pixel_embedded_affinity_torch.ops import relabel
+    from pixel_embedded_affinity_torch.ops.targets import gen_affs, weight_binary_ratio
+    from pixel_embedded_affinity_torch.postproc import merge_func, seg_mutex
+    from pixel_embedded_affinity_torch.train.loop import make_train_step
+    from pixel_embedded_affinity_torch.train.train_step import make_eval_step_2d
+    from pixel_embedded_affinity_torch.utils.show import val_show
+
+    cfg, state, valid = montage["cfg"], montage["state"], montage["valid"]
+    written = os.path.join(cfg.save_path, cfg.name, "valid", f"{TRAIN_STEPS:06d}.png")
+    check(os.path.exists(written), f"no montage at {written}")
+    step = make_train_step(cfg)
+    s = valid[0]
+    seg_t = torch.from_numpy(np.asarray(s["seg"], np.int64)[None]).cuda()
+    affs, mask = gen_affs(seg_t, step.offsets)
+    batch = {"image": torch.from_numpy(np.ascontiguousarray(s["image"][None])).cuda(),
+             "affs": affs, "wmap": weight_binary_ratio(affs), "mask": mask}
+    eval_step = make_eval_step_2d(step.offsets, criterion=step.criterion,
+                                  use_pallas=cfg.train.use_pallas)
+    with torch.no_grad():
+        _, pred, _, _ = eval_step(state.model, batch)
+    out_affs = pred[0].float().cpu().numpy()
+    gt = np.asarray(s["seg"]).astype(np.uint16)
+    seg = seg_mutex(out_affs, offsets=step.offsets, strides=list(cfg.data.strides),
+                    mask=(gt > 0).astype(np.uint8)).astype(np.uint16)
+    seg = relabel(merge_func(seg, variant="cvppp")).astype(np.uint16)
+    host_dir = os.path.join(montage["run"], "host_montage")
+    val_show(TRAIN_STEPS, out_affs[-1], affs[0, -1].float().cpu().numpy(), seg, gt, host_dir)
+    a = cv2.imread(written, cv2.IMREAD_UNCHANGED)
+    b = cv2.imread(os.path.join(host_dir, f"{TRAIN_STEPS:06d}.png"), cv2.IMREAD_UNCHANGED)
+    check(a is not None and b is not None and a.shape == b.shape and np.array_equal(a, b),
+          "phase 6's montage differs from the host's")
+    print(f"[hostlib] phase 6's validation montage {os.path.relpath(written, REPO)} "
+          f"{a.shape}: pixel-equal to val_show of the same arrays on the host")
+
+
+def hostlib_flops(step2d_ms: float, step3d_ms: float):
+    """utils/flops.py's counts beside measured device times: CVPPP serving
+    at B=4 (the dense module's forward and K1f), the CVPPP and 3D training
+    steps (phases 6 and 10; a step counted as 3 forwards of the student and
+    one of the teacher), a 3D tile batch (4 x 18x160x160); TFLOP/s and the
+    share of the float32 peak (TF32 off)."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.ops import fused_affinity_2d, multi_offset
+    from pixel_embedded_affinity_torch.utils.flops import (emb2aff2d_flops, resunet2d_flops,
+                                                           roofline_fields, unet3d_pni_flops)
+
+    kind = torch.cuda.get_device_name(0)
+    c2, c3 = load_config("cvppp"), load_config("ac3ac4")
+    offsets = multi_offset(list(c2.data.shifts), c2.data.neighbor)
+    rows = []
+    with torch.no_grad(), float32_convs():
+        torch.manual_seed(SEED)
+        m2 = model_from_config(c2.model).cuda().eval()
+        x = torch.randn(4, 3, 544, 544, device="cuda")
+
+        def serve():
+            emb = m2(x)[4]
+            return fused_affinity_2d(emb.permute(0, 2, 3, 1), offsets)
+
+        f2, b2, _ = resunet2d_flops(4, 544, 544, nfeatures=tuple(c2.model.filters),
+                                    emd=c2.model.emd, act_bytes=4)
+        fa, _ = emb2aff2d_flops(4, 544, 544, len(offsets), c2.model.emd)
+        rows.append(("CVPPP serving B=4 544x544", f2 + fa, b2, timed_ms(serve, n=10)))
+        m3 = model_from_config(c3.model).cuda().eval()
+        t3 = torch.randn(4, 1, 18, 160, 160, device="cuda")
+        f3, b3, _ = unet3d_pni_flops(4, 18, 160, 160, filters=tuple(c3.model.filters),
+                                     emd=c3.model.emd, act_bytes=4)
+        rows.append(("3D tile batch 4 x 18x160x160", f3, b3, timed_ms(lambda: m3(t3), n=10)))
+    fs, bs, _ = resunet2d_flops(2, 544, 544, nfeatures=tuple(c2.model.filters),
+                                emd=c2.model.emd, act_bytes=4)
+    rows.append(("CVPPP training step B=2 544x544 (phase 6)", 4 * fs, 4 * bs, step2d_ms))
+    fs3, bs3, _ = unet3d_pni_flops(2, 18, 160, 160, filters=tuple(c3.model.filters),
+                                   emd=c3.model.emd, act_bytes=4)
+    rows.append(("3D training step B=2 18x160x160 (phase 10)", 4 * fs3, 4 * bs3, step3d_ms))
+    for label, flops, nbytes, ms in rows:
+        r = roofline_fields(flops, nbytes, ms / 1e3, kind, "f32")
+        print(f"[flops] {label}: {flops / 1e9:.3f} GFLOP (utils/flops.py), {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.3f} TFLOP/s, {r.get('mfu_pct', 'n/a')}% of the float32 "
+              f"peak, HBM floor {r.get('hbm_bw_pct', 'n/a')}% of its rate; {card_line()}")
+
+
+def first_difference(make_model, backward_of):
+    """Where two forward and backward passes ``backward_of(model)`` over two
+    models from ``make_model()`` (the same state) first part: the first
+    module (in call order) whose forward output differs, else the first
+    parameter, in the backward's order, whose gradient differs; None if
+    they agree."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        model = make_model()
+        outs = []
+        hooks = [m.register_forward_hook(
+            lambda mod, i, o, n=n: outs.append((n, o.detach().clone()))
+            if torch.is_tensor(o) else None) for n, m in model.named_modules() if n]
+        backward_of(model)
+        for h in hooks:
+            h.remove()
+        grads = [(n, p.grad.detach().clone()) for n, p in model.named_parameters()
+                 if p.grad is not None]
+        runs.append((outs, grads))
+    (oa, ga), (ob, gb) = runs
+    for (n, a), (_, b) in zip(oa, ob):
+        if not torch.equal(a, b):
+            return f"the forward output of {n} (max diff {(a - b).abs().max().item():.3e})"
+    for (n, a), (_, b) in zip(reversed(ga), reversed(gb)):
+        if not torch.equal(a, b):
+            return f"the gradient of {n} (max diff {(a - b).abs().max().item():.3e})"
+    return None
+
+
+def hostlib_determinism(run3d: dict):
+    """Phase 10's training run again from the same seed and data: its
+    logged losses and its final parameters and buffers bit for bit, or the
+    first operation that differs."""
+    import torch
+
+    from pixel_embedded_affinity_torch.data.device_data import (sample_ac3ac4_batch,
+                                                                sampler_generator)
+    from pixel_embedded_affinity_torch.train import TrainStep3D, init_state, train
+
+    cfg = copy.deepcopy(run3d["cfg"])
+    out = os.path.join(REPO, "build", "chip_smoke_train3d_again")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg.save_path = os.path.join(out, "models")
+    state, _ = train(cfg, max_iters=TRAIN_STEPS, data_override=run3d["data"], device="cuda",
+                     log_dir=os.path.join(out, "log"))
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    sd = state.model.state_dict()
+    differ = [k for k, v in run3d["state"].items() if not torch.equal(v, sd[k])]
+    same = losses == run3d["losses"] and not differ
+    print(f"[determinism] phase 10's 3D training ({TRAIN_STEPS} steps) again from seed "
+          f"{cfg.train.random_seed}: losses {'bit-equal' if losses == run3d['losses'] else 'differ'}"
+          f" ({losses} against {run3d['losses']}), {len(differ)} of {len(sd)} parameters and "
+          f"buffers differ")
+    if not same:
+        raw, labels = (torch.from_numpy(a).cuda() for a in run3d["data"][0])
+        batch = TrainStep3D(ema_seed=cfg.train.random_seed).ema_batch(
+            sample_ac3ac4_batch(raw, labels, sampler_generator(cfg.train.random_seed, 0),
+                                cfg.train.batch_size, crop_size=tuple(cfg.data.crop_size),
+                                padding=cfg.data.padding_3d), 0)
+        step = TrainStep3D(ema_seed=cfg.train.random_seed)
+
+        def make_model():
+            st = init_state(cfg, "cuda")
+            st.model.load_state_dict(run3d["state"])
+            return st.model
+
+        where = first_difference(make_model, lambda m: step.grads(m, batch))
+        print(f"[determinism] one step twice from phase 10's final state: first difference "
+              f"at {where}")
+    check(same, "the 3D training step is not bit-reproducible")
+
+
+def phase_host_library(train2d: dict, train3d: dict, crop) -> dict:
+    """23: the upsampling backward's kernel check, the ablation losses, the
+    decoders, clustering, the montage, FLOP counts, the determinism check;
+    returns the upsampling kernel's line fields."""
+    up = phase_upsample_bwd()
+    hostlib_losses()
+    hostlib_decoders(*crop)
+    hostlib_cluster()
+    hostlib_montage(train2d["montage"])
+    hostlib_flops(train2d["step_ms"], train3d["run"]["step_ms"])
+    hostlib_determinism(train3d["run"])
+    return up
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -4302,13 +4901,15 @@ def main() -> int:
     wmse = _timed("K2, K3", phase_wmse_kernels)
     _timed("fixture", phase_fixture)
     launches = _timed("serving", phase_main_path, cfg, sd, samples)
-    train_launches = _timed("training", phase_train)
+    train2d = _timed("training", phase_train)
+    train_launches = train2d["launches"]
     # 7. 3D kernels, 8. 3D fixture, 9. 3D serving, 10. 3D training
     k5 = _timed("K5f", phase_kernels_3d)
     grad = _timed("3D train kernels", phase_train_kernels_3d)
     _timed("3D fixture", phase_fixture_3d)
     serve3d = _timed("3D serving", phase_serving_3d)
-    train3d_launches = _timed("3D training", phase_train_3d)
+    train3d = _timed("3D training", phase_train_3d)
+    train3d_launches = train3d["launches"]
     # 11. BBBC training, 12. the unfused path, 13. BBBC serving
     arrays, valid = bbbc_setup()
     bbbc = _timed("BBBC training", phase_train_bbbc, arrays, valid)
@@ -4332,7 +4933,10 @@ def main() -> int:
     cli = _timed("training CLI", phase_training_cli)
     # 22. the model families: ResNet-50/101, MALA
     families = _timed("model families", phase_model_families, samples)
-    # 23. kernels line, card, 24. last line
+    # 23. the host library: the upsampling backward's kernel, losses,
+    # decoders, clustering, the montage, FLOPs, a bit-reproducible 3D step
+    up = _timed("host library", phase_host_library, train2d, train3d, serve3d.pop("crop"))
+    # 24. kernels line, card, 25. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) + families.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -4403,9 +5007,17 @@ def main() -> int:
         "launches": p["launches"], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "library_ms": p["library_ms"]})
+    kernels.append({
+        "name": "upsample_bwd", "route": "cuda", "source": UPB_SOURCE,
+        "replaces": "none: no TPU kernel; the deterministic backward of the decoders' "
+                    "upsampling (models/common.py)",
+        "launches": train_launches["UPb"] + train3d_launches["UPb"],
+        "max_abs_err": up["max_abs_err"], "ms": up["ms"], "event_ms": up["event_ms"],
+        "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
+        "library_ms": up["library_ms"], "bf16_ms": up["bf16_ms"]})
     for entry in kernels:
         entry["timed_by"] = "cuda graph replay"
-    kernels[-1]["timed_by"] = "cuda graph replay, 96 calls a graph"
+    kernels[-2]["timed_by"] = "cuda graph replay, 96 calls a graph"
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -110,6 +110,15 @@ def resunet2d_deep_from_flax(variables: dict) -> dict:
     return _with_stats(list(_layout()), variables)
 
 
+def resunet2d_from_flax(variables: dict) -> dict:
+    """Flax ``{'params', 'batch_stats'}`` of ResidualUNet2D, the single-head
+    variant (numpy or array leaves) -> state dict of
+    :class:`models.ResidualUNet2D`."""
+    layout = [entry for entry in _layout() if not entry[0].startswith("outconv") or
+              entry[0].startswith("outconv_emb")]
+    return _with_stats(layout, variables)
+
+
 _PNI_BLOCK = [("block1.0", "conv_in", "conv"), ("block1.1", "bn_in", "bn"),
               ("block2.0", "conv1", "conv"), ("block2.1", "bn1", "bn"),
               ("block2.3", "conv2", "conv"), ("block3", "bn_out", "bn")]

@@ -239,3 +239,42 @@ def synthesize_nuclei(n: int, h: int = 520, w: int = 696, seed: int = 0) -> list
         img = (img - img.min()) / max(img.max() - img.min(), 1e-8)
         pairs.append((img, label))
     return pairs
+
+
+def synthesize(data_folder: str, n_train: int = 8, n_valid: int = 2,
+               n_test: int = 2, h: int = 520, w: int = 696, seed: int = 0):
+    """Synthetic BBBC-layout dataset (nuclei-like blobs, TIFF + PNG labels)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(data_folder, "images"), exist_ok=True)
+    os.makedirs(os.path.join(data_folder, "masks_instance"), exist_ok=True)
+    os.makedirs(os.path.join(data_folder, "metadata"), exist_ok=True)
+    splits = {"training.txt": [], "validation.txt": [], "test.txt": []}
+    total = n_train + n_valid + n_test
+    for i in range(total):
+        name = f"IXM_{i:03d}"
+        label = np.zeros((h, w), np.uint16)
+        img = rng.normal(200, 20, (h, w)).astype(np.float32)
+        n_nuc = int(rng.integers(30, 80))
+        for nid in range(1, n_nuc + 1):
+            cy = int(rng.integers(15, h - 15))
+            cx = int(rng.integers(15, w - 15))
+            axes = (int(rng.integers(5, 14)), int(rng.integers(5, 14)))
+            rot = int(rng.integers(0, 180))
+            cv2.ellipse(label, (cx, cy), axes, rot, 0, 360, int(nid), -1)
+        img[label > 0] += 600 + rng.normal(0, 50, int((label > 0).sum()))
+        cv2.imwrite(os.path.join(data_folder, "images", name + ".tif"),
+                    img.astype(np.uint16))
+        cv2.imwrite(os.path.join(data_folder, "masks_instance", name + ".png"),
+                    label)
+        if i < n_train:
+            splits["training.txt"].append(name)
+        elif i < n_train + n_valid:
+            splits["validation.txt"].append(name)
+        else:
+            splits["test.txt"].append(name)
+    for fname, names in splits.items():
+        with open(os.path.join(data_folder, "metadata", fname), "w") as f:
+            for n in names:
+                f.write(n + ".png\n")

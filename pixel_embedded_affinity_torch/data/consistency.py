@@ -47,6 +47,17 @@ def convert_consistency_flip(emb_bhwc: torch.Tensor, rules_b3: torch.Tensor) -> 
     return torch.where(_bit(rules_b3, 0), e.flip(2), e)
 
 
+def convert_consistency_flip_3d(emb_bdhwc: torch.Tensor, rules_b3: torch.Tensor) -> torch.Tensor:
+    """The 3D form of :func:`convert_consistency_flip` on (B, D, H, W, C):
+    the y/x transpose, then the y flip, then the x flip, each where the
+    sample's rule bit is set (the JAX package's 3-bit 3D un-flip; the 3D
+    step un-flips with :func:`.ac3ac4.convert_consistency_flip_3d_rule4`)."""
+    r = rules_b3.bool()[:, :, None, None, None, None]
+    e = torch.where(r[:, 2], emb_bdhwc.transpose(2, 3), emb_bdhwc)
+    e = torch.where(r[:, 1], e.flip(2), e)
+    return torch.where(r[:, 0], e.flip(3), e)
+
+
 def normalize_imagenet(img_hwc: np.ndarray) -> np.ndarray:
     return (img_hwc.astype(np.float32) - IMAGENET_MEAN) / IMAGENET_STD
 

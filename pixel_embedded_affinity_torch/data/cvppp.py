@@ -267,3 +267,54 @@ class CVPPPTest:
             fg = np.pad(fg, PAD, mode="constant")
         return {"image": np.ascontiguousarray(normalize_imagenet(img)),
                 "fg": fg, "name": name}
+
+
+def synthesize(data_folder: str, n_train: int = 12, h: int = 530, w: int = 500,
+               n_valid: int = 3, n_test: int = 0, seed: int = 0):
+    """Write a synthetic CVPPP-layout dataset (leaf-like blobs)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(data_folder, "train"), exist_ok=True)
+    os.makedirs(os.path.join(data_folder, "valid_set"), exist_ok=True)
+    if n_test:
+        os.makedirs(os.path.join(data_folder, "test"), exist_ok=True)
+    names = []
+    for i in range(n_train + n_test):
+        split = "train" if i < n_train else "test"
+        name = f"plant{i:03d}"
+        if split == "train":
+            names.append(name)
+        label = np.zeros((h, w), np.uint8)
+        img = rng.normal(0.1, 0.03, (h, w, 3)).astype(np.float32)
+        n_leaves = int(rng.integers(4, 12))
+        cy, cx = h // 2, w // 2
+        m = min(h, w)
+        for leaf in range(1, n_leaves + 1):
+            ang = rng.uniform(0, 2 * np.pi)
+            dist = rng.uniform(m / 12, max(m / 2 - m / 8, m / 12 + 1))
+            ly = int(cy + dist * np.sin(ang))
+            lx = int(cx + dist * np.cos(ang))
+            ax_lo = max(m // 20, 3)
+            axes = (int(rng.integers(ax_lo, ax_lo * 3)),
+                    int(rng.integers(max(ax_lo // 2, 2), ax_lo * 2)))
+            rot = int(rng.integers(0, 180))
+            cv2.ellipse(label, (lx, ly), axes, rot, 0, 360, int(leaf), -1)
+        green = rng.uniform(0.4, 0.8)
+        img[label > 0] = np.stack([
+            np.full((label > 0).sum(), 0.15),
+            np.full((label > 0).sum(), green),
+            np.full((label > 0).sum(), 0.1)], axis=-1)
+        img += rng.normal(0, 0.02, img.shape)
+        img = np.clip(img, 0, 1)
+        cv2.imwrite(os.path.join(data_folder, split, name + "_rgb.png"),
+                    (img[:, :, ::-1] * 255).astype(np.uint8))
+        if split == "train":
+            cv2.imwrite(os.path.join(data_folder, split, name + "_label.png"),
+                        label)
+        fg = (label > 0).astype(np.uint8) * 255
+        cv2.imwrite(os.path.join(data_folder, split, name + "_fg.png"), fg)
+    with open(os.path.join(data_folder, "valid_set", "local_20_1.txt"), "w") as f:
+        for n in names[:n_valid]:
+            f.write(n + "\n")
+    return names

@@ -67,6 +67,15 @@ def reflect_index(i: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(i, 0, n - 1)
 
 
+def reflect101_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """np.pad's 'reflect' (edge not repeated, cv2's BORDER_REFLECT_101) for
+    integer indices, one fold: i < 0 -> -i; i >= n -> 2n - 2 - i; then
+    clamped."""
+    i = torch.where(i < 0, -i, i)
+    i = torch.where(i >= n, 2 * n - 2 - i, i)
+    return torch.clamp(i, 0, n - 1)
+
+
 def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """img (..., H, W) at integer index maps yi, xi (h, w): (..., h, w)."""
     flat = img.reshape(*img.shape[:-2], -1)

@@ -26,3 +26,15 @@ def float32_convs():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic convolution algorithms inside the block
+    (``torch.backends.cudnn.deterministic``), restored after."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev

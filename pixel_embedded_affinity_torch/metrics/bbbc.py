@@ -4,10 +4,9 @@ panoptic quality, the JAX package's ``metrics/bbbc.py``.
 Both work on the contingency matrix of the two label images. AJI takes the
 ground-truth instances in id order, each matched to its best-IoU
 prediction not yet used, and adds the unused predictions' pixels to the
-union; fast PQ pairs instances whose IoU exceeds 0.5, the threshold every
-caller uses, at which each instance has at most one partner (the JAX
-function's ``linear_sum_assignment`` branch serves lower thresholds
-only). One change: AJI of a
+union; fast PQ pairs instances whose IoU exceeds ``match_iou`` (0.5 by
+default, at which each instance has at most one partner; below 0.5 by
+the maximum-IoU assignment). One change: AJI of a
 ground truth against an empty prediction is 0.0, the value its formula
 gives (no intersection), where the JAX function stops at an argmax of an
 empty sequence (``ROADMAP.md`` §3).
@@ -60,23 +59,32 @@ def pixel_f1(gt_ins: np.ndarray, pred_ins: np.ndarray) -> float:
     return 2 * tp / denom if denom > 0 else 0.0
 
 
-def remap_label(pred: np.ndarray) -> np.ndarray:
-    """Ids renumbered 1..N in increasing order, as int32; an image without
-    instances comes back as it is."""
-    ids = np.unique(pred)
-    ids = ids[ids != 0]
+def remap_label(pred: np.ndarray, by_size: bool = False) -> np.ndarray:
+    """Ids renumbered 1..N as int32, in increasing order or, with
+    ``by_size``, from the largest instance down (ties in increasing id);
+    an image without instances comes back as it is."""
+    ids, counts = np.unique(pred, return_counts=True)
+    keep = ids != 0
+    ids, counts = ids[keep], counts[keep]
     if ids.size == 0:
         return pred
+    rank = np.arange(1, ids.size + 1, dtype=np.int32)
+    if by_size:
+        rank[np.argsort(-counts, kind="stable")] = rank.copy()
     out = np.zeros(pred.shape, np.int32)
     fg = pred != 0
-    out[fg] = np.searchsorted(ids, pred[fg]) + 1
+    out[fg] = rank[np.searchsorted(ids, pred[fg])]
     return out
 
 
-def get_fast_pq(true: np.ndarray, pred: np.ndarray):
-    """Panoptic quality at IoU 0.5 of contiguous instance labels
-    (``remap_label`` them first): ``([dq, sq, pq], [paired_true,
-    paired_pred, unpaired_true, unpaired_pred])``."""
+def get_fast_pq(true: np.ndarray, pred: np.ndarray, match_iou: float = 0.5):
+    """Panoptic quality of contiguous instance labels (``remap_label`` them
+    first): ``([dq, sq, pq], [paired_true, paired_pred, unpaired_true,
+    unpaired_pred])``. Pairs are the IoU > ``match_iou`` overlaps, unique
+    from 0.5 up; below it, the maximum-IoU assignment (Hungarian) pairs
+    above ``match_iou``."""
+    if match_iou < 0.0:
+        raise ValueError(f"match_iou {match_iou} < 0")
     o = _overlap_matrix(true, pred).astype(np.float64)
     n_true, n_pred = o.shape[0] - 1, o.shape[1] - 1
     if n_true == 0 or n_pred == 0:
@@ -87,9 +95,17 @@ def get_fast_pq(true: np.ndarray, pred: np.ndarray):
     inter = o[1:, 1:]
     union = o.sum(axis=1)[1:, None] + o.sum(axis=0)[None, 1:] - inter
     iou = np.where(union > 0, inter / union, 0.0)
-    masked = np.where(iou > 0.5, iou, 0.0)
-    pt, pp = np.nonzero(masked)
-    paired_iou = masked[pt, pp]
+    if match_iou >= 0.5:
+        masked = np.where(iou > match_iou, iou, 0.0)
+        pt, pp = np.nonzero(masked)
+        paired_iou = masked[pt, pp]
+    else:
+        from scipy.optimize import linear_sum_assignment
+
+        pt, pp = linear_sum_assignment(-iou)
+        keep = iou[pt, pp] > match_iou
+        pt, pp = pt[keep], pp[keep]
+        paired_iou = iou[pt, pp]
     paired_true, paired_pred = list(pt + 1), list(pp + 1)
     unpaired_true = sorted(set(range(1, n_true + 1)) - set(paired_true))
     unpaired_pred = sorted(set(range(1, n_pred + 1)) - set(paired_pred))

@@ -54,3 +54,32 @@ def diff_fg_labels(in_label, gt_label) -> float:
 
 def abs_diff_fg_labels(in_label, gt_label) -> float:
     return abs(diff_fg_labels(in_label, gt_label))
+
+
+def symmetric_best_dice_max(in_label, gt_label) -> float:
+    """max(BD(in, gt), BD(gt, in))."""
+    return max(best_dice(in_label, gt_label), best_dice(gt_label, in_label))
+
+
+def mean_iou(pred: np.ndarray, gt: np.ndarray, num_classes: int) -> float:
+    """Mean intersection over union over the classes present in either
+    (the reference's model/metric.py MeanIoU)."""
+    ious = []
+    for c in range(num_classes):
+        p = pred == c
+        g = gt == c
+        union = (p | g).sum()
+        if union == 0:
+            continue
+        ious.append(float((p & g).sum()) / float(union))
+    return float(np.mean(ious)) if ious else 0.0
+
+
+def fgbg_dice(in_label, gt_label) -> float:
+    """Dice of the foregrounds, each image's minimum label its background."""
+    in_fg = in_label != in_label.min()
+    gt_fg = gt_label != gt_label.min()
+    denom = in_fg.sum() + gt_fg.sum()
+    if denom <= 1e-8:
+        return 0.0
+    return 2.0 * float((in_fg & gt_fg).sum()) / float(denom)

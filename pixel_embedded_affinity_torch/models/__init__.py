@@ -1,4 +1,4 @@
-from .resunet2d import ResidualUNet2DDeep
+from .resunet2d import ResidualUNet2D, ResidualUNet2DDeep
 from .resnet_embed import LocalAttentionBlock, ResNetEmbedding
 from .unet3d_pni import UNetPNIEmbeddingDeep
 from .unet3d_mala import UNet3DMALADeep

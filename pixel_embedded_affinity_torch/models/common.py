@@ -9,6 +9,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.upsample_cuda import UpsampleAlignCorners
+
 
 class _FlaxRunningStats:
     """A torch BatchNorm whose train-mode running variance takes the
@@ -93,19 +95,20 @@ class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
     """``nn.BatchNorm3d`` with Flax's running statistics."""
 
 
-def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Bilinear upsampling with align_corners=True (nn.Upsample semantics)."""
-    return F.interpolate(x, scale_factor=factor, mode="bilinear",
-                         align_corners=True)
+def upsample_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsampling with align_corners=True (nn.Upsample semantics),
+    with a backward that gives the same bits on every run
+    (:class:`..ops.upsample_cuda.UpsampleAlignCorners`)."""
+    return UpsampleAlignCorners.apply(x)
 
 
 def upsample_xy_align_corners(x: torch.Tensor) -> torch.Tensor:
     """x2 linear upsampling of an NCDHW tensor along y and x only, with
     align_corners=True (the reference's ``nn.Upsample(scale_factor=(1, 2, 2),
     mode='trilinear', align_corners=True)``). At a z scale of 1 the
-    align-corners source of slice z is exactly z, so z is copied as is."""
-    return F.interpolate(x, scale_factor=(1, 2, 2), mode="trilinear",
-                         align_corners=True)
+    align-corners source of slice z is exactly z, so z is copied as is. The
+    backward is deterministic, as :func:`upsample_align_corners`'s."""
+    return UpsampleAlignCorners.apply(x)
 
 
 def replication_pad_to(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""ResUNet-2D with deep supervision (NCHW).
+"""ResUNet-2D with deep supervision (NCHW), and its single-head variant.
 
 Residual conv-BN-ReLU blocks with a conv-BN projection skip, a maxpool
 encoder over 5 scales, a bilinear (align_corners=True) decoder with concat
@@ -134,3 +134,37 @@ class ResidualUNet2DDeep(nn.Module):
         embedding = self.outconv_emb(y)
         mask = self.binary_seg(y)
         return out1, out2, out3, out4, embedding, mask
+
+
+class ResidualUNet2D(nn.Module):
+    """The single-head variant (the reference's ResidualUNet2D_embedding):
+    the same encoder and decoder without the four deep-supervision heads.
+    Returns (embedding, mask_logits), NCHW, in the compute ``dtype``."""
+
+    def __init__(self, in_channels: int = 3, out_channels: int = 2,
+                 nfeatures: Sequence[int] = (16, 32, 64, 128, 256),
+                 emd: int = 16, dtype=torch.float32):
+        super().__init__()
+        f = list(nfeatures)
+        self.inconv = InConv(in_channels, f[0])
+        self.down1 = Down(f[0], f[1])
+        self.down2 = Down(f[1], f[2])
+        self.down3 = Down(f[2], f[3])
+        self.down4 = Down(f[3], f[4])
+        self.up1_emb = Up(f[4], f[4])
+        self.up2_emb = Up(f[4] + f[3], f[3])
+        self.up3_emb = Up(f[3] + f[2], f[2])
+        self.up4_emb = Up(f[2] + f[1], f[1])
+        self.outconv_emb = OutConv(f[1], emd)
+        self.binary_seg = MaskHead(f[1], f[1], out_channels)
+        set_compute_dtype(self, dtype)
+
+    def forward(self, x):
+        x2 = self.down1(self.inconv(x))
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        y = self.up1_emb(self.down4(x4))
+        y = self.up2_emb(_concat_skip(y, x4))
+        y = self.up3_emb(_concat_skip(y, x3))
+        y = self.up4_emb(_concat_skip(y, x2))
+        return self.outconv_emb(y), self.binary_seg(y)

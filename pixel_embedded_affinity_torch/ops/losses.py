@@ -159,6 +159,25 @@ def ema_embedding_loss_2d(embedding_bhwc, ema_embedding_bhwc, target_bkhw,
     return loss, affs
 
 
+def deep_supervision_losses_2d(embeddings, downs, offsets, neighbor: int = 4,
+                               criterion=weighted_mse, use_pallas: bool = True):
+    """The summed losses of the four auxiliary heads (scales 1/2 .. 1/16).
+    ``embeddings`` = [emd1 (/2), emd2 (/4), emd3 (/8), emd4 (/16)],
+    channels-last; ``downs[k]`` packs (affs | weights | masks) along its
+    channel axis with ``neighbor // 2 * (4 - k)`` offsets each (the
+    reference's main.py:284-287 layout), the first that many of
+    ``offsets``."""
+    nb_half = neighbor // 2
+    total = 0.0
+    for k, (emb, down) in enumerate(zip(embeddings, downs)):
+        n_off = nb_half * (4 - k)
+        t, w, m = down[:, 0:n_off], down[:, n_off:2 * n_off], down[:, 2 * n_off:3 * n_off]
+        loss, _ = embedding_loss_2d(emb, t, w, m, offsets[:n_off], criterion=criterion,
+                                    use_pallas=use_pallas)
+        total = total + loss
+    return total
+
+
 def _slab(x: torch.Tensor, i: int, axis: int, s: int) -> torch.Tensor:
     """Channel i of (B, K, D, H, W), from index s on along spatial
     ``axis``, as (B, 1, D', H', W')."""

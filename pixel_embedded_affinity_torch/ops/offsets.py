@@ -40,3 +40,30 @@ def offsets_3d(shifts=SHIFTS_3D) -> list[list[int]]:
         off[i % 3] = -s
         out.append(off)
     return out
+
+
+def shift_channels_offsets(shift_channels: int = 3) -> list[list[int]]:
+    """Named mutex-watershed offset sets (3/7/9/15/17/23 channels).
+
+    Parity with scripts_ac3ac4/utils/shift_channels.py:2-48; used when
+    training directly against mutex-style GT (cfg shift_channels != None).
+    """
+    base = [[-1, 0, 0], [0, -1, 0], [0, 0, -1]]
+    diag = [[-1, -1, -1], [-1, 1, 1], [-1, -1, 1], [-1, 1, -1]]
+    dam = [[0, -9, 0], [0, 0, -9]]
+    lr = [[0, -9, -9], [0, 9, -9], [0, -9, -4], [0, -4, -9], [0, 4, -9],
+          [0, 9, -4]]
+    diag27 = [[0, -27, 0], [0, 0, -27]]
+    extra = [[0, -27, -27], [0, 27, -27], [0, -27, -9], [0, -9, -27],
+             [0, 9, -27], [0, 27, -9]]
+    table = {
+        3: base,
+        7: base + diag,
+        9: base + diag + dam,
+        15: base + diag + dam + lr,
+        17: base + diag + dam + lr + diag27,
+        23: base + diag + dam + lr + diag27 + extra,
+    }
+    if shift_channels not in table:
+        raise NotImplementedError(shift_channels)
+    return [list(o) for o in table[shift_channels]]

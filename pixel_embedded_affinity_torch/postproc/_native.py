@@ -56,7 +56,7 @@ def get_lib() -> ctypes.CDLL:
         lib.mws_segmentation.argtypes = [
             f32p, i32p, i32, i32, i64p, i32, i32p, i32, ctypes.c_uint64,
             ctypes.c_void_p, u32p]
-        # the 3D decoders' entry points (watershed, agglomerate, multicut)
+        # the 3D decoders' entry points (watershed, agglomerate, multicut, MALIS)
         lib.seeded_watershed_2d.restype = None
         lib.seeded_watershed_2d.argtypes = [f32p, i32p, i64, i64, i32p]
         lib.agglomerate_scored.restype = i64
@@ -67,5 +67,10 @@ def get_lib() -> ctypes.CDLL:
                                           ctypes.c_void_p, ctypes.c_void_p]
         lib.gaec_multicut.restype = i64
         lib.gaec_multicut.argtypes = [i64, i64, u64p, f64p, i32, u64p]
+        lib.lifted_gaec_multicut.restype = i64
+        lib.lifted_gaec_multicut.argtypes = [i64, i64, u64p, f64p, i64, u64p, f64p, i32,
+                                             u64p]
+        lib.malis_weights.restype = i64
+        lib.malis_weights.argtypes = [f32p, u32p, i64, i64, i64, ctypes.c_double, f32p]
         _lib.append(lib)
         return lib

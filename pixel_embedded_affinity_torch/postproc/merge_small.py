@@ -5,9 +5,14 @@
   CVPPP post-processing; the bbbc variant uses thresholds 5/25/50/100).
 * ``remove_small_object``: drop connected components below ``min_size``
   from a binary mask.
+* ``merge_small_segments``: merge segments of at most ``min_seg_size``
+  into the neighbour sharing the longest boundary (union-find over the
+  region adjacency graph).
 """
 
 from __future__ import annotations
+
+from collections import defaultdict
 
 import numpy as np
 from scipy import ndimage
@@ -62,3 +67,52 @@ def remove_small_object(mask: np.ndarray, min_size: int = 25) -> np.ndarray:
     keep = sizes >= min_size
     keep[0] = False
     return keep[lab].astype(mask.dtype)
+
+
+def merge_small_segments(seg: np.ndarray, min_seg_size: int) -> np.ndarray:
+    """Merge segments <= min_seg_size into the neighbor sharing the longest
+    boundary (union-find over the RAG)."""
+    seg = np.ascontiguousarray(seg)
+    sizes = np.bincount(seg.reshape(-1))
+
+    # boundary-length RAG from 4/6-neighborhood pairs
+    edge_len: dict[tuple[int, int], int] = defaultdict(int)
+    for axis in range(seg.ndim):
+        sl_a = [slice(None)] * seg.ndim
+        sl_b = [slice(None)] * seg.ndim
+        sl_a[axis] = slice(1, None)
+        sl_b[axis] = slice(0, -1)
+        a = seg[tuple(sl_a)].reshape(-1)
+        b = seg[tuple(sl_b)].reshape(-1)
+        diff = a != b
+        pairs = np.stack([np.minimum(a[diff], b[diff]),
+                          np.maximum(a[diff], b[diff])], axis=1)
+        if len(pairs):
+            uniq, counts = np.unique(pairs, axis=0, return_counts=True)
+            for (u, v), c in zip(uniq, counts):
+                edge_len[(int(u), int(v))] += int(c)
+
+    neighbors: dict[int, dict[int, int]] = defaultdict(dict)
+    for (u, v), c in edge_len.items():
+        neighbors[u][v] = neighbors[u].get(v, 0) + c
+        neighbors[v][u] = neighbors[v].get(u, 0) + c
+
+    parent = np.arange(sizes.size, dtype=np.int64)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for n_id in range(1, sizes.size):
+        if sizes[n_id] == 0 or sizes[n_id] > min_seg_size:
+            continue
+        nbrs = neighbors.get(n_id, {})
+        if not nbrs:
+            continue
+        target = max(nbrs.items(), key=lambda kv: kv[1])[0]
+        parent[find(n_id)] = find(target)
+
+    lut = np.array([find(i) for i in range(sizes.size)], dtype=seg.dtype)
+    return lut[seg]

@@ -72,6 +72,7 @@ from ..ops.losses import CRITERIA, mask_head_loss
 from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
 from ..postproc import merge_func, remove_small_object, seg_mutex
 from ..utils.guards import LossWatchdog
+from ..utils.show import val_show
 from .checkpoint import latest_checkpoint, load_checkpoint, restore, save_checkpoint
 from .optim import make_optimizer
 from .train_step import TrainState, TrainStep2D, TrainStep3D, make_eval_step_2d
@@ -240,7 +241,7 @@ def init_state(cfg: Config, device) -> TrainState:
 
 
 def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offsets,
-                device) -> dict:
+                device, iters: int = 0, show_dir: str | None = None) -> dict:
     """Decode and score the validation set; targets are built on the
     device. With ``train.mask_weight`` (BBBC), as the JAX loop: the loss
     adds the mask head's, the decode is seeded by argmax(softmax(mask
@@ -249,7 +250,10 @@ def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offset
     ``remap_label``-ed labels, 0.0 when either is empty. In bfloat16 the
     eval step's K1f takes the bfloat16 embedding and the softmax the
     bfloat16 logits, as in the JAX loop; the host gets them widened to
-    float32, exactly."""
+    float32, exactly. With ``show_dir``, the first image's montage
+    (:func:`..utils.show.val_show`: the last affinity channel predicted and
+    targeted, the decoded and true labels) goes to
+    ``<show_dir>/<iters:06d>.png``, as the JAX loop writes it."""
     dev = torch.device(device)
     bbbc = bool(cfg.train.mask_weight)
     scores: dict = {}
@@ -286,6 +290,8 @@ def validate_2d(cfg: Config, eval_step, state: TrainState, valid_dataset, offset
             m["PQ"] = 0.0 if empty else get_fast_pq(gtr, pr)[0][2]
         for k, v in m.items():
             scores.setdefault(k, []).append(float(v))
+        if i == 0 and show_dir is not None:
+            val_show(iters, out_affs[-1], affs[0, -1].float().cpu().numpy(), seg, gt, show_dir)
     return {f"valid/{k}": float(np.mean(v)) for k, v in scores.items()}
 
 
@@ -391,15 +397,16 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
 
     step_fn = make_train_step(cfg)
     if is_3d:
-        def validate():
+        def validate(it):
             return validate_3d(cfg, state, valid_ds, dev)
     else:
         offsets = step_fn.offsets
         eval_step = make_eval_step_2d(offsets, criterion=step_fn.criterion,
                                       use_pallas=cfg.train.use_pallas)
 
-        def validate():
-            return validate_2d(cfg, eval_step, state, valid_ds, offsets, dev)
+        def validate(it):
+            return validate_2d(cfg, eval_step, state, valid_ds, offsets, dev, iters=it,
+                               show_dir=os.path.join(save_path, "valid"))
 
     if resident:
         provider = None
@@ -458,7 +465,7 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
             if cfg.train.if_valid and _has_valid(valid_ds) and it % valid_freq == 0 and it > 1:
                 drain()
                 t0 = time.perf_counter()
-                m = validate()
+                m = validate(it)
                 if timing is not None:
                     timing.setdefault("valid_s", []).append(time.perf_counter() - t0)
                 log.info("valid @%d: %s", it, m)

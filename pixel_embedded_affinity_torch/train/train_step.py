@@ -48,7 +48,7 @@ import torch
 from ..data.ac3ac4 import convert_consistency_flip_3d_rule4
 from ..data.consistency import convert_consistency_flip, imagenet_stats
 from ..data.device_aug import ema_generator, ema_view_2d, ema_view_3d
-from ..device import float32_convs
+from ..device import deterministic_convs, float32_convs
 from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
                           embedding_loss_norm5, mask_head_loss, weighted_mse)
 from ..ops.losses_extra import discriminative_loss
@@ -310,10 +310,14 @@ class TrainStep3D:
 
     def grads(self, model, batch: dict):
         """Forward and backward in train mode; the gradients land in
-        ``.grad``. Returns (pred, metrics)."""
+        ``.grad``. Returns (pred, metrics). cuDNN runs its deterministic
+        algorithms here: with them and the upsampling's gather backward
+        (:mod:`..ops.upsample_cuda`) a step gives the same bits on every run
+        on the card, and on the H100 they cost the 3D step nothing
+        (``PERF.md``, ``tools/step_determinism.py``)."""
         model.train()
         model.zero_grad(set_to_none=True)
-        with float32_convs():
+        with float32_convs(), deterministic_convs():
             loss, pred, metrics = self.loss(model, batch)
             loss.backward()
         return pred, metrics

@@ -273,7 +273,9 @@ def test_train_on_cpu_validates_checkpoints_and_resumes_exactly(tmp_path):
     assert len(history) == 1 and history[0]["step"] == 3
     assert all(np.isfinite(v) for v in history[0].values())
     run = os.path.join(cfg.save_path, cfg.name)
-    assert sorted(os.listdir(run)) == ["log", "model-000002.ckpt", "model-000003.ckpt"]
+    # with the validation's montage of its first image, as the JAX loop writes it
+    assert sorted(os.listdir(run)) == ["log", "model-000002.ckpt", "model-000003.ckpt", "valid"]
+    assert os.listdir(os.path.join(run, "valid")) == ["000003.png"]
     with open(os.path.join(run, "log", "loss.txt")) as f:
         assert len(f.readlines()) == 3
     with open(os.path.join(run, "log", "valid.txt")) as f:
