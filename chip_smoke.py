@@ -221,12 +221,36 @@ Phases, each of which exits nonzero when it fails:
      both training steps); phase 10's 3D training run again from its seed,
      losses and parameters bit for bit (else the first operation that
      differs);
- 24. one JSON line listing each kernel: launches (phase 21's also apart,
-     cli_launches), error, times, bound, and how the times were taken
-     (CUDA graph replay; for the affinity kernels CUDA events around the
-     eager call beside; K2f/K2b/K3f/K3b with their bfloat16 forms' bf16_*
-     fields and launches), the upsampling backward last;
- 25. the last line: {"ok": true, "device": {...}}.
+ 24. data parallelism (torch.distributed): the full-width cvppp (B=2
+     544x544), ac3ac4 (B=2 18x160x160) and bbbc039v1 (B=2 256x256, mask
+     head) train steps, 2 steps each from the same seeded weights and
+     global batches of the resident samplers, on two ranks sharing cuda:0
+     over gloo (NCCL refuses two ranks on one card), each rank training on
+     its half of the batch with the EMA view drawn on the whole, against
+     the single process's step on the same global batch from the same
+     state (rank 0 runs it on a copy before each step), float32 with TF32
+     off: the loss within DP_LOSS_RTOL; step 1's all-reduced gradients
+     against a float64 step (the plain path) no farther than
+     DP_GRAD_EXCESS times the single process's float32 gradients are, plus
+     DP_GRAD_RTOL (each tensor, relative to its norm), their distance from
+     the single process's printed; the parameters and BatchNorm buffers
+     bit-equal across the ranks and within tests/test_dp_parity.py's TOL of
+     the single process, each rank's kernel launches and step times (a
+     record: the ranks share the card); the dense 3D module served tiled
+     over a 20x512x512 crop of phase 9's volume, each tile batch split over
+     the two ranks, against the single process's canvas (DP_CANVAS_ATOL);
+     the training CLI with --distributed under torchrun's environment for
+     one process (NCCL at world size 1) on the ac3ac4 preset, 4 steps from
+     the device sampler, its losses and parameters bit-equal to the run
+     without --distributed and its checkpoint written once; where the host
+     has two cards, the cvppp step on NCCL over both;
+ 25. one JSON line listing each kernel: launches (phase 21's also apart,
+     cli_launches, and phase 24's, dp_launches), error, times, bound, and
+     how the times were taken (CUDA graph replay; for the affinity kernels
+     CUDA events around the eager call beside; K2f/K2b/K3f/K3b with their
+     bfloat16 forms' bf16_* fields and launches), the upsampling backward
+     last;
+ 26. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -4873,6 +4897,428 @@ def phase_host_library(train2d: dict, train3d: dict, crop) -> dict:
     return up
 
 
+# 24. data parallelism: two ranks on one card (gloo: NCCL refuses two
+# ranks on one GPU), the single process on the same global batch beside
+DP_WORLD = 2
+DP_STEPS = 2
+DP_PRESETS = {"cvppp": "cvppp", "3d": "ac3ac4", "bbbc": "bbbc039v1"}
+DP_LOSS_RTOL = 1e-5
+# the ranks' step-1 gradients against float64 (the plain path on the same
+# batch and EMA view): at most DP_GRAD_EXCESS times the single process's
+# float32 error, plus DP_GRAD_RTOL (each tensor, relative to its norm). The
+# two float32 steps differ by summation order alone, and on the full-width
+# 2D models that is up to 2.1e-3 of a tensor's norm, where the single
+# process's own float32 gradient is 2.8e-3 off float64 (the card, PR 18)
+DP_GRAD_RTOL = 1e-4
+DP_GRAD_EXCESS = 2.0
+DP_TOL = dict(rtol=3e-3, atol=2.5e-4)  # tests/test_dp_parity.py's
+DP_CANVAS_ATOL = 1e-5  # JAX's own bound for run (tests/test_tiling.py)
+DP_CROP = (20, 512, 512)
+DP_CLI_STEPS = 4
+DP_ZERO_BIAS = re.compile(BIAS_BEFORE_BN.pattern + "|" + BIAS_BEFORE_BN_3D.pattern)
+DP_TIMEOUT_S = 600
+
+
+def _dp_launchers():
+    from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
+
+    return {**_bbbc_launchers(), **_train3d_launchers(), "UPb": upsample_bwd}
+
+
+def _dp_case(kind: str, arrays):
+    """(config, seeded state dict on the CPU, the DP_STEPS global batches of
+    the preset's resident sampler on the card, moved to the CPU)."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.train.loop import resident_sampler
+
+    cfg = load_config(DP_PRESETS[kind])
+    torch.manual_seed(cfg.train.random_seed)
+    sd = model_from_config(cfg.model).state_dict()
+    draw = resident_sampler(cfg, arrays, "cuda")
+    return cfg, sd, [{k: v.cpu() for k, v in draw(s).items()} for s in range(DP_STEPS)]
+
+
+def _dp_record(rec: dict, run, model):
+    """run() (a step), timed on the host clock around a synchronize; its
+    metrics, the model's gradients and state after it appended to ``rec``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = run()
+    torch.cuda.synchronize()
+    rec["ms"].append(1e3 * (time.perf_counter() - t0))
+    rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+    rec["grads"].append({n: p.grad.detach().to("cpu", copy=True)
+                         for n, p in model.named_parameters() if p.grad is not None})
+    rec["states"].append({k: v.detach().to("cpu", copy=True)
+                          for k, v in model.state_dict().items()})
+
+
+def dp_steps(kind: str, case: dict, mesh=None, reference: bool = False) -> dict:
+    """The preset's train step (the EMA view and targets drawn on the card
+    from the global batch) over the case's batches, data-parallel on
+    ``mesh``: each step's metrics, gradients, state and host ms, and each
+    kernel's launches in those steps. With ``reference``, before each step
+    the single-process step on the whole batch from a copy of the same
+    state (its model and optimizer), under "ref"."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.models.common import bind_mesh
+    from pixel_embedded_affinity_torch.train import TrainState, make_optimizer
+    from pixel_embedded_affinity_torch.train.loop import make_train_step
+
+    cfg = load_config(DP_PRESETS[kind])
+    model = model_from_config(cfg.model)
+    model.load_state_dict(case["state_dict"])
+    model = model.cuda().train()
+    state = TrainState(model, make_optimizer(model.parameters(), cfg.train), 0)
+    step, single = make_train_step(cfg, mesh), make_train_step(cfg)
+    launchers = _dp_launchers()
+    launches = dict.fromkeys(launchers, 0)
+    out = {"metrics": [], "grads": [], "states": [], "ms": []}
+    ref = {"metrics": [], "grads": [], "states": [], "ms": []}
+    for b in case["batches"]:
+        batch = {k: v.cuda() for k, v in b.items()}
+        if reference:
+            copied = copy.deepcopy(state)
+            bind_mesh(copied.model, None)
+            _dp_record(ref, lambda: single(copied, batch), copied.model)
+        before = {k: fn.launches for k, fn in launchers.items()}
+        _dp_record(out, lambda: step(state, batch), model)
+        for k, fn in launchers.items():
+            launches[k] += fn.launches - before[k]
+    out["launches"] = launches
+    if reference:
+        out["ref"] = ref
+    return out
+
+
+def dp_f64_grads(kind: str, case: dict) -> dict:
+    """Step 1's gradients in float64 through the plain path, on the first
+    batch with the EMA view the float32 step draws for it."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.train.loop import make_train_step
+
+    cfg = load_config(DP_PRESETS[kind])
+    batch = make_train_step(cfg).ema_batch({k: v.cuda() for k, v in case["batches"][0].items()},
+                                           0)
+    batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    cfg.train.use_pallas, cfg.data.device_ema = False, False
+    model = model_from_config(cfg.model)
+    model.load_state_dict(case["state_dict"])
+    model = model.double().cuda()
+    make_train_step(cfg).grads(model, batch)
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def dp_tiles(case: dict, mesh=None):
+    """The dense 3D module served tiled (``run``) over the crop, split over
+    ``mesh``: (canvas, K5f launches, the tile batch sizes predicted, host
+    s)."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.infer.inference3d import build_tiled_predictor
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.ops import fused_affinity_3d
+    from pixel_embedded_affinity_torch.parallel import TiledInference3D
+
+    cfg = load_config("ac3ac4")
+    model = model_from_config(cfg.model)
+    model.load_state_dict(case["state_dict"])
+    predictor = build_tiled_predictor(model.cuda().eval())
+    sizes = []
+
+    def predict(tiles):
+        sizes.append(tiles.shape[0])
+        return predictor(tiles)
+
+    engine = TiledInference3D(crop_size=cfg.data.crop_size, batch_size=4, mesh=mesh)
+    fused_affinity_3d.launches = 0
+    t0 = time.perf_counter()
+    canvas = engine.run(case["volume"], predict, 12, device="cuda")
+    return canvas, fused_affinity_3d.launches, sizes, time.perf_counter() - t0
+
+
+def _dp_rank(rank: int, world: int, folder: str, backend: str):
+    """One rank of phase 24: joins the group (gloo: every rank on cuda:0;
+    NCCL: rank r on cuda:r) and writes its readings to rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from pixel_embedded_affinity_torch.parallel.multihost import initialize
+
+    dev = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    mesh = initialize(dev, backend=backend, init_method=f"file://{folder}/pg_init",
+                      rank=rank, world_size=world)
+    try:
+        cases = torch.load(os.path.join(folder, "cases.pt"), weights_only=False)
+        out = {k: dp_steps(k, c, mesh, reference=rank == 0)
+               for k, c in cases.items() if k in DP_PRESETS}
+        if "tiles" in cases:
+            out["tiles"] = dp_tiles(cases["tiles"], mesh)
+        torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_spawn(folder: str, cases: dict, backend: str):
+    """Start DP_WORLD ranks of ``cases``; returns a join function that
+    gives each rank's readings."""
+    import torch
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    torch.save(cases, os.path.join(folder, "cases.pt"))
+    ctx = mp.start_processes(_dp_rank, args=(DP_WORLD, folder, backend), nprocs=DP_WORLD,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+
+    def join():
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline, f"the {backend} ranks ran over "
+                      f"{DP_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
+                for r in range(DP_WORLD)]
+
+    return join
+
+
+def _dp_grad_errors(got: dict, ref: dict, per_tensor: bool = False):
+    """(worst tensor: |grad - ref| / |ref|, its name; the conv biases in
+    front of BatchNorm, whose true gradient is 0: largest |grad - ref| over
+    the largest |ref| of the model; the whole gradient's |grad - ref| /
+    |ref|), or with ``per_tensor`` each tensor's error, the biases in front
+    of BatchNorm against the largest |ref|."""
+    import torch
+
+    top = max(float(g.norm()) for g in ref.values())
+    errs = {n: float((got[n].double() - g.double()).norm())
+            / (top if DP_ZERO_BIAS.search(n) else max(float(g.norm()), 1e-30))
+            for n, g in ref.items()}
+    if per_tensor:
+        return errs
+    worst, name, zero = 0.0, None, 0.0
+    for n, e in errs.items():
+        if DP_ZERO_BIAS.search(n):
+            zero = max(zero, e)
+        elif e > worst:
+            worst, name = e, n
+    flat = torch.cat([(got[n].double() - g.double()).reshape(-1) for n, g in ref.items()])
+    whole = float(flat.norm()) / float(torch.cat([g.double().reshape(-1)
+                                                 for g in ref.values()]).norm())
+    return worst, name, zero, whole
+
+
+def dp_compare(kind: str, ranks: list, f64: dict, misses: list, label: str):
+    """Phase 24's holds of one step kind: each step of the ranks against the
+    single process's step from the same state (rank 0's "ref"), step 1's
+    gradients against float64 (``f64``), and the ranks against each
+    other."""
+    import torch
+
+    r0 = ranks[0]
+    one = r0["ref"]
+    dp64, one64 = (_dp_grad_errors(g, f64, per_tensor=True) for g in (r0["grads"][0],
+                                                                    one["grads"][0]))
+    over = {n: (e, one64[n]) for n, e in dp64.items()
+            if e > DP_GRAD_EXCESS * one64[n] + DP_GRAD_RTOL}
+    print(f"[dp] {label} step 1 gradients against float64 (plain path), each tensor relative "
+          f"to its norm: ranks worst {max(dp64.values()):.3e}, single process worst "
+          f"{max(one64.values()):.3e}; tensors past {DP_GRAD_EXCESS} x the single process's + "
+          f"{DP_GRAD_RTOL}: {over or 'none'}")
+    if over:
+        misses.append(f"{label} step 1 gradients against float64: {over}")
+    for s in range(DP_STEPS):
+        for k, v in one["metrics"][s].items():
+            rel = abs(r0["metrics"][s][k] - v) / max(abs(v), 1e-30)
+            if k == "loss":
+                print(f"[dp] {label} step {s + 1}: loss {r0['metrics'][s][k]!r} on the ranks, "
+                      f"{v!r} in one process ({rel:.3e} relative, bound {DP_LOSS_RTOL})")
+            if rel > DP_LOSS_RTOL:
+                misses.append(f"{label} step {s + 1} {k} {rel:.3e} off the single process")
+        worst, name, zero, whole = _dp_grad_errors(r0["grads"][s], one["grads"][s])
+        print(f"[dp] {label} step {s + 1}: all-reduced gradients against the single process's: "
+              f"worst tensor {name} {worst:.3e} of its norm, the whole gradient {whole:.3e}, "
+              f"the biases in front of BatchNorm {zero:.3e} of the largest norm")
+        for r in range(1, DP_WORLD):
+            same = all(torch.equal(r0["states"][s][k], ranks[r]["states"][s][k])
+                       for k in r0["states"][s])
+            if not same:
+                misses.append(f"{label} step {s + 1}: rank {r}'s parameters or buffers differ")
+        floats = [k for k, v in one["states"][s].items() if v.is_floating_point()]
+        worst_p = max(float(((r0["states"][s][k].double() - one["states"][s][k].double()).abs()
+                             - DP_TOL["atol"] - DP_TOL["rtol"] * one["states"][s][k].double()
+                             .abs()).max()) for k in floats)
+        moved = max(float((r0["states"][s][k].double() - one["states"][s][k].double())
+                          .abs().max()) for k in floats)
+        print(f"[dp] {label} step {s + 1}: parameters and BatchNorm statistics at most "
+              f"{moved:.3e} off the single process's (TOL {DP_TOL})")
+        if worst_p > 0:
+            misses.append(f"{label} step {s + 1}: a parameter or statistic past TOL by {worst_p}")
+    print(f"[dp] {label}: each step against the single process's from the same state; "
+          f"parameters and BatchNorm buffers bit-equal across the "
+          f"{DP_WORLD} ranks after each step; host ms a step, ranks "
+          f"{[[round(m, 2) for m in r['ms']] for r in ranks]} (sharing one card: a record, "
+          f"not a speed), one process {[round(m, 2) for m in one['ms']]}; launches per rank "
+          f"{[{k: n for k, n in r['launches'].items() if n} for r in ranks]}; {card_line()}")
+
+
+def dp_cli(arrays, valid, out: str) -> dict:
+    """The training CLI with ``--distributed`` under torchrun's environment
+    for one process (NCCL at world size 1) and the same run without it:
+    (the distributed run's launches, its losses, whether they and the
+    parameters are bit-equal)."""
+    import socket
+
+    import torch
+
+    from pixel_embedded_affinity_torch.train.__main__ import main
+
+    def run(name, distributed):
+        argv = ["-c", "ac3ac4", "-i", str(DP_CLI_STEPS), "-o",
+                f"save_path={os.path.join(out, name)}", "train.display_freq=1",
+                "train.if_valid=False", "train.save_freq=1000000"]
+        state, _ = main(argv + (["--distributed"] if distributed else []),
+                        data_override=(arrays, valid))
+        with open(os.path.join(out, name, "ac3ac4", "log", "scalars.jsonl")) as f:
+            losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+        return losses, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    launchers = _dp_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        dl, dsd = run("distributed", True)
+        secs = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {k: fn.launches for k, fn in launchers.items()}
+    check(not torch.distributed.is_initialized(), "the CLI left its process group open")
+    pl, psd = run("plain", False)
+    ckpts = sorted(os.listdir(os.path.join(out, "distributed", "ac3ac4")))
+    same = dl == pl and all(torch.equal(dsd[k], psd[k]) for k in psd)
+    print(f"[dp] the CLI with --distributed, NCCL at world size 1 (torchrun's environment, "
+          f"MASTER_PORT {port}), ac3ac4 {DP_CLI_STEPS} steps from the device sampler in "
+          f"{secs:.2f} s: losses {dl}; without --distributed {pl}; losses and parameters "
+          f"bit-equal: {same}; the run's files {ckpts}; launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    return {"launches": launches, "same": same, "ckpts": ckpts}
+
+
+def phase_data_parallel(crop, bbbc_arrays) -> dict:
+    """24: the CVPPP, 3D and BBBC train steps on two gloo ranks sharing
+    cuda:0 against the single process, the tiled engine split over them,
+    the CLI's --distributed on NCCL at world size 1 (and the CVPPP step on
+    NCCL over two cards where there are two). ``crop``: the DP_CROP corner
+    of phase 9's volume in [0, 1]. Returns each kernel's launches in the
+    phase's data-parallel runs."""
+    import torch
+
+    from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
+
+    out = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    (arrays3d, valid3d), _ = train3d_data()
+    data = {"cvppp": pack_cvppp_arrays(leaf_pairs(4, 530, 500, SEED)), "3d": arrays3d,
+            "bbbc": bbbc_arrays}
+    cases, cfgs = {}, {}
+    for kind in DP_PRESETS:
+        cfgs[kind], sd, batches = _dp_case(kind, data[kind])
+        cases[kind] = {"state_dict": sd, "batches": batches}
+    cases["tiles"] = {"state_dict": cases["3d"]["state_dict"], "volume": crop}
+    print(f"[dp] {DP_WORLD} gloo ranks on cuda:0, float32 (TF32 off), {DP_STEPS} steps each "
+          f"from the same seeded weights and global batches: "
+          + "; ".join(f"{DP_PRESETS[k]} B={cfgs[k].train.batch_size} "
+                      f"{tuple(cases[k]['batches'][0]['image'].shape[1:])} filters "
+                      f"{cfgs[k].model.filters}" for k in DP_PRESETS)
+          + f"; the dense 3D module served tiled over a {crop.shape} crop of phase 9's volume; "
+          f"set up in {time.perf_counter() - t0:.2f} s")
+    join = _dp_spawn(os.path.join(out, "gloo"), cases, "gloo")
+    # float64 and the single process's canvas, on the card beside the ranks' start-up
+    f64 = {k: dp_f64_grads(k, cases[k]) for k in DP_PRESETS}
+    one_canvas, one_k5, one_sizes, one_s = dp_tiles(cases["tiles"])
+    t1 = time.perf_counter()
+    ranks = join()
+    print(f"[dp] the ranks done {time.perf_counter() - t1:.2f} s after the single process")
+    misses: list = []
+    for kind in DP_PRESETS:
+        dp_compare(kind, [r[kind] for r in ranks], f64[kind], misses, DP_PRESETS[kind])
+    (c0, k0, n0, s0), (c1, k1, n1, s1) = ranks[0]["tiles"], ranks[1]["tiles"]
+    delta = float(np.abs(c0 - one_canvas).max())
+    print(f"[dp] tiled {crop.shape}: canvas max |delta| against the single process {delta:.3e} "
+          f"(bound {DP_CANVAS_ATOL}), ranks' canvases equal: {np.array_equal(c0, c1)}; K5f "
+          f"launches {k0} + {k1} on the ranks, {one_k5} in one process; host s {s0:.2f}, "
+          f"{s1:.2f} on the ranks, {one_s:.2f} in one process")
+    # each tile predicted once, by one rank, K5f launched once a part
+    once = sum(n0) + sum(n1) == sum(one_sizes) and (k0, k1, one_k5) == (len(n0), len(n1),
+                                                                        len(one_sizes))
+    print(f"[dp] tiled: {sum(one_sizes)} tiles in {len(one_sizes)} batches of up to 4; the "
+          f"ranks' parts {n0} and {n1}")
+    if delta > DP_CANVAS_ATOL or not np.array_equal(c0, c1) or not once:
+        misses.append(f"tiled canvas {delta:.3e}, ranks equal {np.array_equal(c0, c1)}, "
+                      f"each tile once with one K5f launch a part: {once}")
+    launches = {k: sum(r[kind]["launches"][k] for r in ranks for kind in DP_PRESETS)
+                for k in _dp_launchers()}
+    launches["K5f"] += k0 + k1
+    for kind in DP_PRESETS:
+        if not all(r[kind]["launches"]["UPb"] for r in ranks):
+            misses.append(f"{kind}: a rank ran no upsampling backward")
+    need = {"cvppp": ("K2f", "K2b", "K3f", "K3b"), "3d": ("K5f", "K5b", "K6f", "K6b"),
+            "bbbc": ("K3f", "K3b")}
+    for kind, names in need.items():
+        for k in names:
+            if not all(r[kind]["launches"][k] for r in ranks):
+                misses.append(f"{kind}: a rank never launched {k}")
+    # the CLI, NCCL at world size 1
+    cli = dp_cli(arrays3d, valid3d, os.path.join(out, "cli"))
+    if not cli["same"] or cli["ckpts"] != ["log", f"model-{DP_CLI_STEPS:06d}.ckpt"]:
+        misses.append(f"CLI --distributed: bit-equal {cli['same']}, files {cli['ckpts']}")
+    for k, n in cli["launches"].items():
+        launches[k] += n
+    ran = ["gloo x2 on cuda:0 (CVPPP, 3D, BBBC steps; tiled serving)",
+           "NCCL x1 (the CLI, ac3ac4)"]
+    if torch.cuda.device_count() >= 2:
+        nccl = _dp_spawn(os.path.join(out, "nccl"), {"cvppp": cases["cvppp"]}, "nccl")()
+        dp_compare("cvppp", [r["cvppp"] for r in nccl], f64["cvppp"], misses, "cvppp NCCL")
+        for k in launches:
+            launches[k] += sum(r["cvppp"]["launches"][k] for r in nccl)
+        ran.append("NCCL x2 on cuda:0, cuda:1 (CVPPP step)")
+    print(f"[dp] ran: {'; '.join(ran)}; not run: "
+          f"{'none' if len(ran) == 3 else 'NCCL over two cards (one card here)'}; launches "
+          f"{json.dumps({k: n for k, n in launches.items() if n})}")
+    check(not misses, "data parallelism: " + "; ".join(misses))
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -4920,7 +5366,10 @@ def main() -> int:
     k8 = _timed("K8", phase_s2d_block)
     fast = _timed("fast forward", phase_fast_forward, cfg, sd, samples)
     # 17. the device-resident samplers at the real geometry, 18. P and the probe
-    ema = _timed("samplers", phase_samplers, serve3d.pop("volume"))
+    volume = serve3d.pop("volume")
+    ema = _timed("samplers", phase_samplers, volume)
+    dp_crop = volume[0][tuple(slice(0, n) for n in DP_CROP)].astype(np.float32) / 255.0
+    del volume
     p = _timed("P", phase_tile_copy)
     # 19. the quality gates
     quality = _timed("quality", phase_quality)
@@ -4936,7 +5385,9 @@ def main() -> int:
     # 23. the host library: the upsampling backward's kernel, losses,
     # decoders, clustering, the montage, FLOPs, a bit-reproducible 3D step
     up = _timed("host library", phase_host_library, train2d, train3d, serve3d.pop("crop"))
-    # 24. kernels line, card, 25. last line
+    # 24. data parallelism: two gloo ranks on the card, NCCL through the CLI
+    dp = _timed("data parallel", phase_data_parallel, dp_crop, arrays)
+    # 25. kernels line, card, 26. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) + families.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -4944,7 +5395,8 @@ def main() -> int:
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (sum(launches.values()) + trained["K1f"] + serve_bbbc["launches"]
-                     + fast["launches"]["K1f"] + cli["K1f"]), "cli_launches": cli["K1f"],
+                     + fast["launches"]["K1f"] + cli["K1f"] + dp["K1f"]),
+        "cli_launches": cli["K1f"], "dp_launches": dp["K1f"],
         "max_abs_err": k1["max_abs_err"], "ms": t1["view"], "event_ms": t1["view_event"],
         "plain_ms": t1["plain_view"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None}]
@@ -4952,8 +5404,8 @@ def main() -> int:
         r = wmse[k]
         kernels.append({
             "name": name, "route": "cuda", "source": WMSE_SOURCE,
-            "replaces": WMSE_REPLACES[k], "launches": trained[k] + cli[k],
-            "cli_launches": cli[k],
+            "replaces": WMSE_REPLACES[k], "launches": trained[k] + cli[k] + dp[k],
+            "cli_launches": cli[k], "dp_launches": dp[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, **wmse16[k], "bf16_launches": train16[k] + gate16[k]})
@@ -4963,8 +5415,9 @@ def main() -> int:
     kernels.append({
         "name": "affinity3d_fwd", "route": "cuda", "source": K5_SOURCE,
         "replaces": K5_REPLACES,
-        "launches": serve3d["launches"] + train3d_launches["K5f"] + quality["K5f"] + cli["K5f"],
-        "cli_launches": cli["K5f"],
+        "launches": (serve3d["launches"] + train3d_launches["K5f"] + quality["K5f"] + cli["K5f"]
+                     + dp["K5f"]),
+        "cli_launches": cli["K5f"], "dp_launches": dp["K5f"],
         "max_abs_err": max(k5["max_abs_err"], serve3d["max_abs_err"]), "ms": k5["ms"],
         "event_ms": k5["event_ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None})
@@ -4975,8 +5428,8 @@ def main() -> int:
         r = grad[k]
         kernels.append({
             "name": name, "route": "cuda", "source": GRAD_SOURCE, "replaces": GRAD_REPLACES[k],
-            "launches": train3d_launches[k] + in_2d[k] + quality[k] + cli[k],
-            "cli_launches": cli[k],
+            "launches": train3d_launches[k] + in_2d[k] + quality[k] + cli[k] + dp[k],
+            "cli_launches": cli[k], "dp_launches": dp[k],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
@@ -4985,8 +5438,8 @@ def main() -> int:
                 t: r[f"{t}_ms"] for t in ("ndhwc", "swapped", "view")}
     kernels.append({
         "name": "cross_affinity_fwd_2d", "route": "cuda", "source": GRAD_SOURCE,
-        "replaces": K4F_REPLACES, "launches": trained["K4f"] + cli["K4f"],
-        "cli_launches": cli["K4f"], "max_abs_err": k4f["max_abs_err"],
+        "replaces": K4F_REPLACES, "launches": trained["K4f"] + cli["K4f"] + dp["K4f"],
+        "cli_launches": cli["K4f"], "dp_launches": dp["K4f"], "max_abs_err": k4f["max_abs_err"],
         "ms": k4f["ms"], "event_ms": k4f["event_ms"], "plain_ms": k4f["plain_ms"],
         "bound_ms": k4f["bound_ms"], "bound_by": k4f["bound_by"], "library_ms": None,
         "swapped_ms": k4f["swapped_ms"]})
@@ -5011,7 +5464,8 @@ def main() -> int:
         "name": "upsample_bwd", "route": "cuda", "source": UPB_SOURCE,
         "replaces": "none: no TPU kernel; the deterministic backward of the decoders' "
                     "upsampling (models/common.py)",
-        "launches": train_launches["UPb"] + train3d_launches["UPb"],
+        "launches": train_launches["UPb"] + train3d_launches["UPb"] + dp["UPb"],
+        "dp_launches": dp["UPb"],
         "max_abs_err": up["max_abs_err"], "ms": up["ms"], "event_ms": up["event_ms"],
         "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
         "library_ms": up["library_ms"], "bf16_ms": up["bf16_ms"]})

@@ -1,7 +1,8 @@
 """Shared model utilities (NCHW, NCDHW): align-corners upsampling, edge
-padding, BatchNorms (2D and 3D) whose running statistics follow Flax's, and
-convolutions that compute in another dtype than their parameters' (Flax's
-``dtype`` beside its ``param_dtype``)."""
+padding, BatchNorms (2D and 3D) whose running statistics follow Flax's and
+whose train-mode statistics span the ranks of a data-parallel mesh
+(:func:`bind_mesh`), and convolutions that compute in another dtype than
+their parameters' (Flax's ``dtype`` beside its ``param_dtype``)."""
 
 from __future__ import annotations
 
@@ -25,10 +26,14 @@ class _FlaxRunningStats:
     (1 - m) rv + m v = rv' / c + (1 - 1/c) (1 - m) rv: two ops on a (C,)
     vector, with no second pass over the activations."""
 
+    mesh = None  # a data-parallel mesh (:func:`bind_mesh`)
+
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._cross_rank_forward(x)
         self.num_batches_tracked.add_(1)
         rv = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias, True,
@@ -38,6 +43,91 @@ class _FlaxRunningStats:
         with torch.no_grad():
             self.running_var.mul_((1 - inv_c) * (1 - self.momentum)).add_(rv, alpha=inv_c)
         return y
+
+    def _cross_rank_forward(self, x):
+        """Train mode over the mesh's global batch, as GSPMD gives the JAX
+        model: per channel one all-reduce of [sum x, sum x^2, n], the mean
+        and Flax's variance E[x^2] - E[x]^2 of the global batch, the running
+        statistics updated with them (the biased variance), and a backward
+        that all-reduces [sum dy, sum dy x_hat] (:class:`_CrossRankNorm`).
+
+        The sums are formed in float64 from this rank's mean and biased
+        variance (``torch.var_mean``, in the statistics' dtype), so E[x^2] -
+        E[x]^2 loses nothing to cancellation: in float32, where |mean| is
+        large against the deviation, it loses up to a few 1e-4 of the
+        gradient of a 4-rank step (measured on the CPU), a float64 pass
+        over (C,) vectors does not."""
+        from ..parallel.mesh import all_reduce_sum_
+
+        self.num_batches_tracked.add_(1)
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            var_r, mean_r = torch.var_mean(_stat_dtype(x), dims, correction=0)
+            n_r = x.numel() // c
+            mean_r, var_r = mean_r.double(), var_r.double()
+            stats = torch.cat([mean_r * n_r, (var_r + mean_r * mean_r) * n_r,
+                               mean_r.new_full((1,), n_r)])
+            all_reduce_sum_(self.mesh, stats)
+            n = stats[2 * c]
+            mean64 = stats[:c] / n
+            var64 = stats[c:2 * c] / n - mean64 * mean64
+            dt = var_r.dtype if x.dtype == torch.float64 else torch.float32
+            mean, var = mean64.to(dt), var64.to(dt)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        return _CrossRankNorm.apply(x, self.weight, self.bias, mean, torch.rsqrt(var + self.eps),
+                                    n.to(dt), self.mesh)
+
+
+def _stat_dtype(x):
+    """x in float32, or as it is in float64 (BatchNorm's statistics dtype)."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
+class _CrossRankNorm(torch.autograd.Function):
+    """y = (x - mean) invstd w + b over the mesh's global statistics, in
+    the statistics' dtype, written in x's. The backward is the gradient of
+    the global batch's normalisation with respect to this rank's x: one
+    all-reduce of [sum dy, sum dy x_hat]; w's and b's gradients are this
+    rank's sums, which the step's gradient mean over the ranks completes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, n, mesh):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = _stat_dtype(x)
+        y = (xf - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mesh = mesh
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from ..parallel.mesh import all_reduce_sum_
+
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dims = [0] + list(range(2, x.dim()))
+        c = x.shape[1]
+        xhat = (_stat_dtype(x) - mean.view(shape)) * invstd.view(shape)
+        g = _stat_dtype(dy)
+        local = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
+        total = all_reduce_sum_(ctx.mesh, local.clone()) / n
+        dx = (weight * invstd).view(shape) * (g - total[:c].view(shape)
+                                              - xhat * total[c:].view(shape))
+        return (dx.to(dy.dtype), local[c:].to(weight.dtype), local[:c].to(weight.dtype),
+                None, None, None, None)
+
+
+def bind_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Let every BatchNorm of ``model`` take its train-mode statistics over
+    ``mesh``'s global batch (None: this process's batch). At world size 1
+    nothing changes. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, _FlaxRunningStats):
+            m.mesh = mesh
+    return model
 
 
 class _CastConv:

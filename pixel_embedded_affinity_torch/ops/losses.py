@@ -82,7 +82,7 @@ CRITERIA = {"WeightedMSELoss": weighted_mse, "WeightedBCELoss": weighted_bce,
             "MSELoss": mse, "BCELoss": bce}
 
 
-def mask_head_loss(logits_bhwc, target_mask_bhw):
+def mask_head_loss(logits_bhwc, target_mask_bhw, mesh=None):
     """Class-weighted cross entropy of the binary mask head: logits
     (B, H, W, 2), target (B, H, W) foreground mask.
 
@@ -91,12 +91,26 @@ def mask_head_loss(logits_bhwc, target_mask_bhw):
     CrossEntropyLoss with class weights, divides by the sum of the
     samples' weights. The counts are float32 whatever the logits' dtype, as
     in the JAX package: with bfloat16 logits the log-probabilities are
-    bfloat16 and the weighted sum float32."""
+    bfloat16 and the weighted sum float32.
+
+    With a data-parallel ``mesh`` (world size N > 1) this rank holds a
+    shard of the batch: the counts are the global batch's (one
+    all-reduce), so is the sum of the weights, n_fg n_bg + n_bg n_fg, and
+    the rank's term is N times its part of the global loss, so that the
+    mean over the ranks, of the terms and of their gradients, is the global
+    loss's."""
     t = target_mask_bhw.long()
-    n_fg = torch.sum(t == 1).to(torch.float32)
-    n_bg = torch.sum(t == 0).to(torch.float32)
-    w = torch.stack([n_fg, n_bg])[t]
+    counts = torch.stack([torch.sum(t == 1), torch.sum(t == 0)]).to(torch.float32)
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        from ..parallel.mesh import all_reduce_sum_
+
+        all_reduce_sum_(mesh, counts)
+    w = counts[t]
     pick = torch.gather(torch.log_softmax(logits_bhwc, dim=-1), -1, t[..., None])[..., 0]
+    if sharded:
+        return -torch.sum(w * pick) * mesh.size / torch.clamp(2 * counts[0] * counts[1],
+                                                               min=1e-12)
     return -torch.sum(w * pick) / torch.clamp(torch.sum(w), min=1e-12)
 
 

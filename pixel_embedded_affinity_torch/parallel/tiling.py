@@ -10,6 +10,11 @@ map on the device and fetched once. The last batch is short: no tile is
 predicted or added twice. In eager PyTorch this loop already queues every
 batch with no host synchronisation, so the JAX package's one-dispatch
 sweeps (``run_device_resident``) are not ported.
+
+With a data-parallel ``mesh`` (JAX's tile parallelism, ``_shard_tiles``)
+each rank predicts its contiguous part of every tile batch, a ragged last
+batch included, and adds it into its own canvas and weight map; the two
+are all-reduced once at the end, and every rank returns the whole canvas.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from .mesh import all_reduce_sum_, split_positions
 
 
 def gaussian_blend_weight(out_size, sigma: float = 0.2):
@@ -71,16 +77,16 @@ class TiledInference3D:
     predict_fn: (B, 1, d, h, w) float32 tiles on the device -> (B, K, d, h, w)
     affinities on the device.
 
-    ``mesh`` (JAX's tile parallelism over devices) waits for the port's
-    multi-GPU work and raises.
+    ``mesh`` (:mod:`.mesh`): split every tile batch over its ranks (the
+    module's docstring); ``batch_size`` must divide by its world size.
     """
 
     def __init__(self, crop_size=(18, 160, 160), stride=(10, 80, 80),
                  padding=(4, 48, 48), batch_size: int = 8, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (tile parallelism over devices) is not ported: it waits for "
-                "torch.distributed (ROADMAP.md, Modules still to port, item 5)")
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size={batch_size} does not divide over "
+                             f"{mesh.size} ranks")
+        self.mesh = mesh
         self.crop_size = tuple(crop_size)
         self.stride = tuple(stride)
         self.padding = tuple(padding)
@@ -89,8 +95,10 @@ class TiledInference3D:
 
     def run(self, volume: np.ndarray, predict_fn: Callable, n_channels: int,
             device=None) -> np.ndarray:
-        """(D, H, W) volume -> (n_channels, D, H, W) float32 canvas."""
-        dev = resolve_device(device)
+        """(D, H, W) volume -> (n_channels, D, H, W) float32 canvas, on
+        ``device`` (the mesh's when there is one)."""
+        mesh = self.mesh
+        dev = mesh.device if mesh is not None else resolve_device(device)
         pz, py, px = self.padding
         cz, cy, cx = self.crop_size
         vol = torch.as_tensor(np.asarray(volume, np.float32)).to(dev)
@@ -104,12 +112,21 @@ class TiledInference3D:
         bs = self.batch_size
         for i0 in range(0, len(positions), bs):
             chunk = positions[i0:i0 + bs]
+            chunk = chunk[split_positions(len(chunk), mesh)]
+            if not chunk:  # this rank's part of a ragged last batch
+                continue
             tiles = torch.stack([volp[z:z + cz, y:y + cy, x:x + cx]
                                  for z, y, x in chunk])[:, None]
             affs = predict_fn(tiles)
             for a, (z, y, x) in zip(affs, chunk):
                 canvas[:, z:z + cz, y:y + cy, x:x + cx] += a * weight
                 wmap[z:z + cz, y:y + cy, x:x + cx] += weight
+        inner = (slice(pz, pshape[0] - pz), slice(py, pshape[1] - py),
+                 slice(px, pshape[2] - px))
+        if mesh is not None and mesh.size > 1:
+            # the interior of canvas and weight map, summed over the ranks at once
+            both = all_reduce_sum_(mesh, torch.cat([canvas[(slice(None),) + inner],
+                                                    wmap[inner][None]]))
+            return (both[:-1] / both[-1].clamp_(min=1e-12)).cpu().numpy()
         canvas /= wmap.clamp_(min=1e-12)
-        return canvas[:, pz:pshape[0] - pz, py:pshape[1] - py,
-                      px:pshape[2] - px].cpu().numpy()
+        return canvas[(slice(None),) + inner].cpu().numpy()

@@ -1,7 +1,10 @@
 """Training CLI, the port of the JAX package's root ``train.py``:
 
     python -m pixel_embedded_affinity_torch.train -c <preset | file.yaml> [-i ITERS] \
-        [-o key=value ...] [--device cuda|cpu]
+        [-o key=value ...] [--device cuda|cpu] [--distributed]
+
+    torchrun --nproc_per_node=N -m pixel_embedded_affinity_torch.train \
+        -c <preset> ... --distributed
 
 ``-c`` names a preset (cvppp, bbbc039v1, ac3ac4) or, when it is none, a
 YAML file applied over the defaults, as the JAX CLI reads it; ``-o``
@@ -11,7 +14,11 @@ applies dotted overrides after either. The run trains on ``--device``
 ``data_override``), writes the JAX package's msgpack checkpoints under
 ``<save_path>/<name>/`` and, with ``-o train.resume=True``, resumes from
 the latest one there, whichever package wrote it. ``--distributed``
-(multi-host data parallelism) is not ported.
+trains data-parallel, one process per card: it joins the process group
+that ``torchrun``'s environment describes (NCCL on ``cuda:LOCAL_RANK``,
+gloo with ``--device cpu``), or one the caller has initialised
+(:func:`..parallel.multihost.initialize`), and ``train.batch_size`` is
+the global batch (:func:`.loop.train`).
 """
 
 from __future__ import annotations
@@ -32,12 +39,9 @@ def main(argv=None, data_override=None):
                         help="dotted key=value overrides")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host data parallelism (not ported)")
+                        help="data parallelism over torch.distributed, one process per "
+                             "card (torchrun)")
     args = parser.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-host training (the JAX package's parallel/multihost.py) "
-            "is not ported (ROADMAP.md, Modules still to port, item 5)")
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -49,7 +53,20 @@ def main(argv=None, data_override=None):
         cfg = load_config(args.cfg, overrides=overrides)
     else:
         cfg = load_config(yaml_path=args.cfg, overrides=overrides)
-    return train(cfg, max_iters=args.iters, data_override=data_override, device=args.device)
+    if not args.distributed:
+        return train(cfg, max_iters=args.iters, data_override=data_override,
+                     device=args.device)
+    import torch.distributed as dist
+
+    from ..parallel.multihost import initialize
+
+    joined = dist.is_initialized()
+    mesh = initialize(args.device)
+    try:
+        return train(cfg, max_iters=args.iters, data_override=data_override, mesh=mesh)
+    finally:
+        if not joined:  # the group this call made ends with it
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

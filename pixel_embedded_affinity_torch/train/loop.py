@@ -49,6 +49,17 @@ W) int}`` (3D), with the targets and the EMA view that ``device_gt`` and
 indexable) of 2D samples (``CVPPPValidation``, ``BBBCValidation``), or a
 volume with ``raw`` (D, H, W) float32 in [0, 1] and ``label`` (D, H, W)
 int (:class:`..data.AC3AC4ValidVolume`).
+
+Data parallelism (``mesh``, world size N > 1; ``--distributed`` in the
+CLI): one process per card, ``train.batch_size`` the global batch, which
+must divide by N. Rank 0's parameters and buffers are broadcast at the
+start (after a resume too, which every rank reads). The device-resident
+sampler draws the global batch on every rank and the step trains on the
+rank's shard (:mod:`.train_step`), so N ranks train on the one-process
+run's batches. The host sampler draws ``batch_size / N`` samples a rank,
+its workers seeded per rank; the ranks' batches, gathered in rank order,
+are the global batch. Rank 0 alone validates, logs and writes checkpoints;
+the other ranks wait for it.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ import numpy as np
 import torch
 
 from ..config import Config, resolve_compute_dtype
-from ..data.provider import Provider, to_device
+from ..data.provider import Provider, device_prefetch
 from ..device import resolve_device
 from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
                        pixel_f1, remap_label, symmetric_best_dice, voi)
@@ -70,6 +81,7 @@ from ..models import ARCHS_2D, model_from_config
 from ..ops import multi_offset, relabel
 from ..ops.losses import CRITERIA, mask_head_loss
 from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
+from ..parallel.mesh import all_gather_batch, barrier, broadcast_module_
 from ..postproc import merge_func, remove_small_object, seg_mutex
 from ..utils.guards import LossWatchdog
 from ..utils.show import val_show
@@ -204,14 +216,14 @@ def resident_sampler(cfg: Config, arrays, device):
     return next_batch
 
 
-def make_train_step(cfg: Config):
+def make_train_step(cfg: Config, mesh=None):
     """The train step of a config, as :func:`train` runs it: 3D for the
     PNI arch, else 2D, with the config's loss, kernels (``use_pallas``),
     and targets and EMA view on the device or from the batch
-    (``data.device_gt``, ``data.device_ema``)."""
+    (``data.device_gt``, ``data.device_ema``), data-parallel on ``mesh``."""
     d, t = cfg.data, cfg.train
     ema_flags = dict(ema_seed=t.random_seed, ema_intensity=d.if_ema_intensity,
-                     ema_mask=d.if_ema_mask, ema_flip=d.if_ema_flip)
+                     ema_mask=d.if_ema_mask, ema_flip=d.if_ema_flip, mesh=mesh)
     if cfg.model.arch in ARCHS_3D:
         return TrainStep3D(criterion=CRITERIA[t.loss_func], affs0_weight=t.affs0_weight,
                            embedding_mode=t.embedding_mode, use_pallas=t.use_pallas,
@@ -354,18 +366,26 @@ class ScalarLogger:
 
 
 def train(cfg: Config, max_iters: int | None = None, data_override=None,
-          device=None, log_dir: str | None = None, timing: dict | None = None):
+          device=None, log_dir: str | None = None, timing: dict | None = None,
+          mesh=None):
     """Train; returns (state, history of validation results).
 
-    ``device``: CUDA unless "cpu" is asked for. ``timing``, when given,
-    receives per-step host seconds, ``data_s`` (batch wait and device copy,
+    ``device``: CUDA unless "cpu" is asked for. ``mesh``
+    (:mod:`..parallel.mesh`): train data-parallel over its ranks, on its
+    device (the module's docstring); the history is rank 0's. ``timing``,
+    when given, receives per-step host seconds, ``data_s`` (batch wait and device copy,
     or the device sampler's launches) and ``step_s`` (the step, synchronised
     after it: timing costs the overlap of one step's host work with the
     previous step's kernels), ``valid_s``, the seconds of each validation,
     and ``lr``, the rate of each step.
     """
     check_train_config(cfg)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    n_ranks = 1 if mesh is None else mesh.size
+    if cfg.train.batch_size % n_ranks:
+        raise ValueError(f"train.batch_size={cfg.train.batch_size} does not divide over "
+                         f"{n_ranks} ranks: the global batch is split in equal shards")
+    writer = mesh is None or mesh.rank == 0
     is_3d = cfg.model.arch in ARCHS_3D
     resident = uses_resident_sampler(cfg)
     if cfg.data.device_resident and not resident:
@@ -394,8 +414,10 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
             # an optimizer state that does not fit the chain: a warning, a fresh one
             restore(state, load_checkpoint(ck))
             log.info("resumed from %s", ck)
+    if mesh is not None:
+        broadcast_module_(mesh, state.model)
 
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, mesh)
     if is_3d:
         def validate(it):
             return validate_3d(cfg, state, valid_ds, dev)
@@ -412,12 +434,15 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
         provider = None
         next_batch = resident_sampler(cfg, train_ds, dev)
     else:
-        provider = Provider(train_ds, batch_size=cfg.train.batch_size,
-                            num_workers=cfg.train.num_workers, seed=cfg.train.random_seed)
+        provider = Provider(train_ds, batch_size=cfg.train.batch_size // n_ranks,
+                            num_workers=cfg.train.num_workers, seed=cfg.train.random_seed,
+                            rank=0 if mesh is None else mesh.rank)
+        batches = device_prefetch(iter(provider.next, None), device=dev)
 
         def next_batch(step: int) -> dict:
-            return to_device(provider.next(), dev)
-    logger = ScalarLogger(log_dir or os.path.join(save_path, "log"))
+            batch = next(batches)
+            return batch if mesh is None else all_gather_batch(mesh, batch)
+    logger = ScalarLogger(log_dir or os.path.join(save_path, "log")) if writer else None
     watchdog = LossWatchdog(save_dir=save_path)
     history: list = []
     pending: list = []
@@ -459,24 +484,32 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
                 drain()
                 dt = time.time() - t_start
                 avg = sum_loss / (display_freq if it > 1 else max(it, 1))
-                log.info("step %d, loss=%.6f (%.2f s)", it, avg, dt)
-                logger.add(it, loss=avg, lr=lr, sec_per_iter=dt / max(it, 1))
+                if writer:
+                    log.info("step %d, loss=%.6f (%.2f s)", it, avg, dt)
+                    logger.add(it, loss=avg, lr=lr, sec_per_iter=dt / max(it, 1))
                 sum_loss = 0.0
             if cfg.train.if_valid and _has_valid(valid_ds) and it % valid_freq == 0 and it > 1:
                 drain()
-                t0 = time.perf_counter()
-                m = validate(it)
-                if timing is not None:
-                    timing.setdefault("valid_s", []).append(time.perf_counter() - t0)
-                log.info("valid @%d: %s", it, m)
-                logger.add(it, **m)
-                history.append({"step": it, **m})
+                if writer:
+                    t0 = time.perf_counter()
+                    m = validate(it)
+                    if timing is not None:
+                        timing.setdefault("valid_s", []).append(time.perf_counter() - t0)
+                    log.info("valid @%d: %s", it, m)
+                    logger.add(it, **m)
+                    history.append({"step": it, **m})
+                if mesh is not None:
+                    barrier(mesh)
             if (it % save_freq == 0 and it > 1) or it >= total_iters:
                 drain()
-                save_checkpoint(save_path, state, it)
+                if writer:
+                    save_checkpoint(save_path, state, it)
+                if mesh is not None:
+                    barrier(mesh)
         drain()
     finally:
         if provider is not None:
             provider.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state, history

@@ -36,6 +36,18 @@ x) against the pyramid levels 4..1; backward; AMSGrad. The JAX model
 rematerialises its blocks to fit a TPU's memory; with the teacher under
 ``no_grad`` only the student's activations are held, and the port keeps
 them.
+
+Data parallelism (``mesh``, :mod:`..parallel.mesh`, world size N > 1): every
+rank calls the step with the same global batch; the step draws the EMA view
+of the whole batch from (seed, step), so the views are the one-process
+step's, and trains on its rank's contiguous shard. The model's BatchNorms
+take the global batch's statistics (:func:`..models.common.bind_mesh`), the
+mask head's loss its global counts, and after the backward one all-reduce
+of one flat buffer takes the mean over the ranks of the gradients and the
+metrics; every other loss term is normalised by its batch size times a
+shape, so the mean of the shards' terms is the global batch's. Each rank's
+optimizer then takes the same step, and the parameters stay equal across
+the ranks. At world size 1 nothing of this runs.
 """
 
 from __future__ import annotations
@@ -49,10 +61,12 @@ from ..data.ac3ac4 import convert_consistency_flip_3d_rule4
 from ..data.consistency import convert_consistency_flip, imagenet_stats
 from ..data.device_aug import ema_generator, ema_view_2d, ema_view_3d
 from ..device import deterministic_convs, float32_convs
+from ..models.common import bind_mesh
 from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
                           embedding_loss_norm5, mask_head_loss, weighted_mse)
 from ..ops.losses_extra import discriminative_loss
 from ..ops.targets import build_targets_2d, build_targets_3d
+from ..parallel.mesh import all_reduce_mean_, shard_batch
 
 
 @dataclass
@@ -92,6 +106,35 @@ def batch_targets_3d(batch: dict):
     return batch["affs"].float(), batch["wmap"].float(), downs
 
 
+class _DataParallel:
+    """What the 2D and 3D steps share on a data-parallel ``mesh``."""
+
+    mesh = None
+
+    def _backward(self, model, loss, metrics):
+        """``loss.backward()``, then on a mesh the mean over the ranks of the
+        gradients (parameters without one stay skipped) and of the metrics,
+        in one all-reduce."""
+        loss.backward()
+        if self.mesh is not None:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            all_reduce_mean_(self.mesh, grads + list(metrics.values()))
+
+    def __call__(self, state: TrainState, batch: dict):
+        if self.device_ema:
+            batch = self.ema_batch(batch, state.step)
+        pred, metrics = self.grads(state.model, shard_batch(batch, self.mesh))
+        state.optimizer.step()
+        state.step += 1
+        return pred, metrics
+
+    def _train_mode(self, model):
+        if self.mesh is not None:
+            bind_mesh(model, self.mesh)
+        model.train()
+        model.zero_grad(set_to_none=True)
+
+
 def _nchw(image_bhwc: torch.Tensor) -> torch.Tensor:
     return image_bhwc.permute(0, 3, 1, 2).contiguous()
 
@@ -100,7 +143,7 @@ def _bhwc(x_nchw: torch.Tensor) -> torch.Tensor:
     return x_nchw.permute(0, 2, 3, 1)
 
 
-class TrainStep2D:
+class TrainStep2D(_DataParallel):
     """``step(state, batch) -> (pred, metrics)`` updates ``state`` in place.
 
     ``batch``: tensors on one device, ``image`` (B, H, W, 3), ImageNet-
@@ -120,6 +163,7 @@ class TrainStep2D:
     ``mask_weight * mask_head_loss`` of the mask head against ``seg > 0``,
     and ``loss_mode="discriminative"`` adds ``disc_weight *
     discriminative_loss`` of the full-scale embedding against ``seg``.
+    ``mesh``: train data-parallel on it (the module's docstring).
     """
 
     def __init__(self, offsets, *, neighbor: int = 4, criterion=weighted_mse,
@@ -130,7 +174,8 @@ class TrainStep2D:
                  device_gt: bool = True, device_ema: bool = True, ema_seed: int = 0,
                  ema_noise: bool = False, ema_blur: bool = False,
                  ema_intensity: bool = True, ema_mask: bool = True,
-                 ema_flip: bool = True):
+                 ema_flip: bool = True, mesh=None):
+        self.mesh = mesh
         self.offsets = [tuple(map(int, o)) for o in offsets]
         self.neighbor = neighbor
         self.criterion = criterion
@@ -198,7 +243,7 @@ class TrainStep2D:
             loss = loss + self.disc_weight * ld
             metrics["loss_disc"] = ld.detach()
         if self.mask_weight:
-            lm = mask_head_loss(_bhwc(outs[5]), batch["seg"] > 0)
+            lm = mask_head_loss(_bhwc(outs[5]), batch["seg"] > 0, mesh=self.mesh)
             loss = loss + self.mask_weight * lm
             metrics["loss_mask"] = lm.detach()
         if self.ct_weight:
@@ -210,20 +255,12 @@ class TrainStep2D:
 
     def grads(self, model, batch: dict):
         """Forward and backward in train mode; the gradients land in
-        ``.grad``. Returns (pred, metrics)."""
-        model.train()
-        model.zero_grad(set_to_none=True)
+        ``.grad``, on a mesh their mean over the ranks. Returns (pred,
+        metrics)."""
+        self._train_mode(model)
         with float32_convs():
             loss, pred, metrics = self.loss(model, batch)
-            loss.backward()
-        return pred, metrics
-
-    def __call__(self, state: TrainState, batch: dict):
-        if self.device_ema:
-            batch = self.ema_batch(batch, state.step)
-        pred, metrics = self.grads(state.model, batch)
-        state.optimizer.step()
-        state.step += 1
+            self._backward(model, loss, metrics)
         return pred, metrics
 
 
@@ -243,7 +280,7 @@ def _bdhwc(x_ncdhw: torch.Tensor) -> torch.Tensor:
     return x_ncdhw.permute(0, 2, 3, 4, 1)
 
 
-class TrainStep3D:
+class TrainStep3D(_DataParallel):
     """``step(state, batch) -> (pred, metrics)`` updates ``state`` in place.
 
     ``batch``: tensors on one device, ``image`` (B, D, H, W, 1) in [0, 1],
@@ -253,12 +290,14 @@ class TrainStep3D:
     ``pred`` is relu of the full-scale self affinities (B, K, D, H, W) after
     the boundary fill; ``metrics`` holds 0-d tensors (loss, loss_embedding,
     loss_cross, loss_deep). ``use_pallas=False`` is the plain path.
+    ``mesh``: train data-parallel on it (the module's docstring).
     """
 
     def __init__(self, *, criterion=weighted_mse, affs0_weight: float = 1.0,
                  embedding_mode: int = 5, use_pallas: bool = True, device_gt: bool = True,
                  device_ema: bool = True, ema_seed: int = 0, ema_intensity: bool = True,
-                 ema_mask: bool = True, ema_flip: bool = True):
+                 ema_mask: bool = True, ema_flip: bool = True, mesh=None):
+        self.mesh = mesh
         self.criterion, self.affs0_weight = criterion, affs0_weight
         self.embedding_mode = embedding_mode
         self.use_pallas = use_pallas
@@ -314,20 +353,12 @@ class TrainStep3D:
         algorithms here: with them and the upsampling's gather backward
         (:mod:`..ops.upsample_cuda`) a step gives the same bits on every run
         on the card, and on the H100 they cost the 3D step nothing
-        (``PERF.md``, ``tools/step_determinism.py``)."""
-        model.train()
-        model.zero_grad(set_to_none=True)
+        (``PERF.md``, ``tools/step_determinism.py``). On a mesh the
+        gradients are their mean over the ranks."""
+        self._train_mode(model)
         with float32_convs(), deterministic_convs():
             loss, pred, metrics = self.loss(model, batch)
-            loss.backward()
-        return pred, metrics
-
-    def __call__(self, state: TrainState, batch: dict):
-        if self.device_ema:
-            batch = self.ema_batch(batch, state.step)
-        pred, metrics = self.grads(state.model, batch)
-        state.optimizer.step()
-        state.step += 1
+            self._backward(model, loss, metrics)
         return pred, metrics
 
 

@@ -43,14 +43,11 @@ COUNTERPARTS = {
 
 # JAX name -> the item of ROADMAP.md §1 ("Modules still to port") that holds it
 STILL_TO_PORT = {
-    **{n: 5 for n in ("get_mesh", "batch_sharding", "replicated_sharding")},  # parallel/mesh.py
-    **{n: 5 for n in ("is_multiprocess", "global_batch", "to_global")},  # parallel/multihost.py
     **{n: 5 for n in ("act_scale_from_absmax", "quantize_act", "quantize_weights_per_cout",
                       "conv_i8", "calibrate_int8_ranges")},  # ops/quant.py, int8 serving
     **{n: 5 for n in ("make_serving_fn_2d", "make_serving_fn_3d", "export_serving",
                       "export_checkpoint", "save_artifact", "load_artifact")},  # infer/export.py
     **{n: 5 for n in ("save_checkpoint_orbax", "load_checkpoint_orbax")},  # orbax checkpoints
-    "device_prefetch": 5,  # the host sampler's double-buffered copy to the device
     # the layout twins (models/resunet2d_s2d.py, models/unet3d_pni_s2d.py)
     **{n: 6 for n in ("S2DConv", "ResidualBlockS2D", "ResidualUNet2DDeepS2D", "S2DConv3D",
                       "MergeBNELUS2D", "ResBlockPNIS2D", "UpsampleConvS2D",

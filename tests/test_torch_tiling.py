@@ -1,9 +1,10 @@
 """The port's tiled engine against the JAX package's ``TiledInference3D``
-on the CPU: ``run`` against JAX's ``run``, its batches, and the refusal of
-a mesh. A content-dependent predictor (each output channel a different
-function of the voxel, one of them mirrored in x) goes through both engines
-on the same seeded volume, at the geometries of the JAX package's own tests
-(tests/test_tiling.py), regular and clamped grids alike.
+on the CPU: ``run`` against JAX's ``run`` and its batches (a mesh: in
+tests/test_torch_parallel.py). A content-dependent predictor (each output
+channel a different function of the voxel, one of them mirrored in x) goes
+through both engines on the same seeded volume, at the geometries of the
+JAX package's own tests (tests/test_tiling.py), regular and clamped grids
+alike.
 """
 
 import os
@@ -78,8 +79,3 @@ def test_run_predicts_each_tile_once():
 
     TiledInference3D(**kw).run(_volume(shape), predict, 3, device="cpu")
     assert batches == [4] * 6 + [3]
-
-
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TiledInference3D(mesh=object())

@@ -8,8 +8,8 @@ on a folder the JAX package's ``synthesize`` wrote (cv2 reads it here),
 from the host sampler with host-built targets and EMA views, at a poly
 schedule from a YAML file; writes a msgpack checkpoint; and a second run
 with ``train.resume=True`` resumes from it and validates. ``--device``
-defaults to CUDA, which raises without a card, and ``--distributed``
-raises as not ported.
+defaults to CUDA, which raises without a card (``--distributed`` is
+tested in tests/test_torch_parallel.py).
 """
 
 import dataclasses
@@ -157,8 +157,3 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
         TiledInference3D().run(vol, lambda t: t, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(load_config("cvppp_resnet101"))
-
-
-def test_cli_distributed_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(["-c", "cvppp", "--distributed", "--device", "cpu"])
