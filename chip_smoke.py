@@ -244,13 +244,32 @@ Phases, each of which exits nonzero when it fails:
      the device sampler, its losses and parameters bit-equal to the run
      without --distributed and its checkpoint written once; where the host
      has two cards, the cvppp step on NCCL over both;
- 25. one JSON line listing each kernel: launches (phase 21's also apart,
+ 25. int8 serving, serving artifacts, DCP checkpoints:
+     I8c and I8q (csrc/conv_i8.cu, no TPU site) at every call of the
+     full-width cvppp int8 fast forward (INT8_DEFAULT_SITES; B=1 and B=4,
+     float32 and bfloat16 compute) against their plain versions, the int32
+     accumulators exact and the outputs and codes equal to the bit; the
+     B=1 forward's calls timed by CUDA graph replay, L2 flushed, beside
+     their bounds (int8 at 1,979 TOPS against bytes), the plain versions
+     and cuDNN's bf16 and float32 convs and torch._int_mm on the im2col
+     (yardsticks the port never calls); run_inference_2d with
+     model.int8_infer at B=1 and B=4, each kernel's count set to 0 just
+     before and read just after, the int8 embedding and affinities against
+     float32's at JAX's bars (cosine > 0.99, max < 0.05, mean < 0.005), ms
+     per image beside the float32 and bf16 fast forwards; the percentile
+     calibration (INT8_CALIB_PCT) on 8 full-width images, each site's
+     kthvalue quantile against a float64 sort within QUANTILE_RTOL; the
+     544x544 serving artifact exported on the card (torch.export), loaded
+     and run at B=1 and B=4 within EXPORT_ATOL of the serving path, its
+     bytes and times; the full-width CVPPP train state through
+     save_checkpoint_dcp and back, bit for bit;
+ 26. one JSON line listing each kernel: launches (phase 21's also apart,
      cli_launches, and phase 24's, dp_launches), error, times, bound, and
      how the times were taken (CUDA graph replay; for the affinity kernels
      CUDA events around the eager call beside; K2f/K2b/K3f/K3b with their
-     bfloat16 forms' bf16_* fields and launches), the upsampling backward
-     last;
- 26. the last line: {"ok": true, "device": {...}}.
+     bfloat16 forms' bf16_* fields and launches), the upsampling backward,
+     then I8c and I8q;
+ 27. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -512,13 +531,13 @@ def synthetic_leaves(n: int, h: int, w: int, seed: int):
 def phase_build() -> float:
     from pixel_embedded_affinity_torch import cuda_build
     from pixel_embedded_affinity_torch.ops import (
-        conv3x3_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda, s2d_block_cuda,
-        tile_copy_cuda, upsample_cuda)
+        conv3x3_cuda, conv_i8_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda,
+        s2d_block_cuda, tile_copy_cuda, upsample_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
     sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE,
                emb2aff3d_cuda.GRAD_SOURCE, conv3x3_cuda.SOURCE, s2d_block_cuda.SOURCE,
-               tile_copy_cuda.SOURCE, upsample_cuda.SOURCE]
+               tile_copy_cuda.SOURCE, upsample_cuda.SOURCE, conv_i8_cuda.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -3320,8 +3339,9 @@ def gate_config(name: str, save_path: str, steps: int | None = None, filters=Non
                          "padding_3d": 8},
                 "model": {"filters": filters or GATE_FILTERS_3D}}
     else:
+        # s2d_train as the JAX gate sets it (the port reads it nowhere)
         over = {"train": {**train, "batch_size": 8}, "data": {"size": 128},
-                "model": {"filters": filters or GATE_FILTERS_2D}}
+                "model": {"filters": filters or GATE_FILTERS_2D, "s2d_train": False}}
     if dtype:
         over["model"]["dtype"] = dtype
     return load_config(name, {**over, "save_path": save_path})
@@ -5319,6 +5339,431 @@ def phase_data_parallel(crop, bbbc_arrays) -> dict:
     return launches
 
 
+# ---- 25. int8 serving, serving artifacts, DCP checkpoints
+
+I8C_SOURCE = "pixel_embedded_affinity_torch/csrc/conv_i8.cu"
+I8C_REPLACES = ("none: no TPU site; the JAX package's int8 conv is an XLA conv "
+                "(pixel_embedded_affinity_tpu/ops/quant.py:51 conv_i8)")
+I8Q_REPLACES = ("none: no TPU site; the JAX package's activation quantizer is a jnp "
+                "expression (pixel_embedded_affinity_tpu/ops/quant.py:45 quantize_act)")
+INT8_OPS_PER_S = H100_PEAKS["int8"]
+# tests/test_int8_quant.py's bars of the int8 forward against float32
+INT8_COS_MIN, INT8_AFF_MAX, INT8_AFF_MEAN = 0.99, 0.05, 0.005
+# the percentile of serving's calibration check (model.int8_calib_pct), and
+# the hold of each site's statistic against a float64 sort: both pick the
+# same order statistics, so only the float32 interpolation may differ
+INT8_CALIB_PCT = 0.999
+QUANTILE_RTOL = 1e-6
+EXPORT_ATOL = 1e-5
+
+
+class _Recorder:
+    """Wraps fast_forward's conv_i8 and quantize_act: each call's arguments
+    and output, in order, while the wrappers still launch the kernels."""
+
+    def __init__(self):
+        from pixel_embedded_affinity_torch.models import fast_forward
+
+        self.ff, self.convs, self.quants = fast_forward, [], []
+        self.real = (fast_forward.conv_i8, fast_forward.quantize_act)
+
+    def __enter__(self):
+        conv, quant = self.real
+
+        def conv_rec(x_q, w, out_scale, shift=None, padding=(1, 1, 1, 1)):
+            out = conv(x_q, w, out_scale, shift, padding=padding)
+            self.convs.append((x_q, w, out_scale, shift, tuple(padding), out))
+            return out
+
+        def quant_rec(x, scale):
+            out = quant(x, scale)
+            self.quants.append((x, scale, out))
+            return out
+
+        self.ff.conv_i8, self.ff.quantize_act = conv_rec, quant_rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ff.conv_i8, self.ff.quantize_act = self.real
+
+
+def i8c_bound(x_q, w, padding) -> tuple:
+    """The two least times of one I8c call (its bound is the larger): x read
+    once, the int8 weights once, the float32 output written once (and the
+    scale/shift), and 2 operations a multiply-add at the int8 tensor cores'
+    rate."""
+    b, h, wd, cin = x_q.shape
+    pt, pb, pl, pr = padding
+    n_out = b * (h + pt + pb - w.kh + 1) * (wd + pl + pr - w.kw + 1)
+    nbytes = x_q.numel() + w.packed.numel() + n_out * w.cout * 4 + 8 * w.cout
+    ops = 2 * n_out * w.cout * w.packed.shape[1]
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+
+
+def _i8_library(x_q, w, padding):
+    """The yardsticks of one I8c call, none of which the port calls: cuDNN's
+    F.conv2d of the same shape in bfloat16 and in float32 (TF32 off), and
+    torch._int_mm on its im2col matrix (built outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+
+    pt, pb, pl, pr = padding
+    w4 = w.packed.reshape(w.cout, w.kh, w.kw, w.cin).permute(0, 3, 1, 2)
+    xc = F.pad(x_q.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb))
+    x16, w16 = xc.bfloat16().contiguous(memory_format=torch.channels_last), w4.bfloat16()
+    x32, w32 = xc.contiguous(memory_format=torch.channels_last), w4.float()
+    cols = F.unfold(xc, (w.kh, w.kw)).transpose(1, 2).reshape(-1, w.cin * w.kh * w.kw)
+    a = cols.to(torch.int8).contiguous()
+    bmat = w4.reshape(w.cout, -1).t().contiguous()
+
+    def f32():
+        with float32_convs():
+            return F.conv2d(x32, w32)
+
+    return {"cudnn_bf16": lambda: F.conv2d(x16, w16), "cudnn_f32": f32,
+            "int_mm_im2col": lambda: torch._int_mm(a, bmat)}
+
+
+def _graph_ms_or_none(fn, flush: int):
+    """graph_ms, or None (printed) where the call is refused on this card."""
+    try:
+        return graph_ms(fn, flush_bytes=flush)
+    except RuntimeError as e:
+        print(f"[int8] yardstick refused: {str(e).splitlines()[0][:200]}")
+        return None
+
+
+def phase_int8_kernels(cfg, sd, samples) -> dict:
+    """I8c and I8q on the card against their plain versions at the real
+    shapes: every conv_i8 and quantize_act call of the int8 fast forward
+    (INT8_DEFAULT_SITES, the served s2d input and full-resolution head) of
+    the full-width cvppp model at B=1 and B=4, float32 and bfloat16
+    compute; the int32 accumulators exact, the outputs equal to the bit.
+    Then each call of the B=1 float32 forward timed by CUDA graph replay,
+    L2 flushed, beside its bound, the plain version and the yardsticks."""
+    import torch
+
+    from pixel_embedded_affinity_torch.infer import build_model
+    from pixel_embedded_affinity_torch.models import (INT8_DEFAULT_SITES,
+                                                      build_fast_resunet_forward,
+                                                      calibrate_int8_ranges, pack_image_s2d)
+    from pixel_embedded_affinity_torch.ops import conv_i8_cuda as c8
+
+    sd = bn_stats_sd(sd, SEED + 25)
+    packed = torch.from_numpy(pack_image_s2d(np.stack([s["image"] for s in samples]))).cuda()
+    recorded = {}
+    n_sites = len(INT8_DEFAULT_SITES)
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(cfg, sd, device="cuda", dtype=dtype)
+        kw = dict(dtype=model.compute_dtype, input_format="s2d")
+        ranges = calibrate_int8_ranges(model, [packed], **kw)
+        fwd = build_fast_resunet_forward(model, head_at_fullres=True, int8_sites=INT8_DEFAULT_SITES,
+                                         act_ranges=ranges, **kw)
+        for bs in (1, 4):
+            with _Recorder() as rec:
+                fwd(packed[:bs])
+            torch.cuda.synchronize()
+            for x_q, w, sc, sh, pad, out in rec.convs:
+                acc = c8.conv_i8_acc(x_q, w, pad)
+                check(torch.equal(acc, c8.conv_i8_acc_plain(x_q, w, pad)),
+                      f"I8c {dtype} B={bs} {tuple(x_q.shape)} -> {w.cout}: accumulators differ")
+                ref = c8.conv_i8_plain(x_q, w, sc, sh, pad)
+                check(torch.equal(out, ref), f"I8c {dtype} B={bs} {tuple(x_q.shape)}: output "
+                      f"off the plain version by {(out - ref).abs().max().item()}")
+            for x, scale, out in rec.quants:
+                check(torch.equal(out, c8.quantize_act_plain(x, scale)),
+                      f"I8q {dtype} B={bs} {tuple(x.shape)} {x.dtype}: codes differ")
+            in_types = sorted({str(x.dtype) for x, _, _ in rec.quants})
+            print(f"[int8] {dtype} B={bs}: {len(rec.convs)} I8c calls and {len(rec.quants)} I8q "
+                  f"calls ({in_types} in) at the {n_sites} sites; accumulators exact, outputs "
+                  f"and codes equal to the bit")
+            check(len(rec.convs) == 23 and len(rec.quants) == 18,
+                  f"{len(rec.convs)} I8c, {len(rec.quants)} I8q calls, expected 23 and 18")
+            recorded[(dtype, bs)] = rec
+    # the B=1 float32 forward's calls, timed
+    flush = 64 << 20
+    rows, tot, split = [], {}, {"bytes": 0.0, "operations": 0.0}
+    card = card_line()
+    for x_q, w, sc, sh, pad, _ in recorded[("float32", 1)].convs:
+        t_bytes, t_ops = i8c_bound(x_q, w, pad)
+        split["bytes"] += t_bytes
+        split["operations"] += t_ops
+        b_ms, b_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        fns = {"ms": lambda: c8.conv_i8(x_q, w, sc, sh, pad),
+               "plain_ms": lambda: c8.conv_i8_plain(x_q, w, sc, sh, pad),
+               **{f"{k}_ms": f for k, f in _i8_library(x_q, w, pad).items()}}
+        r = {k: (graph_ms(f, flush_bytes=flush) if k in ("ms", "plain_ms")
+                 else _graph_ms_or_none(f, flush)) for k, f in fns.items()}
+        r.update(bound_ms=b_ms, bound_by=b_by, shape=list(x_q.shape), cout=w.cout,
+                 taps=[w.kh, w.kw], padding=list(pad))
+        rows.append(r)
+        for k in ("ms", "plain_ms", "cudnn_bf16_ms", "cudnn_f32_ms", "int_mm_im2col_ms",
+                  "bound_ms"):
+            tot[k] = None if r[k] is None or tot.get(k, 0.0) is None else tot.get(k, 0.0) + r[k]
+        print(f"[int8] I8c {tuple(x_q.shape)} {w.kh}x{w.kw} -> {w.cout} pad {pad}: "
+              + json.dumps({k: v for k, v in r.items() if k.endswith("ms")})
+              + f" ({b_by}), {card}")
+    qtot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for x, scale, _ in recorded[("float32", 1)].quants:
+        xq = x.contiguous()
+        q = {"ms": graph_ms(lambda: c8.quantize_act(xq, scale), flush_bytes=flush),
+             "plain_ms": graph_ms(lambda: c8.quantize_act_plain(xq, scale), flush_bytes=flush),
+             "bound_ms": xq.numel() * (xq.element_size() + 1) / HBM_BYTES_PER_S * 1e3}
+        for k in qtot:
+            qtot[k] += q[k]
+    # the summed bound is labelled by the larger of its two sums; the calls
+    # bound each way are counted beside it
+    by_rows = {k: sum(r["bound_by"] == k for r in rows) for k in split}
+    print(f"[int8] one B=1 float32 int8 forward's 23 I8c calls, summed (ms by CUDA graph "
+          f"replay, L2 flushed): {json.dumps(tot)}; the bound's sums by bytes and by "
+          f"operations {json.dumps(split)}, calls bound each way {json.dumps(by_rows)}; its 18 "
+          f"I8q calls: {json.dumps(qtot)}, {card}")
+    return {"I8c": {"max_abs_err": 0.0, **tot,
+                    "bound_by": max(split, key=split.get), "bound_by_calls": by_rows,
+                    "rows": rows},
+            "I8q": {"max_abs_err": 0.0, **qtot, "bound_by": "bytes"}}
+
+
+def phase_int8_serving(cfg, sd, samples) -> dict:
+    """CVPPP int8 serving (model.int8_infer through use_fast) at full width,
+    B=1 and B=4, with I8c's and I8q's counts set to 0 just before each run
+    and read just after; the forward+affinity device ms/img of the int8,
+    float32 and bfloat16 fast forwards; the int8 embedding's cosine and
+    affinities against float32's at JAX's bars; the metrics beside
+    float32's. Returns the launches."""
+    import torch
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.infer import build_model, fast_affinities, run_inference_2d
+    from pixel_embedded_affinity_torch.models import (INT8_DEFAULT_SITES,
+                                                      build_fast_resunet_forward,
+                                                      calibrate_int8_ranges, pack_image_s2d)
+    from pixel_embedded_affinity_torch.ops import conv_i8_cuda as c8
+    from pixel_embedded_affinity_torch.ops import multi_offset
+
+    cfg8 = copy.deepcopy(cfg)
+    cfg8.model.int8_infer = True
+    launches = {"I8c": 0, "I8q": 0}
+    for bs in (1, 4):
+        c8.conv_i8.launches = c8.quantize_act.launches = 0
+        timing: dict = {}
+        _, agg = run_inference_2d(cfg8, sd, samples, timing=timing, batch_size=bs, device="cuda",
+                                  use_fast=True)
+        n = {"I8c": c8.conv_i8.launches, "I8q": c8.quantize_act.launches}
+        _, ref = run_inference_2d(cfg, sd, samples, batch_size=bs, device="cuda", use_fast=True)
+        batches = -(-len(samples) // bs)
+        check(n == {"I8c": 23 * batches, "I8q": 18 * batches},
+              f"int8 serving B={bs}: launches {n}, {batches} batches")
+        for k in launches:
+            launches[k] += n[k]
+        print(f"[int8] serving B={bs} (int8_infer, use_fast): metrics {json.dumps(agg)}; float32 "
+              f"fast forward {json.dumps(ref)}; launches {json.dumps(n)}; ms/img wall "
+              f"{timing['total_s'] / len(samples) * 1e3:.4f} (setup with calibration "
+              f"{timing['setup_s'] * 1e3:.4f} ms a run)")
+        check(all(np.isfinite(v) for v in agg.values()), "int8 serving metrics")
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    packed = torch.from_numpy(pack_image_s2d(np.stack([s["image"] for s in samples]))).cuda()
+    fwds = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(cfg, sd, device="cuda", dtype=dtype)
+        kw = dict(dtype=model.compute_dtype, input_format="s2d", head_at_fullres=True)
+        fwds[dtype] = build_fast_resunet_forward(model, **kw)
+        if dtype == "float32":
+            ranges = calibrate_int8_ranges(model, [packed], dtype=model.compute_dtype,
+                                           input_format="s2d")
+            fwds["int8"] = build_fast_resunet_forward(model, int8_sites=INT8_DEFAULT_SITES,
+                                                      act_ranges=ranges, **kw)
+    with torch.no_grad(), float32_convs():
+        e32, _ = fwds["float32"](packed)
+        e8, _ = fwds["int8"](packed)
+        a32 = fast_affinities(fwds["float32"], packed, offsets)
+        a8 = fast_affinities(fwds["int8"], packed, offsets)
+    n32 = torch.nn.functional.normalize(e32.double(), dim=-1)
+    n8 = torch.nn.functional.normalize(e8.double(), dim=-1)
+    cos = (n32 * n8).sum(-1)
+    d = (a8 - a32).abs()
+    quality = {"cos_min": cos.min().item(), "cos_mean": cos.mean().item(),
+               "aff_max": d.max().item(), "aff_mean": d.mean().item()}
+    print(f"[int8] int8 against the float32 fast forward, 4 images: {json.dumps(quality)} "
+          f"(bars: cos > {INT8_COS_MIN}, max < {INT8_AFF_MAX}, mean < {INT8_AFF_MEAN})")
+    check(quality["cos_min"] > INT8_COS_MIN and quality["aff_max"] < INT8_AFF_MAX
+          and quality["aff_mean"] < INT8_AFF_MEAN, f"int8 off float32: {quality}")
+    # ms/img of each forward + affinity: CUDA events around the eager call
+    # (the host's launch gaps included) and CUDA graph replay (device time)
+    times, graphed = {}, {}
+    for bs in (1, 4):
+        pb = packed[:bs]
+        with torch.no_grad(), float32_convs():
+            times[bs] = {k: timed_ms(lambda f=f: fast_affinities(f, pb, offsets)) / bs
+                         for k, f in fwds.items()}
+            graphed[bs] = {k: _graph_ms_or_none(lambda f=f: fast_affinities(f, pb, offsets), 0)
+                           for k, f in fwds.items()}
+        graphed[bs] = {k: None if v is None else v / bs for k, v in graphed[bs].items()}
+    print(f"[int8] fast forward + affinity, ms/img by CUDA events around the eager call "
+          f"(warm median of 20, host launch gaps included): {json.dumps(times)}; by CUDA "
+          f"graph replay (median of 20, device time): {json.dumps(graphed)}, {card_line()}")
+    return {"launches": launches, "quality": quality, "times": times, "graphed": graphed}
+
+
+def phase_export(cfg, sd, samples) -> dict:
+    """The serving artifact on the card: export_checkpoint at 544x544 on
+    cuda (the plain affinity and upsampling inside), load_artifact, batches
+    1 and 4 against the serving path's affinities (the dense module and
+    K1f) at EXPORT_ATOL; the artifact's bytes and times."""
+    import torch
+
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.infer import (build_model, export_checkpoint,
+                                                     forward_affinities, load_artifact)
+    from pixel_embedded_affinity_torch.ops import multi_offset
+
+    out = os.path.join(REPO, "build", "chip_smoke_export")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    path = os.path.join(out, "cvppp.pt2")
+    hw = samples[0]["image"].shape[:2]
+    t0 = time.perf_counter()
+    export_checkpoint(cfg, sd, path, hw=hw, device="cuda")
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = load_artifact(path).module()
+    t_load = time.perf_counter() - t0
+    model = build_model(cfg, sd, device="cuda")
+    offsets = multi_offset(cfg.data.shifts, cfg.data.neighbor)
+    x = torch.from_numpy(np.stack([s["image"] for s in samples])).cuda()
+    res = {"bytes": os.path.getsize(path), "export_s": t_export, "load_s": t_load}
+    for bs in (1, 4):
+        with torch.no_grad(), float32_convs():
+            (got,) = program(x[:bs])
+            want = forward_affinities(model, x[:bs].permute(0, 3, 1, 2).contiguous(), offsets)
+            err = (got - want).abs().max().item()
+            res[f"B{bs}_err"] = err
+            res[f"B{bs}_ms"] = timed_ms(lambda: program(x[:bs])) / bs
+        check(got.shape == want.shape and err <= EXPORT_ATOL,
+              f"artifact at B={bs}: {tuple(got.shape)}, {err} off the serving path")
+    print(f"[export] {json.dumps(res)} (ms/img by CUDA events, float32, TF32 off), {card_line()}")
+    return res
+
+
+def phase_dcp() -> dict:
+    """The full-width CVPPP train state after one step saved with
+    save_checkpoint_dcp and read back: the tree bit-equal to the state's,
+    a restored state bit-equal; bytes and seconds."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.convert import train_state_to_flax
+    from pixel_embedded_affinity_torch.train import (init_state, load_checkpoint_dcp, restore,
+                                                     save_checkpoint_dcp)
+
+    cfg = load_config("cvppp")
+    state = init_state(cfg, "cuda")
+    x = torch.randn(2, 3, 544, 544, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    sum(o.float().square().mean() for o in state.model(x)).backward()
+    state.optimizer.step()
+    state.step = 1
+    out = os.path.join(REPO, "build", "chip_smoke_dcp")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    target = save_checkpoint_dcp(out, state, 1)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = load_checkpoint_dcp(target)
+    t_load = time.perf_counter() - t0
+    want = train_state_to_flax(state.model, state.optimizer, 1)
+    got_items, want_items = dict(tree_items(tree)), dict(tree_items(want))
+    check(got_items.keys() == want_items.keys(), "DCP tree keys")
+    check(all(np.asarray(got_items[k]).dtype == np.asarray(v).dtype
+              and np.array_equal(got_items[k], v) for k, v in want_items.items()),
+          "DCP round trip is not bit-equal")
+    fresh = init_state(load_config("cvppp", {"train": {"random_seed": 7}}), "cuda")
+    restore(fresh, tree)
+    check(all(torch.equal(fresh.model.state_dict()[k], v)
+              for k, v in state.model.state_dict().items() if "num_batches" not in k),
+          "restored model differs")
+    nbytes = sum(os.path.getsize(os.path.join(target, f)) for f in os.listdir(target))
+    res = {"bytes": nbytes, "save_s": t_save, "load_s": t_load, "entries": len(want_items)}
+    print(f"[dcp] CVPPP train state, full width: {json.dumps(res)}; round trip bit-equal")
+    return res
+
+
+def phase_int8_quantile(cfg, sd) -> dict:
+    """The percentile calibration at full width: calibrate_int8_ranges of
+    the cvppp model on model.int8_calib_k (8) 544x544 images in one batch
+    with quantile INT8_CALIB_PCT, as serving with model.int8_calib_pct does;
+    its largest sites hold more than 2^24 elements. Each site's statistic
+    (torch.kthvalue on the card) against a reference from a full torch.sort
+    of the same |x| in float64: the two order statistics around the
+    position that jnp.quantile forms in float32, interpolated in float64,
+    within QUANTILE_RTOL. The distance to the quantile at the exact float64
+    position is printed beside it."""
+    import torch
+
+    from pixel_embedded_affinity_torch.infer import build_model
+    from pixel_embedded_affinity_torch.models import calibrate_int8_ranges, pack_image_s2d
+    from pixel_embedded_affinity_torch.models import fast_forward as ff
+
+    k = cfg.model.int8_calib_k
+    check(k == 8, f"model.int8_calib_k is {k}, the JAX package's default is 8")
+    images = synthetic_leaves(k, 530, 500, SEED + 26)
+    packed = torch.from_numpy(pack_image_s2d(np.stack([s["image"] for s in images]))).cuda()
+    model = build_model(cfg, bn_stats_sd(sd, SEED + 25), device="cuda")
+    real, rows = ff._quantile, []
+
+    def at(v, pos: float) -> float:
+        lo = min(max(int(np.floor(pos)), 0), len(v) - 1)
+        hi = min(max(int(np.ceil(pos)), 0), len(v) - 1)
+        f = pos - np.floor(pos)
+        return float(v[lo].item() * (1.0 - f) + v[hi].item() * f)
+
+    def recorded(x, q):
+        got = real(x, q)
+        n = x.numel()
+        v = torch.sort(x.double()).values
+        pos32 = float(np.float32(q) * (np.float32(n) - np.float32(1)))
+        rows.append({"n": n, "got": got.item(), "ref": at(v, pos32),
+                     "exact_position": at(v, q * (n - 1))})
+        del v
+        return got
+
+    ff._quantile = recorded
+    try:
+        t0 = time.perf_counter()
+        ranges = calibrate_int8_ranges(model, [packed], dtype=model.compute_dtype,
+                                       input_format="s2d", quantile=INT8_CALIB_PCT)
+        t_cal = time.perf_counter() - t0
+    finally:
+        ff._quantile = real
+    errs = [abs(r["got"] - r["ref"]) / r["ref"] for r in rows]
+    off = [abs(r["exact_position"] - r["ref"]) / r["ref"] for r in rows]
+    res = {"sites": len(rows), "largest_site": max(r["n"] for r in rows),
+           "past_2_24": sum(r["n"] > 1 << 24 for r in rows), "max_rel_err": max(errs),
+           "max_rel_to_exact_position": max(off), "calibration_s_with_references": t_cal}
+    print(f"[int8] percentile calibration, {k} images, q {INT8_CALIB_PCT}: {json.dumps(res)}; "
+          f"sites (elements, port, reference): "
+          + "; ".join(f"{r['n']} {r['got']!r} {r['ref']!r}" for r in rows) + f", {card_line()}")
+    check(len(rows) == len(ranges) and all(np.isfinite(v) and v > 0 for v in ranges.values()),
+          f"percentile calibration: {len(rows)} statistics, ranges {ranges}")
+    check(res["past_2_24"] > 0, "no calibration site past 2^24 elements")
+    check(res["max_rel_err"] <= QUANTILE_RTOL,
+          f"percentile calibration off the float64 sort by {res['max_rel_err']}")
+    return res
+
+
+def phase_int8_export_dcp(cfg, sd, samples) -> dict:
+    """Phase 25: int8 serving's kernels and path, its percentile
+    calibration, the serving artifact, DCP checkpoints."""
+    kernels = _timed("I8c, I8q", phase_int8_kernels, cfg, sd, samples)
+    serving = _timed("int8 serving", phase_int8_serving, cfg, sd, samples)
+    _timed("int8 quantile", phase_int8_quantile, cfg, sd)
+    _timed("export", phase_export, cfg, sd, samples)
+    _timed("dcp", phase_dcp)
+    return {"kernels": kernels, "launches": serving["launches"]}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -5387,7 +5832,10 @@ def main() -> int:
     up = _timed("host library", phase_host_library, train2d, train3d, serve3d.pop("crop"))
     # 24. data parallelism: two gloo ranks on the card, NCCL through the CLI
     dp = _timed("data parallel", phase_data_parallel, dp_crop, arrays)
-    # 25. kernels line, card, 26. last line
+    # 25. int8 serving (I8c, I8q), its percentile calibration, the serving
+    # artifact, DCP
+    p25 = _timed("int8, export, dcp", phase_int8_export_dcp, cfg, sd, samples)
+    # 26. kernels line, card, 27. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) + families.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -5472,6 +5920,22 @@ def main() -> int:
     for entry in kernels:
         entry["timed_by"] = "cuda graph replay"
     kernels[-2]["timed_by"] = "cuda graph replay, 96 calls a graph"
+    i8 = p25["kernels"]
+    for name, key, replaces in (("conv_i8_fwd", "I8c", I8C_REPLACES),
+                                ("quantize_i8", "I8q", I8Q_REPLACES)):
+        r = i8[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": I8C_SOURCE, "replaces": replaces,
+            "launches": p25["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("cudnn_bf16_ms"),
+            "timed_by": f"cuda graph replay, L2 flushed, summed over the "
+                        f"{23 if key == 'I8c' else 18} calls of one B=1 float32 int8 forward"})
+        if key == "I8c":
+            kernels[-1].update(library="cuDNN F.conv2d in bfloat16 (a yardstick the port never "
+                                       "calls)", library_f32_ms=r["cudnn_f32_ms"],
+                               bound_by_calls=r["bound_by_calls"],
+                               library_int_mm_im2col_ms=r["int_mm_im2col_ms"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ YAML overlays.
 
 Field names and defaults are those of the JAX package's
 ``config/config.py``, so dotted overrides (``data.data_folder=...``) mean
-the same in both packages. The port has only the fields its code reads: a
-JAX key it lacks (``train.steps_per_call``, ``model.s2d_train``, ...) fails as an
-unknown config key. :func:`load_config` applies the preset, then a YAML
+the same in both packages. The port has the fields its code reads, and
+those that the JAX package declares and the port does not read
+(``model.merge_mode``, ``model.s2d_train``, ``cache_path``), so that its
+YAML files load; a JAX key it lacks (``train.steps_per_call``) fails as
+an unknown config key. :func:`load_config` applies the preset, then a YAML
 file (``yaml.safe_load``), then the overrides, as the JAX package's does.
 Values whose code is not ported raise where they would take effect
 (``train.loop.check_train_config``). ``model.dtype`` and
@@ -55,6 +57,20 @@ class ModelConfig:
     # package's default is on): on the H100 the dense module is faster
     # (PERF.md, Findings)
     fast_tiled_infer: bool = False
+    # declared by the JAX package, where it trains resunet2d_deep through a
+    # space-to-depth twin of the same function (a TPU lane-padding rewrite);
+    # the port trains the direct model whatever it says
+    s2d_train: bool = True
+    # int8 serving of resunet2d_deep through the fast forward (run_inference_2d
+    # with use_fast): INT8_DEFAULT_SITES in int8, the activation scales
+    # calibrated once on the first int8_calib_k images (max|x|, or the
+    # int8_calib_pct quantile of |x|, e.g. 0.999); without use_fast it
+    # changes nothing, as in the JAX package
+    int8_infer: bool = False
+    int8_calib_k: int = 8
+    int8_calib_pct: float | None = None
+    # declared by the JAX package and read by neither package
+    merge_mode: str = "add"
 
 
 @dataclass
@@ -156,6 +172,8 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     save_path: str = "./models"
+    # declared by the JAX package and read by neither package
+    cache_path: str = "./caches"
 
 
 def _apply(dc, overrides: dict):

@@ -11,7 +11,10 @@ runs as the folded-BatchNorm fast forward
 (:func:`..models.fast_forward.build_fast_resunet_forward`, as the JAX
 package serves on its TPU: the image packed to s2d on the host, the
 embedding head at full resolution) wherever H and W divide by 16, and as
-the dense module elsewhere. The watershed is seeded by
+the dense module elsewhere; with ``model.int8_infer`` that fast forward
+runs its :data:`..models.fast_forward.INT8_DEFAULT_SITES` convs in int8,
+calibrated once on the first ``model.int8_calib_k`` images in one batch
+(the JAX package's one-dispatch serving). The watershed is seeded by
 the labels' (or the given) foreground, or, with ``train.mask_weight``
 (BBBC), by the mask head's: argmax of its logits > 0, components under 25
 pixels dropped; BBBC also scores DQ/SQ/PQ, AJI and pixel F1. Samples are
@@ -32,7 +35,8 @@ from ..device import float32_convs, resolve_device
 from ..metrics import (abs_diff_fg_labels, adapted_rand_error, agg_jc_index, get_fast_pq,
                        pixel_f1, remap_label, symmetric_best_dice, voi)
 from ..models import model_from_config
-from ..models.fast_forward import build_fast_resunet_forward, pack_image_s2d
+from ..models.fast_forward import (INT8_DEFAULT_SITES, build_fast_resunet_forward,
+                                   calibrate_int8_ranges, pack_image_s2d)
 from ..ops import fused_affinity_2d, multi_offset, relabel
 from ..postproc import merge_func, remove_small_object, seg_mutex
 
@@ -103,20 +107,42 @@ def _batches(dataset, batch_size: int | None):
         yield batch
 
 
+def _fast_forward(cfg: Config, model, dataset, dev, with_mask: bool):
+    """The fast forward of ``model`` on host-packed images; with
+    ``model.int8_infer``, int8 at :data:`INT8_DEFAULT_SITES` with the ranges
+    calibrated on the first ``model.int8_calib_k`` images of the dataset
+    (those of its first image's shape), in one batch, at the
+    ``model.int8_calib_pct`` quantile when set. The JAX package serves int8
+    only where H and W divide by 16; so does this (the dense module serves
+    the rest)."""
+    kw = dict(dtype=model.compute_dtype, input_format="s2d", head_at_fullres=True)
+    if cfg.model.int8_infer and len(dataset):
+        first = dataset[0]["image"]
+        k = max(1, min(int(cfg.model.int8_calib_k), len(dataset)))
+        imgs = [im for im in (dataset[i]["image"] for i in range(k)) if im.shape == first.shape]
+        if first.shape[0] % 16 == 0 and first.shape[1] % 16 == 0:
+            packed = torch.from_numpy(pack_image_s2d(np.stack(imgs))).to(dev)
+            ranges = calibrate_int8_ranges(model, [packed], dtype=model.compute_dtype,
+                                           input_format="s2d",
+                                           quantile=cfg.model.int8_calib_pct)
+            kw.update(int8_sites=INT8_DEFAULT_SITES, act_ranges=ranges)
+    return build_fast_resunet_forward(model, with_mask=with_mask, **kw)
+
+
 def _served(cfg: Config, state_dict: dict, dataset, batch_size: int | None, device,
             clock: dict, with_mask: bool = False, use_fast: bool = False):
     """Yield (sample, (K, H, W) affinities, (H, W, 2) mask logits or None)
     in dataset order, the logits only ``with_mask``. A batch is a run of
     images of one shape, of ``batch_size`` at most, or when None of
     :func:`serve_batch` of that shape. ``use_fast`` serves
-    ``resunet2d_deep`` through the fast forward where H and W divide by 16. Adds the wall time of the model build
-    to clock['setup_s'], and that of upload, forward, affinity and fetch to
-    clock['forward_s']."""
+    ``resunet2d_deep`` through the fast forward where H and W divide by 16,
+    in int8 with ``model.int8_infer``. Adds the wall time of the model
+    build (and the int8 calibration) to clock['setup_s'], and that of
+    upload, forward, affinity and fetch to clock['forward_s']."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     model = build_model(cfg, state_dict, dev)
-    fast = (build_fast_resunet_forward(model, dtype=model.compute_dtype, input_format="s2d",
-                                       head_at_fullres=True, with_mask=with_mask)
+    fast = (_fast_forward(cfg, model, dataset, dev, with_mask)
             if use_fast and cfg.model.arch == "resunet2d_deep" else None)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -9,6 +9,8 @@
     python -m pixel_embedded_affinity_torch.inference -c ac3ac4 -ck <ckpt> \
         [--torch-ckpt] [-m validation|valid|test] [--decoders mutex,waterz,lmc] \
         [--device cuda|cpu] [-o data.data_folder=...]
+    python -m pixel_embedded_affinity_torch.inference -c <preset> -ck <ckpt> \
+        --export model.pt2 [--export-hw H,W] [--device cuda|cpu]
 
 The checkpoint is the JAX package's msgpack file, or with ``--torch-ckpt``
 a reference torch ``.ckpt``. CVPPP validation mode prints SBD/DiC/VOI/ARAND;
@@ -21,7 +23,13 @@ VOI/ARAND per decoder and the timing split. ``--fast`` serves 2D through
 the folded-BatchNorm fast forward instead of the dense module.
 ``-o model.dtype=bfloat16`` serves in bfloat16 compute (the affinities and
 the decode in float32), and for 3D ``-o model.bf16_tiled_infer=True`` does
-so for the tiled predictor alone.
+so for the tiled predictor alone. ``-o model.int8_infer=true`` with
+``--fast`` serves 2D in int8 (calibrated on the first
+``model.int8_calib_k`` images). ``--export PATH`` serves nothing: it
+freezes the checkpoint, the forward and the plain affinity into a
+``torch.export`` artifact with a symbolic batch (:mod:`.infer.export`;
+2D at ``--export-hw`` or the preset's padded shape, 3D the (18, 160, 160)
+tile) on ``--device`` and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -61,6 +69,12 @@ def main(argv=None):
                         help="3D decoders to run (comma-separated)")
     parser.add_argument("--fast", action="store_true",
                         help="2D: serve through the folded-BatchNorm fast forward")
+    parser.add_argument("--export", type=str, default=None, metavar="PATH",
+                        help="instead of serving, freeze the checkpoint + forward + affinity "
+                             "graph to a torch.export artifact (symbolic batch)")
+    parser.add_argument("--export-hw", type=str, default=None,
+                        help="2D export spatial shape as H,W (default: the preset's padded "
+                             "serving shape)")
     args = parser.parse_args(argv)
 
     from .config import load_config, parse_overrides
@@ -70,6 +84,14 @@ def main(argv=None):
 
     cfg = load_config(args.cfg, overrides=parse_overrides(args.override))
     sd = load_state_dict(args.checkpoint, args.torch_ckpt, cfg.model.arch)
+    if args.export:
+        from .infer.export import export_checkpoint, input_avals
+
+        hw = tuple(int(v) for v in args.export_hw.split(",")) if args.export_hw else None
+        exported = export_checkpoint(cfg, sd, args.export, hw=hw, device=args.device)
+        print(json.dumps({"artifact": args.export, "platforms": [args.device],
+                          "in_avals": input_avals(exported)}))
+        return
     timing: dict = {}
     if cfg.model.arch == "unet_pni_deep":
         from .data.ac3ac4 import AC3AC4ValidVolume

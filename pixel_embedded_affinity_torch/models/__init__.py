@@ -2,7 +2,8 @@ from .resunet2d import ResidualUNet2D, ResidualUNet2DDeep
 from .resnet_embed import LocalAttentionBlock, ResNetEmbedding
 from .unet3d_pni import UNetPNIEmbeddingDeep
 from .unet3d_mala import UNet3DMALADeep
-from .fast_forward import build_fast_resunet_forward, pack_image_s2d
+from .fast_forward import (INT8_DEFAULT_SITES, build_fast_resunet_forward,
+                           calibrate_int8_ranges, pack_image_s2d)
 from .fast_forward3d import build_fast_pni_forward
 
 ARCHS_2D = ("resunet2d_deep", "resnet50_embedding", "resnet101_embedding")

@@ -23,9 +23,17 @@ package's NHWC layout, with:
 Activations are NHWC-contiguous; the direct, dense and 2x2 convs go to
 ``F.conv2d`` through the channels-last NCHW view (no copy), in full float32
 (TF32 off, :func:`..device.float32_convs`), and the upsampling products
-stay ``torch.einsum`` at float32 matmul precision. The JAX function's
-int8 options (``int8_sites``, ``act_ranges``, ``collect_ranges``,
-``collect_quantile``) are not ported and raise.
+stay ``torch.einsum`` at float32 matmul precision.
+
+int8 serving (``int8_sites`` with ``act_ranges``; the JAX package's
+``model.int8_infer``): the named stage convs run as int8 x int8 -> int32
+convolutions (:func:`..ops.quant.conv_i8`, the kernel I8c on the card),
+their inputs quantized with one static scale per site
+(:func:`..ops.quant.quantize_act`, I8q), their weights per output channel
+over the prepared (folded, s2d) kernel; the rescale and the BatchNorm
+shift are the conv's epilogue, in float32. ``collect_ranges`` makes the
+forward also return max|x| (or with ``collect_quantile`` that quantile of
+|x|) at every site, the calibration of :func:`calibrate_int8_ranges`.
 
 JAX parameter scopes and the port's modules (the weights come across
 through :func:`..convert.resunet2d_deep_from_flax`):
@@ -48,11 +56,15 @@ and inside a block ``conv1``/``bn1`` are ``conv.0``/``conv.1``,
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import float32_convs
+from ..ops.quant import (act_scale_from_absmax, conv_i8, pack_weights_i8, quantize_act,
+                         quantize_weights_per_cout)
 from ..ops.s2d import (depth_to_space, fuse_parity_groups, s2d_conv2x2_weights_qx,
                        s2d_conv_weights, space_to_depth)
 from ..ops.s2d_block_cuda import block_taps, direct_taps, fused_s2d_block
@@ -91,8 +103,43 @@ def _conv(x: torch.Tensor, w_oihw: torch.Tensor, pad=(1, 1, 1, 1)) -> torch.Tens
 
 
 # the parity-form convs of the "2x2" stages: H padded (1, 1), W (1, 0) for
-# x output parity 0 and (0, 1) for parity 1
+# x output parity 0 and (0, 1) for parity 1; F.pad's order (left, right,
+# top, bottom), and conv_i8's (top, bottom, left, right)
 _PAD_QX = ((1, 0, 1, 1), (0, 1, 1, 1))
+_PAD_QX_I8 = ((1, 1, 1, 0), (1, 1, 0, 1))
+
+# the int8 sites the JAX package serves by default (its measured winners on
+# its TPU): every stage conv but the thin-channel input convs of inconv,
+# down1 and down3
+INT8_DEFAULT_SITES = (
+    "inconv.c2", "down1.c2", "down2.c1", "down2.c2", "down3.c2",
+    "down4.c1", "down4.c2", "up1.c1", "up1.c2", "up2.c1", "up2.c2",
+    "up3.c1", "up3.c2", "up4.c1", "up4.c2")
+
+
+def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The q quantile of a 1-D tensor by linear interpolation, as
+    ``jnp.quantile`` computes it in float32 (position q (n - 1), the two
+    order statistics around it, weights 1 - f and f). The order statistics
+    come from ``torch.kthvalue``: ``torch.quantile`` refuses more than 2^24
+    elements, which a full-width site exceeds at one image."""
+    n = x.numel()
+    pos = np.float32(q) * (np.float32(n) - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    w_high = np.float32(pos - low)
+    w_low = np.float32(1) - w_high
+    lo = int(min(max(low, 0), n - 1))
+    hi = int(min(max(high, 0), n - 1))
+    v_lo = torch.kthvalue(x, lo + 1).values
+    v_hi = v_lo if hi == lo else torch.kthvalue(x, hi + 1).values
+    return v_lo * float(w_low) + v_hi * float(w_high)
+
+
+def _quantized(w_hwio: torch.Tensor, sx: float):
+    """(packed int8 weights, their float32 output scale s_w * s_x) of a
+    float32 HWIO kernel whose input has the activation scale sx."""
+    q, sw = quantize_weights_per_cout(w_hwio)
+    return pack_weights_i8(q), sw * sx
 
 
 def _map(fn, t):
@@ -123,13 +170,19 @@ def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_on(n_out: int, n_in: int, device: torch.device, dtype) -> torch.Tensor:
+    """_interp_matrix on ``device`` in ``dtype``, copied there once, so that
+    a forward copies nothing from the host (and a CUDA graph captures it)."""
+    return torch.from_numpy(_interp_matrix(n_out, n_in)).to(device=device, dtype=dtype)
+
+
 def _upsample2x_to_s2d(y: torch.Tensor, dtype) -> torch.Tensor:
     """(B, H, W, C) -> the s2d view of its x2 align-corners upsampling,
     (B, H, W, 4C), channel order (qy, qx, c), by per-parity rows of the
     interpolation matrices."""
     b, h, w, c = y.shape
-    my = torch.from_numpy(_interp_matrix(2 * h, h)).to(device=y.device, dtype=dtype)
-    mx = torch.from_numpy(_interp_matrix(2 * w, w)).to(device=y.device, dtype=dtype)
+    my, mx = _interp_on(2 * h, h, y.device, dtype), _interp_on(2 * w, w, y.device, dtype)
     parts = []
     for qy in range(2):
         a = torch.einsum("oi,biwc->bowc", my[qy::2], y)
@@ -152,18 +205,33 @@ class _BlockW:
 
     ``s2d``: False (direct resolution), "dense", "2x2" or "pallas" (True
     means "dense"). ``split_at``: the input channel where the block's input
-    is a virtual concat of two tensors; the block then takes a pair. The
-    int8 arguments of the JAX class raise."""
+    is a virtual concat of two tensors; the block then takes a pair.
 
-    def __init__(self, block, dtype, s2d, split_at: int | None = None,
-                 int8_c1: bool = False, int8_c2: bool = False, collect: dict | None = None):
-        if int8_c1 or int8_c2 or collect is not None:
-            raise NotImplementedError("int8 serving is not ported")
+    ``int8_c1``/``int8_c2``: run conv1 (with the projection) or conv2 in
+    int8, with the activation scales of the calibrated max|x| in ``scales``
+    ("c1", "c1b" for a split block's second part, "c2"). ``collect``: a
+    dict the forward fills with the calibration statistic of each site,
+    named "<name>.c1" ("<name>.c1b"), "<name>.c2": max|x|, or the
+    ``collect_q`` quantile of |x|."""
+
+    def __init__(self, block, dtype, s2d, split_at: int | None = None, name: str = "",
+                 int8_c1: bool = False, int8_c2: bool = False, scales: dict | None = None,
+                 collect: dict | None = None, collect_q: float | None = None):
         if s2d is True:
             s2d = "dense"
         if s2d not in (False,) + S2D_FORMS:
             raise ValueError(f"unknown block form {s2d!r}")
+        if (int8_c1 or int8_c2) and s2d == "pallas":
+            raise ValueError("int8 not supported on the pallas block form")
         self.s2d, self.split_at, self.dtype = s2d, split_at, dtype
+        self.name, self.int8_c1, self.int8_c2 = name, int8_c1, int8_c2
+        self.collect, self.collect_q = collect, collect_q
+        scales = scales or {}
+        if int8_c1:
+            self.sx1 = act_scale_from_absmax(scales["c1"])
+            self.sx1b = act_scale_from_absmax(scales["c1b"]) if split_at is not None else None
+        if int8_c2:
+            self.sx2 = act_scale_from_absmax(scales["c2"])
         convs = {"conv1": (block.conv[0], block.conv[1]), "conv2": (block.conv[3], block.conv[4]),
                  "project_conv": (block.project[0], block.project[1])}
         folded = {}
@@ -189,10 +257,19 @@ class _BlockW:
             # conv1 and project share the input: one conv, output channels
             # [conv1 | project], each half in its own s2d channel order
             w1p = parts(lambda a, b: torch.cat([prep(a), prep(b)], 3))
-            self.w1p = _map(lambda w: _oihw(w.to(dtype)), w1p)
-            self.h1p = torch.cat([h1.repeat(reps), hp.repeat(reps)]).to(dtype)
-            self.w2 = _oihw(prep(w2).to(dtype))
-            self.h2 = h2.repeat(reps).to(dtype)
+            h1p = torch.cat([h1.repeat(reps), hp.repeat(reps)])
+            if int8_c1:
+                self.w1p, self.o1p = self._i8_c1(w1p)
+                self.h1p = h1p
+            else:
+                self.w1p = _map(lambda w: _oihw(w.to(dtype)), w1p)
+                self.h1p = h1p.to(dtype)
+            if int8_c2:
+                self.w2, self.o2 = _quantized(prep(w2), self.sx2)
+                self.h2 = h2.repeat(reps)
+            else:
+                self.w2 = _oihw(prep(w2).to(dtype))
+                self.h2 = h2.repeat(reps).to(dtype)
             self.n1 = reps * self.c1
         elif s2d == "pallas":
             taps = block_taps(w1, wp, w2, h1, hp, h2, split_at)
@@ -203,18 +280,58 @@ class _BlockW:
         else:
             # one conv per x output parity, output groups (qy, [conv1 | project])
             def k1(qx):
-                ks = parts(lambda a, b: fuse_parity_groups(s2d_conv2x2_weights_qx(a, qx),
-                                                           s2d_conv2x2_weights_qx(b, qx), 2))
-                return _map(lambda k: _oihw(k.to(dtype)), ks)
-            self.k1p = (k1(0), k1(1))
-            self.h1p = torch.cat([h1, hp]).repeat(2).to(dtype)
-            self.k2 = tuple(_oihw(s2d_conv2x2_weights_qx(w2, qx).to(dtype)) for qx in range(2))
-            self.h2 = h2.repeat(2).to(dtype)
+                return parts(lambda a, b: fuse_parity_groups(s2d_conv2x2_weights_qx(a, qx),
+                                                             s2d_conv2x2_weights_qx(b, qx), 2))
+            k1p = (k1(0), k1(1))
+            h1p = torch.cat([h1, hp]).repeat(2)
+            k2 = tuple(s2d_conv2x2_weights_qx(w2, qx) for qx in range(2))
+            if int8_c1:
+                q = tuple(self._i8_c1(k) for k in k1p)
+                self.k1p, self.o1p = tuple(w for w, _ in q), tuple(o for _, o in q)
+                self.h1p = h1p
+            else:
+                self.k1p = tuple(_map(lambda k: _oihw(k.to(dtype)), k) for k in k1p)
+                self.h1p = h1p.to(dtype)
+            if int8_c2:
+                q = tuple(_quantized(k, self.sx2) for k in k2)
+                self.k2, self.o2 = tuple(w for w, _ in q), tuple(o for _, o in q)
+                self.h2 = h2.repeat(2)
+            else:
+                self.k2 = tuple(_oihw(k.to(dtype)) for k in k2)
+                self.h2 = h2.repeat(2).to(dtype)
+
+    def _i8_c1(self, w1p):
+        """conv1's (packed int8 weights, output scales), a pair for a split
+        block (each part with its own activation scale)."""
+        if self.split_at is not None:
+            (wa, oa), (wb, ob) = _quantized(w1p[0], self.sx1), _quantized(w1p[1], self.sx1b)
+            return (wa, wb), (oa, ob)
+        return _quantized(w1p, self.sx1)
 
     def _in_conv(self, x, w, pad=(1, 1, 1, 1)):
         if self.split_at is not None:
             return _conv(x[0], w[0], pad) + _conv(x[1], w[1], pad)
         return _conv(x, w, pad)
+
+    def _cstat(self, x):
+        """The calibration statistic of a site: max|x|, or the collect_q
+        quantile of |x|, in float32."""
+        ax = x.abs().float()
+        if self.collect_q is not None:
+            return _quantile(ax.flatten(), self.collect_q)
+        return ax.max()
+
+    def _record_c1(self, x):
+        if self.split_at is not None:
+            self.collect[f"{self.name}.c1"] = self._cstat(x[0])
+            self.collect[f"{self.name}.c1b"] = self._cstat(x[1])
+        else:
+            self.collect[f"{self.name}.c1"] = self._cstat(x)
+
+    def _quantize_c1(self, x):
+        if self.split_at is not None:
+            return quantize_act(x[0], self.sx1), quantize_act(x[1], self.sx1b)
+        return quantize_act(x, self.sx1)
 
     def __call__(self, x):
         if self.s2d == "pallas":
@@ -223,26 +340,64 @@ class _BlockW:
                                    direct=self.direct)
         if self.s2d == "2x2":
             return self._call_2x2(x)
-        v = self._in_conv(x, self.w1p) + self.h1p
+        if self.collect is not None:
+            self._record_c1(x)
+        if self.int8_c1:
+            xq = self._quantize_c1(x)
+            if self.split_at is not None:
+                v = (conv_i8(xq[0], self.w1p[0], self.o1p[0])
+                     + conv_i8(xq[1], self.w1p[1], self.o1p[1])) + self.h1p
+            else:
+                v = conv_i8(xq, self.w1p, self.o1p) + self.h1p
+        else:
+            v = self._in_conv(x, self.w1p) + self.h1p
         y = v[..., :self.n1].relu()
-        y2 = _conv(y.to(self.dtype).contiguous(), self.w2) + self.h2
+        if self.collect is not None:
+            self.collect[f"{self.name}.c2"] = self._cstat(y)
+        if self.int8_c2:
+            y2 = conv_i8(quantize_act(y, self.sx2), self.w2, self.o2, self.h2)
+        else:
+            y2 = _conv(y.to(self.dtype).contiguous(), self.w2) + self.h2
         return (y2 + v[..., self.n1:]).relu().to(self.dtype)
+
+    def _conv1_2x2(self, x, xq, qx: int):
+        """conv1 and the projection of x output parity qx, float or int8."""
+        if not self.int8_c1:
+            return self._in_conv(x, self.k1p[qx], _PAD_QX[qx]) + self.h1p
+        pad = _PAD_QX_I8[qx]
+        if self.split_at is not None:
+            return (conv_i8(xq[0], self.k1p[qx][0], self.o1p[qx][0], padding=pad)
+                    + conv_i8(xq[1], self.k1p[qx][1], self.o1p[qx][1], padding=pad)) + self.h1p
+        return conv_i8(xq, self.k1p[qx], self.o1p[qx], self.h1p, padding=pad)
 
     def _call_2x2(self, x):
         g = self.c1 + self.cp
         y_parts, p_parts = [None] * 4, [None] * 4
         h = None
+        if self.collect is not None:
+            self._record_c1(x)
+        # the input quantized once; both parity convs share it
+        xq = self._quantize_c1(x) if self.int8_c1 else None
         for qx in range(2):
-            v = self._in_conv(x, self.k1p[qx], _PAD_QX[qx]) + self.h1p
+            v = self._conv1_2x2(x, xq, qx)
             h = v.shape[1] - 1
             for qy in range(2):
                 blk = v[:, qy:qy + h, :, qy * g:(qy + 1) * g]
                 y_parts[2 * qy + qx] = blk[..., :self.c1].relu()
                 p_parts[2 * qy + qx] = blk[..., self.c1:]
         y1 = torch.cat(y_parts, dim=-1)
+        if self.collect is not None:
+            self.collect[f"{self.name}.c2"] = self._cstat(y1)
+        if self.int8_c2:
+            y1q = quantize_act(y1, self.sx2)
+        elif self.int8_c1:
+            y1 = y1.to(self.dtype)
         outs = [None] * 4
         for qx in range(2):
-            v2 = _conv(y1, self.k2[qx], _PAD_QX[qx]) + self.h2
+            if self.int8_c2:
+                v2 = conv_i8(y1q, self.k2[qx], self.o2[qx], self.h2, padding=_PAD_QX_I8[qx])
+            else:
+                v2 = _conv(y1, self.k2[qx], _PAD_QX[qx]) + self.h2
             for qy in range(2):
                 q = 2 * qy + qx
                 outs[q] = (v2[:, qy:qy + h, :, qy * self.c2:(qy + 1) * self.c2]
@@ -307,10 +462,21 @@ def build_fast_resunet_forward(model, *, dtype=torch.float32, with_mask: bool = 
     False, "dense", "2x2", "pallas"). ``head_at_fullres``: the 1x1 embedding
     head after depth_to_space instead of per parity group (the same
     function). The weights and the BatchNorm running statistics are folded
-    when this is called; later changes to the model are not seen."""
-    if int8_sites or act_ranges or collect_ranges or collect_quantile is not None:
-        raise NotImplementedError("int8 serving (int8_sites, act_ranges, collect_ranges, "
-                                  "collect_quantile) is not ported")
+    when this is called; later changes to the model are not seen.
+
+    ``int8_sites`` + ``act_ranges``: run the named stage convs ("up4.c1",
+    ...; :data:`INT8_DEFAULT_SITES`) in int8, ``act_ranges`` mapping each
+    site to its calibrated max|activation| (:func:`calibrate_int8_ranges`;
+    a split block's c1 needs its "c1b" too). ``collect_ranges=True``
+    instead makes fn return (embedding, mask, ranges), ranges holding the
+    statistic of every site (max|x|, or the ``collect_quantile`` quantile of
+    |x|) as float32 scalar tensors."""
+    int8_sites = frozenset(int8_sites or ())
+    if int8_sites and not collect_ranges:
+        missing = {s for s in int8_sites if s not in (act_ranges or {})}
+        if missing:
+            raise ValueError(f"int8 sites lack calibrated ranges: {missing}")
+    ranges_out: dict = {}
     if input_format not in ("nhwc", "s2d"):
         raise ValueError(f"input_format must be 'nhwc' or 's2d', got {input_format!r}")
     if model.training:
@@ -320,7 +486,15 @@ def build_fast_resunet_forward(model, *, dtype=torch.float32, with_mask: bool = 
     mods = dict(model.named_modules())
 
     def blk(stage, split_at=None):
-        return _BlockW(mods[BLOCKS[stage]], dtype, forms[stage], split_at=split_at)
+        scales = {k[len(stage) + 1:]: v for k, v in (act_ranges or {}).items()
+                  if k.startswith(stage + ".")}
+        if f"{stage}.c1" in int8_sites and split_at is not None and "c1b" not in scales:
+            raise ValueError(f"{stage}.c1 is split; calibrate {stage}.c1b")
+        return _BlockW(mods[BLOCKS[stage]], dtype, forms[stage], split_at=split_at, name=stage,
+                       int8_c1=f"{stage}.c1" in int8_sites,
+                       int8_c2=f"{stage}.c2" in int8_sites, scales=scales,
+                       collect=ranges_out if collect_ranges else None,
+                       collect_q=collect_quantile)
 
     f2 = model.down2.block.conv[3].out_channels
     f3 = model.down3.block.conv[3].out_channels
@@ -386,6 +560,8 @@ def build_fast_resunet_forward(model, *, dtype=torch.float32, with_mask: bool = 
                 e = e + b_emb
             embedding = depth_to_space(e.to(dtype).reshape(b, hh, ww, -1))
         mask = mask_head_s2d(ys) if with_mask else None
+        if collect_ranges:
+            return embedding, mask, dict(ranges_out)
         return embedding, mask
 
     def fn(image: torch.Tensor):
@@ -393,3 +569,21 @@ def build_fast_resunet_forward(model, *, dtype=torch.float32, with_mask: bool = 
             return forward(image)
 
     return fn
+
+
+def calibrate_int8_ranges(model, images, *, dtype=torch.float32, with_mask: bool = True,
+                          input_format: str = "nhwc", quantile: float | None = None) -> dict:
+    """{site: max|activation|} for every int8 site of the fast forward of
+    ``model`` (eval mode), run unquantized over ``images``, an iterable of
+    batches in ``input_format`` on the model's device; feed it to
+    :func:`build_fast_resunet_forward` as ``act_ranges``. ``quantile``
+    takes that quantile of |x| a batch in place of the max; batches are
+    aggregated by their max."""
+    fwd = build_fast_resunet_forward(model, dtype=dtype, with_mask=with_mask,
+                                     input_format=input_format, collect_ranges=True,
+                                     collect_quantile=quantile)
+    ranges: dict = {}
+    for im in images:
+        for k, v in fwd(im)[2].items():
+            ranges[k] = max(ranges.get(k, 0.0), float(v))
+    return ranges

@@ -58,6 +58,13 @@ inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); retu
 inline uint32_t emu_bits(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+inline float fminf(float a, float b) { return a < b ? a : b; }
+// the rounding intrinsics of conv_i8.cu: one IEEE operation each, round to
+// nearest even (g++ contracts nothing across these calls)
+inline float __int2float_rn(int i) { return (float)i; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 
 struct __nv_bfloat16 { uint16_t v; };

@@ -129,9 +129,14 @@ def test_fast_forward_raises_as_jax_does(case):
             jff.build_fast_resunet_forward(variables, stage_forms=bad)
         with pytest.raises(ValueError, match=match):
             ff.build_fast_resunet_forward(model, stage_forms=bad)
-    for kw in (dict(int8_sites=("up4.c1",)), dict(act_ranges={"up4.c1": 1.0}),
-               dict(collect_ranges=True), dict(collect_quantile=0.99)):
-        with pytest.raises(NotImplementedError):
+    # int8 serving (tests/test_torch_int8.py): a site without a calibrated
+    # range, and int8 on the pallas form, raise in both packages
+    for kw, match in ((dict(int8_sites=("up4.c1",)), "lack calibrated ranges"),
+                      (dict(int8_sites=("up4.c2",), act_ranges={"up4.c2": 1.0},
+                            stage_forms={"up4": "pallas"}), "pallas")):
+        with pytest.raises(ValueError, match=match):
+            jff.build_fast_resunet_forward(variables, **kw)
+        with pytest.raises(ValueError, match=match):
             ff.build_fast_resunet_forward(model, **kw)
     with pytest.raises(ValueError, match="divisible by 16"):
         ff.build_fast_resunet_forward(model)(torch.zeros(1, 40, 48, 3))
@@ -201,9 +206,13 @@ def test_block_forms_match_jax(form, split):
 
 
 def test_block_int8_options_raise():
+    """As the JAX class: int8 on the pallas form is a ValueError, an int8
+    conv without its calibrated scale a KeyError."""
     _, _, block = _block_weights(np.random.default_rng(4), 3, 16)
-    for kw in (dict(int8_c1=True), dict(int8_c2=True), dict(collect={})):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(int8_c1=True), dict(int8_c2=True)):
+        with pytest.raises(ValueError, match="pallas"):
+            ff._BlockW(block, torch.float32, "pallas", scales={"c1": 1.0, "c2": 1.0}, **kw)
+        with pytest.raises(KeyError):
             ff._BlockW(block, torch.float32, "dense", **kw)
 
 

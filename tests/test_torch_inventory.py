@@ -39,22 +39,25 @@ COUNTERPARTS = {
     # the train steps are objects in the port
     "make_train_step_2d": "TrainStep2D",
     "make_train_step_3d": "TrainStep3D",
+    # orbax (tensorstore OCDBT) is the JAX package's multi-rank checkpoint;
+    # the port's is torch.distributed.checkpoint
+    "save_checkpoint_orbax": "save_checkpoint_dcp",
+    "load_checkpoint_orbax": "load_checkpoint_dcp",
 }
 
 # JAX name -> the item of ROADMAP.md §1 ("Modules still to port") that holds it
-STILL_TO_PORT = {
-    **{n: 5 for n in ("act_scale_from_absmax", "quantize_act", "quantize_weights_per_cout",
-                      "conv_i8", "calibrate_int8_ranges")},  # ops/quant.py, int8 serving
-    **{n: 5 for n in ("make_serving_fn_2d", "make_serving_fn_3d", "export_serving",
-                      "export_checkpoint", "save_artifact", "load_artifact")},  # infer/export.py
-    **{n: 5 for n in ("save_checkpoint_orbax", "load_checkpoint_orbax")},  # orbax checkpoints
-    # the layout twins (models/resunet2d_s2d.py, models/unet3d_pni_s2d.py)
-    **{n: 6 for n in ("S2DConv", "ResidualBlockS2D", "ResidualUNet2DDeepS2D", "S2DConv3D",
-                      "MergeBNELUS2D", "ResBlockPNIS2D", "UpsampleConvS2D",
-                      "UNetPNIEmbeddingDeepS2D")},
-}
+STILL_TO_PORT: dict = {}
+
+# the JAX package's space-to-depth twins rewrite a model's layout for the
+# TPU's 128-lane padding; on the H100 the 2D twin trained the same function
+# 1.76x (float32) and 2.03-2.14x (bf16) slower than the direct model
+# (PERF.md §6), and the 3D twin is selected by nothing
+_S2D_TWIN = "a TPU lane-padding rewrite of the direct model, which is ported"
 
 NEVER = {
+    **{n: _S2D_TWIN for n in ("S2DConv", "ResidualBlockS2D", "ResidualUNet2DDeepS2D",
+                              "S2DConv3D", "MergeBNELUS2D", "ResBlockPNIS2D",
+                              "UpsampleConvS2D", "UNetPNIEmbeddingDeepS2D")},
     "affinity_2d_small_batch": "a TPU arrangement of fused_affinity_2d, which is ported",
     "convert_resunet2d_deep": "train/convert_torch.py turns reference torch checkpoints into "
                               "Flax trees; the port loads them as they are (convert.py)",
