@@ -263,13 +263,33 @@ Phases, each of which exits nonzero when it fails:
      and run at B=1 and B=4 within EXPORT_ATOL of the serving path, its
      bytes and times; the full-width CVPPP train state through
      save_checkpoint_dcp and back, bit for bit;
- 26. one JSON line listing each kernel: launches (phase 21's also apart,
-     cli_launches, and phase 24's, dp_launches), error, times, bound, and
+ 26. train.steps_per_call (the training step as a CUDA graph, replayed
+     once a step): AMSGrad and SGD on the full-width cvppp parameters, 5
+     updates with the step's scalars read from the device tensor against
+     the same updates written with floats, bit for bit; the full-width
+     cvppp, bbbc039v1 (fused, and unfused), ac3ac4 and cvppp_resnet50
+     presets, B=2, trained 8 steps eagerly and 8 at steps_per_call=4 from
+     one seed on the device samplers, float32 and bfloat16: the two runs'
+     losses and parameters, held bit for bit where the eager step is
+     bit-reproducible (3D, and the ResUNet's 2D steps in bfloat16); warm
+     median data_s and step_s, capture seconds and peak memory of both;
+     then steady steps of each path by CUDA events and a profile of each
+     (device busy time, idle share), in which each kernel's launches that
+     the profiler saw equal the wrappers' counts plus the captured graph's
+     launches a replay; then one step from one state, eagerly on a copy and
+     by a replay, held bit for bit where the eager step is bit-reproducible,
+     else within SPC_STEP_RTOL, and a replay with the previous step's
+     scalars (the planted fault) off by more; the training CLI on ac3ac4 at
+     steps_per_call=4: 4 steps, a checkpoint, a resume to 8, bit-equal to
+     the uninterrupted graphed run;
+ 27. one JSON line listing each kernel: launches (phase 21's also apart,
+     cli_launches, phase 24's, dp_launches, and phase 26's, spc_launches),
+     error, times, bound, and
      how the times were taken (CUDA graph replay; for the affinity kernels
      CUDA events around the eager call beside; K2f/K2b/K3f/K3b with their
      bfloat16 forms' bf16_* fields and launches), the upsampling backward,
      then I8c and I8q;
- 27. the last line: {"ok": true, "device": {...}}.
+ 28. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -5764,6 +5784,447 @@ def phase_int8_export_dcp(cfg, sd, samples) -> dict:
     return {"kernels": kernels, "launches": serving["launches"]}
 
 
+# ---- 26. train.steps_per_call: the training step as a CUDA graph
+SPC = 4  # steps_per_call of the graphed runs
+SPC_STEPS = 8
+SPC_TIMED, SPC_PROFILED = 4, 2  # steps timed by CUDA events, profiled, a path
+SPC_OPT_STEPS = 5
+# one step from one state, eager on a copy and by a replay: where the eager
+# step is not bit-reproducible, the loss and the update of the parameters
+# and of the BatchNorm statistics may differ from the eager step's by this
+# much, relative; a replay whose update reads the previous step's scalars
+# must lie farther off. On an H100 two eager steps' parameter updates lay
+# 5.1e-6-3.1e-5 apart (2D float32), the stale-scalar replay 2.2e-2 off
+SPC_STEP_RTOL = 1e-4
+# (label, preset, overrides, eager bit-reproducible); the 2D float32 steps
+# are not (cuDNN's 1x1 weight gradients, ROADMAP §3 item 18), the ResNet's
+# bfloat16 step is not known to be
+SPC_RUNS = (("cvppp", "cvppp", {}, ("bfloat16",)),
+            ("bbbc039v1", "bbbc039v1", {}, ("bfloat16",)),
+            ("bbbc039v1 unfused", "bbbc039v1", {"train": {"fuse_loss": False}}, ("bfloat16",)),
+            ("ac3ac4", "ac3ac4", {}, ("float32", "bfloat16")),
+            ("cvppp_resnet50", "cvppp_resnet50", {}, ()))
+# a counted wrapper of the training step -> a pattern of its CUDA kernel's
+# name in a profile: K2b and K3b by template argument; K2f and K3f are one
+# kernel, K3f each step's last launch of it (phase 6's rule); K4f and K6f
+# are one kernel that no step launches for both
+SPC_KERNELS = {"wmse2d_fwd": r"\bwmse_fwd_kernel", "cross_wmse2d_fwd": r"\bwmse_fwd_kernel",
+               "wmse2d_bwd": r"\bwmse_bwd_kernel<\w+, true",
+               "cross_wmse2d_bwd": r"\bwmse_bwd_kernel<\w+, false",
+               "fused_affinity_2d": r"\baffinity2d_fwd_kernel",
+               "fused_cross_affinity_2d": r"\bcross_affinity_fwd_kernel",
+               "cross_affinity_fwd": r"\bcross_affinity_fwd_kernel",
+               "affinity_bwd": r"\baffinity_bwd_kernel",
+               "cross_affinity_bwd": r"\bcross_affinity_bwd_kernel",
+               "fused_affinity_3d": r"\baffinity3d_fwd_kernel",
+               "upsample_bwd": r"\bupsample_bwd_kernel"}
+
+
+def _spc_loss_d(a, b) -> float:
+    """The largest relative difference of two runs' losses, step by step."""
+    return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+
+def _spc_param_d(a: dict, b: dict, p0: dict) -> float:
+    """The distance of two runs' float tensors (parameters and BatchNorm
+    statistics), the largest over tensors of ||a - b|| / ||a - p0||: as a
+    share of how far the run moved them from p0; inf where a tensor that
+    did not move differs."""
+    out = 0.0
+    for k, v in a.items():
+        if not v.is_floating_point():
+            continue
+        moved = float((v.double() - p0[k].double()).norm())
+        diff = float((v.double() - b[k].double()).norm())
+        out = max(out, diff / moved if moved else (0.0 if diff == 0 else float("inf")))
+    return out
+
+
+def _spc_counted(total: dict, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with every counted wrapper's count set to 0 just
+    before; its counts, read just after, are added to ``total``. Returns
+    (result, counts, seconds)."""
+    from pixel_embedded_affinity_torch.ops.launch_count import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn(*args, **kwargs)
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return res, counts, sec
+
+
+def _float_updates(opt_type, params, grads, sched):
+    """The parameters after one update for each of ``grads``, the chain
+    written with its scalars as Python floats: AMSGrad (eps 0.01, weight
+    decay 1e-6) or SGD (momentum 0.9, weight decay 1e-4)."""
+    import torch
+
+    ps = [p.clone() for p in params]
+    mu, nu, nu_max, trace = ([torch.zeros_like(p) for p in ps] for _ in range(4))
+    for n, g in enumerate(grads):
+        lr = float(sched(n))
+        if opt_type == "sgd":
+            g = torch._foreach_add(g, torch._foreach_mul(ps, 1e-4))
+            torch._foreach_mul_(trace, 0.9)
+            torch._foreach_add_(trace, g)
+            torch._foreach_add_(ps, torch._foreach_mul(trace, -lr))
+            continue
+        b1, b2, c = 0.9, 0.999, np.float32(n + 1)
+        g = torch._foreach_add(g, torch._foreach_mul(ps, 1e-6))
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
+        bc1 = float(np.float32(1) - np.float32(b1) ** c)
+        bc2 = float(np.float32(1) - np.float32(b2) ** c)
+        torch._foreach_maximum_(nu_max, torch._foreach_div(nu, bc2))
+        denom = torch._foreach_sqrt(nu_max)
+        torch._foreach_add_(denom, 0.01)
+        upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        torch._foreach_add_(ps, torch._foreach_mul(upd, -lr))
+    return ps
+
+
+def spc_optimizer_check():
+    """AMSGrad (poly schedule) and SGD on the full-width cvppp model's
+    parameters, SPC_OPT_STEPS updates, their scalars read from the device
+    tensor, against the same updates with the scalars as Python floats,
+    bit for bit."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.train import init_state
+    from pixel_embedded_affinity_torch.train.optim import SGD, AMSGrad, make_schedule
+
+    params = [p.detach() for p in init_state(load_config("cvppp"), "cuda").model.parameters()]
+    sched = make_schedule("poly", 1e-4, 1e-6, 1000, warmup_iters=2, decay_iters=6)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [[torch.randn(p.shape, generator=gen, device="cuda") for p in params]
+             for _ in range(SPC_OPT_STEPS)]
+    for opt_type in ("adam", "sgd"):
+        ps = [torch.nn.Parameter(p.clone()) for p in params]
+        opt = (AMSGrad(ps, eps=0.01, weight_decay=1e-6, schedule=sched) if opt_type == "adam"
+               else SGD(ps, schedule=sched))
+        for g in grads:
+            for p, gi in zip(ps, g):
+                p.grad = gi
+            opt.step()
+        ref = _float_updates(opt_type, params, grads, sched)
+        same = all(torch.equal(a, b) for a, b in zip(ps, ref))
+        worst = max(float((a - b).detach().abs().max()) for a, b in zip(ps, ref))
+        print(f"[spc] {type(opt).__name__}: {SPC_OPT_STEPS} updates of {len(params)} tensors, "
+              f"scalars from the device tensor against floats: bit-equal {same} (max |d| "
+              f"{worst:.3e})")
+        check(same, f"{type(opt).__name__}: the device-scalar update differs from the float one")
+
+
+def _spc_train(total: dict, cfg, data, steps: int, spc: int, out: str):
+    """train() from the config's seed with steps_per_call=spc, validation
+    off; (state, timing, launches, seconds, peak GiB)."""
+    import torch
+
+    from pixel_embedded_affinity_torch.train import train
+
+    cfg = copy.deepcopy(cfg)
+    cfg.train.steps_per_call = spc
+    cfg.save_path = out
+    timing: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, _), launches, sec = _spc_counted(total, train, cfg, max_iters=steps,
+                                             data_override=data, device="cuda", timing=timing)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return state, timing, launches, sec, peak
+
+
+def _spc_seen(prof, label: str, counted: dict, replayed: dict) -> dict:
+    """Each kernel's launches in a profile of SPC_PROFILED calls, held
+    against what the wrappers counted in them (``counted``) plus what one
+    call replays uncounted (``replayed``, by wrapper); the launches the
+    profiler saw, by wrapper."""
+    per_call = {}
+    for w in set(counted) | set(replayed):
+        check(w in SPC_KERNELS, f"{label}: {w} launched, no kernel name known for it")
+        check(counted.get(w, 0) % SPC_PROFILED == 0,
+              f"{label}: {w} counted {counted.get(w, 0)} in {SPC_PROFILED} calls")
+        per_call[w] = counted.get(w, 0) // SPC_PROFILED + replayed.get(w, 0)
+    names = [e.name for e in sorted((e for e in prof.events()
+                                     if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                                    key=lambda e: e.time_range.start)]
+    seen = {}
+    for pat in sorted({SPC_KERNELS[w] for w in per_call}):
+        ws = sorted(w for w in per_call if SPC_KERNELS[w] == pat)
+        got = [n for n in names if re.search(pat, n)]
+        want = sum(per_call[w] for w in ws)
+        check(len(got) == SPC_PROFILED * want,
+              f"{label}: the profiler saw {len(got)} launches of {pat} in {SPC_PROFILED} calls, "
+              f"the wrappers and the graph {want} a call ({ws})")
+        if len(ws) == 1:
+            seen[ws[0]] = len(got)
+            continue
+        # K3f is each call's last launch of the WMSE forward
+        check(ws == ["cross_wmse2d_fwd", "wmse2d_fwd"],
+              f"{label}: {ws} launch one kernel and cannot be told apart")
+        k3f = per_call["cross_wmse2d_fwd"]
+        seen["cross_wmse2d_fwd"] = SPC_PROFILED * k3f
+        seen["wmse2d_fwd"] = len(got) - SPC_PROFILED * k3f
+    return seen
+
+
+def _spc_profile(fn, label: str, replayed: dict):
+    """ms a step of fn() by CUDA events over SPC_TIMED calls, and a
+    torch.profiler trace of SPC_PROFILED more: device busy ms a step, the
+    idle share of the host-clock wall, the port's kernels, each one's
+    launches held against the wrappers' counts and the graph's
+    (:func:`_spc_seen`; ``replayed``: each wrapper's launches that a call
+    makes uncounted, by a replay). Returns (event ms, busy ms, idle share,
+    the replays' launches that the profiler saw, by wrapper)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixel_embedded_affinity_torch.ops.launch_count import launch_counts
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(SPC_TIMED):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ev_ms = start.elapsed_time(end) / SPC_TIMED
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SPC_PROFILED):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / SPC_PROFILED
+    counted = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+               if n != before.get(k, 0)}
+    busy = 0.0
+    n_kernels = 0
+    for e in prof.key_averages():
+        t_us = getattr(e, "self_device_time_total", None)
+        if t_us is None:
+            t_us = getattr(e, "self_cuda_time_total", 0)
+        if t_us > 0:
+            busy += t_us / 1e3 / SPC_PROFILED
+            n_kernels += e.count // SPC_PROFILED
+    idle = max(0.0, 1 - busy / wall) if wall > 0 else float("nan")
+    seen = _spc_seen(prof, label, counted, replayed)
+    by_replay = {w: n - counted.get(w, 0) for w, n in seen.items() if n != counted.get(w, 0)}
+    print(f"[spc] {label}: {ev_ms:.4f} ms a step by CUDA events ({SPC_TIMED} steps, the "
+          f"sampler's draw and the EMA view included); profile of {SPC_PROFILED}: device busy "
+          f"{busy:.4f} of {wall:.4f} ms wall a step, idle share {idle:.3f}, {n_kernels} kernels "
+          f"a step; the port's kernels the profiler saw a step {_per(seen)}, of them by the "
+          f"graph's replays {_per(by_replay)}, counted by the wrappers {_per(counted)}")
+    return ev_ms, busy, idle, by_replay
+
+
+def _per(counts: dict) -> dict:
+    return {k: v // SPC_PROFILED for k, v in sorted(counts.items())}
+
+
+def _spc_step_d(a, b, la, lb, before: dict) -> tuple:
+    """One step's distance of state b from state a, both from ``before``
+    (a state dict): the losses' relative difference, and for the
+    parameters and for the buffers the norm of the difference of the two
+    updates over the norm of a's update."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    params = {n for n, _ in a.model.named_parameters()}
+
+    def rel(keys):
+        num = sum(float((sa[k].double() - sb[k].double()).norm()) ** 2 for k in keys)
+        den = sum(float((sa[k].double() - before[k].double()).norm()) ** 2 for k in keys)
+        return (num / den) ** 0.5 if den else (0.0 if num == 0 else float("inf"))
+
+    floats = [k for k, v in sa.items() if v.is_floating_point()]
+    return (abs(la - lb) / abs(la), rel([k for k in floats if k in params]),
+            rel([k for k in floats if k not in params]))
+
+
+def _spc_one_step(step_fn, runner, batch, tag: str, exact: bool):
+    """One step from the runner's state on ``batch``: eagerly on two copies
+    and by a replay; held bit for bit where the eager step is
+    bit-reproducible, else within SPC_STEP_RTOL. Then the planted fault:
+    the state put back, a replay whose update reads the previous step's
+    scalars (the load skipped), which must lie off by more than the bar."""
+    import torch
+
+    st, opt = runner.state, runner.state.optimizer
+    tensors = (list(st.model.state_dict().values()) + list(opt.scalar_buffers)
+               + [v for s in opt.state.values() for v in s.values() if torch.is_tensor(v)])
+    saved = [t.clone() for t in tensors]
+    counts = (st.step, opt.count, [(s, s["count"]) for s in opt.state.values() if "count" in s])
+    before = {k: v.clone() for k, v in st.model.state_dict().items()}
+    e1, e2 = copy.deepcopy(st), copy.deepcopy(st)
+    l1 = float(step_fn(e1, batch)[1]["loss"])
+    l2 = float(step_fn(e2, batch)[1]["loss"])
+    lg = float(runner(batch)[1]["loss"])
+    spread = _spc_step_d(e1, e2, l1, l2, before)
+    got = _spc_step_d(e1, st, l1, lg, before)
+    same = l1 == lg and all(torch.equal(v, st.model.state_dict()[k])
+                            for k, v in e1.model.state_dict().items())
+    for t, s in zip(tensors, saved):
+        t.copy_(s)
+    st.step, opt.count = counts[0], counts[1]
+    for s, n in counts[2]:
+        s["count"] = n
+    opt.load_device_scalars = lambda: None  # the planted fault
+    try:
+        lf = float(runner(batch)[1]["loss"])
+    finally:
+        del opt.load_device_scalars
+    fault = _spc_step_d(e1, st, l1, lf, before)
+    print(f"[spc] {tag}: one step at step {counts[0] + 1} from one state, eager against eager "
+          f"(loss, parameters' update, buffers' update, relative) {spread}; eager against a "
+          f"replay {got}, bit-equal {same}; a replay with the previous step's scalars {fault} "
+          f"(held {'bit for bit' if exact else f'within {SPC_STEP_RTOL}'})")
+    if exact:
+        check(same, f"{tag}: one replayed step differs from the eager step by {got}")
+    else:
+        check(max(got) <= SPC_STEP_RTOL, f"{tag}: one replayed step off the eager step by {got}")
+    check(fault[1] > SPC_STEP_RTOL, f"{tag}: the stale-scalar replay is not caught: {fault}")
+
+
+def phase_steps_per_call(bbbc_arrays, bbbc_valid) -> dict:
+    """Phase 26: each preset trained SPC_STEPS steps eagerly and at
+    steps_per_call=SPC from one seed, in float32 and bfloat16: losses and
+    parameters against each other, step times, capture seconds, peak
+    memory, a profile of the replays, one step from one state; then the
+    CLI at steps_per_call=SPC with a resume. Returns each counted
+    wrapper's launches over the phase's runs: those the wrappers counted,
+    and of the replays those the profiler saw."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
+    from pixel_embedded_affinity_torch.train import init_state, make_train_step
+    from pixel_embedded_affinity_torch.train.__main__ import main
+    from pixel_embedded_affinity_torch.train.graph_step import GraphedStep
+    from pixel_embedded_affinity_torch.train.loop import resident_sampler
+
+    out = os.path.join(REPO, "build", "chip_smoke_spc")
+    shutil.rmtree(out, ignore_errors=True)
+    card = card_line()
+    print(f"[spc] torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
+    spc_optimizer_check()
+    cvppp_data = (pack_cvppp_arrays(leaf_pairs(4, 530, 500, SEED)), [])
+    data_3d = (train3d_data()[0][0], None)
+    data = {"cvppp": cvppp_data, "cvppp_resnet50": cvppp_data, "ac3ac4": data_3d,
+            "bbbc039v1": (bbbc_arrays, [])}
+    total: dict = {}
+    runs_3d = {}
+    for label, preset, overrides, exact_dtypes in SPC_RUNS:
+        for dtype in ("float32", "bfloat16"):
+            tag = f"{label} {dtype}"
+            cfg = load_config(preset, {**overrides, "model": {"dtype": dtype},
+                                       "train": {**overrides.get("train", {}), "if_valid": False,
+                                                 "display_freq": 1, "save_freq": 10 ** 6}})
+            base = os.path.join(out, tag.replace(" ", "_"))
+            exact = dtype in exact_dtypes
+            se, te, le, sec_e, peak_e = _spc_train(total, cfg, data[preset], SPC_STEPS, 1,
+                                                   os.path.join(base, "eager"))
+            sg, tg, lg, sec_g, peak_g = _spc_train(total, cfg, data[preset], SPC_STEPS, SPC,
+                                                   os.path.join(base, "graphed"))
+            # the graphed run's wrappers count its first step (eager) and the
+            # capture, not the replays
+            step_launches = {k: v // SPC_STEPS for k, v in le.items() if v}
+            check(all(v % SPC_STEPS == 0 for v in le.values()) and step_launches
+                  and lg == {k: 2 * step_launches.get(k, 0) for k in lg},
+                  f"{tag}: launches eager {le}, graphed (first step and capture) {lg}")
+            pe, pg = se.model.state_dict(), sg.model.state_dict()
+            p0 = init_state(cfg, "cuda").model.state_dict()
+            same = (te["loss"] == tg["loss"] and all(torch.equal(pe[k], pg[k]) for k in pe))
+            loss_d = _spc_loss_d(te["loss"], tg["loss"])
+            param_d = _spc_param_d(pe, pg, p0)
+            med = {}
+            for name, t in (("eager", te), ("graphed", tg)):
+                d = [1e3 * x for x in t["data_s"][2:]]
+                s = [1e3 * x for x in t["step_s"][2:]]
+                med[name] = (float(np.median(d)), float(np.median(s)))
+            print(f"[spc] {tag}: {SPC_STEPS} steps eager and at steps_per_call={SPC}: "
+                  f"losses {te['loss']} / {tg['loss']}; bit-equal {same}; largest loss "
+                  f"difference rel {loss_d:.3e}, parameters {param_d:.3e} of their movement "
+                  f"({'held bit for bit' if exact else 'not held: one step is, below'})")
+            print(f"[spc] {tag}: warm median ms a step (steps 3..{SPC_STEPS}, synchronised): "
+                  f"eager data {med['eager'][0]:.4f} + step {med['eager'][1]:.4f}, graphed data "
+                  f"{med['graphed'][0]:.4f} + step {med['graphed'][1]:.4f}; capture "
+                  f"{tg.get('capture_s', float('nan')):.3f} s; peak memory {peak_e:.4f} GiB eager, "
+                  f"{peak_g:.4f} GiB graphed; train() {sec_e:.2f} / {sec_g:.2f} s; launches a "
+                  f"step {step_launches}; {card}")
+            if exact:
+                check(same, f"{tag}: the graphed run differs from the eager run "
+                            f"(loss {loss_d:.3e}, parameters {param_d:.3e})")
+            if preset == "ac3ac4" and dtype == "float32":
+                runs_3d = {"graphed": (tg["loss"], {k: v.clone() for k, v in pg.items()})}
+
+            # steady steps of each path on its own state, by CUDA events and
+            # profiled, the replays' launches seen by the profiler
+            next_batch = resident_sampler(cfg, data[preset][0], torch.device("cuda"))
+            step_fn = make_train_step(cfg)
+            runner = GraphedStep(step_fn, sg, graph=True)
+
+            def warm():
+                runner(next_batch(sg.step))  # the warm-up step
+                runner(next_batch(sg.step))  # the capture and its first replay
+
+            _spc_counted(total, warm)
+            check(runner.per_replay == step_launches,
+                  f"{tag}: a replay holds {runner.per_replay}, an eager step {step_launches}")
+            (ev_e, busy_e, idle_e, _), _, _ = _spc_counted(
+                total, _spc_profile, lambda: step_fn(se, next_batch(se.step)), f"{tag} eager", {})
+            (ev_g, busy_g, idle_g, seen), _, _ = _spc_counted(
+                total, _spc_profile, lambda: runner(next_batch(sg.step)), f"{tag} graph replay",
+                runner.per_replay)
+            for k, v in seen.items():
+                total[k] = total.get(k, 0) + v
+            print(f"[spc] {tag}: ms a step by CUDA events eager {ev_e:.4f} (idle {idle_e:.3f}), "
+                  f"graph replay {ev_g:.4f} (idle {idle_g:.3f}): {ev_e / ev_g:.3f}x; {card}")
+            _spc_counted(total, _spc_one_step, step_fn, runner, next_batch(sg.step), tag,
+                         exact)
+            del runner, se, sg, pe, pg, p0
+            torch.cuda.empty_cache()
+
+    # the CLI at steps_per_call=SPC: ac3ac4 4 steps, a checkpoint, a resume to 8
+    cli_dir = os.path.join(out, "cli")
+    def argv(iters, *extra):
+        return ["-c", "ac3ac4", "--device", "cuda", "-i", str(iters), "-o",
+                f"save_path={cli_dir}", f"train.steps_per_call={SPC}", "train.display_freq=1",
+                "train.if_valid=False", f"train.save_freq={SPC}", *extra]
+
+    (_, _), got_a, sec_a = _spc_counted(total, main, argv(SPC), data_override=data_3d)
+    (state, _), got_b, sec_b = _spc_counted(total, main, argv(SPC_STEPS, "train.resume=True"),
+                                            data_override=data_3d)
+    losses = [r["loss"] for r in _logged(os.path.join(cli_dir, "ac3ac4"))]
+    logged = [r["step"] for r in _logged(os.path.join(cli_dir, "ac3ac4"))]
+    got = state.model.state_dict()
+    ref_losses, ref = runs_3d["graphed"]
+    # num_batches_tracked restarts at a resume: JAX's msgpack state has no such counter
+    differ = [k for k in ref if not k.endswith("num_batches_tracked")
+              and not torch.equal(got[k], ref[k])]
+    same = not differ
+    print(f"[spc-cli] -c ac3ac4 -o train.steps_per_call={SPC}: {SPC} steps ({sec_a:.2f} s), "
+          f"a checkpoint, a resume to {SPC_STEPS} ({sec_b:.2f} s); logged steps {logged}, "
+          f"losses {losses}; parameters bit-equal to the uninterrupted graphed run: {same}; "
+          f"launches counted (first steps and captures) {json.dumps(got_a)} + "
+          f"{json.dumps(got_b)}; {card}")
+    check(state.step == SPC_STEPS and same, f"spc-cli: the resumed graphed run differs at {differ}")
+    # displays at it <= S and at multiples of S: steps 1..S's average at S, then S
+    check(logged == [SPC, SPC_STEPS], f"spc-cli: logged steps {logged}")
+    check(np.isclose(losses[-1], np.mean(ref_losses[SPC:]), rtol=1e-6),
+          f"spc-cli: last display {losses[-1]}, uninterrupted {np.mean(ref_losses[SPC:])}")
+    print(f"[spc] launches in phase 26 by wrapper (counted, and the profiled replays'): "
+          f"{json.dumps(total)}")
+    from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
+
+    labels = {**_all_launchers(), "UPb": upsample_bwd}
+    return {k: total.get(f.__name__, 0) for k, f in labels.items()}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -5835,7 +6296,9 @@ def main() -> int:
     # 25. int8 serving (I8c, I8q), its percentile calibration, the serving
     # artifact, DCP
     p25 = _timed("int8, export, dcp", phase_int8_export_dcp, cfg, sd, samples)
-    # 26. kernels line, card, 27. last line
+    # 26. train.steps_per_call: the step as a CUDA graph against the eager step
+    spc = _timed("steps_per_call", phase_steps_per_call, arrays, valid)
+    # 27. kernels line, card, 28. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) + families.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -5843,8 +6306,8 @@ def main() -> int:
         "name": "affinity2d_fwd", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (sum(launches.values()) + trained["K1f"] + serve_bbbc["launches"]
-                     + fast["launches"]["K1f"] + cli["K1f"] + dp["K1f"]),
-        "cli_launches": cli["K1f"], "dp_launches": dp["K1f"],
+                     + fast["launches"]["K1f"] + cli["K1f"] + dp["K1f"] + spc["K1f"]),
+        "cli_launches": cli["K1f"], "dp_launches": dp["K1f"], "spc_launches": spc["K1f"],
         "max_abs_err": k1["max_abs_err"], "ms": t1["view"], "event_ms": t1["view_event"],
         "plain_ms": t1["plain_view"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None}]
@@ -5852,8 +6315,8 @@ def main() -> int:
         r = wmse[k]
         kernels.append({
             "name": name, "route": "cuda", "source": WMSE_SOURCE,
-            "replaces": WMSE_REPLACES[k], "launches": trained[k] + cli[k] + dp[k],
-            "cli_launches": cli[k], "dp_launches": dp[k],
+            "replaces": WMSE_REPLACES[k], "launches": trained[k] + cli[k] + dp[k] + spc[k],
+            "cli_launches": cli[k], "dp_launches": dp[k], "spc_launches": spc[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, **wmse16[k], "bf16_launches": train16[k] + gate16[k]})
@@ -5864,8 +6327,8 @@ def main() -> int:
         "name": "affinity3d_fwd", "route": "cuda", "source": K5_SOURCE,
         "replaces": K5_REPLACES,
         "launches": (serve3d["launches"] + train3d_launches["K5f"] + quality["K5f"] + cli["K5f"]
-                     + dp["K5f"]),
-        "cli_launches": cli["K5f"], "dp_launches": dp["K5f"],
+                     + dp["K5f"] + spc["K5f"]),
+        "cli_launches": cli["K5f"], "dp_launches": dp["K5f"], "spc_launches": spc["K5f"],
         "max_abs_err": max(k5["max_abs_err"], serve3d["max_abs_err"]), "ms": k5["ms"],
         "event_ms": k5["event_ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None})
@@ -5876,8 +6339,8 @@ def main() -> int:
         r = grad[k]
         kernels.append({
             "name": name, "route": "cuda", "source": GRAD_SOURCE, "replaces": GRAD_REPLACES[k],
-            "launches": train3d_launches[k] + in_2d[k] + quality[k] + cli[k] + dp[k],
-            "cli_launches": cli[k], "dp_launches": dp[k],
+            "launches": train3d_launches[k] + in_2d[k] + quality[k] + cli[k] + dp[k] + spc[k],
+            "cli_launches": cli[k], "dp_launches": dp[k], "spc_launches": spc[k],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
@@ -5886,8 +6349,9 @@ def main() -> int:
                 t: r[f"{t}_ms"] for t in ("ndhwc", "swapped", "view")}
     kernels.append({
         "name": "cross_affinity_fwd_2d", "route": "cuda", "source": GRAD_SOURCE,
-        "replaces": K4F_REPLACES, "launches": trained["K4f"] + cli["K4f"] + dp["K4f"],
-        "cli_launches": cli["K4f"], "dp_launches": dp["K4f"], "max_abs_err": k4f["max_abs_err"],
+        "replaces": K4F_REPLACES, "launches": trained["K4f"] + cli["K4f"] + dp["K4f"] + spc["K4f"],
+        "cli_launches": cli["K4f"], "dp_launches": dp["K4f"], "spc_launches": spc["K4f"],
+        "max_abs_err": k4f["max_abs_err"],
         "ms": k4f["ms"], "event_ms": k4f["event_ms"], "plain_ms": k4f["plain_ms"],
         "bound_ms": k4f["bound_ms"], "bound_by": k4f["bound_by"], "library_ms": None,
         "swapped_ms": k4f["swapped_ms"]})
@@ -5912,8 +6376,8 @@ def main() -> int:
         "name": "upsample_bwd", "route": "cuda", "source": UPB_SOURCE,
         "replaces": "none: no TPU kernel; the deterministic backward of the decoders' "
                     "upsampling (models/common.py)",
-        "launches": train_launches["UPb"] + train3d_launches["UPb"] + dp["UPb"],
-        "dp_launches": dp["UPb"],
+        "launches": train_launches["UPb"] + train3d_launches["UPb"] + dp["UPb"] + spc["UPb"],
+        "dp_launches": dp["UPb"], "spc_launches": spc["UPb"],
         "max_abs_err": up["max_abs_err"], "ms": up["ms"], "event_ms": up["event_ms"],
         "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
         "library_ms": up["library_ms"], "bf16_ms": up["bf16_ms"]})

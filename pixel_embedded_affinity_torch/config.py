@@ -9,8 +9,7 @@ Field names and defaults are those of the JAX package's
 the same in both packages. The port has the fields its code reads, and
 those that the JAX package declares and the port does not read
 (``model.merge_mode``, ``model.s2d_train``, ``cache_path``), so that its
-YAML files load; a JAX key it lacks (``train.steps_per_call``) fails as
-an unknown config key. :func:`load_config` applies the preset, then a YAML
+YAML files load. :func:`load_config` applies the preset, then a YAML
 file (``yaml.safe_load``), then the overrides, as the JAX package's does.
 Values whose code is not ported raise where they would take effect
 (``train.loop.check_train_config``). ``model.dtype`` and
@@ -121,6 +120,10 @@ class TrainConfig:
     fuse_loss: bool = True
     # 3D: the decoders of the in-loop validation ("waterz", "mutex", "lmc")
     valid_decoders: tuple = ("waterz",)
+    # > 1: each step a replay of a CUDA graph of the step, S steps a call
+    # (train/graph_step.py); display, valid and save frequencies round up
+    # to multiples of S, as in the JAX loop, which scans S steps in one jit
+    steps_per_call: int = 1
 
 
 @dataclass

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import float32_convs
+from .launch_count import counted
 
 SOURCE = "conv3x3.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -221,6 +222,4 @@ def conv3x3_blocked_chain(x: torch.Tensor, weights, scales=None, shifts=None,
     return blocked_egress(canvas, g, oy, ox)
 
 
-conv3x3_fused.launches = 0
-conv3x3_blocked.launches = 0
-conv3x3_blocked_flat.launches = 0
+counted(conv3x3_fused, conv3x3_blocked, conv3x3_blocked_flat)

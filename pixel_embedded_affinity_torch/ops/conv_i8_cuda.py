@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .launch_count import counted
+
 SOURCE = "conv_i8.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -196,5 +198,4 @@ def quantize_act(x: torch.Tensor, scale: float) -> torch.Tensor:
     return out
 
 
-conv_i8.launches = 0
-quantize_act.launches = 0
+counted(conv_i8, quantize_act)

@@ -31,6 +31,7 @@ import torch
 from .emb2aff import (cross_affinity_3d, embedding_to_affinity_3d, normalize_embedding,
                       offset_affinity_3d)
 from .emb2aff_cuda import _DTYPES, SUPPORTED_C, _on_cpu
+from .launch_count import counted
 from .offsets import SHIFTS_3D, offsets_3d
 
 SOURCE = "affinity3d.cu"
@@ -209,8 +210,7 @@ def cross_affinity_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, offset
             db.permute(0, 2, 3, 4, 1) if need_db else None)
 
 
-for _fn in (affinity_bwd, cross_affinity_fwd, cross_affinity_bwd):
-    _fn.launches = 0
+counted(affinity_bwd, cross_affinity_fwd, cross_affinity_bwd)
 
 
 def _affinity_3d_fwd(embedding: torch.Tensor, shifts) -> torch.Tensor:
@@ -298,4 +298,4 @@ def fused_cross_affinity_3d(a: torch.Tensor, b: torch.Tensor,
     return _CrossAffinity3D.apply(a, b, _shifts(shifts))
 
 
-fused_affinity_3d.launches = 0
+counted(fused_affinity_3d)

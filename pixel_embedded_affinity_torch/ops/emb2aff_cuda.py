@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .emb2aff import cross_affinity_2d, embedding_to_affinity_2d
+from .launch_count import counted
 
 SOURCE = "affinity2d.cu"
 SUPPORTED_C = (8, 16)
@@ -188,5 +189,4 @@ def fused_affinity_2d(embedding: torch.Tensor, offsets) -> torch.Tensor:
     return _Affinity2D.apply(embedding, _pairs(offsets))
 
 
-fused_affinity_2d.launches = 0
-fused_cross_affinity_2d.launches = 0
+counted(fused_affinity_2d, fused_cross_affinity_2d)

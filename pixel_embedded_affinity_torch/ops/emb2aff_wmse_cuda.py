@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .emb2aff import cross_affinity_2d, embedding_to_affinity_2d
+from .launch_count import counted
 
 SOURCE = "affinity_wmse2d.cu"
 SUPPORTED_C = (16,)  # the cvppp preset's emd, the one width training runs
@@ -205,8 +206,7 @@ def cross_wmse2d_bwd(a, b, t, w, m, g_s, offsets, need_db: bool = True):
     return grads[0], (grads[1] if need_db else None)
 
 
-for _fn in (wmse2d_fwd, wmse2d_bwd, cross_wmse2d_fwd, cross_wmse2d_bwd):
-    _fn.launches = 0
+counted(wmse2d_fwd, wmse2d_bwd, cross_wmse2d_fwd, cross_wmse2d_bwd)
 
 
 class _AffinityWMSE(torch.autograd.Function):

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..device import float32_convs
 from .s2d import fuse_parity_groups, s2d_conv2x2_slices, s2d_conv2x2_weights
+from .launch_count import counted
 
 SOURCE = "s2d_block.cu"
 SUPPORTED_C = (16, 32, 64)
@@ -239,4 +240,4 @@ def fused_s2d_block(xs, k1ps, h1p, k2, h2, c1: int, cp: int, c2: int, *,
     return out
 
 
-fused_s2d_block.launches = 0
+counted(fused_s2d_block)

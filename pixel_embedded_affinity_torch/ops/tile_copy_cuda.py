@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from .launch_count import counted
+
 SOURCE = "tile_copy.cu"
 
 
@@ -71,4 +73,4 @@ def tile_copy(t: torch.Tensor, tile_axis: int = 1, tile: int = 32) -> torch.Tens
     return out
 
 
-tile_copy.launches = 0
+counted(tile_copy)

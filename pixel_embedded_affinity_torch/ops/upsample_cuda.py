@@ -23,6 +23,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .launch_count import counted
+
 SOURCE = "upsample_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
@@ -126,7 +128,7 @@ def upsample_bwd(g: torch.Tensor) -> torch.Tensor:
     return out
 
 
-upsample_bwd.launches = 0
+counted(upsample_bwd)
 
 
 def upsample_fwd(x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ host unless ``data.device_gt`` and ``data.device_ema`` leave them to the
 step. Each step runs
 :class:`.train_step.TrainStep2D` or :class:`.train_step.TrainStep3D`, every
 ``valid_freq`` steps the validation data is decoded and scored, and every
-``save_freq`` steps and at the end a checkpoint is written. 2D validation
+``save_freq`` steps and at the end a checkpoint is written. With
+``train.steps_per_call`` S > 1 each step past the first replays a CUDA
+graph of the step (:mod:`.graph_step`), S steps a call. 2D validation
 decodes each image (K1f affinities, mutex watershed seeded by the labels'
 foreground or, with ``train.mask_weight``, by the predicted mask,
 small-object merging, relabelling) and scores SBD/DiC/VOI/ARAND, and with
@@ -86,6 +88,7 @@ from ..postproc import merge_func, remove_small_object, seg_mutex
 from ..utils.guards import LossWatchdog
 from ..utils.show import val_show
 from .checkpoint import latest_checkpoint, load_checkpoint, restore, save_checkpoint
+from .graph_step import GraphedStep
 from .optim import make_optimizer
 from .train_step import TrainState, TrainStep2D, TrainStep3D, make_eval_step_2d
 
@@ -341,6 +344,14 @@ def validate_3d(cfg: Config, state: TrainState, valid_volume, device) -> dict:
     return out
 
 
+def call_freqs(tc) -> tuple:
+    """(display, valid, save) frequencies of a TrainConfig rounded up to
+    multiples of ``steps_per_call``, as the JAX loop rounds them, so that
+    events land on call boundaries; the config is left as it is."""
+    s = max(1, int(tc.steps_per_call))
+    return tuple(-(-f // s) * s for f in (tc.display_freq, tc.valid_freq, tc.save_freq))
+
+
 def _has_valid(valid) -> bool:
     return valid is not None and (hasattr(valid, "raw") or len(valid) > 0)
 
@@ -377,11 +388,28 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     or the device sampler's launches) and ``step_s`` (the step, synchronised
     after it: timing costs the overlap of one step's host work with the
     previous step's kernels), ``valid_s``, the seconds of each validation,
-    and ``lr``, the rate of each step.
+    ``lr``, the rate of each step, ``loss``, each step's loss (as the
+    display, validation and save points fetch them), and with a captured
+    graph ``capture_s``, the capture's seconds.
+
+    ``train.steps_per_call`` S > 1 (not with a ``mesh``: its all-reduces are
+    not captured) runs the JAX loop's calls of S steps: each step's batch
+    and EMA view are drawn eagerly, and the rest of the step is a replay of
+    one CUDA graph (:class:`.graph_step.GraphedStep`; on the CPU the same
+    split, eager). Fewer than S steps left run one at a time. The display,
+    validation and save frequencies round up to multiples of S
+    (:func:`call_freqs`), and an event fires after a call in which ``it %
+    freq < S``: the first display at ``it <= S``, validation and saves only
+    past S, a save at the end, as in the JAX loop.
     """
     check_train_config(cfg)
     dev = mesh.device if mesh is not None else resolve_device(device)
     n_ranks = 1 if mesh is None else mesh.size
+    steps_per_call = max(1, int(cfg.train.steps_per_call))
+    if mesh is not None and steps_per_call > 1:
+        raise NotImplementedError(
+            "train.steps_per_call > 1 with a data-parallel mesh: the cross-rank BatchNorm's "
+            "all-reduces are not captured in a CUDA graph (ROADMAP.md §1 item 7)")
     if cfg.train.batch_size % n_ranks:
         raise ValueError(f"train.batch_size={cfg.train.batch_size} does not divide over "
                          f"{n_ranks} ranks: the global batch is split in equal shards")
@@ -418,6 +446,10 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
         broadcast_module_(mesh, state.model)
 
     step_fn = make_train_step(cfg, mesh)
+    # S > 1: each step a replay of a CUDA graph of the step (on the CPU the
+    # same prelude and body, eager)
+    runner = (GraphedStep(step_fn, state, graph=dev.type == "cuda")
+              if steps_per_call > 1 else None)
     if is_3d:
         def validate(it):
             return validate_3d(cfg, state, valid_ds, dev)
@@ -449,8 +481,10 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     sum_loss = 0.0
     t_start = time.time()
     it = state.step
-    display_freq, valid_freq, save_freq = (
-        cfg.train.display_freq, cfg.train.valid_freq, cfg.train.save_freq)
+    display_freq, valid_freq, save_freq = call_freqs(cfg.train)
+
+    def hit(freq: int) -> bool:  # the JAX loop's rule, for S-strided counts too
+        return it % freq < steps_per_call
 
     opt, group = state.optimizer, state.optimizer.param_groups[0]
 
@@ -462,33 +496,38 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
         for j, v in enumerate(vals):
             watchdog.check(v, state=None, step=it - len(vals) + 1 + j)
             sum_loss += v
+        if timing is not None:
+            timing.setdefault("loss", []).extend(vals)
         pending.clear()
 
     try:
         while it < total_iters:
-            t0 = time.perf_counter()
-            batch = next_batch(it)
-            t1 = time.perf_counter()
-            lr = opt.lr(group)
-            _, metrics = step_fn(state, batch)
-            it += 1
-            pending.append(metrics["loss"])
-            if timing is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                timing.setdefault("data_s", []).append(t1 - t0)
-                timing.setdefault("step_s", []).append(time.perf_counter() - t1)
-                timing.setdefault("lr", []).append(lr)
+            # a call: S steps, or single steps in the tail, as the JAX loop's
+            for _ in range(steps_per_call if total_iters - it >= steps_per_call else 1):
+                t0 = time.perf_counter()
+                batch = next_batch(it)
+                t1 = time.perf_counter()
+                lr = opt.lr(group)
+                _, metrics = (step_fn(state, batch) if runner is None else runner(batch))
+                it += 1
+                pending.append(metrics["loss"])
+                if timing is not None:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    timing.setdefault("data_s", []).append(t1 - t0)
+                    timing.setdefault("step_s", []).append(time.perf_counter() - t1)
+                    timing.setdefault("lr", []).append(lr)
 
-            if it % display_freq == 0 or it <= 1:
+            if hit(display_freq) or it <= steps_per_call:
                 drain()
                 dt = time.time() - t_start
-                avg = sum_loss / (display_freq if it > 1 else max(it, 1))
+                avg = sum_loss / (display_freq if it > steps_per_call else max(it, 1))
                 if writer:
                     log.info("step %d, loss=%.6f (%.2f s)", it, avg, dt)
                     logger.add(it, loss=avg, lr=lr, sec_per_iter=dt / max(it, 1))
                 sum_loss = 0.0
-            if cfg.train.if_valid and _has_valid(valid_ds) and it % valid_freq == 0 and it > 1:
+            if (cfg.train.if_valid and _has_valid(valid_ds) and hit(valid_freq)
+                    and it > steps_per_call):
                 drain()
                 if writer:
                     t0 = time.perf_counter()
@@ -500,13 +539,15 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
                     history.append({"step": it, **m})
                 if mesh is not None:
                     barrier(mesh)
-            if (it % save_freq == 0 and it > 1) or it >= total_iters:
+            if (hit(save_freq) and it > steps_per_call) or it >= total_iters:
                 drain()
                 if writer:
                     save_checkpoint(save_path, state, it)
                 if mesh is not None:
                     barrier(mesh)
         drain()
+        if timing is not None and runner is not None and runner.capture_s is not None:
+            timing["capture_s"] = runner.capture_s
     finally:
         if provider is not None:
             provider.close()
