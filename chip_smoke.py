@@ -250,9 +250,14 @@ Phases, each of which exits nonzero when it fails:
      float32 and bfloat16 compute) against their plain versions, the int32
      accumulators exact and the outputs and codes equal to the bit; the
      B=1 forward's calls timed by CUDA graph replay, L2 flushed, beside
-     their bounds (int8 at 1,979 TOPS against bytes), the plain versions
-     and cuDNN's bf16 and float32 convs and torch._int_mm on the im2col
-     (yardsticks the port never calls); run_inference_2d with
+     their bounds (int8 at 1,979 TOPS against bytes), each I8c call's
+     tiling (conv_plan), the plain versions and cuDNN's bf16 and float32
+     convs and torch._int_mm on the im2col, and for I8q
+     torch.quantize_per_tensor (yardsticks the port never calls); I8c's
+     wgmma and TMA instructions in the SASS, registers and spills; the
+     floor of one timed call (a one-element kernel, timed alike); a
+     profile of one graphed B=4 forward + affinity by kernel group, int8
+     beside bf16; run_inference_2d with
      model.int8_infer at B=1 and B=4, each kernel's count set to 0 just
      before and read just after, the int8 embedding and affinities against
      float32's at JAX's bars (cosine > 0.99, max < 0.05, mean < 0.005), ms
@@ -2523,15 +2528,11 @@ def sass_report(source: str) -> dict:
     return hmma
 
 
-def graph_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
-    """Median device time of fn() in ms without the host's launch path: fn
-    is captured once in a CUDA graph and each replay is timed by CUDA
-    events. With ``flush_bytes``, a buffer that size is rewritten before
-    each replay so the call starts with its inputs out of L2."""
+def capture_graph(fn):
+    """fn() captured once in a CUDA graph after three warm-up calls on a
+    side stream; returns the graph."""
     import torch
 
-    flush = (torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
-             if flush_bytes else None)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2541,6 +2542,19 @@ def graph_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
+    return graph
+
+
+def graph_ms(fn, n: int = 20, flush_bytes: int = 0) -> float:
+    """Median device time of fn() in ms without the host's launch path: fn
+    is captured once in a CUDA graph and each replay is timed by CUDA
+    events. With ``flush_bytes``, a buffer that size is rewritten before
+    each replay so the call starts with its inputs out of L2."""
+    import torch
+
+    flush = (torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+             if flush_bytes else None)
+    graph = capture_graph(fn)
     times = []
     for _ in range(n + 3):
         if flush is not None:
@@ -5455,6 +5469,57 @@ def _graph_ms_or_none(fn, flush: int):
         return None
 
 
+def _quantize_library(x, scale: float):
+    """torch.quantize_per_tensor(x, scale, 0, qint8): I8q's yardstick (it
+    divides by the scale and clamps at -128; the port never calls it)."""
+    import torch
+
+    return lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8)
+
+
+def i8c_sass() -> dict:
+    """I8c's wgmma (IGMMA) and TMA load (UTMALDG) instructions in the SASS
+    of csrc/conv_i8.cu's build, by kernel, beside ptxas's registers and
+    spills; fails unless every conv_i8_kernel has both."""
+    from pixel_embedded_affinity_torch import cuda_build
+    from pixel_embedded_affinity_torch.ops import conv_i8_cuda as c8
+
+    so = cuda_build.library_path(c8.SOURCE)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {so}: {out.stderr[-500:]}")
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"IGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += op in ln
+    ptxas = ptxas_info(c8.SOURCE)
+    res = {nice: {**counts[k], "ptxas": ptxas.get(k, "n/a")}
+           for k, nice in zip(counts, demangled(counts))}
+    for nice, r in res.items():
+        print(f"[int8] sass {nice}: {json.dumps(r)}")
+    convs = {k: v for k, v in res.items() if "conv_i8_kernel" in k}
+    check(convs and all(v["IGMMA"] > 0 and v["UTMALDG"] > 0 for v in convs.values()),
+          f"I8c without wgmma or TMA loads in its SASS: {convs}")
+    return res
+
+
+# the groups of int8 serving's profile: a kernel goes to the first group
+# one of whose name parts its lower-cased name holds
+INT8_PROFILE_GROUPS = (
+    ("I8c", ("conv_i8_kernel",)), ("I8q", ("quantize_kernel",)),
+    ("K1f affinity", ("affinity",)), ("K7/K9/K8", ("conv3x3", "s2d_block")),
+    ("cuDNN convs", ("fprop", "cudnn", "implicit", "conv")),
+    ("matmul (the einsum upsampling)", ("gemm", "cutlass", "matmul", "splitk")),
+    ("elementwise and copies", ("elementwise", "copy", "cat", "fill", "reduce", "pad", "index",
+                                "clamp", "where")))
+
+
 def phase_int8_kernels(cfg, sd, samples) -> dict:
     """I8c and I8q on the card against their plain versions at the real
     shapes: every conv_i8 and quantize_act call of the int8 fast forward
@@ -5495,6 +5560,14 @@ def phase_int8_kernels(cfg, sd, samples) -> dict:
             for x, scale, out in rec.quants:
                 check(torch.equal(out, c8.quantize_act_plain(x, scale)),
                       f"I8q {dtype} B={bs} {tuple(x.shape)} {x.dtype}: codes differ")
+            if dtype == "bfloat16" and bs == 1:  # the yardstick on a bf16 input, once
+                x16, s16, _ = rec.quants[0]
+                try:
+                    _quantize_library(x16, s16)()
+                    print("[int8] torch.quantize_per_tensor takes a bfloat16 input here")
+                except RuntimeError as e:
+                    print(f"[int8] torch.quantize_per_tensor refuses a bfloat16 input: "
+                          f"{str(e).splitlines()[0][:200]}")
             in_types = sorted({str(x.dtype) for x, _, _ in rec.quants})
             print(f"[int8] {dtype} B={bs}: {len(rec.convs)} I8c calls and {len(rec.quants)} I8q "
                   f"calls ({in_types} in) at the {n_sites} sites; accumulators exact, outputs "
@@ -5502,10 +5575,15 @@ def phase_int8_kernels(cfg, sd, samples) -> dict:
             check(len(rec.convs) == 23 and len(rec.quants) == 18,
                   f"{len(rec.convs)} I8c, {len(rec.quants)} I8q calls, expected 23 and 18")
             recorded[(dtype, bs)] = rec
+    sass = i8c_sass()
     # the B=1 float32 forward's calls, timed
     flush = 64 << 20
     rows, tot, split = [], {}, {"bytes": 0.0, "operations": 0.0}
     card = card_line()
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(lambda: one.add_(1.0), flush_bytes=flush)
+    print(f"[int8] the floor of one call timed alike (a one-element kernel by CUDA graph "
+          f"replay, L2 flushed): {floor_ms} ms, {card}")
     for x_q, w, sc, sh, pad, _ in recorded[("float32", 1)].convs:
         t_bytes, t_ops = i8c_bound(x_q, w, pad)
         split["bytes"] += t_bytes
@@ -5517,33 +5595,40 @@ def phase_int8_kernels(cfg, sd, samples) -> dict:
         r = {k: (graph_ms(f, flush_bytes=flush) if k in ("ms", "plain_ms")
                  else _graph_ms_or_none(f, flush)) for k, f in fns.items()}
         r.update(bound_ms=b_ms, bound_by=b_by, shape=list(x_q.shape), cout=w.cout,
-                 taps=[w.kh, w.kw], padding=list(pad))
+                 taps=[w.kh, w.kw], padding=list(pad), plan=c8.conv_plan(x_q.shape, w, pad))
         rows.append(r)
         for k in ("ms", "plain_ms", "cudnn_bf16_ms", "cudnn_f32_ms", "int_mm_im2col_ms",
                   "bound_ms"):
             tot[k] = None if r[k] is None or tot.get(k, 0.0) is None else tot.get(k, 0.0) + r[k]
         print(f"[int8] I8c {tuple(x_q.shape)} {w.kh}x{w.kw} -> {w.cout} pad {pad}: "
               + json.dumps({k: v for k, v in r.items() if k.endswith("ms")})
-              + f" ({b_by}), {card}")
-    qtot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+              + f" ({b_by}); plan {json.dumps(r['plan'])}, {card}")
+    qtot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    qrows = []
     for x, scale, _ in recorded[("float32", 1)].quants:
         xq = x.contiguous()
         q = {"ms": graph_ms(lambda: c8.quantize_act(xq, scale), flush_bytes=flush),
              "plain_ms": graph_ms(lambda: c8.quantize_act_plain(xq, scale), flush_bytes=flush),
-             "bound_ms": xq.numel() * (xq.element_size() + 1) / HBM_BYTES_PER_S * 1e3}
+             "library_ms": _graph_ms_or_none(_quantize_library(xq, scale), flush),
+             "bound_ms": xq.numel() * (xq.element_size() + 1) / HBM_BYTES_PER_S * 1e3,
+             "shape": list(xq.shape)}
+        qrows.append(q)
         for k in qtot:
-            qtot[k] += q[k]
+            qtot[k] = None if q[k] is None or qtot[k] is None else qtot[k] + q[k]
     # the summed bound is labelled by the larger of its two sums; the calls
     # bound each way are counted beside it
     by_rows = {k: sum(r["bound_by"] == k for r in rows) for k in split}
     print(f"[int8] one B=1 float32 int8 forward's 23 I8c calls, summed (ms by CUDA graph "
           f"replay, L2 flushed): {json.dumps(tot)}; the bound's sums by bytes and by "
           f"operations {json.dumps(split)}, calls bound each way {json.dumps(by_rows)}; its 18 "
-          f"I8q calls: {json.dumps(qtot)}, {card}")
-    return {"I8c": {"max_abs_err": 0.0, **tot,
+          f"I8q calls (library_ms: torch.quantize_per_tensor): {json.dumps(qtot)}, {card}")
+    print(f"[int8] I8c rows: {json.dumps(rows)}")
+    print(f"[int8] I8q rows: {json.dumps(qrows)}")
+    return {"I8c": {"max_abs_err": 0.0, **tot, "library_ms": tot["cudnn_bf16_ms"],
                     "bound_by": max(split, key=split.get), "bound_by_calls": by_rows,
-                    "rows": rows},
-            "I8q": {"max_abs_err": 0.0, **qtot, "bound_by": "bytes"}}
+                    "rows": rows, "floor_ms": floor_ms, "sass": sass},
+            "I8q": {"max_abs_err": 0.0, **qtot, "bound_by": "bytes", "rows": qrows,
+                    "floor_ms": floor_ms}}
 
 
 def phase_int8_serving(cfg, sd, samples) -> dict:
@@ -5624,6 +5709,15 @@ def phase_int8_serving(cfg, sd, samples) -> dict:
     print(f"[int8] fast forward + affinity, ms/img by CUDA events around the eager call "
           f"(warm median of 20, host launch gaps included): {json.dumps(times)}; by CUDA "
           f"graph replay (median of 20, device time): {json.dumps(graphed)}, {card_line()}")
+    # where one graphed B=4 forward + affinity spends the card's time, by
+    # kernel group, int8 beside bf16
+    pb = packed[:4]
+    for k in ("int8", "bfloat16"):
+        with torch.no_grad(), float32_convs():
+            graph = capture_graph(lambda f=fwds[k]: fast_affinities(f, pb, offsets))
+        device_breakdown(graph.replay, 4, label=f"int8 serving, {k} B=4 graphed",
+                         split=INT8_PROFILE_GROUPS,
+                         require=("conv_i8_kernel", "quantize_kernel") if k == "int8" else ())
     return {"launches": launches, "quality": quality, "times": times, "graphed": graphed}
 
 
@@ -6392,7 +6486,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": I8C_SOURCE, "replaces": replaces,
             "launches": p25["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("cudnn_bf16_ms"),
+            "library_ms": r["library_ms"], "floor_ms": r["floor_ms"],
             "timed_by": f"cuda graph replay, L2 flushed, summed over the "
                         f"{23 if key == 'I8c' else 18} calls of one B=1 float32 int8 forward"})
         if key == "I8c":
@@ -6400,6 +6494,9 @@ def main() -> int:
                                        "calls)", library_f32_ms=r["cudnn_f32_ms"],
                                bound_by_calls=r["bound_by_calls"],
                                library_int_mm_im2col_ms=r["int_mm_im2col_ms"])
+        else:
+            kernels[-1]["library"] = ("torch.quantize_per_tensor to qint8 (a yardstick the port "
+                                      "never calls)")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

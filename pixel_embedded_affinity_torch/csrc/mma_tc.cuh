@@ -1,8 +1,7 @@
-// Tensor-core and asynchronous-copy helpers shared by conv3x3.cu,
-// s2d_block.cu and conv_i8.cu (sm_90a): cp.async with zero fill, mma.sync
-// m16n8k8 TF32 with the 3xTF32 split for float32, mma.sync m16n8k16
-// bfloat16 and m16n8k32 int8 with ldmatrix fragment loads, and one k-step of
-// a warp's implicit-GEMM tile.
+// Tensor-core and asynchronous-copy helpers shared by conv3x3.cu and
+// s2d_block.cu (sm_90a): cp.async with zero fill, mma.sync m16n8k8 TF32
+// with the 3xTF32 split for float32, mma.sync m16n8k16 bfloat16 with
+// ldmatrix fragment loads, and one k-step of a warp's implicit-GEMM tile.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8 / k16"),
 // with g = lane / 4 and t = lane % 4:
@@ -76,20 +75,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// int8 x int8 -> int32 (conv_i8.cu). m16n8k32 .s8: the A and B fragments
-// hold 4 bytes a register at the same byte positions as m16n8k16 bf16's
-// (a0 (g, 4t..4t+3), a1 (g + 8, ..), a2 (g, 16 + 4t..), a3 (g + 8, 16 + 4t..);
-// b0 (k = 4t..4t+3, n = g), b1 (k = 16 + 4t.., n = g)), so ldmatrix loads them;
-// C/D are s32 in the float layout.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

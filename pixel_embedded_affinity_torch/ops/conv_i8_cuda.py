@@ -9,8 +9,10 @@ convolution on the card.
 * :func:`conv_i8` (I8c): an NHWC int8 input, int8 weights, an int32
   accumulator, and float32 ``acc * out_scale[c] (+ shift[c])``. The weights
   are packed once (:func:`pack_weights_i8`) as (Cout, kh kw Cin), K
-  contiguous, the tensor cores' col operand; an HWIO int8 kernel is packed
-  at the call.
+  contiguous, the tensor cores' B operand; an HWIO int8 kernel is packed
+  at the call. The kernel reads both through TMA, which takes Cin a
+  multiple of 16 and 16-byte aligned tensors: :func:`aligned_operands`
+  gives other inputs zero channels in a scratch copy.
 * :func:`quantize_act` (I8q): float32 or bfloat16 -> int8,
   ``clip(round(float(x) * (1 / scale)), -127, 127)``, half to even.
 
@@ -104,6 +106,28 @@ def _inv(scale: float) -> float:
     return float(np.float32(1.0 / float(scale)))
 
 
+def aligned_operands(x_q: torch.Tensor, w: I8Weights):
+    """``(x, packed)`` as the kernel takes them: Cin a multiple of 16 and
+    both 16-byte aligned. Where ``x_q`` and ``w`` are not, they are copied
+    into ``torch.empty`` scratch with zero channels appended to each pixel
+    and to each tap's weights, which add nothing to the sums."""
+    packed, cin = w.packed, w.cin
+    pad = -cin % 16
+    if not pad and x_q.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0:
+        return x_q, packed
+    x = torch.empty(x_q.shape[:-1] + (cin + pad,), dtype=torch.int8, device=x_q.device)
+    x[..., :cin] = x_q
+    x[..., cin:] = 0
+    taps = w.kh * w.kw
+    p = torch.empty((w.cout, taps, cin + pad), dtype=torch.int8, device=packed.device)
+    p[..., :cin] = packed.reshape(w.cout, taps, cin)
+    p[..., cin:] = 0
+    return x, p.reshape(w.cout, -1)
+
+
+PLAN_KEYS = ("S", "BN", "BM", "TW", "TH", "tiles", "grid", "stages", "smem_bytes")
+
+
 def _lib() -> ctypes.CDLL:
     from .. import cuda_build
 
@@ -114,7 +138,24 @@ def _lib() -> ctypes.CDLL:
         lib.quantize_i8.restype = ctypes.c_int
         lib.quantize_i8.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
+        lib.conv_i8_plan.restype = ctypes.c_int
+        lib.conv_i8_plan.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p]
     return lib
+
+
+def conv_plan(x_shape, w: I8Weights, padding=(1, 1, 1, 1), lib=None) -> dict:
+    """The tiling I8c launches for an input of ``x_shape`` (B, H, W, Cin):
+    k-block bytes S, the N tile BN, the M tile of BM pixels in a TW x TH
+    box, the tiles, the persistent grid, the ring's stages and a block's
+    shared memory (on the current CUDA device, or through ``lib``)."""
+    b, h, wd, cin = x_shape
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = (lib or _lib()).conv_i8_plan(b, h, wd, cin + (-cin % 16), w.cout, w.kh, w.kw,
+                                       *_check_padding(padding), out)
+    if err != 0:
+        raise ValueError(f"I8c takes no input {tuple(x_shape)} with {w.kh}x{w.kw} -> {w.cout}, "
+                         f"padding {padding}: cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
@@ -139,17 +180,18 @@ def _launch_conv(x_q, w: I8Weights, out_scale, shift, padding) -> torch.Tensor:
         raise ValueError(f"weights of Cin {w.cin} ({w.packed.dtype}) for an input of Cin {cin}")
     pt, pb, pl, pr = _check_padding(padding)
     ho, wo = h + pt + pb - w.kh + 1, wd + pl + pr - w.kw + 1
-    packed = w.packed.to(x_q.device).contiguous()
+    x, packed = aligned_operands(x_q, w._replace(packed=w.packed.to(x_q.device).contiguous()))
     scale = None if out_scale is None else _vec(out_scale, w.cout, x_q, "out_scale")
     shift = None if shift is None else _vec(shift, w.cout, x_q, "shift")
     out = torch.empty((b, ho, wo, w.cout), dtype=torch.float32 if scale is not None
                       else torch.int32, device=x_q.device)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     with torch.cuda.device(x_q.device):
-        err = _lib().conv_i8_fwd(x_q.data_ptr(), packed.data_ptr(),
+        err = _lib().conv_i8_fwd(x.data_ptr(), packed.data_ptr(),
                                  None if scale is None else scale.data_ptr(),
                                  None if shift is None else shift.data_ptr(), out.data_ptr(),
-                                 b, h, wd, cin, w.cout, w.kh, w.kw, pt, pb, pl, pr, stream)
+                                 b, h, wd, x.shape[-1], w.cout, w.kh, w.kw, pt, pb, pl, pr,
+                                 stream)
     if err != 0:
         raise RuntimeError(f"conv_i8_fwd launch failed: cudaError {err}")
     return out

@@ -2,7 +2,7 @@
 // emu.h, by the PTX ISA's definitions: cp.async copies at once (the
 // stages' ring order is then trivially kept) and checks its alignment and
 // bounds; cvt.rna.tf32 rounds to 10 mantissa bits, ties away from zero;
-// mma.sync (TF32, bf16, s8) and ldmatrix exchange the warp's registers through a scratch
+// mma.sync (TF32, bf16) and ldmatrix exchange the warp's registers through a scratch
 // area between two warp barriers, with the fragment layouts of the PTX ISA
 // (see mma_tc.cuh). Products are summed in float32, in order.
 // Included by the test in place of that header's asm section, inside
@@ -79,32 +79,6 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
                 [](EmuWarpScratch& s, int k, int col) {
                     return emu_bf16(s.r[col * 4 + (k % 8) / 2][4 + (k >= 8)], k % 2);
                 });
-}
-
-// m16n8k32 s8 x s8 -> s32: element (row, k) of A is byte k % 4 of register
-// (row >= 8) + 2 (k >= 16) of lane 4 (row % 8) + (k % 16) / 4; (k, col) of B
-// byte k % 4 of register k >= 16 of lane 4 col + (k % 16) / 4; summed in int32
-inline void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    EmuWarpScratch& s = emu_warp();
-    const int l = emu_lane();
-    for (int i = 0; i < 4; ++i) s.r[l][i] = a[i];
-    s.r[l][4] = b0;
-    s.r[l][5] = b1;
-    emu_warp_sync();
-    const int g = l >> 2, t = l & 3;
-    int d[4];
-    for (int e = 0; e < 4; ++e) {
-        const int row = g + 8 * (e >= 2), col = 2 * t + (e & 1);
-        int sum = c[e];
-        for (int k = 0; k < 32; ++k) {
-            const uint32_t ra = s.r[(row % 8) * 4 + (k % 16) / 4][(row >= 8) + 2 * (k >= 16)];
-            const uint32_t rb = s.r[col * 4 + (k % 16) / 4][4 + (k >= 16)];
-            sum += (int)(int8_t)(ra >> (8 * (k % 4))) * (int)(int8_t)(rb >> (8 * (k % 4)));
-        }
-        d[e] = sum;
-    }
-    emu_warp_sync();
-    for (int e = 0; e < 4; ++e) c[e] = d[e];
 }
 
 // matrix j's row r comes from the address of lane 8 j + r
