@@ -242,8 +242,23 @@ Phases, each of which exits nonzero when it fails:
      the training CLI with --distributed under torchrun's environment for
      one process (NCCL at world size 1) on the ac3ac4 preset, 4 steps from
      the device sampler, its losses and parameters bit-equal to the run
-     without --distributed and its checkpoint written once; where the host
-     has two cards, the cvppp step on NCCL over both;
+     without --distributed and its checkpoint written once; then on one
+     NCCL group of world size 1 that the script joins: the capture probe
+     (dist.all_reduce by SUM and by PREMUL_SUM(0.5) of the flat gradient's
+     size and of a BatchNorm's [sum x, sum x^2, n] vector, float32 and
+     float64, captured in a CUDA graph and replayed 20 times on new
+     inputs, each replay bit-equal to the eager all-reduces and half its
+     input, which only the captured PREMUL_SUM can make (over one rank
+     NCCL issues no work for an in-place SUM); the device events of a
+     profiled replay printed; capture seconds and replay ms) and the same CLI run at train.steps_per_call=4 (one
+     meshed step captured on NCCL and replayed), its parameters bit-equal
+     to the run without --distributed at steps_per_call=4 and to the
+     steps_per_call=1 run, its logged loss the mean of that run's four;
+     then 6 more replays of its graph, timed and profiled, the kernels the
+     profiler saw them launch held against the capture's counts; where
+     the host has two cards, the cvppp step on NCCL over both, eager and
+     as one graphed call of 4 steps (the losses within SPC_STEP_RTOL), its
+     replays profiled alike, else "one card here";
  25. int8 serving, serving artifacts, DCP checkpoints:
      I8c and I8q (csrc/conv_i8.cu, no TPU site) at every call of the
      full-width cvppp int8 fast forward (INT8_DEFAULT_SITES; B=1 and B=4,
@@ -3908,9 +3923,10 @@ CLI_SCHEDULE = {"lr_mode": "poly", "base_lr": 1e-4, "end_lr": 1e-6, "warmup_iter
                 "decay_iters": 6, "power": 1.5}
 # steps 5-8 after the resume, and the validation loss after step 8,
 # against the uninterrupted run: the batches and EMA views are the same
-# draws, the checkpoint's state the same bits, but two runs differ by the
-# bilinear upsampling's backward, which sums with atomics (7.4e-5 and
-# 1.3e-4 between the two runs in two calls on an H100); a resume that
+# draws, the checkpoint's state the same bits, but two runs differ by
+# cuDNN's float32 weight and input gradients, whose summation order changes
+# from run to run (ROADMAP §3 item 18; 7.4e-5 and 1.3e-4 between the two
+# runs in two calls on an H100); a resume that
 # drops the optimizer state or the schedule's count moves them by 7.4e-3
 # and 8.0e-3 (a CPU mutation check at filters 4..16)
 CLI_RESUME_RTOL = 1e-3
@@ -4971,6 +4987,17 @@ DP_CROP = (20, 512, 512)
 DP_CLI_STEPS = 4
 DP_ZERO_BIAS = re.compile(BIAS_BEFORE_BN.pattern + "|" + BIAS_BEFORE_BN_3D.pattern)
 DP_TIMEOUT_S = 600
+DP_SPC = 4  # steps_per_call of the meshed graphed runs
+# the NCCL capture probe: replays held against the eager all-reduce, each
+# on new inputs; the BatchNorm vector [sum x, sum x^2, n] of the widest
+# BatchNorm of the cvppp model (256 channels)
+DP_PROBE_REPLAYS = 20
+DP_PROBE_BN = 2 * 256 + 1
+# NCCL issues no work for an in-place SUM over one rank, the step's op; a
+# PREMUL_SUM by this factor runs NCCL's one-rank reduce kernel, so a replay
+# that gives factor x the input ran the captured collective
+DP_PROBE_FACTOR = 0.5
+DP_PROBE_NCCL = re.compile(r"nccl|oneRankReduce", re.I)  # NCCL's kernels in a profile
 
 
 def _dp_launchers():
@@ -4979,9 +5006,10 @@ def _dp_launchers():
     return {**_bbbc_launchers(), **_train3d_launchers(), "UPb": upsample_bwd}
 
 
-def _dp_case(kind: str, arrays):
-    """(config, seeded state dict on the CPU, the DP_STEPS global batches of
-    the preset's resident sampler on the card, moved to the CPU)."""
+def _dp_case(kind: str, arrays, steps: int = DP_STEPS):
+    """(config, seeded state dict on the CPU, the first ``steps`` global
+    batches of the preset's resident sampler on the card, moved to the
+    CPU)."""
     import torch
 
     from pixel_embedded_affinity_torch.config import load_config
@@ -4992,7 +5020,7 @@ def _dp_case(kind: str, arrays):
     torch.manual_seed(cfg.train.random_seed)
     sd = model_from_config(cfg.model).state_dict()
     draw = resident_sampler(cfg, arrays, "cuda")
-    return cfg, sd, [{k: v.cpu() for k, v in draw(s).items()} for s in range(DP_STEPS)]
+    return cfg, sd, [{k: v.cpu() for k, v in draw(s).items()} for s in range(steps)]
 
 
 def _dp_record(rec: dict, run, model):
@@ -5051,6 +5079,164 @@ def dp_steps(kind: str, case: dict, mesh=None, reference: bool = False) -> dict:
     if reference:
         out["ref"] = ref
     return out
+
+
+def dp_profile_replays(runner, next_batch, label: str):
+    """SPC_TIMED + SPC_PROFILED more calls of a graphed ``runner`` on
+    ``next_batch()``, timed and profiled by :func:`_spc_profile`, which
+    holds each kernel's launches that the profiler saw against the
+    wrappers' counts plus ``runner.per_replay`` a replay. Returns (the
+    wrappers' counts in these calls, the replays' launches that the
+    profiler saw, both by wrapper; ms a call by CUDA events)."""
+    from pixel_embedded_affinity_torch.ops.launch_count import launch_counts
+
+    before = launch_counts()
+    ev_ms, _, _, seen = _spc_profile(lambda: runner(next_batch()), label, runner.per_replay)
+    counted = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+               if n != before.get(k, 0)}
+    want = {w: n * SPC_PROFILED for w, n in runner.per_replay.items()}
+    check(seen == want, f"{label}: the profiler saw the replays launch {seen}, "
+                        f"{SPC_PROFILED} x a replay's {want}")
+    return counted, seen, ev_ms
+
+
+def dp_graphed(kind: str, case: dict, mesh) -> dict:
+    """The preset's meshed step over the case's batches as one call of
+    ``train.steps_per_call``: the first step eager, the second captured
+    (collectives included) and replayed, the rest replayed; each step's
+    metrics and state; then :func:`dp_profile_replays` on the last batch:
+    the kernels the wrappers counted, and those the profiler saw the
+    replays launch."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.train import GraphedStep, TrainState, make_optimizer
+    from pixel_embedded_affinity_torch.train.loop import make_train_step
+
+    cfg = load_config(DP_PRESETS[kind])
+    model = model_from_config(cfg.model)
+    model.load_state_dict(case["state_dict"])
+    model = model.cuda().train()
+    state = TrainState(model, make_optimizer(model.parameters(), cfg.train), 0)
+    runner = GraphedStep(make_train_step(cfg, mesh), state, graph=True)
+    launchers = _dp_launchers()
+    before = {k: fn.launches for k, fn in launchers.items()}
+    out = {"metrics": [], "states": []}
+    for b in case["batches"]:
+        _, metrics = runner({k: v.cuda() for k, v in b.items()})
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["states"].append({k: v.detach().to("cpu", copy=True)
+                              for k, v in model.state_dict().items()})
+    batch = {k: v.cuda() for k, v in case["batches"][-1].items()}
+    _, seen, ev_ms = dp_profile_replays(runner, lambda: batch,
+                                        f"{kind} NCCL rank {mesh.rank} meshed graph replay")
+    torch.cuda.synchronize()
+    out.update(per_replay=runner.per_replay, replays=runner.replays, seen=seen, ms=ev_ms,
+               capture_s=runner.capture_s,
+               launches={k: fn.launches - before[k] for k, fn in launchers.items()})
+    return out
+
+
+def nccl_capture_probe(mesh, n_grad: int) -> dict:
+    """Whether this card's PyTorch and NCCL hold the data-parallel step's
+    collectives in a CUDA graph: ``dist.all_reduce`` of a flat buffer of
+    ``n_grad`` values (the flat gradient's size) and of a BatchNorm's [sum
+    x, sum x^2, n] vector (DP_PROBE_BN values), each in float32 and
+    float64, by SUM (the step's op) and then by PREMUL_SUM(DP_PROBE_FACTOR),
+    captured once on ``mesh``'s NCCL group after an eager warm-up on a side
+    stream, as the training step's graph is; then DP_PROBE_REPLAYS replays,
+    each on new inputs copied into the graph's static sources, held bit for
+    bit against the eager all-reduces of the same inputs, each output
+    DP_PROBE_FACTOR x its input: only the captured PREMUL_SUM, run by the
+    replay, can scale the copy. Over one rank NCCL issues no work for an
+    in-place SUM, so that half shows only that its capture does not
+    raise. A profile of one replay is printed, with the NCCL kernels in it
+    (over one rank the PREMUL_SUMs' only); it is a record, not
+    the hold, since the profiler has missed them where the replay's
+    outputs show they ran. Returns the capture seconds, one replay's ms by
+    CUDA events, whether every replay equalled the eager call and scaled
+    its input, and the NCCL kernels the profile showed."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    srcs = [torch.zeros(n, dtype=dt, device=dev) for n in (n_grad, DP_PROBE_BN)
+            for dt in (torch.float32, torch.float64)]
+    bufs = [torch.empty_like(t) for t in srcs]
+    premul = dist._make_nccl_premul_sum(DP_PROBE_FACTOR)
+
+    def reduce(t):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+        dist.all_reduce(t, op=premul, group=mesh.group)
+
+    def body():
+        for src, buf in zip(srcs, bufs):
+            buf.copy_(src)
+            reduce(buf)
+
+    def eager():
+        outs = [src.clone() for src in srcs]
+        for t in outs:
+            reduce(t)
+        return outs
+
+    def refill():
+        for src in srcs:
+            src.copy_(torch.randn(src.shape, generator=gen, device=dev, dtype=src.dtype))
+
+    refill()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        body()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    equal = True
+    for _ in range(DP_PROBE_REPLAYS):
+        refill()
+        graph.replay()
+        ref = eager()
+        equal = equal and all(torch.equal(b, r) for b, r in zip(bufs, ref))
+    moved = not any(torch.equal(b, s) for b, s in zip(bufs, srcs))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    seen = [e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    nccl_kernels = [n for n in seen if DP_PROBE_NCCL.search(n)]
+    want = len(bufs) * (1 if mesh.size == 1 else 2)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(DP_PROBE_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / DP_PROBE_REPLAYS
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    kinds = sorted({n.split("(")[0][-48:] for n in seen})
+    print(f"[dp-probe] NCCL {nccl} (world size {mesh.size}, torch {torch.__version__}): "
+          f"dist.all_reduce by SUM then PREMUL_SUM({DP_PROBE_FACTOR}) of {n_grad} and "
+          f"{DP_PROBE_BN} values in float32 and float64 captured in one CUDA graph in "
+          f"{capture_s:.4f} s; {DP_PROBE_REPLAYS} replays on new inputs equal to the eager "
+          f"all-reduces bit for bit: {equal}, each output {DP_PROBE_FACTOR} x its input "
+          + ("and not the input: the captured collectives ran in each replay" if moved
+             else "but one equal to its input: a collective did not run")
+          + (" (over one rank NCCL issues no work for the in-place SUMs, the step's op, so "
+             "their half shows only that capture does not raise)" if mesh.size == 1 else "")
+          + f"; the profiler saw in one replay {len(seen)} device events {kinds}, "
+          f"{len(nccl_kernels)} of them NCCL kernels ({want} ran); one replay "
+          f"{replay_ms:.4f} ms by CUDA events; {card_line()}")
+    return {"capture_s": capture_s, "replay_ms": replay_ms, "equal": equal and moved,
+            "nccl_kernels": len(nccl_kernels)}
 
 
 def dp_f64_grads(kind: str, case: dict) -> dict:
@@ -5118,6 +5304,10 @@ def _dp_rank(rank: int, world: int, folder: str, backend: str):
         cases = torch.load(os.path.join(folder, "cases.pt"), weights_only=False)
         out = {k: dp_steps(k, c, mesh, reference=rank == 0)
                for k, c in cases.items() if k in DP_PRESETS}
+        if "cvppp_spc" in cases:  # the same batches, eager and as one graphed call
+            case = cases["cvppp_spc"]
+            out["cvppp_spc"] = {"eager": dp_steps("cvppp", case, mesh),
+                                "graphed": dp_graphed("cvppp", case, mesh)}
         if "tiles" in cases:
             out["tiles"] = dp_tiles(cases["tiles"], mesh)
         torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
@@ -5235,24 +5425,50 @@ def dp_compare(kind: str, ranks: list, f64: dict, misses: list, label: str):
 
 def dp_cli(arrays, valid, out: str) -> dict:
     """The training CLI with ``--distributed`` under torchrun's environment
-    for one process (NCCL at world size 1) and the same run without it:
-    (the distributed run's launches, its losses, whether they and the
-    parameters are bit-equal)."""
+    for one process (NCCL at world size 1) and the same run without it, at
+    steps_per_call 1 and DP_SPC. The first run makes its process group and
+    ends it; for the others this function joins one NCCL group first
+    (``multihost.initialize``, which the CLI then joins), runs the capture
+    probe on it, profiles more replays of the S=DP_SPC run's meshed graph
+    (:func:`dp_profile_replays`), and ends it after. Returns the
+    distributed runs' launches (those the wrappers counted, and those the
+    profiler saw the meshed graph's replays make, by kernel label), the
+    latter apart, whether every run's losses and parameters are bit-equal,
+    the files of the first run and the probe's readings."""
     import socket
 
     import torch
+    import torch.distributed as dist
 
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.models import model_from_config
+    from pixel_embedded_affinity_torch.parallel.multihost import initialize
+    from pixel_embedded_affinity_torch.train import loop as train_loop
     from pixel_embedded_affinity_torch.train.__main__ import main
+    from pixel_embedded_affinity_torch.train.loop import resident_sampler
 
-    def run(name, distributed):
+    def run(name, distributed, spc=1):
         argv = ["-c", "ac3ac4", "-i", str(DP_CLI_STEPS), "-o",
                 f"save_path={os.path.join(out, name)}", "train.display_freq=1",
-                "train.if_valid=False", "train.save_freq=1000000"]
+                "train.if_valid=False", "train.save_freq=1000000",
+                f"train.steps_per_call={spc}"]
         state, _ = main(argv + (["--distributed"] if distributed else []),
                         data_override=(arrays, valid))
         with open(os.path.join(out, name, "ac3ac4", "log", "scalars.jsonl")) as f:
             losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
         return losses, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+    def per_call(losses):  # the displays of a run at DP_SPC steps a call
+        out = []
+        for i in range(0, len(losses), DP_SPC):
+            total = 0.0
+            for v in losses[i:i + DP_SPC]:
+                total += v
+            out.append(total / len(losses[i:i + DP_SPC]))
+        return out
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -5263,28 +5479,113 @@ def dp_cli(arrays, valid, out: str) -> dict:
     launchers = _dp_launchers()
     for fn in launchers.values():
         fn.launches = 0
+    runners = []
+    graphed_step = train_loop.GraphedStep
+
+    class Recorded(graphed_step):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
     os.environ.update(env)
     try:
         t0 = time.perf_counter()
-        dl, dsd = run("distributed", True)
+        dist1 = run("distributed", True)
         secs = time.perf_counter() - t0
+        check(not dist.is_initialized(), "the CLI left its process group open")
+        with socket.socket() as sock:  # a new store for the new group
+            sock.bind(("localhost", 0))
+            os.environ["MASTER_PORT"] = str(sock.getsockname()[1])
+        mesh = initialize("cuda")
+        check(dist.get_backend(mesh.group) == "nccl" and mesh.size == 1,
+              f"a world-size-1 group on {dist.get_backend(mesh.group)}, size {mesh.size}")
+        try:
+            n_grad = sum(p.numel() for p in model_from_config(load_config("cvppp").model)
+                         .parameters())
+            probe = nccl_capture_probe(mesh, n_grad)
+            train_loop.GraphedStep = Recorded
+            t0 = time.perf_counter()
+            dist4 = run("distributed_spc", True, DP_SPC)
+            secs4 = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in launchers.items()}
+            check(len(runners) == 1 and runners[0].step.mesh is not None
+                  and runners[0].cuda_graph is not None,
+                  f"the --distributed run at steps_per_call={DP_SPC} graphed no meshed step")
+            runner = runners[0]
+            cli_replays = runner.replays
+            draw = resident_sampler(load_config("ac3ac4"), arrays, mesh.device)
+            counted, seen, replay_ms = dp_profile_replays(
+                runner, lambda: draw(runner.state.step),
+                f"--distributed S={DP_SPC} meshed graph replay")
+        finally:
+            train_loop.GraphedStep = graphed_step
+            dist.destroy_process_group()
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    launches = {k: fn.launches for k, fn in launchers.items()}
-    check(not torch.distributed.is_initialized(), "the CLI left its process group open")
-    pl, psd = run("plain", False)
+    plain1 = run("plain", False)
+    plain4 = run("plain_spc", False, DP_SPC)
     ckpts = sorted(os.listdir(os.path.join(out, "distributed", "ac3ac4")))
-    same = dl == pl and all(torch.equal(dsd[k], psd[k]) for k in psd)
+    graph = {k: seen.get(fn.__name__, 0) for k, fn in launchers.items()}
+    checks = {"--distributed = without, S=1": same(dist1, plain1),
+              f"--distributed S={DP_SPC} = without, S={DP_SPC}": same(dist4, plain4),
+              f"--distributed S={DP_SPC} = --distributed S=1": same(dist4, (per_call(dist1[0]),
+                                                                            dist1[1]))}
     print(f"[dp] the CLI with --distributed, NCCL at world size 1 (torchrun's environment, "
           f"MASTER_PORT {port}), ac3ac4 {DP_CLI_STEPS} steps from the device sampler in "
-          f"{secs:.2f} s: losses {dl}; without --distributed {pl}; losses and parameters "
-          f"bit-equal: {same}; the run's files {ckpts}; launches "
-          f"{ {k: n for k, n in launches.items() if n} }")
-    return {"launches": launches, "same": same, "ckpts": ckpts}
+          f"{secs:.2f} s: losses {dist1[0]}; without --distributed {plain1[0]}; the run's "
+          f"files {ckpts}; launches the wrappers counted in this and the next --distributed "
+          f"run {json.dumps({k: n for k, n in launches.items() if n})}")
+    print(f"[dp] the same at train.steps_per_call={DP_SPC} ({secs4:.2f} s): one meshed step "
+          f"graphed (mesh size {runner.step.mesh.size}, NCCL; capture {runner.capture_s:.3f} "
+          f"s, {cli_replays} replays), losses {dist4[0]}; without --distributed "
+          f"{plain4[0]}; bit-equal (losses and parameters): {json.dumps(checks)}; kernels a "
+          f"replay {json.dumps(runner.per_replay)} (at capture); then {SPC_TIMED + SPC_PROFILED} "
+          f"more replays, {replay_ms:.4f} ms a step by CUDA events, in {SPC_PROFILED} of them "
+          f"the profiler saw the meshed graph launch "
+          f"{json.dumps({k: n for k, n in graph.items() if n})}; {card_line()}")
+    for k, fn in launchers.items():
+        launches[k] += counted.get(fn.__name__, 0) + graph[k]
+    return {"launches": launches, "same": all(checks.values()), "ckpts": ckpts,
+            "probe": probe, "graph": graph, "replay_ms": replay_ms}
+
+
+def dp_spc_compare(ranks: list, launches: dict, misses: list):
+    """Two NCCL ranks' CVPPP step at steps_per_call=DP_SPC (one graphed
+    call) against their eager meshed steps on the same batches: the losses
+    within SPC_STEP_RTOL (the 2D float32 step is not bit-reproducible,
+    ROADMAP §3 item 18); the ranks bit-equal; the launches that the wrappers counted
+    and that the profiler saw the replays make added to ``launches``."""
+    import torch
+
+    for r, run in enumerate(ranks):
+        eager, graphed = run["eager"], run["graphed"]
+        le = [m["loss"] for m in eager["metrics"]]
+        lg = [m["loss"] for m in graphed["metrics"]]
+        exact = le == lg and all(torch.equal(eager["states"][-1][k], v)
+                                 for k, v in graphed["states"][-1].items())
+        loss_d = _spc_loss_d(le, lg)
+        print(f"[dp] cvppp NCCL rank {r}, {DP_SPC} steps: eager {le}, one graphed call {lg} "
+              f"(capture {graphed['capture_s']:.3f} s, {graphed['replays']} replays; then "
+              f"{graphed['ms']:.4f} ms a replay by CUDA events); "
+              f"bit-equal {exact}; losses rel {loss_d:.3e}")
+        if loss_d > SPC_STEP_RTOL:
+            misses.append(f"cvppp NCCL rank {r}: the graphed call off the eager steps "
+                          f"({loss_d:.3e}, bit-equal {exact})")
+    if not all(torch.equal(ranks[0]["graphed"]["states"][-1][k], v)
+               for k, v in ranks[1]["graphed"]["states"][-1].items()):
+        misses.append("cvppp NCCL: the ranks' graphed runs differ")
+    names = {fn.__name__: k for k, fn in _dp_launchers().items()}
+    for run in ranks:
+        g = run["graphed"]
+        for k, n in g["launches"].items():
+            launches[k] += n
+        for w, n in g["seen"].items():
+            if w in names:
+                launches[names[w]] += n
 
 
 def phase_data_parallel(crop, bbbc_arrays) -> dict:
@@ -5352,22 +5653,35 @@ def phase_data_parallel(crop, bbbc_arrays) -> dict:
         for k in names:
             if not all(r[kind]["launches"][k] for r in ranks):
                 misses.append(f"{kind}: a rank never launched {k}")
-    # the CLI, NCCL at world size 1
+    # the CLI, NCCL at world size 1, at steps_per_call 1 and DP_SPC; the
+    # capture probe
     cli = dp_cli(arrays3d, valid3d, os.path.join(out, "cli"))
     if not cli["same"] or cli["ckpts"] != ["log", f"model-{DP_CLI_STEPS:06d}.ckpt"]:
         misses.append(f"CLI --distributed: bit-equal {cli['same']}, files {cli['ckpts']}")
+    if not cli["probe"]["equal"]:
+        misses.append("NCCL capture probe: a replay differs from the eager all-reduce")
+    for k in ("K5f", "K5b", "K6f", "K6b", "UPb"):
+        if not cli["graph"][k]:
+            misses.append(f"the meshed graph launched no {k}")
     for k, n in cli["launches"].items():
         launches[k] += n
     ran = ["gloo x2 on cuda:0 (CVPPP, 3D, BBBC steps; tiled serving)",
            "NCCL x1 (the CLI, ac3ac4)"]
+    ran.append(f"NCCL x1 (the CLI at steps_per_call={DP_SPC}, one meshed graph; the capture "
+               f"probe)")
     if torch.cuda.device_count() >= 2:
-        nccl = _dp_spawn(os.path.join(out, "nccl"), {"cvppp": cases["cvppp"]}, "nccl")()
+        spc_case = dict(zip(("state_dict", "batches"),
+                            _dp_case("cvppp", data["cvppp"], DP_SPC)[1:]))
+        nccl = _dp_spawn(os.path.join(out, "nccl"), {"cvppp": cases["cvppp"],
+                                                     "cvppp_spc": spc_case}, "nccl")()
         dp_compare("cvppp", [r["cvppp"] for r in nccl], f64["cvppp"], misses, "cvppp NCCL")
         for k in launches:
-            launches[k] += sum(r["cvppp"]["launches"][k] for r in nccl)
-        ran.append("NCCL x2 on cuda:0, cuda:1 (CVPPP step)")
+            launches[k] += sum(r["cvppp"]["launches"][k] + r["cvppp_spc"]["eager"]["launches"][k]
+                               for r in nccl)
+        dp_spc_compare([r["cvppp_spc"] for r in nccl], launches, misses)
+        ran.append("NCCL x2 on cuda:0, cuda:1 (CVPPP step, eager and as one graphed call)")
     print(f"[dp] ran: {'; '.join(ran)}; not run: "
-          f"{'none' if len(ran) == 3 else 'NCCL over two cards (one card here)'}; launches "
+          f"{'none' if len(ran) == 4 else 'NCCL over two cards (one card here)'}; launches "
           f"{json.dumps({k: n for k, n in launches.items() if n})}")
     check(not misses, "data parallelism: " + "; ".join(misses))
     return launches
@@ -5891,7 +6205,8 @@ SPC_OPT_STEPS = 5
 # 5.1e-6-3.1e-5 apart (2D float32), the stale-scalar replay 2.2e-2 off
 SPC_STEP_RTOL = 1e-4
 # (label, preset, overrides, eager bit-reproducible); the 2D float32 steps
-# are not (cuDNN's 1x1 weight gradients, ROADMAP §3 item 18), the ResNet's
+# are not (cuDNN's float32 weight and input gradients of many of the
+# ResUNet's convs, tools/wgrad_determinism.py, ROADMAP §3 item 18), the ResNet's
 # bfloat16 step is not known to be
 SPC_RUNS = (("cvppp", "cvppp", {}, ("bfloat16",)),
             ("bbbc039v1", "bbbc039v1", {}, ("bfloat16",)),

@@ -98,14 +98,15 @@ def build_bbbc_targets(image_hwc, label, offsets, nb_half, separate_weight, rng,
 
 class BBBCTrain:
     """The training sampler: ``sample(rng)`` -> one sample dict (see the
-    module's docstring). ``pairs``, the training split's (image, label)
-    as :func:`decoded_pairs` gives them, stands in for the files."""
+    module's docstring), drawn from ``mode``'s split (train, validation
+    or test). ``pairs``, the split's (image, label) as :func:`decoded_pairs`
+    gives them, stands in for the files."""
 
     def __init__(self, data_folder: str = "", size: int = 256, padding: int = 30,
                  shifts=(1, 3, 5, 9, 11), neighbor: int = 4, separate_weight: bool = True,
-                 aug_prob: float = 0.8, ema_intensity: bool = True, ema_mask: bool = True,
-                 ema_flip: bool = True, light: bool = False, device_ema: bool = False,
-                 seed: int = 555, pairs=None):
+                 mode: str = "train", aug_prob: float = 0.8, ema_intensity: bool = True,
+                 ema_mask: bool = True, ema_flip: bool = True, light: bool = False,
+                 device_ema: bool = False, seed: int = 555, pairs=None):
         self.data_folder = data_folder
         self.size, self.padding = size, padding
         self.offsets = multi_offset(list(shifts), neighbor=neighbor)
@@ -116,7 +117,7 @@ class BBBCTrain:
         self.light, self.device_ema = light, device_ema
         self.rng = np.random.default_rng(seed)
         self.pairs = pairs
-        self.names = split_names(data_folder, "train") if pairs is None else None
+        self.names = split_names(data_folder, mode) if pairs is None else None
 
     def __len__(self):
         return len(self.pairs if self.pairs is not None else self.names)
@@ -168,15 +169,17 @@ class BBBCValidation:
     3) float32 in [0, 1], affs, wmap (K, H, W) float32, mask (K, H, W)
     uint8, seg (H, W) int32}``, the grayscale image repeated to 3
     channels, the targets of ``gen_affs(padding=True)`` with one weight map
-    per channel. ``pairs``, a list of (image, label) as :func:`load_pair`
-    gives them, stands in for the files (cv2 is read only when they are)."""
+    per channel (``separate_weight``) or one over all. ``pairs``, a list
+    of (image, label) as :func:`load_pair` gives them, stands in for the
+    files (cv2 is read only when they are)."""
 
     def __init__(self, data_folder: str = "", shifts=(1, 3, 5, 9, 11), neighbor: int = 4,
-                 mode: str = "validation", pairs=None):
+                 mode: str = "validation", separate_weight: bool = True, pairs=None):
         self.data_folder = data_folder
         self.pairs = pairs
         self.names = split_names(data_folder, mode) if pairs is None else None
         self.offsets = multi_offset(list(shifts), neighbor=neighbor)
+        self.separate_weight = separate_weight
 
     def __len__(self):
         return len(self.pairs if self.pairs is not None else self.names)
@@ -190,7 +193,8 @@ class BBBCValidation:
         img = np.pad(img, pads)[cy:-cy, cx:-cx]
         label = np.pad(label, pads)[cy:-cy, cx:-cx]
         affs, mask = gen_affs(label, self.offsets, ignore=False, padding=True)
-        wmap = np.stack([weight_binary_ratio(a) for a in affs])
+        wmap = (np.stack([weight_binary_ratio(a) for a in affs]) if self.separate_weight
+                else weight_binary_ratio(affs))
         return {"image": np.repeat(img[..., None], 3, axis=-1).astype(np.float32),
                 "affs": affs, "wmap": wmap, "mask": mask, "seg": label.astype(np.int32)}
 

@@ -27,7 +27,7 @@ import numpy as np
 from ..ops.affinity_np import gen_affs, label_pyramid, weight_binary_ratio
 from ..ops.offsets import multi_offset
 from . import consistency as C
-from .augment2d import random_flips, random_resized_crop
+from .augment2d import center_crop_pad, random_affine, random_flips, random_resized_crop
 from .consistency import normalize_imagenet
 
 PAD = ((7, 7), (22, 22))
@@ -164,18 +164,29 @@ def build_cvppp_targets(image_hwc, label, offsets, nb_half, separate_weight, rng
             "seg": label.astype(np.int32), "ema_image": ema, "rules": rule}
 
 
+AUG_MODES = ("xiaoyu", "rsis")
+
+
 class CVPPPTrain:
     """The training sampler: ``sample(rng)`` -> one sample dict (see the
     module's docstring). ``pairs``, the training pairs as
     :func:`decoded_split` gives them (image float32 RGB in [0, 1], label
-    int32), in sorted name order, stands in for the files."""
+    int32), in sorted name order, stands in for the files. ``mode``:
+    "train" samples the training names, another split the validation
+    names. ``aug_mode``: "xiaoyu" (flips, then RandomResizedCrop to
+    ``size``) or "rsis" (flips, then image and label centre-cropped or
+    zero-padded to ``size``, then with p = 0.5 the affine chain of
+    :func:`.augment2d.random_affine`), the JAX sampler's two branches."""
 
     def __init__(self, data_folder: str = "", size: int = 544, shifts=(1, 3, 5, 9, 27),
                  neighbor: int = 4, padding: bool = True, separate_weight: bool = True,
-                 valid_set: str = "local_20_1", ema_noise: bool = False,
-                 ema_blur: bool = False, ema_intensity: bool = True, ema_mask: bool = True,
-                 ema_flip: bool = True, light: bool = False, device_ema: bool = False,
-                 seed: int = 555, pairs=None):
+                 valid_set: str = "local_20_1", mode: str = "train", aug_mode: str = "xiaoyu",
+                 ema_noise: bool = False, ema_blur: bool = False, ema_intensity: bool = True,
+                 ema_mask: bool = True, ema_flip: bool = True, light: bool = False,
+                 device_ema: bool = False, seed: int = 555, pairs=None):
+        if aug_mode not in AUG_MODES:
+            raise ValueError(f"aug_mode={aug_mode!r}: expected one of {AUG_MODES}")
+        self.aug_mode = aug_mode
         self.dir = os.path.join(data_folder, "train")
         self.size, self.padding = size, padding
         self.offsets = multi_offset(list(shifts), neighbor=neighbor)
@@ -186,7 +197,8 @@ class CVPPPTrain:
         self.light, self.device_ema = light, device_ema
         self.rng = np.random.default_rng(seed)
         self.pairs = pairs
-        self.names = split_names(data_folder, valid_set)[0] if pairs is None else None
+        self.names = (split_names(data_folder, valid_set)[0 if mode == "train" else 1]
+                      if pairs is None else None)
 
     def __len__(self):
         return len(self.pairs if self.pairs is not None else self.names)
@@ -206,7 +218,13 @@ class CVPPPTrain:
             img = np.pad(img, PAD + ((0, 0),), mode="reflect")
             label = np.pad(label, PAD, mode="constant")
         img, label = random_flips(img, label, rng)
-        img, label = random_resized_crop(img, label, self.size, rng, scale=(0.7, 1.0))
+        if self.aug_mode == "xiaoyu":
+            img, label = random_resized_crop(img, label, self.size, rng, scale=(0.7, 1.0))
+        else:
+            img = center_crop_pad(img, self.size, self.size)
+            label = center_crop_pad(label, self.size, self.size)
+            if rng.random() < 0.5:
+                img, label = random_affine(img, label, rng)
         image = normalize_imagenet(img)
         if self.light:
             if self.device_ema:
@@ -218,14 +236,20 @@ class CVPPPTrain:
 
 
 class CVPPPValidation:
-    """Validation images with GT labels: ``{image, seg, name}``. ``pairs``,
-    a list of (image, label) as :func:`decoded_split` gives them, stands in
-    for the files (cv2 is read only when they are; ``name`` is then None)."""
+    """Validation images with GT labels: ``{image, seg, name}``. The
+    full-scale targets that the JAX package's items also carry come from
+    :meth:`targets`, on request: the port builds its validation targets on
+    the device from ``seg``. ``pairs``, a list of (image, label) as
+    :func:`decoded_split` gives them, stands in for the files (cv2 is read
+    only when they are; ``name`` is then None)."""
 
-    def __init__(self, data_folder: str = "", valid_set: str = "local_20_1",
-                 padding: bool = True, pairs=None):
+    def __init__(self, data_folder: str = "", shifts=(1, 3, 5, 9, 27), neighbor: int = 4,
+                 valid_set: str = "local_20_1", padding: bool = True,
+                 separate_weight: bool = True, pairs=None):
         self.dir = os.path.join(data_folder, "train")
         self.padding = padding
+        self.offsets = multi_offset(list(shifts), neighbor=neighbor)
+        self.separate_weight = separate_weight
         self.pairs = pairs
         self.names = split_names(data_folder, valid_set)[1] if pairs is None else None
 
@@ -244,6 +268,18 @@ class CVPPPValidation:
             label = np.pad(label, PAD, mode="constant")
         return {"image": np.ascontiguousarray(normalize_imagenet(img)),
                 "seg": label, "name": name}
+
+    def targets(self, idx) -> dict:
+        """Item ``idx``'s targets as the JAX package's item carries them:
+        ``{affs, wmap (K, H, W) float32, mask (K, H, W) uint8}`` of
+        ``gen_affs(padding=True)`` at ``shifts`` and ``neighbor`` over the
+        (padded) label, one weight map per channel (``separate_weight``) or
+        one over all."""
+        label = self[idx]["seg"]
+        affs, mask = gen_affs(label, self.offsets, ignore=False, padding=True)
+        wmap = (np.stack([weight_binary_ratio(a) for a in affs]) if self.separate_weight
+                else weight_binary_ratio(affs))
+        return {"affs": affs, "wmap": wmap, "mask": mask}
 
 
 class CVPPPTest:

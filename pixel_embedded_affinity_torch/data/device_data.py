@@ -219,19 +219,22 @@ def crop_resize_nearest(lab: torch.Tensor, i: int, j: int, ch: int, cw: int,
             .index_select(1, _nearest_coords(cw, j, out, lab.device)))
 
 
-def _cvppp_params(gen: torch.Generator, n: int, H: int, W: int) -> dict:
+def _cvppp_params(gen: torch.Generator, n: int, H: int, W: int, scale=(0.7, 1.0),
+                  ratio=(3 / 4, 4 / 3)) -> dict:
     """One CVPPP sample's draws: the image ``k``, the flips (each at 0.5)
-    and the RandomResizedCrop ``box`` (i, j, ch, cw)."""
+    and the RandomResizedCrop ``box`` (i, j, ch, cw) at ``scale`` and
+    ``ratio``."""
     k = int(torch.randint(0, n, (1,), generator=gen))
     u_hf, u_vf = _uniform(gen, 2)
     return {"k": k, "hflip": u_hf < 0.5, "vflip": u_vf < 0.5,
-            "box": rrc_box(gen, H, W)}
+            "box": rrc_box(gen, H, W, scale, ratio)}
 
 
-def _cvppp_sample(images: torch.Tensor, labels: torch.Tensor, p: dict, out: int) -> dict:
+def _cvppp_sample(images: torch.Tensor, labels: torch.Tensor, p: dict, out: int,
+                  normalize: bool = True) -> dict:
     """The sample at the draws ``p`` (:func:`_cvppp_params`): image k
     flipped, its box resized to (out, out) with the values on 0-255, /255,
-    normalised."""
+    with ``normalize`` ImageNet-normalised."""
     _, H, W = labels.shape
     dev = images.device
     i, j, ch, cw = p["box"]
@@ -246,26 +249,33 @@ def _cvppp_sample(images: torch.Tensor, labels: torch.Tensor, p: dict, out: int)
         rows_n = H - 1 - rows_n
     image = _resize_bilinear(images[p["k"]], rows, cols) / 255.0
     seg = labels[p["k"]].index_select(0, rows_n).index_select(1, cols_n)
+    if not normalize:
+        return {"image": image, "seg": seg}
     mean, std = imagenet_stats(dev)
     return {"image": (image - mean) / std, "seg": seg}
 
 
 def sample_cvppp(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator,
-                 out: int = 544) -> dict:
+                 out: int = 544, scale=(0.7, 1.0), ratio=(3 / 4, 4 / 3),
+                 normalize: bool = True) -> dict:
     """One training sample from the packed stacks (on any device): an
     image, a horizontal and a vertical flip at 0.5 each, a RandomResizedCrop
-    box resized to (out, out) with the values on 0-255, /255, the ImageNet
+    box (area fraction in ``scale``, aspect in ``ratio``) resized to (out,
+    out) with the values on 0-255, /255, with ``normalize`` the ImageNet
     normalisation. Returns {'image': (out, out, 3) float32, 'seg': (out,
     out) int32}."""
     n, H, W = labels.shape
-    return _cvppp_sample(images, labels, _cvppp_params(gen, n, H, W), out)
+    return _cvppp_sample(images, labels, _cvppp_params(gen, n, H, W, scale, ratio), out,
+                         normalize)
 
 
 def sample_cvppp_batch(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator,
-                       batch_size: int, out: int = 544) -> dict:
+                       batch_size: int, out: int = 544, scale=(0.7, 1.0),
+                       ratio=(3 / 4, 4 / 3), normalize: bool = True) -> dict:
     """``batch_size`` samples stacked: image (B, out, out, 3), seg (B, out,
     out)."""
-    samples = [sample_cvppp(images, labels, gen, out) for _ in range(batch_size)]
+    samples = [sample_cvppp(images, labels, gen, out, scale, ratio, normalize)
+               for _ in range(batch_size)]
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
@@ -326,10 +336,10 @@ def _bbbc_aug(img: torch.Tensor, lab: torch.Tensor, p: dict):
 
 
 def sample_bbbc(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator,
-                size: int = 256, padding: int = 30) -> dict:
+                size: int = 256, padding: int = 30, aug_prob: float = AUG_PROB) -> dict:
     """One training sample from the padded stacks (on any device): an
     image, a random (size + 2 padding)^2 crop, the chain at p =
-    ``AUG_PROB``, the centre size^2, the grayscale repeated to 3 channels.
+    ``aug_prob``, the centre size^2, the grayscale repeated to 3 channels.
     Returns {'image': (size, size, 3) float32, 'seg': (size, size) int32}."""
     n, hp, wp = labels.shape
     crop = size + 2 * padding
@@ -340,7 +350,7 @@ def sample_bbbc(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator
     p = _bbbc_aug_params(gen)
     img = images[k, ry:ry + crop, rx:rx + crop]
     lab = labels[k, ry:ry + crop, rx:rx + crop]
-    if u_aug < AUG_PROB:
+    if u_aug < aug_prob:
         if p["elastic"] is not None:
             dev_gen = torch.Generator(device=images.device).manual_seed(p["elastic"])
             p["elastic"] = dw.elastic_field(dev_gen, crop, crop, device=images.device)
@@ -352,10 +362,11 @@ def sample_bbbc(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator
 
 
 def sample_bbbc_batch(images: torch.Tensor, labels: torch.Tensor, gen: torch.Generator,
-                      batch_size: int, size: int = 256, padding: int = 30) -> dict:
+                      batch_size: int, size: int = 256, padding: int = 30,
+                      aug_prob: float = AUG_PROB) -> dict:
     """``batch_size`` samples stacked: image (B, size, size, 3), seg (B,
     size, size)."""
-    samples = [sample_bbbc(images, labels, gen, size, padding)
+    samples = [sample_bbbc(images, labels, gen, size, padding, aug_prob)
                for _ in range(batch_size)]
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
@@ -363,15 +374,17 @@ def sample_bbbc_batch(images: torch.Tensor, labels: torch.Tensor, gen: torch.Gen
 # --------------------------------------------------------------- AC3/AC4
 
 def load_ac3ac4_arrays(data_folder: str, dataset_name: str = "ac4", train_split: int = 80,
-                       crop_z: int = 18, arrays=None):
+                       if_dilate: bool = True, crop_z: int = 18, arrays=None):
     """(raw uint8 (D, H, W), labels int32 (D, H, W)) of the training split:
     the HDF5 files' ``main`` (or ``arrays=(raw, label)`` in their place),
-    the first ``train_split`` slices, the label borders widened by one
-    pixel (:func:`..ops.affinity_np.seg_widen_border`), and both
-    reflect-padded in z where the volume is thinner than ``crop_z``."""
+    the first ``train_split`` slices, with ``if_dilate`` the label borders
+    widened by one pixel (:func:`..ops.affinity_np.seg_widen_border`), and
+    both reflect-padded in z where the volume is thinner than ``crop_z``."""
     raw, label = read_volume(data_folder, dataset_name) if arrays is None else arrays
     raw = raw[:train_split]
-    label = seg_widen_border(label[:train_split].astype(np.int64), tsz_h=1)
+    label = label[:train_split].astype(np.int64)
+    if if_dilate:
+        label = seg_widen_border(label, tsz_h=1)
     if raw.shape[0] < crop_z:
         pz = (crop_z - raw.shape[0]) // 2
         pad = ((pz, crop_z - raw.shape[0] - pz), (0, 0), (0, 0))
@@ -505,14 +518,15 @@ def _augs_mix(img: torch.Tensor, lab: torch.Tensor, p: dict):
     return img, lab
 
 
-def _ac3ac4_params(gen: torch.Generator, shape, crop_from: tuple) -> dict:
+def _ac3ac4_params(gen: torch.Generator, shape, crop_from: tuple,
+                   aug_prob: float = AC3AC4_AUG_PROB) -> dict:
     """One AC3/AC4 sample's host draws: the crop's corner in a volume of
-    ``shape``, whether it is augmented (at ``AC3AC4_AUG_PROB``) and
-    _augs_mix's draws (:func:`_augs_mix_params`)."""
+    ``shape``, whether it is augmented (at ``aug_prob``) and _augs_mix's
+    draws (:func:`_augs_mix_params`)."""
     corner = tuple(int(torch.randint(0, n - c + 1, (1,), generator=gen))
                    for n, c in zip(shape, crop_from))
     (u_aug,) = _uniform(gen)
-    return {"corner": corner, "aug": u_aug < AC3AC4_AUG_PROB,
+    return {"corner": corner, "aug": u_aug < aug_prob,
             "mix": _augs_mix_params(gen, crop_from[0])}
 
 
@@ -538,21 +552,22 @@ def _ac3ac4_sample(raw: torch.Tensor, label: torch.Tensor, p: dict, crop_size,
 
 
 def sample_ac3ac4(raw: torch.Tensor, label: torch.Tensor, gen: torch.Generator,
-                  crop_size=(18, 160, 160), padding: int = 50) -> dict:
+                  crop_size=(18, 160, 160), padding: int = 50,
+                  aug_prob: float = AC3AC4_AUG_PROB) -> dict:
     """One training sample from the volume (on any device): a random (cz,
     cy + 2 padding, cx + 2 padding) crop, /255, _augs_mix at p =
-    ``AC3AC4_AUG_PROB``, the centre crop_size. Returns {'image': (cz, cy,
-    cx, 1) float32 in [0, 1], 'seg': (cz, cy, cx) int32}."""
+    ``aug_prob``, the centre crop_size. Returns {'image': (cz, cy, cx, 1)
+    float32 in [0, 1], 'seg': (cz, cy, cx) int32}."""
     cz, cy, cx = crop_size
-    p = _ac3ac4_params(gen, label.shape, (cz, cy + 2 * padding, cx + 2 * padding))
+    p = _ac3ac4_params(gen, label.shape, (cz, cy + 2 * padding, cx + 2 * padding), aug_prob)
     return _ac3ac4_sample(raw, label, p, crop_size, padding)
 
 
 def sample_ac3ac4_batch(raw: torch.Tensor, label: torch.Tensor, gen: torch.Generator,
-                        batch_size: int, crop_size=(18, 160, 160),
-                        padding: int = 50) -> dict:
+                        batch_size: int, crop_size=(18, 160, 160), padding: int = 50,
+                        aug_prob: float = AC3AC4_AUG_PROB) -> dict:
     """``batch_size`` samples stacked: image (B, cz, cy, cx, 1), seg (B, cz,
     cy, cx)."""
-    samples = [sample_ac3ac4(raw, label, gen, crop_size, padding)
+    samples = [sample_ac3ac4(raw, label, gen, crop_size, padding, aug_prob)
                for _ in range(batch_size)]
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}

@@ -134,11 +134,12 @@ def _grid(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
                           torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
 
 
-def rotation_coords(angle_deg, h: int, w: int, device=None):
+def rotation_coords(angle_deg, h: int, w: int, center=None, device=None):
     """(mx, my) of cv2.warpAffine(cv2.getRotationMatrix2D(center, angle,
-    1)): dst (y, x) samples src at the rotation by -angle about the centre
-    (cx, cy) = (h / 2, w / 2), as the host's random_rotate passes it."""
-    cx, cy = h / 2.0, w / 2.0
+    1)): dst (y, x) samples src at the rotation by -angle about ``center``
+    (cx, cy), by default (h / 2, w / 2), as the host's random_rotate passes
+    it."""
+    cx, cy = (h / 2.0, w / 2.0) if center is None else center
     # the scalars in float32 on the host, as the JAX function takes them on
     # the device: no copy to the device, which would wait for its queue
     a = -np.float32(angle_deg) * np.float32(math.pi) / np.float32(180.0)
@@ -149,24 +150,27 @@ def rotation_coords(angle_deg, h: int, w: int, device=None):
     return mx, my
 
 
-def rescale_coords(f, h: int, w: int, device=None):
-    """(mx, my) of cv2.resize(fx=fy=f) followed by a centre crop (f > 1) or
-    a numpy 'reflect' pad (f < 1) back to (h, w): the resized length
-    round(n f), the output index moved into it and folded, then
-    src = (idx + 0.5) / f - 0.5, clamped."""
+def rescale_coords(f, h: int, w: int, out_h: int | None = None, out_w: int | None = None,
+                   device=None):
+    """(mx, my) of cv2.resize(fx=fy=f) of an (h, w) image followed by a
+    centre crop (f > 1) or a numpy 'reflect' pad (f < 1) to (out_h, out_w),
+    by default (h, w): the resized length round(n f), the output index moved
+    into it and folded, then src = (idx + 0.5) / f - 0.5, clamped."""
     f = np.float32(f)
+    out_h = h if out_h is None else out_h
+    out_w = w if out_w is None else out_w
 
-    def axis(n: int) -> torch.Tensor:
+    def axis(n: int, out_n: int) -> torch.Tensor:
         # the length and offset are integers, exact in float32 on the host
         npr = float(np.round(np.float32(n) * f))
-        off = np.floor((npr - n) / 2.0) if npr >= n else -np.floor((n - npr) / 2.0)
-        idx = torch.arange(n, dtype=torch.float32, device=device) + float(off)
+        off = np.floor((npr - out_n) / 2.0) if npr >= out_n else -np.floor((out_n - npr) / 2.0)
+        idx = torch.arange(out_n, dtype=torch.float32, device=device) + float(off)
         idx = torch.where(idx < 0, -idx, idx)
         idx = torch.where(idx > npr - 1, 2 * (npr - 1) - idx, idx)
         return torch.clamp((idx + 0.5) / float(f) - 0.5, 0.0, n - 1.0)
 
-    sy, sx = axis(h), axis(w)
-    return sx[None, :].expand(h, w), sy[:, None].expand(h, w)
+    sy, sx = axis(h, out_h), axis(w, out_w)
+    return sx[None, :].expand(out_h, out_w), sy[:, None].expand(out_h, out_w)
 
 
 def elastic_field(gen: torch.Generator, h: int, w: int, alpha: float = 16.0,

@@ -120,7 +120,8 @@ def main(argv=None):
                                 neighbor=cfg.data.neighbor,
                                 mode="test" if args.mode == "test" else "validation")
         else:
-            ds = CVPPPValidation(cfg.data.data_folder, valid_set=cfg.data.valid_set,
+            ds = CVPPPValidation(cfg.data.data_folder, shifts=tuple(cfg.data.shifts),
+                                 neighbor=cfg.data.neighbor, valid_set=cfg.data.valid_set,
                                  padding=cfg.data.padding)
         _, agg = run_inference_2d(cfg, sd, ds, out_dir=args.out, timing=timing,
                                   device=args.device, use_fast=args.fast)

@@ -38,15 +38,16 @@ def _valid_mask_2d(h: int, w: int, oy: int, ox: int,
     return ((ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)).to(like.dtype)
 
 
-def embedding_to_affinity_2d(embedding: torch.Tensor, offsets,
+def embedding_to_affinity_2d(embedding: torch.Tensor, offsets, normalize: bool = True,
                              padding: str = "valid") -> torch.Tensor:
     """(B, H, W, C) embeddings -> (B, K, H, W) affinities.
 
-    affs[:, k, y, x] = <N[y, x], N[y + oy_k, x + ox_k]>.
+    affs[:, k, y, x] = <N[y, x], N[y + oy_k, x + ox_k]>, N the embedding
+    L2-normalised along C, or as it is without ``normalize``.
     """
     if padding not in ("valid", "circular"):
         raise ValueError(f"padding must be 'valid' or 'circular', got {padding!r}")
-    n = normalize_embedding(embedding)
+    n = normalize_embedding(embedding) if normalize else embedding
     h, w = n.shape[1], n.shape[2]
     chans = []
     for off in offsets:
@@ -102,14 +103,17 @@ def offset_affinity_3d(n_a: torch.Tensor, n_b: torch.Tensor, offsets) -> torch.T
     return torch.stack([torch.sum(n_a * _neighbour(n_b, o), dim=-1) for o in offsets], dim=1)
 
 
-def embedding_to_affinity_3d(embedding: torch.Tensor, shifts=SHIFTS_3D) -> torch.Tensor:
+def embedding_to_affinity_3d(embedding: torch.Tensor, shifts=SHIFTS_3D,
+                             normalize: bool = True) -> torch.Tensor:
     """(B, D, H, W, C) embeddings -> (B, K, D, H, W) affinities.
 
     Channel i dots each voxel with its neighbour ``shifts[i]`` back along
     axis i % 3 of (z, y, x); where that neighbour lies outside the volume
-    the affinity is 0. The oracle of the 3D kernels (:mod:`.emb2aff3d_cuda`).
+    the affinity is 0. The embedding is L2-normalised along C first, or
+    taken as it is without ``normalize``. The oracle of the 3D kernels
+    (:mod:`.emb2aff3d_cuda`).
     """
-    n = normalize_embedding(embedding)
+    n = normalize_embedding(embedding) if normalize else embedding
     return offset_affinity_3d(n, n, offsets_3d(shifts))
 
 

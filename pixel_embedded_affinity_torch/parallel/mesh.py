@@ -13,6 +13,11 @@ CUDA tensors for those two only, and two ranks sharing one card (which
 NCCL refuses) run on gloo. An all-gather is an all-reduce of a
 zero-filled buffer into which each rank writes its own slice, which is
 exact. At world size 1 the collectives are not called.
+
+The collectives of a training step take no value back to the host and
+allocate their buffers on the current stream, so on NCCL a CUDA graph of
+the step holds them (:mod:`..train.graph_step`); gloo's cannot be
+captured (:func:`check_capturable`).
 """
 
 from __future__ import annotations
@@ -153,6 +158,22 @@ def broadcast_module_(mesh: Mesh, module: torch.nn.Module, src: int = 0) -> None
             dist.broadcast(flat, src=src, group=mesh.group)
             for t, part in zip(group, flat.split([t.numel() for t in group])):
                 t.copy_(part.view_as(t))
+
+
+def check_capturable(mesh: Mesh | None) -> None:
+    """Raise unless a CUDA graph can hold ``mesh``'s collectives: a mesh
+    with a process group must be on NCCL, the one backend whose
+    collectives CUDA graphs capture. Gloo runs its collectives on the host,
+    and a graph would replay none of them."""
+    if mesh is None or mesh.group is None:
+        return
+    backend = dist.get_backend(mesh.group)
+    if backend != "nccl":
+        raise RuntimeError(
+            f"train.steps_per_call > 1 on a card captures the data-parallel step, "
+            f"collectives included, in a CUDA graph; only NCCL's collectives can be "
+            f"captured, and this process group runs on {backend}: join it on NCCL "
+            f"(--distributed on cuda), or train with train.steps_per_call=1")
 
 
 def barrier(mesh: Mesh) -> None:

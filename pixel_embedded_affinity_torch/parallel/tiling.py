@@ -29,14 +29,15 @@ from ..device import resolve_device
 from .mesh import all_reduce_sum_, split_positions
 
 
-def gaussian_blend_weight(out_size, sigma: float = 0.2):
-    """exp(-d^2 / 2 sigma^2) over normalized [-1,1]^3 coords (+1e-6 floor)."""
+def gaussian_blend_weight(out_size, sigma: float = 0.2, mu: float = 0.0):
+    """exp(-(d - mu)^2 / 2 sigma^2) of the distance d from the centre over
+    normalized [-1,1]^3 coords (+1e-6 floor)."""
     zz, yy, xx = np.meshgrid(
         np.linspace(-1, 1, out_size[0], dtype=np.float32),
         np.linspace(-1, 1, out_size[1], dtype=np.float32),
         np.linspace(-1, 1, out_size[2], dtype=np.float32), indexing="ij")
     dd = np.sqrt(zz * zz + yy * yy + xx * xx)
-    return (1e-6 + np.exp(-(dd ** 2) / (2.0 * sigma ** 2))).astype(np.float32)
+    return (1e-6 + np.exp(-((dd - mu) ** 2) / (2.0 * sigma ** 2))).astype(np.float32)
 
 
 def regular_grid_dims(padded_shape, crop_size, stride):
@@ -72,7 +73,7 @@ def tile_grid(padded_shape, crop_size, stride):
 
 class TiledInference3D:
     """Runs ``predict_fn`` over tiles and stitches a (K, D, H, W) canvas,
-    each tile weighted by :func:`gaussian_blend_weight` at sigma 0.2.
+    each tile weighted by :func:`gaussian_blend_weight` at ``sigma``.
 
     predict_fn: (B, 1, d, h, w) float32 tiles on the device -> (B, K, d, h, w)
     affinities on the device.
@@ -82,7 +83,7 @@ class TiledInference3D:
     """
 
     def __init__(self, crop_size=(18, 160, 160), stride=(10, 80, 80),
-                 padding=(4, 48, 48), batch_size: int = 8, mesh=None):
+                 padding=(4, 48, 48), sigma: float = 0.2, batch_size: int = 8, mesh=None):
         if mesh is not None and batch_size % mesh.size:
             raise ValueError(f"batch_size={batch_size} does not divide over "
                              f"{mesh.size} ranks")
@@ -91,7 +92,7 @@ class TiledInference3D:
         self.stride = tuple(stride)
         self.padding = tuple(padding)
         self.batch_size = batch_size
-        self.weight = gaussian_blend_weight(self.crop_size)
+        self.weight = gaussian_blend_weight(self.crop_size, sigma=sigma)
 
     def run(self, volume: np.ndarray, predict_fn: Callable, n_channels: int,
             device=None) -> np.ndarray:

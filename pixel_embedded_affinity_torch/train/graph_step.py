@@ -30,8 +30,25 @@ kernel wrappers count the launches they record into the graph, once
 replays run the kernels again uncounted. A capture or replay that fails
 raises: nothing falls back to the eager step.
 
+A data-parallel step (``step.mesh``, :mod:`..parallel.mesh`) is graphed
+the same way. The prelude draws the EMA view of the global batch (and the
+host sampler's ranks gather theirs into it, before the call); the body
+reads this rank's shard of the static buffers, views as
+:func:`..parallel.mesh.shard_batch` gives them, and issues every
+collective of the step on the capture's stream: the cross-rank
+BatchNorm's all-reduces, the mask head's counts and the flat all-reduce
+of the gradients and metrics. Their sizes are fixed by the batch's shape,
+and none of them reads a value back to the host, so a replay issues them
+again on the same buffers. Only NCCL's collectives can be captured: a
+mesh on another backend (gloo) asked to capture raises before any step
+(:func:`..parallel.mesh.check_capturable`). The warm-up step's
+collectives make NCCL's communicator, which a capture cannot. At world
+size 1 the mesh issues no collective, and the graph is the one-process
+step's.
+
 On the CPU, where there are no graphs, ``graph=False`` runs the same
-prelude, buffers and scalar tensor, and calls the body eagerly.
+prelude, buffers and scalar tensor, and calls the body eagerly, on gloo's
+collectives with a mesh.
 """
 
 from __future__ import annotations
@@ -41,12 +58,13 @@ import time
 import torch
 
 from ..ops.launch_count import launch_counts
+from ..parallel.mesh import check_capturable, shard_batch
 
 
 class GraphedStep:
     """``runner(batch) -> (pred, metrics)``: one training step of ``step``
-    (a :class:`.train_step.TrainStep2D` or ``TrainStep3D`` without a mesh)
-    on ``state``, updating it in place as ``step(state, batch)`` does.
+    (a :class:`.train_step.TrainStep2D` or ``TrainStep3D``, data-parallel
+    when it has a mesh) on ``state``, updating it in place as ``step(state, batch)`` does.
 
     ``graph``: capture the body as a CUDA graph and replay it (the card),
     else run it eagerly (the CPU). ``pred`` is the graph's static output,
@@ -56,9 +74,8 @@ class GraphedStep:
     capture has run."""
 
     def __init__(self, step, state, graph: bool):
-        if step.mesh is not None:
-            raise NotImplementedError("a CUDA graph of the data-parallel step: its "
-                                      "all-reduces are not captured (ROADMAP.md §1 item 7)")
+        if graph:
+            check_capturable(step.mesh)
         self.step, self.state, self.graph = step, state, graph
         self.static = None
         self.out = None
@@ -68,7 +85,7 @@ class GraphedStep:
         self.capture_s = None
 
     def _body(self, batch: dict):
-        pred, metrics = self.step.grads(self.state.model, batch)
+        pred, metrics = self.step.grads(self.state.model, shard_batch(batch, self.step.mesh))
         self.state.optimizer.update()
         return pred, metrics
 

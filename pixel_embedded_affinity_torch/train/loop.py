@@ -124,9 +124,14 @@ def check_train_config(cfg: Config):
 
 def uses_resident_sampler(cfg: Config) -> bool:
     """The JAX loop's rule: the device-resident sampler with
-    ``data.device_resident``, ``device_gt`` and ``device_ema`` together."""
+    ``data.device_resident``, ``device_gt`` and ``device_ema`` together,
+    and for cvppp only with the "xiaoyu" augmentation: a data config that
+    carries ``aug_mode``, which no field of either package's config does,
+    may choose the host sampler's "rsis" branch, as in the JAX loop
+    (:func:`build_dataset` gives it to ``CVPPPTrain``)."""
     d = cfg.data
-    return bool(d.device_resident and d.device_gt and d.device_ema)
+    chain_ok = d.dataset != "cvppp" or getattr(d, "aug_mode", "xiaoyu") == "xiaoyu"
+    return bool(d.device_resident and d.device_gt and d.device_ema and chain_ok)
 
 
 def build_dataset(cfg: Config, decoded=None):
@@ -146,12 +151,13 @@ def build_dataset(cfg: Config, decoded=None):
         return (CVPPPTrain(d.data_folder, size=d.size, shifts=tuple(d.shifts),
                            neighbor=d.neighbor, padding=d.padding,
                            separate_weight=d.separate_weight, valid_set=d.valid_set,
+                           aug_mode=getattr(d, "aug_mode", "xiaoyu"),
                            ema_noise=d.if_ema_noise, ema_blur=d.if_ema_blur,
                            ema_intensity=d.if_ema_intensity, ema_mask=d.if_ema_mask,
                            ema_flip=d.if_ema_flip, light=d.device_gt,
                            device_ema=d.device_ema, seed=seed, pairs=train_in),
-                CVPPPValidation(d.data_folder, valid_set=d.valid_set, padding=d.padding,
-                                pairs=valid_in))
+                CVPPPValidation(d.data_folder, shifts=tuple(d.shifts), neighbor=d.neighbor,
+                                valid_set=d.valid_set, padding=d.padding, pairs=valid_in))
     if d.dataset == "bbbc039v1":
         from ..data.bbbc import BBBCTrain, BBBCValidation
 
@@ -180,7 +186,8 @@ def load_resident_data(cfg: Config):
         from ..data.cvppp import CVPPPValidation
 
         return (dd.load_cvppp_arrays(d.data_folder, d.valid_set, d.padding),
-                CVPPPValidation(d.data_folder, valid_set=d.valid_set, padding=d.padding))
+                CVPPPValidation(d.data_folder, shifts=tuple(d.shifts), neighbor=d.neighbor,
+                                valid_set=d.valid_set, padding=d.padding))
     if d.dataset == "bbbc039v1":
         from ..data.bbbc import BBBCValidation
 
@@ -320,21 +327,30 @@ def valid_geometry_3d(crop_size) -> tuple:
             (min(4, cz // 4), min(48, cy // 4), min(48, cx // 4)))
 
 
-def validate_3d(cfg: Config, state: TrainState, valid_volume, device) -> dict:
+def validate_3d(cfg: Config, state: TrainState, valid_volume, device, decoders=None,
+                crop_size=None, stride=None, padding=None) -> dict:
     """Serve the validation volume tiled with the trained weights, decode it
-    with ``train.valid_decoders`` and score it: VOI/ARAND per decoder, and
-    the affinities' MSE and BCE (p clipped to [1e-6, 1 - 1e-6]) against the
-    label's 12-channel targets. Tiles: :func:`valid_geometry_3d`. The
-    volume is served as :func:`..infer.run_inference_3d` serves it, as the
-    JAX loop's validation is: the predictor of ``model.fast_tiled_infer``,
-    the embedding cast to float32 before K5f in bfloat16 too."""
+    with ``decoders`` and score it: VOI/ARAND per decoder, and the
+    affinities' MSE and BCE (p clipped to [1e-6, 1 - 1e-6]) against the
+    label's 12-channel targets. Tiles of ``crop_size`` at ``stride`` over
+    the volume padded by ``padding``. Left None, as the training loop
+    calls it, the decoders are ``train.valid_decoders``, the tiles
+    ``data.crop_size`` and the stride and padding
+    :func:`valid_geometry_3d`'s. The volume is served as
+    :func:`..infer.run_inference_3d` serves it, as the JAX loop's
+    validation is: the predictor of ``model.fast_tiled_infer``, the
+    embedding cast to float32 before K5f in bfloat16 too."""
     from ..infer.inference3d import run_inference_3d
 
-    stride, padding = valid_geometry_3d(cfg.data.crop_size)
+    crop_size = tuple(cfg.data.crop_size if crop_size is None else crop_size)
+    geometry = valid_geometry_3d(crop_size)
+    stride = geometry[0] if stride is None else tuple(stride)
+    padding = geometry[1] if padding is None else tuple(padding)
+    decoders = tuple(cfg.train.valid_decoders if decoders is None else decoders)
     affs, results = run_inference_3d(
         cfg, state.model.state_dict(), valid_volume.raw, gt=valid_volume.label,
-        decoders=tuple(cfg.train.valid_decoders), crop_size=tuple(cfg.data.crop_size),
-        stride=stride, padding=padding, device=device)
+        decoders=decoders, crop_size=crop_size, stride=stride, padding=padding,
+        device=device)
     out = {f"valid/{dec}_{k}": float(v) for dec, (_, m) in results.items() for k, v in m.items()}
     label = torch.from_numpy(np.asarray(valid_volume.label, np.int64)[None])
     gt = seg_to_aff_3d_12ch(label)[0].numpy()
@@ -392,11 +408,13 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     display, validation and save points fetch them), and with a captured
     graph ``capture_s``, the capture's seconds.
 
-    ``train.steps_per_call`` S > 1 (not with a ``mesh``: its all-reduces are
-    not captured) runs the JAX loop's calls of S steps: each step's batch
-    and EMA view are drawn eagerly, and the rest of the step is a replay of
-    one CUDA graph (:class:`.graph_step.GraphedStep`; on the CPU the same
-    split, eager). Fewer than S steps left run one at a time. The display,
+    ``train.steps_per_call`` S > 1 runs the JAX loop's calls of S steps:
+    each step's batch and EMA view are drawn eagerly, and the rest of the
+    step is a replay of one CUDA graph (:class:`.graph_step.GraphedStep`;
+    on the CPU the same split, eager). With a ``mesh`` the graph holds the
+    step's collectives, which needs NCCL: on a card a mesh on gloo raises
+    before the first step. Fewer than S steps left run one at a time. The
+    display,
     validation and save frequencies round up to multiples of S
     (:func:`call_freqs`), and an event fires after a call in which ``it %
     freq < S``: the first display at ``it <= S``, validation and saves only
@@ -406,10 +424,6 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
     dev = mesh.device if mesh is not None else resolve_device(device)
     n_ranks = 1 if mesh is None else mesh.size
     steps_per_call = max(1, int(cfg.train.steps_per_call))
-    if mesh is not None and steps_per_call > 1:
-        raise NotImplementedError(
-            "train.steps_per_call > 1 with a data-parallel mesh: the cross-rank BatchNorm's "
-            "all-reduces are not captured in a CUDA graph (ROADMAP.md §1 item 7)")
     if cfg.train.batch_size % n_ranks:
         raise ValueError(f"train.batch_size={cfg.train.batch_size} does not divide over "
                          f"{n_ranks} ranks: the global batch is split in equal shards")

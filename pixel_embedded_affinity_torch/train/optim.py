@@ -286,9 +286,9 @@ class SGD(_Chain):
         torch._foreach_add_(params, torch._foreach_mul(trace, scalars["neg_lr"]))
 
 
-def make_optimizer(params, tc):
+def make_optimizer(params, tc, eps: float = 0.01):
     """The optimizer of a TrainConfig, as the JAX loop builds its chain:
-    AMSGrad (eps 0.01, ``weight_decay``) or, with ``opt_type="sgd"``, SGD
+    AMSGrad (``eps``, ``weight_decay``) or, with ``opt_type="sgd"``, SGD
     (momentum 0.9, weight decay 1e-4), at the config's schedule."""
     schedule = make_schedule(tc.lr_mode, tc.base_lr, tc.end_lr, tc.total_iters,
                              tc.warmup_iters, tc.decay_iters, tc.power)
@@ -296,6 +296,6 @@ def make_optimizer(params, tc):
         return SGD(params, lr=tc.base_lr, schedule=schedule)
     if tc.opt_type != "adam":
         raise ValueError(f"unknown opt_type {tc.opt_type!r}")
-    return AMSGrad(params, lr=tc.base_lr, eps=0.01, weight_decay=tc.weight_decay or 0.0,
+    return AMSGrad(params, lr=tc.base_lr, eps=eps, weight_decay=tc.weight_decay or 0.0,
                    schedule=schedule)
 

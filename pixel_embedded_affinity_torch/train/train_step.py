@@ -65,6 +65,7 @@ from ..models.common import bind_mesh
 from ..ops.losses import (ema_embedding_loss_2d, embedding_loss_2d, embedding_loss_norm1,
                           embedding_loss_norm5, mask_head_loss, weighted_mse)
 from ..ops.losses_extra import discriminative_loss
+from ..ops.offsets import SHIFTS_3D
 from ..ops.targets import build_targets_2d, build_targets_3d
 from ..parallel.mesh import all_reduce_mean_, shard_batch
 
@@ -290,16 +291,20 @@ class TrainStep3D(_DataParallel):
     ``pred`` is relu of the full-scale self affinities (B, K, D, H, W) after
     the boundary fill; ``metrics`` holds 0-d tensors (loss, loss_embedding,
     loss_cross, loss_deep). ``use_pallas=False`` is the plain path.
-    ``mesh``: train data-parallel on it (the module's docstring).
+    ``shifts``: the norm5 losses' shift table (12 entries, axis i % 3),
+    the targets' by default. ``mesh``: train data-parallel on it (the
+    module's docstring).
     """
 
     def __init__(self, *, criterion=weighted_mse, affs0_weight: float = 1.0,
-                 embedding_mode: int = 5, use_pallas: bool = True, device_gt: bool = True,
+                 embedding_mode: int = 5, shifts=SHIFTS_3D, use_pallas: bool = True,
+                 device_gt: bool = True,
                  device_ema: bool = True, ema_seed: int = 0, ema_intensity: bool = True,
                  ema_mask: bool = True, ema_flip: bool = True, mesh=None):
         self.mesh = mesh
         self.criterion, self.affs0_weight = criterion, affs0_weight
         self.embedding_mode = embedding_mode
+        self.shifts = tuple(int(s) for s in shifts)
         self.use_pallas = use_pallas
         self.device_gt = device_gt
         self.device_ema, self.ema_seed = device_ema, ema_seed
@@ -327,7 +332,8 @@ class TrainStep3D(_DataParallel):
 
         kw = dict(criterion=self.criterion, affs0_weight=self.affs0_weight)
         if self.embedding_mode == 5:
-            full = functools.partial(embedding_loss_norm5, use_pallas=self.use_pallas, **kw)
+            full = functools.partial(embedding_loss_norm5, shifts=self.shifts,
+                                     use_pallas=self.use_pallas, **kw)
         else:
             full = functools.partial(embedding_loss_norm1, **kw)
         loss_emb, pred = full(embedding, affs_t, wmap_t)

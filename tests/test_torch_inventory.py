@@ -8,7 +8,16 @@ for it in ``COUNTERPARTS``. Otherwise it must stand in one of two explicit
 lists: ``STILL_TO_PORT``, each entry with its item of ``ROADMAP.md`` §1,
 or ``NEVER`` (by name, or by module in ``NEVER_MODULES``), each with its
 reason. An entry for a name that has a counterpart by now, or for a name
-the JAX package no longer has, fails too, so the lists stay true."""
+the JAX package no longer has, fails too, so the lists stay true.
+
+The same holds for parameters. Every parameter of a JAX public function,
+or of a public class's ``__init__`` (a Flax module's or a NamedTuple's
+fields), whose name has a counterpart must be a parameter of the
+counterpart (the union over the port's definitions of that name), or one
+of the port's names for it (``PARAM_RENAMES`` for every function,
+``PARAM_RENAMES_AT`` for one), or stand in ``PARAMS_TO_PORT`` with its item
+of ``ROADMAP.md`` §1 or in ``NEVER_PARAMS`` with its reason; those entries
+must stay true as the name lists do."""
 
 import ast
 import os
@@ -78,6 +87,117 @@ NEVER_MODULES = {
 }
 
 
+# JAX parameter -> the port's names for it, in every function that takes it
+PARAM_RENAMES = {
+    "variables": ("state_dict", "model"),  # a Flax tree -> a state dict or the module
+    "key": ("gen",),  # a jax.random key -> a torch.Generator
+    "axis": ("dim",),
+    "features": ("out_ch",),  # Flax infers the input width, torch takes it as in_ch
+    "out_channels": ("out_ch",),
+    "tx": ("optimizer",),  # an optax chain -> a torch optimizer
+    "raw_u8": ("raw",), "label_i32": ("label",),
+    "images_u8": ("images",), "images_f32": ("images",), "labels_i32": ("labels",),
+    "embedding_bhwc": ("embedding",), "embedding_bdhwc": ("embedding",),
+    "target_bkhw": ("target",), "target_bkdhw": ("target",),
+}
+
+# (JAX function, parameter) -> the port's name for it in that function
+PARAM_RENAMES_AT = {
+    ("blocked_egress", "yflat"): "canvas",
+    ("conv3x3_blocked_flat", "xflat"): "canvas",
+    ("conv_i8", "w_q"): "w",
+    ("ema_intensity_params_3d", "dtype"): "like",  # a tensor of the dtype and device
+    ("fused_affinity_wmse_2d", "e_bhwc"): "e",
+    **{(f, p): p[0] for f in ("fused_affinity_wmse_2d", "fused_cross_affinity_wmse_2d")
+       for p in ("target", "weight", "mask")},
+    ("fused_cross_affinity_wmse_2d", "a_bhwc"): "a",
+    ("fused_cross_affinity_wmse_2d", "b_bhwc"): "b",
+    ("fused_cross_affinity_3d", "a_bdhwc"): "a",
+    ("fused_cross_affinity_3d", "b_bdhwc"): "b",
+    # the port's TrainState holds the module (its parameters and BatchNorm
+    # statistics) and the optimizer (its state)
+    ("TrainState", "params"): "model", ("TrainState", "batch_stats"): "model",
+    ("TrainState", "opt_state"): "optimizer",
+    # the port's fast 3D forward is built from the module, which carries them
+    ("build_fast_pni_forward", "filters"): "model", ("build_fast_pni_forward", "emd"): "model",
+    # the config's two choices: the fast graph, and the compute dtype, which
+    # the module carries
+    ("build_tiled_predictor", "cfg"): "fast",
+    # the port's make_optimizer reads them from the TrainConfig
+    **{("make_optimizer", p): "tc" for p in ("base_lr", "weight_decay", "opt_type",
+                                              "schedule")},
+}
+
+# (JAX function, parameter) -> the item of ROADMAP.md §1 that holds it
+PARAMS_TO_PORT: dict = {}
+
+_TILE_H = "the Pallas kernel's row tile on the TPU; the CUDA kernels choose their own blocks"
+_INTERPRET = ("Pallas interpret mode, a TPU kernel run on the CPU; the port's wrappers run "
+              "their plain versions on a CPU tensor")
+_USE_PALLAS = ("chooses between Pallas kernels and their jnp oracles on one device; the port's "
+               "wrappers choose by the tensor's device: the kernels on the card, their plain "
+               "versions on the CPU")
+_REMAT = ("rematerialises activations to fit a TPU's memory and changes no result; the port "
+          "keeps the student's activations (train_step.py)")
+_DTYPE = ("a submodule's compute dtype; the port sets it on the whole model "
+          "(models/common.py set_compute_dtype)")
+_AT_CALL = "the port's step takes the model and the optimizer in the TrainState at each call"
+
+NEVER_PARAMS = {
+    **{(f, "tile_h"): _TILE_H for f in (
+        "blocked_ingest", "conv3x3_blocked", "conv3x3_blocked_chain", "conv3x3_fused",
+        "fused_affinity_2d", "fused_affinity_3d", "fused_affinity_wmse_2d",
+        "fused_cross_affinity_2d", "fused_cross_affinity_3d", "fused_cross_affinity_wmse_2d",
+        "fused_s2d_block")},
+    **{(f, "interpret"): _INTERPRET for f in (
+        "conv3x3_blocked", "conv3x3_blocked_chain", "conv3x3_blocked_flat", "conv3x3_fused",
+        "fused_affinity_2d", "fused_affinity_3d", "fused_affinity_wmse_2d",
+        "fused_cross_affinity_2d", "fused_cross_affinity_3d", "fused_cross_affinity_wmse_2d",
+        "fused_s2d_block", "deep_supervision_losses_2d", "ema_embedding_loss_2d",
+        "embedding_loss_2d", "embedding_loss_norm5", "make_eval_step_2d",
+        "make_train_step_2d", "make_train_step_3d", "train")},
+    **{(f, "use_pallas"): _USE_PALLAS for f in (
+        "run_inference_2d", "run_cvppp_test", "run_inference_3d", "build_tiled_predictor")},
+    **{(f, "one_dispatch"): "the TPU's one-dispatch scan over the image set (NEVER: "
+                            "affinity_2d_small_batch and the one-dispatch scan)"
+       for f in ("run_inference_2d", "run_cvppp_test")},
+    **{(f, "platforms"): "jax.export's lowering platforms; torch.export exports for the "
+                         "device of its inputs" for f in ("export_checkpoint", "export_serving")},
+    **{(f, p): _REMAT for f, p in (("make_train_step_2d", "remat"),
+                                   ("make_train_step_3d", "remat"),
+                                   ("UNetPNIEmbeddingDeep", "remat"),
+                                   ("UNetPNIEmbeddingDeep", "remat_skip"))},
+    **{(f, "dtype"): _DTYPE for f in (
+        "Bottleneck", "Down", "LocalAttentionBlock", "MaskHead", "MergeBNELU", "ResBlockPNI",
+        "ResidualBlock", "Up", "UpsampleConv")},
+    **{(f, p): _AT_CALL for f, p in (("make_train_step_2d", "model"),
+                                     ("make_train_step_2d", "tx"),
+                                     ("make_train_step_3d", "model"),
+                                     ("make_train_step_3d", "tx"),
+                                     ("make_eval_step_2d", "model"))},
+    ("init_state", "model"): "the port's init_state builds the model from cfg",
+    ("init_state", "tx"): "the port's init_state builds the optimizer from cfg",
+    ("init_state", "sample_batch"): "Flax initialises a module from a sample's shapes; a torch "
+                                    "module is built with its own",
+    ("conv_i8", "conv_fn"): "the XLA conv the JAX function wraps; the port's conv_i8 is I8c",
+    ("mask_head_loss", "weight_rate"): "the JAX body never reads it (ops/losses.py)",
+    ("make_optimizer", "amsgrad"): "no path of either package builds Adam: every training "
+                                   "path runs AMSGrad",
+    ("run_inference_2d", "save_h5"): "out_dir alone decides: the port writes seg.hdf and "
+                                     "affs.hdf (h5py) whenever it is given, and the card's "
+                                     "machine, which has no h5py, then raises at the import",
+    ("validate_3d", "model"): "the JAX body never reads it: it serves state's weights",
+    ("validate_3d", "iters"): "the JAX body never reads it",
+    ("TiledInference3D", "device_accumulate"): "removed on purpose: the port serves through "
+                                               "run everywhere (ROADMAP.md §3 item 5)",
+    ("TiledInference3D", "dense"): "removed on purpose, as device_accumulate",
+    **{("upsample_align_corners", p): "every JAX call upsamples H and W by 2; the port's "
+                                      "NCHW and NCDHW models call upsample_align_corners and "
+                                      "upsample_xy_align_corners for the two forms"
+       for p in ("axes", "factors")},
+}
+
+
 def _public_names(pkg: str) -> dict:
     """{public top-level def/class name: [module paths relative to pkg]}."""
     out: dict = {}
@@ -95,9 +215,61 @@ def _public_names(pkg: str) -> dict:
     return out
 
 
+def _params_of(node) -> list:
+    """The parameters of a def, or of a class's ``__init__`` (its annotated
+    fields when it has none: a Flax module, a NamedTuple or a dataclass),
+    without self, cls, *args and **kwargs."""
+    if isinstance(node, ast.ClassDef):
+        init = next((n for n in node.body
+                     if isinstance(n, ast.FunctionDef) and n.name == "__init__"), None)
+        if init is None:
+            return [n.target.id for n in node.body
+                    if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name)]
+        node = init
+    a = node.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs if x.arg not in ("self", "cls")]
+
+
+def _public_params(pkg: str) -> dict:
+    """{public top-level def/class name: [(module, [parameters])]}."""
+    out: dict = {}
+    for root, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in tree.body:
+                if (isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                        and not node.name.startswith("_")):
+                    out.setdefault(node.name, []).append((os.path.relpath(path, pkg),
+                                                          _params_of(node)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def names():
     return _public_names(JAX_PKG), _public_names(PORT_PKG)
+
+
+@pytest.fixture(scope="module")
+def params():
+    """(JAX function -> its parameters, the port's counterpart -> the union
+    of its definitions' parameters), over the names that have one."""
+    jax_params, port_params = _public_params(JAX_PKG), _public_params(PORT_PKG)
+    out = {}
+    for name, defs in jax_params.items():
+        port_name = COUNTERPARTS.get(name, name)
+        if port_name in port_params:
+            out[name] = ({p for _, ps in defs for p in ps},
+                         {p for _, ps in port_params[port_name] for p in ps})
+    return out
+
+
+def _port_names_for(name: str, param: str) -> set:
+    return set(PARAM_RENAMES.get(param, ())) | (
+        {PARAM_RENAMES_AT[name, param]} if (name, param) in PARAM_RENAMES_AT else set())
 
 
 def _excused(name, modules):
@@ -158,3 +330,33 @@ def test_the_port_imports_neither_sklearn_nor_skimage():
                             [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
                     found += [(path, m) for m in mods if m.split(".")[0] in ("sklearn", "skimage")]
     assert not found, found
+
+
+def test_every_jax_parameter_has_a_counterpart_or_a_list_entry(params):
+    missing = sorted(f"{name}({p})" for name, (jax_ps, port_ps) in params.items()
+                     for p in jax_ps
+                     if p not in port_ps and not (_port_names_for(name, p) & port_ps)
+                     and (name, p) not in NEVER_PARAMS and (name, p) not in PARAMS_TO_PORT)
+    assert not missing, f"JAX parameters the port's counterpart lacks, in no list: {missing}"
+
+
+def test_parameter_list_entries_are_still_missing(params):
+    for name, p in list(NEVER_PARAMS) + list(PARAMS_TO_PORT):
+        assert name in params, f"{name} has no counterpart in the port: drop {name}({p})"
+        jax_ps, port_ps = params[name]
+        assert p in jax_ps, f"{name} of the JAX package takes no {p}: drop its entry"
+        assert p not in port_ps and not (_port_names_for(name, p) & port_ps), (
+            f"{name}({p}) is ported now: drop its entry")
+    for (name, p), port_name in PARAM_RENAMES_AT.items():
+        jax_ps, port_ps = params[name]
+        assert p in jax_ps and p not in port_ps and port_name in port_ps, (name, p, port_name)
+    used = {p for _, (jax_ps, port_ps) in params.items() for p in jax_ps - port_ps}
+    assert set(PARAM_RENAMES) <= used, sorted(set(PARAM_RENAMES) - used)
+
+
+def test_parameters_to_port_are_in_the_roadmap():
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        text = f.read()
+    section = text[text.index("### 1. Modules still to port"):text.index("### 2.")]
+    items = {int(m) for m in re.findall(r"^(\d+)\. \*\*", section, flags=re.M)}
+    assert set(PARAMS_TO_PORT.values()) <= items, (sorted(set(PARAMS_TO_PORT.values())), items)

@@ -18,16 +18,15 @@
   from a tensor, equal the same updates written with the scalars as
   Python floats bit for bit in float32.
 * The host samplers' path (targets and EMA view built on the host) at S=2
-  equals S=1; a resume at a call boundary continues the run bit for bit;
-  a data-parallel mesh with S > 1 raises.
+  equals S=1; a resume at a call boundary continues the run bit for bit.
 
 The graph itself runs on the card: ``tests/test_torch_steps_per_call_cuda.py``
-and ``chip_smoke.py`` phase 26.
+and ``chip_smoke.py`` phase 26. With a data-parallel mesh:
+``tests/test_torch_dp_steps_per_call.py``.
 """
 
 import json
 import os
-import types
 
 import numpy as np
 import pytest
@@ -47,8 +46,7 @@ from pixel_embedded_affinity_torch.data import device_data as dd
 from pixel_embedded_affinity_torch.data import synthesize_nuclei, synthesize_volume
 from pixel_embedded_affinity_torch.data.cvppp import PAD, normalize_imagenet
 from pixel_embedded_affinity_torch.train import (
-    SGD, AMSGrad, GraphedStep, call_freqs, latest_checkpoint, loop, make_schedule,
-    make_train_step, train)
+    SGD, AMSGrad, call_freqs, latest_checkpoint, loop, make_schedule, train)
 
 from synth import blob_labels
 
@@ -251,16 +249,6 @@ def test_resume_at_a_call_boundary(data, tmp_path):
     for k in a:
         if not k.endswith("num_batches_tracked"):  # the msgpack state has no such counter
             assert torch.equal(a[k], b[k]), k
-
-
-def test_a_mesh_with_steps_per_call_raises(data, tmp_path):
-    cfg = _cfg("cvppp", tmp_path, steps_per_call=2)
-    mesh = types.SimpleNamespace(device=torch.device("cpu"), size=2, rank=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        train(cfg, max_iters=2, data_override=data["cvppp"], mesh=mesh)
-    step = make_train_step(cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        GraphedStep(step, None, graph=False)
 
 
 # -------------------------------------------------------------- optimizer

@@ -101,6 +101,68 @@ def train_steps(step, state, batches) -> dict:
     return out
 
 
+def graphed_steps(step, state, batches) -> dict:
+    """:func:`train_steps` through the graph's split of the step
+    (:class:`..train.graph_step.GraphedStep`, its body eager on the CPU):
+    one call of ``len(batches)`` steps, as ``train.steps_per_call`` runs it."""
+    from pixel_embedded_affinity_torch.train import GraphedStep
+
+    runner = GraphedStep(step, state, graph=False)
+    return train_steps(lambda st, b: runner(b), state, batches)
+
+
+def train_config(preset: str, save_path: str, steps_per_call: int):
+    """A small config of ``preset`` as ``tests/test_torch_steps_per_call.py``
+    trains it: filters FILTERS, 64x64 (8x32x32) crops, a display every
+    step, no validation, no save before the end."""
+    from pixel_embedded_affinity_torch.config import load_config
+
+    data = ({"crop_size": (8, 32, 32), "padding_3d": 10, "train_split": 12}
+            if preset == "ac3ac4" else {"size": 64})
+    if preset == "bbbc039v1":
+        data["bbbc_padding"] = 30
+    return load_config(preset, {"model": {"filters": FILTERS}, "data": data,
+                                "train": {"display_freq": 1, "save_freq": 10 ** 6,
+                                          "if_valid": False, "steps_per_call": steps_per_call},
+                                "save_path": save_path})
+
+
+def train_run(case: dict, mesh=None) -> dict:
+    """``train()`` of ``case["preset"]`` on its resident ``arrays`` for
+    ``steps`` steps at ``steps_per_call``, in float64 (the model and every
+    floating tensor of each batch), on ``mesh``: each step's loss, and the
+    final model and optimizer state."""
+    from pixel_embedded_affinity_torch.train import loop
+
+    init, sampler = loop.init_state, loop.resident_sampler
+
+    def init_state(cfg, device):
+        state = init(cfg, device)
+        state.model.double()
+        return state
+
+    def resident_sampler(cfg, arrays, device):
+        draw = sampler(cfg, arrays, device)
+        return lambda step: {k: v.double() if v.is_floating_point() else v
+                             for k, v in draw(step).items()}
+
+    rank = 0 if mesh is None else mesh.rank
+    cfg = train_config(case["preset"], os.path.join(case["save_path"], f"rank{rank}"),
+                       case["steps_per_call"])
+    loop.init_state, loop.resident_sampler = init_state, resident_sampler
+    timing: dict = {}
+    try:
+        state, _ = loop.train(cfg, max_iters=case["steps"], data_override=(case["arrays"], None),
+                              device="cpu", timing=timing, mesh=mesh)
+    finally:
+        loop.init_state, loop.resident_sampler = init, sampler
+    opt = state.optimizer
+    return {"loss": timing["loss"], "step": state.step, "count": opt.count,
+            "state": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "moments": [{k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
+                        for st in opt.state.values()]}
+
+
 def sampler_config(kind: str):
     """A small config of ``kind`` ("cvppp" or "3d") whose resident sampler
     the sampler case draws from (global batch 4; CVPPP's EMA view with its
@@ -211,7 +273,8 @@ def _rank_entry(rank: int, world: int, tmp_dir: str, init: str):
 
 def rank_main(mesh, cases: dict) -> dict:
     """Every case on this rank. ``cases[name]["what"]``: "steps" (a step
-    case, :func:`build_case`), "sampler" (:func:`sampled_shards` of
+    case, :func:`build_case`), "graphed" (a step case through the graph's
+    split, :func:`graphed_steps`), "train" (:func:`train_run`), "sampler" (:func:`sampled_shards` of
     ``kind`` on ``arrays``), "tiles" (:func:`tiled_canvas` of ``volume``
     with ``engine``), "cli" (:func:`cli_run` of ``argv`` with "{rank}"
     filled in)."""
@@ -221,6 +284,10 @@ def rank_main(mesh, cases: dict) -> dict:
         if what == "steps":
             step, state, batches = build_case(case, mesh)
             out[name] = train_steps(step, state, batches)
+        elif what == "graphed":
+            out[name] = graphed_steps(*build_case(case, mesh))
+        elif what == "train":
+            out[name] = train_run(case, mesh)
         elif what == "sampler":
             out[name] = sampled_shards(case["kind"], case["arrays"], mesh)
         elif what == "tiles":
