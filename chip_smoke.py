@@ -34,7 +34,8 @@ Phases, each of which exits nonzero when it fails:
      the device-resident sampler over 4 synthetic leaf images (uint8,
      padded to 544x544), validation on 2 images (writing its montage)
      and a checkpoint, with every kernel's launch count (the upsampling
-     backward's too) read around the run; the reloaded
+     backward's, and CWg's and CXg's, one a conv of the step, CXg not for
+     the two convs that read the image) read around the run; the reloaded
      checkpoint's next-step loss; the device time of one step by kernel
      (K3f, K3b: each launch of the wmse kernels in order; the step must
      run K3b without db, once) and one step's
@@ -88,9 +89,9 @@ Phases, each of which exits nonzero when it fails:
  11. BBBC training: train() on the full-width bbbc039v1 preset (mask head,
      weight 1000), B=2, 8 steps from the device-resident sampler over 8
      synthetic 520x696 nuclei images, validation on 2 (AJI/F1/PQ) and a
-     checkpoint, each kernel's launch count read around the run; the
-     reloaded checkpoint's next-step loss; the device time of one step by
-     kernel (K3f/K3b as in 6);
+     checkpoint, each kernel's launch count read around the run (CWg and
+     CXg as in 6); the reloaded checkpoint's next-step loss; the device
+     time of one step by kernel (K3f/K3b as in 6);
  12. the unfused path: 4 steps of the same preset with train.fuse_loss
      False, K1f/K1b/K4f/K4b launched 5/5/1/1 times a step; on one batch the
      unfused step's loss and parameter gradients against the fused step's;
@@ -178,7 +179,7 @@ Phases, each of which exits nonzero when it fails:
      leaves, from the device-resident sampler: 8 steps uninterrupted, and
      4 steps, a msgpack checkpoint, and a resume to 8; every step's logged
      rate held to the schedule, steps 5-8's losses to the uninterrupted
-     run's (CLI_RESUME_RTOL), K2f/K2b/K3f/K3b (and K1f in validation)
+     run's bit for bit, K2f/K2b/K3f/K3b (and K1f in validation)
      held to their counts; 3 SGD steps (losses finite); then each preset
      (cvppp, bbbc039v1 and ac3ac4 at full width) 3 steps from the host
      samplers with the targets and the EMA view built on the host, from
@@ -190,8 +191,8 @@ Phases, each of which exits nonzero when it fails:
      the device samplers';
  22. the model families: the full-width cvppp_resnet50 (8 steps) and
      cvppp_resnet101 (3 steps) presets trained B=2 544x544 from the device
-     sampler with the discriminative term, K2f/K2b/K3f/K3b and the
-     validation's K1f held to their counts, the first loss through the
+     sampler with the discriminative term, K2f/K2b/K3f/K3b, CWg/CXg and
+     the validation's K1f held to their counts, the first loss through the
      kernels against the plain path's, loss_disc finite, step times, one
      step's device time by group, peak memory; 4 images served through
      ResNet-50 at B=1 with K1f's launches; MALA (widths 12..1500) at the
@@ -291,7 +292,9 @@ Phases, each of which exits nonzero when it fails:
      presets, B=2, trained 8 steps eagerly and 8 at steps_per_call=4 from
      one seed on the device samplers, float32 and bfloat16: the two runs'
      losses and parameters, held bit for bit where the eager step is
-     bit-reproducible (3D, and the ResUNet's 2D steps in bfloat16); warm
+     bit-reproducible (3D, the 2D steps in float32, whose convs' backward
+     is CWg and CXg or, for the ResNet's strided and 7x7 convs, cuDNN's
+     deterministic algorithms, and the ResUNet's in bfloat16); warm
      median data_s and step_s, capture seconds and peak memory of both;
      then steady steps of each path by CUDA events and a profile of each
      (device busy time, idle share), in which each kernel's launches that
@@ -302,14 +305,24 @@ Phases, each of which exits nonzero when it fails:
      scalars (the planted fault) off by more; the training CLI on ac3ac4 at
      steps_per_call=4: 4 steps, a checkpoint, a resume to 8, bit-equal to
      the uninterrupted graphed run;
- 27. one JSON line listing each kernel: launches (phase 21's also apart,
+ 27. CWg and CXg (csrc/conv_grad.cu) at every conv they serve in one
+     full-width float32 training step of cvppp, bbbc039v1, cvppp_resnet50
+     and cvppp_resnet101, on the step's own inputs and output gradients
+     (recorded_convs): each call 3 times bit for bit and against the plain
+     version in float64 within GRAD_RTOL; which convs' cuDNN default
+     gradients vary; each conv shape's time by CUDA graph replay with L2
+     flushed beside cuDNN's default and deterministic backward, the
+     float64 plain version, and for CXg at 3x3 its NHWC form (the permutes
+     around K7); the sums over each step;
+ 28. one JSON line listing each kernel: launches (phase 21's also apart,
      cli_launches, phase 24's, dp_launches, and phase 26's, spc_launches),
      error, times, bound, and
      how the times were taken (CUDA graph replay; for the affinity kernels
      CUDA events around the eager call beside; K2f/K2b/K3f/K3b with their
      bfloat16 forms' bf16_* fields and launches), the upsampling backward,
+     CWg and CXg (summed over a cvppp step's convs, bbbc039v1's beside),
      then I8c and I8q;
- 28. the last line: {"ok": true, "device": {...}}.
+ 29. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX.
 """
 
@@ -571,13 +584,14 @@ def synthetic_leaves(n: int, h: int, w: int, seed: int):
 def phase_build() -> float:
     from pixel_embedded_affinity_torch import cuda_build
     from pixel_embedded_affinity_torch.ops import (
-        conv3x3_cuda, conv_i8_cuda, emb2aff3d_cuda, emb2aff_cuda, emb2aff_wmse_cuda,
-        s2d_block_cuda, tile_copy_cuda, upsample_cuda)
+        conv3x3_cuda, conv_grad_cuda, conv_i8_cuda, emb2aff3d_cuda, emb2aff_cuda,
+        emb2aff_wmse_cuda, s2d_block_cuda, tile_copy_cuda, upsample_cuda)
     from pixel_embedded_affinity_torch.postproc import _native
 
     sources = [emb2aff_cuda.SOURCE, emb2aff_wmse_cuda.SOURCE, emb2aff3d_cuda.SOURCE,
                emb2aff3d_cuda.GRAD_SOURCE, conv3x3_cuda.SOURCE, s2d_block_cuda.SOURCE,
-               tile_copy_cuda.SOURCE, upsample_cuda.SOURCE, conv_i8_cuda.SOURCE]
+               tile_copy_cuda.SOURCE, upsample_cuda.SOURCE, conv_i8_cuda.SOURCE,
+               conv_grad_cuda.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         jobs = [pool.submit(cuda_build.build, src) for src in sources]
@@ -1313,6 +1327,7 @@ def phase_train() -> dict:
         pack_cvppp_arrays, sample_cvppp_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
     from pixel_embedded_affinity_torch.ops import fused_affinity_2d, multi_offset
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
     from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
     from pixel_embedded_affinity_torch.train import (
         TrainStep2D, init_state, latest_checkpoint, load_checkpoint, restore, train)
@@ -1336,7 +1351,7 @@ def phase_train() -> dict:
     for fn in launchers.values():
         fn.launches = 0
     fused_affinity_2d.launches = 0
-    upsample_bwd.launches = 0
+    upsample_bwd.launches = conv_wgrad.launches = conv_dgrad.launches = 0
     t0 = time.perf_counter()
     state, history = train(cfg, max_iters=TRAIN_STEPS, data_override=(arrays, valid),
                            device="cuda", log_dir=os.path.join(out, "log"), timing=timing)
@@ -1344,10 +1359,12 @@ def phase_train() -> dict:
     launches = {k: fn.launches for k, fn in launchers.items()}
     launches["K1f"] = fused_affinity_2d.launches
     launches["UPb"] = upsample_bwd.launches
+    launches["CWg"], launches["CXg"] = conv_wgrad.launches, conv_dgrad.launches
     print(f"[train] {wall:.2f} s for {TRAIN_STEPS} steps + validation + checkpoint; "
           f"launches {json.dumps(launches)}")
+    n_w, n_x = conv_grads_per_step("cvppp", arrays)
     for k, per_step in [("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1),
-                        ("UPb", UP_PER_STEP)]:
+                        ("UPb", UP_PER_STEP), ("CWg", n_w), ("CXg", n_x)]:
         check(launches[k] == per_step * TRAIN_STEPS,
               f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps")
     check(launches["K1f"] == len(valid), f"K1f launched {launches['K1f']} times")
@@ -2170,6 +2187,7 @@ def phase_train_bbbc(arrays, valid) -> dict:
         sample_bbbc_batch, sampler_generator)
     from pixel_embedded_affinity_torch.device import float32_convs
     from pixel_embedded_affinity_torch.ops import multi_offset
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
     from pixel_embedded_affinity_torch.train import (
         TrainStep2D, init_state, latest_checkpoint, load_checkpoint, restore)
 
@@ -2184,11 +2202,17 @@ def phase_train_bbbc(arrays, valid) -> dict:
           f"crops {cfg.data.size}x{cfg.data.size} (padding {cfg.data.bbbc_padding}) from the "
           f"device-resident sampler, {TRAIN_STEPS} steps, validation on {len(valid)} "
           f"{BBBC_SHAPE} images, convs in float32 (TF32 off)")
+    conv_wgrad.launches = conv_dgrad.launches = 0
     state, history, timing, launches = _train_run(cfg, (arrays, valid), TRAIN_STEPS, out,
                                                   "bbbc-train")
+    conv_grad = {"CWg": conv_wgrad.launches, "CXg": conv_dgrad.launches}
+    n_w, n_x = conv_grads_per_step("bbbc039v1", arrays)
+    print(f"[bbbc-train] CWg and CXg launches {json.dumps(conv_grad)}: {n_w} and {n_x} a step")
     for k, per_step in [("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1)]:
         check(launches[k] == per_step * TRAIN_STEPS,
               f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps")
+    check(conv_grad == {"CWg": n_w * TRAIN_STEPS, "CXg": n_x * TRAIN_STEPS},
+          f"CWg, CXg launched {conv_grad} times in {TRAIN_STEPS} steps")
     check(launches["K1f"] == len(valid) and launches["K4f"] == launches["K1b"] == 0,
           f"launches {launches}")
     check(len(history) == 1 and all(np.isfinite(v) for v in history[0].values())
@@ -2229,7 +2253,7 @@ def phase_train_bbbc(arrays, valid) -> dict:
         padding=cfg.data.bbbc_padding), n=10)
     print(f"[bbbc-train] device sampler: {sampler_ms:.4f} ms a batch of 2 on the device "
           f"(median of 10)")
-    return {"launches": launches, "batch": batch, "state": loaded}
+    return {"launches": launches, "batch": batch, "state": loaded, "conv_grad": conv_grad}
 
 
 def phase_unfused_bbbc(arrays, fused_batch, fused_state) -> dict:
@@ -3342,8 +3366,8 @@ GATE_VALID_IMAGES = 2
 # (reading, tolerance)): the mean of tools/quality_card.py's six
 # plain-path runs on an H100 (three calls, two runs each), within three
 # times the spread, rounded up, of every card run of the gate at its width
-# (kernels and plain, the tool's and this phase's; PERF.md, "Quality on the
-# card"). The loss at the last display follows every step's gradients; the
+# (kernels and plain, the tool's and this phase's; PERF.md §6, PRs 13 and
+# 14). The loss at the last display follows every step's gradients; the
 # 3D gate's eval-mode reading hardly moves in 200 steps (its BatchNorm
 # running statistics, momentum 0.001), so it is held with each tile
 # batch's own statistics (batch_stats_reading).
@@ -3921,15 +3945,13 @@ def phase_gate_bf16() -> dict:
 CLI_STEPS, CLI_SPLIT, HOST_STEPS = 8, 4, 3
 CLI_SCHEDULE = {"lr_mode": "poly", "base_lr": 1e-4, "end_lr": 1e-6, "warmup_iters": 2,
                 "decay_iters": 6, "power": 1.5}
-# steps 5-8 after the resume, and the validation loss after step 8,
-# against the uninterrupted run: the batches and EMA views are the same
-# draws, the checkpoint's state the same bits, but two runs differ by
-# cuDNN's float32 weight and input gradients, whose summation order changes
-# from run to run (ROADMAP §3 item 18; 7.4e-5 and 1.3e-4 between the two
-# runs in two calls on an H100); a resume that
-# drops the optimizer state or the schedule's count moves them by 7.4e-3
-# and 8.0e-3 (a CPU mutation check at filters 4..16)
-CLI_RESUME_RTOL = 1e-3
+# steps 5-8 after the resume, and the validation loss after step 8, are
+# held bit for bit against the uninterrupted run: the batches and EMA views
+# are the same draws, the checkpoint's state the same bits, and the 2D
+# float32 step gives the same bits on every run (its convs' backward is CWg
+# and CXg, ROADMAP §3 item 18); a resume that drops the optimizer state or
+# the schedule's count moves them by 7.4e-3 and 8.0e-3 (a CPU mutation
+# check at filters 4..16)
 # the host-built targets against the device builders: affinities and masks
 # equal, the weights at 1e-5 relative (the host takes each class fraction
 # in float64, the device in float32, and the majority class's weight
@@ -4205,10 +4227,9 @@ def phase_training_cli() -> dict:
     print(f"[cli] resumed at step {CLI_SPLIT} from {os.path.relpath(ck, REPO)} (msgpack, "
           f"{os.path.getsize(ck)} bytes): steps {CLI_SPLIT + 1}-{CLI_STEPS} "
           f"{[r['loss'] for r in split[CLI_SPLIT:]]}, max rel {max(rel):.3e} against the "
-          f"uninterrupted run; validation loss rel {valid_rel:.3e} (bound {CLI_RESUME_RTOL}); "
-          f"{card}")
-    check(max(rel) <= CLI_RESUME_RTOL, f"cli: resumed losses off by {max(rel)}")
-    check(valid_rel <= CLI_RESUME_RTOL, f"cli: resumed validation loss off by {valid_rel}")
+          f"uninterrupted run; validation loss rel {valid_rel:.3e} (held bit for bit); {card}")
+    check(max(rel) == 0, f"cli: resumed losses off by {max(rel)}")
+    check(valid_rel == 0, f"cli: resumed validation loss off by {valid_rel}")
 
     # (b) SGD
     sgd_dir = os.path.join(out, "sgd")
@@ -4282,6 +4303,7 @@ def _train_resnet(name: str, arrays, valid, samples) -> dict:
     from pixel_embedded_affinity_torch.device import float32_convs
     from pixel_embedded_affinity_torch.infer import run_inference_2d
     from pixel_embedded_affinity_torch.ops import fused_affinity_2d
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
     from pixel_embedded_affinity_torch.train import init_state, make_train_step, train
 
     steps = RESNET_STEPS[name]
@@ -4316,7 +4338,8 @@ def _train_resnet(name: str, arrays, valid, samples) -> dict:
     check(rel <= RESNET_PLAIN_RTOL, f"{name}: first loss off the plain path's by {rel}")
     check(np.isfinite(first[True][1]) and first[True][1] > 0, f"{name}: loss_disc {first}")
 
-    launchers = {**_wmse_launchers(), "K1f": fused_affinity_2d}
+    launchers = {**_wmse_launchers(), "K1f": fused_affinity_2d, "CWg": conv_wgrad,
+                 "CXg": conv_dgrad}
     for fn in launchers.values():
         fn.launches = 0
     timing: dict = {}
@@ -4332,7 +4355,9 @@ def _train_resnet(name: str, arrays, valid, samples) -> dict:
     print(f"[{name}] {wall:.2f} s for {steps} steps + validation + checkpoint; peak device "
           f"memory {peak:.4f} GiB; launches {json.dumps(launches)}; loss per step {losses}; "
           f"validation {json.dumps(history)}")
-    for k, per_step in (("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1)):
+    n_w, n_x = conv_grads_per_step(name, arrays)
+    for k, per_step in (("K2f", 5), ("K2b", 5), ("K3f", 1), ("K3b", 1), ("CWg", n_w),
+                        ("CXg", n_x)):
         check(launches[k] == per_step * steps, f"{name}: {k} launched {launches[k]} times")
     check(launches["K1f"] == len(valid), f"{name}: K1f launched {launches['K1f']} times")
     check(len(losses) == steps and all(np.isfinite(losses)), f"{name}: losses {losses}")
@@ -5556,9 +5581,11 @@ def dp_cli(arrays, valid, out: str) -> dict:
 def dp_spc_compare(ranks: list, launches: dict, misses: list):
     """Two NCCL ranks' CVPPP step at steps_per_call=DP_SPC (one graphed
     call) against their eager meshed steps on the same batches: the losses
-    within SPC_STEP_RTOL (the 2D float32 step is not bit-reproducible,
-    ROADMAP §3 item 18); the ranks bit-equal; the launches that the wrappers counted
-    and that the profiler saw the replays make added to ``launches``."""
+    within SPC_STEP_RTOL (the one-process 2D float32 step is bit-reproducible
+    since ROADMAP §3 item 18 closed, the two-card NCCL step has not been run
+    yet) and bit-equality printed; the ranks bit-equal; the launches that the
+    wrappers counted and that the profiler saw the replays make added to
+    ``launches``."""
     import torch
 
     for r, run in enumerate(ranks):
@@ -6198,21 +6225,23 @@ SPC_STEPS = 8
 SPC_TIMED, SPC_PROFILED = 4, 2  # steps timed by CUDA events, profiled, a path
 SPC_OPT_STEPS = 5
 # one step from one state, eager on a copy and by a replay: where the eager
-# step is not bit-reproducible, the loss and the update of the parameters
-# and of the BatchNorm statistics may differ from the eager step's by this
-# much, relative; a replay whose update reads the previous step's scalars
-# must lie farther off. On an H100 two eager steps' parameter updates lay
-# 5.1e-6-3.1e-5 apart (2D float32), the stale-scalar replay 2.2e-2 off
+# step is not known to be bit-reproducible (the ResNet's bfloat16 step), the
+# loss and the update of the parameters and of the BatchNorm statistics may
+# differ from the eager step's by this much, relative; a replay whose update
+# reads the previous step's scalars must lie farther off. On an H100 two eager 2D
+# float32 steps' parameter updates lay 5.1e-6-3.1e-5 apart while cuDNN
+# gave their convs' backward, the stale-scalar replay 2.2e-2 off
 SPC_STEP_RTOL = 1e-4
 # (label, preset, overrides, eager bit-reproducible); the 2D float32 steps
-# are not (cuDNN's float32 weight and input gradients of many of the
-# ResUNet's convs, tools/wgrad_determinism.py, ROADMAP §3 item 18), the ResNet's
-# bfloat16 step is not known to be
-SPC_RUNS = (("cvppp", "cvppp", {}, ("bfloat16",)),
-            ("bbbc039v1", "bbbc039v1", {}, ("bfloat16",)),
-            ("bbbc039v1 unfused", "bbbc039v1", {"train": {"fuse_loss": False}}, ("bfloat16",)),
+# are since their convs' backward is CWg and CXg (csrc/conv_grad.cu, ROADMAP
+# §3 item 18), and cuDNN's deterministic algorithms for the ResNet's
+# strided and 7x7 convs; the ResNet's bfloat16 step is not known to be
+SPC_RUNS = (("cvppp", "cvppp", {}, ("float32", "bfloat16")),
+            ("bbbc039v1", "bbbc039v1", {}, ("float32", "bfloat16")),
+            ("bbbc039v1 unfused", "bbbc039v1", {"train": {"fuse_loss": False}},
+             ("float32", "bfloat16")),
             ("ac3ac4", "ac3ac4", {}, ("float32", "bfloat16")),
-            ("cvppp_resnet50", "cvppp_resnet50", {}, ()))
+            ("cvppp_resnet50", "cvppp_resnet50", {}, ("float32",)))
 # a counted wrapper of the training step -> a pattern of its CUDA kernel's
 # name in a profile: K2b and K3b by template argument; K2f and K3f are one
 # kernel, K3f each step's last launch of it (phase 6's rule); K4f and K6f
@@ -6226,7 +6255,8 @@ SPC_KERNELS = {"wmse2d_fwd": r"\bwmse_fwd_kernel", "cross_wmse2d_fwd": r"\bwmse_
                "affinity_bwd": r"\baffinity_bwd_kernel",
                "cross_affinity_bwd": r"\bcross_affinity_bwd_kernel",
                "fused_affinity_3d": r"\baffinity3d_fwd_kernel",
-               "upsample_bwd": r"\bupsample_bwd_kernel"}
+               "upsample_bwd": r"\bupsample_bwd_kernel",
+               "conv_wgrad": r"\bconv_wgrad_kernel", "conv_dgrad": r"\bconv_dgrad_kernel"}
 
 
 def _spc_loss_d(a, b) -> float:
@@ -6628,10 +6658,245 @@ def phase_steps_per_call(bbbc_arrays, bbbc_valid) -> dict:
           f"spc-cli: last display {losses[-1]}, uninterrupted {np.mean(ref_losses[SPC:])}")
     print(f"[spc] launches in phase 26 by wrapper (counted, and the profiled replays'): "
           f"{json.dumps(total)}")
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
     from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
 
-    labels = {**_all_launchers(), "UPb": upsample_bwd}
+    labels = {**_all_launchers(), "UPb": upsample_bwd, "CWg": conv_wgrad, "CXg": conv_dgrad}
     return {k: total.get(f.__name__, 0) for k, f in labels.items()}
+
+
+CG_SOURCE = "pixel_embedded_affinity_torch/csrc/conv_grad.cu"
+CG_REPLACES = ("none: no TPU site; the deterministic float32 backward of the 2D models' "
+               "stride-1 1x1 and 3x3 convs (models/common.py; XLA's conv backward is "
+               "deterministic)")
+# the 2D float32 steps whose convs CWg and CXg serve: the U-Nets' every
+# conv, the ResNets' stride-1 1x1 and 3x3 ones (their 7x7 stem and strided
+# convs keep cuDNN's backward)
+CG_PRESETS = ("cvppp", "bbbc039v1", "cvppp_resnet50", "cvppp_resnet101")
+CG_UNETS = ("cvppp", "bbbc039v1")
+CG_REPEATS = 3  # runs of each kernel and of cuDNN's default backward a conv
+
+
+def recorded_convs(preset: str, data) -> tuple:
+    """One float32 training step of the full-width ``preset`` (B=2, the
+    device-resident sampler over ``data``): (name, conv, input, output
+    gradient, whether the input needs a gradient) for every Conv2d that the
+    backward reached and CWg and CXg serve, in call order, and the names of
+    those that take cuDNN's deterministic backward instead (the ResNets'
+    7x7 stem and strided convs)."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.train import init_state
+    from pixel_embedded_affinity_torch.train.loop import make_train_step, resident_sampler
+
+    cfg = load_config(preset)
+    state = init_state(cfg, "cuda")
+    step = make_train_step(cfg)
+    batch = step.ema_batch(resident_sampler(cfg, data, torch.device("cuda"))(0), 0)
+    seen: dict = {}
+    hooks = []
+    for name, m in state.model.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            def fwd(mod, inp, out, name=name):
+                if torch.is_grad_enabled():
+                    seen[name] = {"conv": mod, "x": inp[0].detach(),
+                                  "need_x": inp[0].requires_grad}
+
+            def bwd(mod, gin, gout, name=name):
+                seen[name]["dy"] = gout[0].detach()
+
+            hooks += [m.register_forward_hook(fwd), m.register_full_backward_hook(bwd)]
+    step.grads(state.model, batch)
+    for h in hooks:
+        h.remove()
+    reached = [(n, r["conv"], r["x"], r["dy"], r["need_x"]) for n, r in seen.items()
+               if "dy" in r]
+    return ([c for c in reached if c[1]._kernel_grad],
+            [c[0] for c in reached if not c[1]._kernel_grad])
+
+
+def conv_grads_per_step(preset: str, data) -> tuple:
+    """(CWg, CXg) launches of one float32 training step of ``preset``: each
+    conv of :func:`recorded_convs`, and of those each whose input needs a
+    gradient (not the image's convs)."""
+    convs, _ = recorded_convs(preset, data)
+    return len(convs), sum(c[4] for c in convs)
+
+
+def conv_grad_bound(b: int, cin: int, cout: int, h: int, w: int, k: int) -> tuple:
+    """Least time in ms of one CWg or CXg call, and what bounds it: x, dy
+    and the weights (or their gradients) each moved once over HBM, against
+    2 Cout Cin k^2 B H W flops at the 3xTF32 rate."""
+    px = b * h * w
+    t_bytes = 4 * (px * (cin + cout) + cout * cin * k * k) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * cout * cin * k * k * px / TF32X3_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nhwc_dgrad(dy, wt):
+    """CXg's alternative for a 3x3 conv: dy permuted to NHWC, K7's kernel
+    (conv3x3_fused) with the flipped, transposed weights as HWIO, the result
+    permuted back to NCHW."""
+    import torch
+
+    from pixel_embedded_affinity_torch.ops.conv3x3_cuda import conv3x3_fused
+
+    w_hwio = wt.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    ones = torch.ones(wt.shape[1], dtype=torch.float32, device=dy.device)
+    out = conv3x3_fused(dy.permute(0, 2, 3, 1).contiguous(), w_hwio, ones, ones * 0, False)
+    return out.permute(0, 3, 1, 2).contiguous()
+
+
+def phase_conv_grad(bbbc_arrays) -> dict:
+    """Phase 27: CWg and CXg (csrc/conv_grad.cu) at every conv they serve
+    in one full-width float32 training step of each of CG_PRESETS (every
+    conv of the U-Nets), on the step's own inputs and output gradients:
+    each call CG_REPEATS times, bit for bit, against the plain version in
+    float64 within GRAD_RTOL of the largest gradient (the float32 plain
+    version's distance, cuDNN's with TF32 off, and its own from float64
+    printed); cuDNN's default weight and input gradients CG_REPEATS times,
+    to see which vary; each conv shape's time, once a shape (the ResNets
+    repeat theirs), by CUDA graph replay with L2 flushed: CWg, CXg, CXg's
+    NHWC alternative (3x3: the permutes and K7), cuDNN's default and
+    deterministic ``aten.convolution_backward`` and the plain float64
+    version. Returns each kernel's sums over a step of each preset (cvppp's
+    go on the ``kernels`` line) and the rows."""
+    import torch
+
+    from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import (
+        conv_dgrad, conv_dgrad_plain, conv_wgrad, conv_wgrad_plain, wgrad_splits)
+
+    def cudnn(dy, x, wt, mask, deterministic=False):
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            k = wt.shape[-1]
+            return torch.ops.aten.convolution_backward(
+                dy, x, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1, mask)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+
+    cvppp = pack_cvppp_arrays(leaf_pairs(4, 530, 500, SEED))
+    data = {"cvppp": cvppp, "bbbc039v1": bbbc_arrays, "cvppp_resnet50": cvppp,
+            "cvppp_resnet101": cvppp}
+    flush = 2 * 50 * 2 ** 20
+    sums, rows = {}, []
+    times: dict = {}  # a conv shape's times, taken at its first conv
+    time_cols = ("w_ms", "w_lib_ms", "w_lib_det_ms", "w_plain_ms", "x_ms", "x_nhwc_ms",
+                 "x_lib_ms", "x_lib_det_ms", "x_plain_ms")
+    with float32_convs():
+        for preset in CG_PRESETS:
+            convs, others = recorded_convs(preset, data[preset])
+            check(preset not in CG_UNETS or not others,
+                  f"{preset}: convs that keep cuDNN's backward: {others}")
+            tot = {k: 0.0 for k in ("w_ms", "x_ms", "x_nhwc_ms", "w_bound", "x_bound",
+                                    "w_lib", "w_lib_det", "x_lib", "x_lib_det", "w_plain",
+                                    "x_plain", "w_lib_varied", "w_lib_det_varied", "w_ms_varied")}
+            err = {"w": 0.0, "x": 0.0, "w_abs": 0.0, "x_abs": 0.0}
+            by = {"w": {"bytes": 0.0, "operations": 0.0}, "x": {"bytes": 0.0, "operations": 0.0}}
+            varied_w, varied_x, n_x = [], [], 0
+            for name, conv, x, dy, need_x in convs:
+                wt = conv.weight.detach()
+                b, cin, h, w = x.shape
+                cout, k = wt.shape[0], wt.shape[-1]
+                row = {"preset": preset, "conv": name, "x": list(x.shape),
+                       "weight": list(wt.shape), "splits": wgrad_splits(b, cin, cout, h, w, k)}
+                shape = (tuple(x.shape), tuple(wt.shape), need_x)
+                known = times.get(shape)
+                if known:
+                    row.update(known)
+                dws = [conv_wgrad(x, dy, wt.shape) for _ in range(CG_REPEATS)]
+                ref32 = conv_wgrad_plain(x, dy, wt.shape)
+                ref64 = conv_wgrad_plain(x.double(), dy.double(), wt.shape)
+                row["w_err"] = rel_err64(dws[0], ref64)
+                row["w_err_f32_plain"] = rel_err64(dws[0], ref32)
+                err["w"] = max(err["w"], row["w_err"])
+                err["w_abs"] = max(err["w_abs"], float((dws[0].double() - ref64).abs().max()))
+                check(all(torch.equal(dws[0], d) for d in dws[1:]),
+                      f"{preset} {name}: CWg differs from run to run")
+                row["f32_plain_err"] = rel_err64(ref32, ref64)
+                check(row["w_err"] <= GRAD_RTOL, f"{preset} {name}: CWg off the plain version "
+                                                 f"in float64: {row}")
+                lib = [cudnn(dy, x, wt, [False, True, False])[1] for _ in range(CG_REPEATS)]
+                row["w_lib_varied"] = not all(torch.equal(lib[0], d) for d in lib[1:])
+                row["w_bound"], row["w_bound_by"] = conv_grad_bound(b, cin, cout, h, w, k)
+                by["w"][row["w_bound_by"]] += row["w_bound"]
+                if not known:
+                    x64, dy64 = x.double(), dy.double()
+                    row["w_ms"] = graph_ms(lambda: conv_wgrad(x, dy, wt.shape),
+                                           flush_bytes=flush)
+                    row["w_lib_ms"] = graph_ms(lambda: cudnn(dy, x, wt, [False, True, False]),
+                                               flush_bytes=flush)
+                    row["w_lib_det_ms"] = graph_ms(
+                        lambda: cudnn(dy, x, wt, [False, True, False], True), flush_bytes=flush)
+                    row["w_plain_ms"] = graph_ms(lambda: conv_wgrad_plain(x64, dy64, wt.shape),
+                                                 n=5, flush_bytes=flush)
+                for key, col in (("w_ms", "w_ms"), ("w_bound", "w_bound"), ("w_lib", "w_lib_ms"),
+                                 ("w_lib_det", "w_lib_det_ms"), ("w_plain", "w_plain_ms")):
+                    tot[key] += row[col]
+                if row["w_lib_varied"]:
+                    varied_w.append(name)
+                    tot["w_lib_varied"] += row["w_lib_ms"]
+                    tot["w_lib_det_varied"] += row["w_lib_det_ms"]
+                    tot["w_ms_varied"] += row["w_ms"]
+                if need_x:
+                    n_x += 1
+                    dxs = [conv_dgrad(dy, wt) for _ in range(CG_REPEATS)]
+                    ref32 = conv_dgrad_plain(dy, wt)
+                    ref64 = conv_dgrad_plain(dy.double(), wt.double())
+                    row["x_err"] = rel_err64(dxs[0], ref64)
+                    row["x_err_f32_plain"] = rel_err64(dxs[0], ref32)
+                    err["x"] = max(err["x"], row["x_err"])
+                    err["x_abs"] = max(err["x_abs"], float((dxs[0].double() - ref64).abs().max()))
+                    check(all(torch.equal(dxs[0], d) for d in dxs[1:]),
+                          f"{preset} {name}: CXg differs from run to run")
+                    row["x_f32_plain_err"] = rel_err64(ref32, ref64)
+                    check(row["x_err"] <= GRAD_RTOL, f"{preset} {name}: CXg off the plain "
+                                                     f"version in float64: {row}")
+                    lib = [cudnn(dy, x, wt, [True, False, False])[0] for _ in range(CG_REPEATS)]
+                    row["x_lib_varied"] = not all(torch.equal(lib[0], d) for d in lib[1:])
+                    if row["x_lib_varied"]:
+                        varied_x.append(name)
+                    row["x_bound"], row["x_bound_by"] = conv_grad_bound(b, cin, cout, h, w, k)
+                    by["x"][row["x_bound_by"]] += row["x_bound"]
+                    if k == 3:
+                        row["x_nhwc_err"] = rel_err64(_nhwc_dgrad(dy, wt), ref64)
+                    if not known:
+                        row["x_ms"] = graph_ms(lambda: conv_dgrad(dy, wt), flush_bytes=flush)
+                        row["x_nhwc_ms"] = (graph_ms(lambda: _nhwc_dgrad(dy, wt),
+                                                     flush_bytes=flush)
+                                            if k == 3 else row["x_ms"])
+                        row["x_lib_ms"] = graph_ms(
+                            lambda: cudnn(dy, x, wt, [True, False, False]), flush_bytes=flush)
+                        row["x_lib_det_ms"] = graph_ms(
+                            lambda: cudnn(dy, x, wt, [True, False, False], True),
+                            flush_bytes=flush)
+                        wt64 = wt.double()
+                        row["x_plain_ms"] = graph_ms(lambda: conv_dgrad_plain(dy64, wt64), n=5,
+                                                     flush_bytes=flush)
+                    for key, col in (("x_ms", "x_ms"), ("x_nhwc_ms", "x_nhwc_ms"),
+                                     ("x_bound", "x_bound"), ("x_lib", "x_lib_ms"),
+                                     ("x_lib_det", "x_lib_det_ms"), ("x_plain", "x_plain_ms")):
+                        tot[key] += row[col]
+                if not known:
+                    times[shape] = {c: row[c] for c in time_cols if c in row}
+                    times[shape]["times_of"] = f"{preset} {name}"
+                print(f"[conv-grad] {json.dumps(row)}")
+                rows.append(row)
+            del convs
+            torch.cuda.empty_cache()
+            summary = {"preset": preset, "convs": sum(r["preset"] == preset for r in rows),
+                       "dgrad_convs": n_x, "cudnn_backward_convs": others,
+                       "cudnn_wgrad_varied": varied_w,
+                       "cudnn_dgrad_varied": varied_x, **tot, **err,
+                       **{f"{key}_bound_by": max(v, key=v.get) for key, v in by.items()}}
+            print(f"[conv-grad] {preset} step, ms summed over its convs (graph replay, L2 "
+                  f"flushed): {json.dumps(summary)}; {card_line()}")
+            sums[preset] = summary
+    return {"sums": sums, "rows": rows}
 
 
 def _timed(name: str, fn, *args):
@@ -6707,7 +6972,9 @@ def main() -> int:
     p25 = _timed("int8, export, dcp", phase_int8_export_dcp, cfg, sd, samples)
     # 26. train.steps_per_call: the step as a CUDA graph against the eager step
     spc = _timed("steps_per_call", phase_steps_per_call, arrays, valid)
-    # 27. kernels line, card, 28. last line
+    # 27. CWg and CXg at every conv of the 2D float32 training steps
+    cg = _timed("conv grads", phase_conv_grad, arrays)
+    # 28. kernels line, card, 29. last line
     trained = {k: train_launches.get(k, 0) + bbbc["launches"][k] + unfused[k] + ema.get(k, 0)
                + quality.get(k, 0) + families.get(k, 0) for k in bbbc["launches"]}
     t1 = k1["times"][1]
@@ -6790,9 +7057,29 @@ def main() -> int:
         "max_abs_err": up["max_abs_err"], "ms": up["ms"], "event_ms": up["event_ms"],
         "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
         "library_ms": up["library_ms"], "bf16_ms": up["bf16_ms"]})
+    cvppp = cg["sums"]["cvppp"]
+    for name, key, short in (("conv_wgrad", "w", "CWg"), ("conv_dgrad", "x", "CXg")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": CG_SOURCE, "replaces": CG_REPLACES,
+            "launches": (train_launches[short] + bbbc["conv_grad"][short] + families[short]
+                         + spc[short]),
+            "spc_launches": spc[short], "max_abs_err": cvppp[f"{key}_abs"],
+            "max_rel_err": max(r[key] for r in cg["sums"].values()),
+            "ms": cvppp[f"{key}_ms"], "plain_ms": cvppp[f"{key}_plain"],
+            "bound_ms": cvppp[f"{key}_bound"], "bound_by": cvppp[f"{key}_bound_by"],
+            "library_ms": cvppp[f"{key}_lib"], "library_deterministic_ms": cvppp[f"{key}_lib_det"],
+            "library": "cuDNN's aten.convolution_backward in float32, TF32 off (default "
+                       "algorithms; deterministic ones beside), a yardstick the port never calls",
+            **{preset: {f: cg["sums"][preset][f"{key}_{f}"]
+                        for f in ("ms", "bound", "lib", "lib_det", "plain")}
+               for preset in CG_PRESETS if preset != "cvppp"}})
+    kernels[-1]["nhwc_alternative_ms"] = cvppp["x_nhwc_ms"]
     for entry in kernels:
         entry["timed_by"] = "cuda graph replay"
-    kernels[-2]["timed_by"] = "cuda graph replay, 96 calls a graph"
+    kernels[-2]["timed_by"] = kernels[-1]["timed_by"] = (
+        "cuda graph replay, L2 flushed, summed over the calls of one full-width cvppp float32 "
+        "training step (one a conv); the other CG_PRESETS' steps beside")
+    kernels[-4]["timed_by"] = "cuda graph replay, 96 calls a graph"
     i8 = p25["kernels"]
     for name, key, replaces in (("conv_i8_fwd", "I8c", I8C_REPLACES),
                                 ("quantize_i8", "I8q", I8Q_REPLACES)):

@@ -1,7 +1,8 @@
-// Tensor-core and asynchronous-copy helpers shared by conv3x3.cu and
-// s2d_block.cu (sm_90a): cp.async with zero fill, mma.sync m16n8k8 TF32
-// with the 3xTF32 split for float32, mma.sync m16n8k16 bfloat16 with
-// ldmatrix fragment loads, and one k-step of a warp's implicit-GEMM tile.
+// Tensor-core and asynchronous-copy helpers shared by conv3x3.cu,
+// s2d_block.cu and conv_grad.cu (sm_90a): cp.async of 16 and 4 bytes with
+// zero fill, mma.sync m16n8k8 TF32 with the 3xTF32 split for float32,
+// mma.sync m16n8k16 bfloat16 with ldmatrix fragment loads, and one k-step
+// of a warp's implicit-GEMM tile.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8 / k16"),
 // with g = lane / 4 and t = lane % 4:
@@ -40,6 +41,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     const int n = valid ? 16 : 0;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+
+// 4 bytes global -> shared, asynchronously (through L1); zero where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    const int n = valid ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(n));
 }
 

@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..device import deterministic_convs
+from ..ops.conv_grad_cuda import KERNEL_SIZES, conv_dgrad, conv_wgrad
 from ..ops.upsample_cuda import UpsampleAlignCorners
 
 
@@ -147,8 +149,82 @@ class _CastConv:
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class Conv2dDeterministicGrad(torch.autograd.Function):
+    """A stride-1 SAME 1x1 or 3x3 conv whose forward is ``F.conv2d`` and
+    whose backward gives the same bits on every run: dW by
+    :func:`..ops.conv_grad_cuda.conv_wgrad`, dx by
+    :func:`..ops.conv_grad_cuda.conv_dgrad` (skipped where the input needs
+    no gradient), db the sum of dy over N, H, W. On CUDA tensors the
+    wrappers launch the kernels of ``csrc/conv_grad.cu``; on CPU tensors
+    they run their plain versions, ``aten.convolution_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        k = weight.shape[-1]
+        return F.conv2d(x, weight, bias, 1, k // 2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dx = conv_dgrad(dy, weight) if need_x else None
+        dw = conv_wgrad(x, dy, weight.shape) if need_w else None
+        db = dy.sum((0, 2, 3)) if need_b else None
+        return dx, dw, db
+
+
+class Conv2dCudnnDeterministicGrad(torch.autograd.Function):
+    """A conv that CWg and CXg do not serve (the ResNets' 7x7 stem and
+    strided convs) whose forward is ``F.conv2d`` and whose backward is
+    ``aten.convolution_backward`` under cuDNN's deterministic algorithms
+    (:func:`..device.deterministic_convs`): the same bits on every run.
+    ``geometry`` is (stride, padding, dilation, groups)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, geometry):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = geometry
+        return F.conv2d(x, weight, bias, *geometry)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.geometry
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        with deterministic_convs():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, weight, [weight.shape[0]] if need_b else None, stride, padding,
+                dilation, False, [0, 0], groups, [need_x, need_w, need_b])
+        return dx, dw, db, None
+
+
 class Conv2d(_CastConv, nn.Conv2d):
-    """``nn.Conv2d`` with a compute dtype (:class:`_CastConv`)."""
+    """``nn.Conv2d`` with a compute dtype (:class:`_CastConv`). Training
+    in float32 on the card, its backward gives the same bits on every run:
+    a stride-1 SAME 1x1 or 3x3 conv takes it from
+    :class:`Conv2dDeterministicGrad` (CWg and CXg), any other (the ResNets'
+    7x7 stem and strided convs) from :class:`Conv2dCudnnDeterministicGrad`.
+    bfloat16, float64 and padding modes other than zeros keep cuDNN's
+    default backward."""
+
+    def forward(self, x):
+        if not (self.compute_dtype is None and x.is_cuda and x.dtype == torch.float32
+                and self.weight.dtype == torch.float32 and torch.is_grad_enabled()
+                and self.padding_mode == "zeros"):
+            return super().forward(x)
+        if self._kernel_grad:
+            return Conv2dDeterministicGrad.apply(x, self.weight, self.bias)
+        return Conv2dCudnnDeterministicGrad.apply(
+            x, self.weight, self.bias, (self.stride, self.padding, self.dilation, self.groups))
+
+    @property
+    def _kernel_grad(self) -> bool:
+        """Whether CWg and CXg serve this conv's float32 backward."""
+        k = self.kernel_size[0]
+        return (k in KERNEL_SIZES and self.kernel_size == (k, k) and self.stride == (1, 1)
+                and self.dilation == (1, 1) and self.groups == 1
+                and self.padding == (k // 2, k // 2))
 
 
 class Conv3d(_CastConv, nn.Conv3d):

@@ -307,6 +307,10 @@ inline void emu_run_block(dim3 block) {
     }
 }
 
+// run a grid's blocks from the last to the first (a test of results that
+// must not depend on the order in which blocks run)
+inline bool emu_reverse_blocks = false;
+
 inline void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
                        std::function<void()> fn) {
     if (smem > kSmemMax || (block.x * block.y * block.z) % 32) std::abort();
@@ -314,11 +318,11 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
     emu_fn = &fn;
     blockDim = block;
     gridDim = grid;
-    for (unsigned z = 0; z < grid.z; ++z)
-        for (unsigned y = 0; y < grid.y; ++y)
-            for (unsigned x = 0; x < grid.x; ++x) {
-                std::memset(smem_raw, 0xCD, sizeof(smem_raw));
-                blockIdx = dim3(x, y, z);
-                emu_run_block(block);
-            }
+    const unsigned n = grid.x * grid.y * grid.z;
+    for (unsigned i = 0; i < n; ++i) {
+        const unsigned b = emu_reverse_blocks ? n - 1 - i : i;
+        std::memset(smem_raw, 0xCD, sizeof(smem_raw));
+        blockIdx = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
+        emu_run_block(block);
+    }
 }

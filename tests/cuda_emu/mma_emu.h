@@ -33,6 +33,19 @@ inline void cp_async16(void* dst, const void* src, bool valid) {
     }
     std::memcpy(dst, src, 16);
 }
+inline void cp_async4(void* dst, const void* src, bool valid) {
+    const unsigned char* c = static_cast<const unsigned char*>(dst);
+    if (reinterpret_cast<uintptr_t>(dst) % 4 || c < smem_raw || c + 4 > smem_raw + emu_smem_bytes) {
+        std::fprintf(stderr, "shared-memory access out of bounds or misaligned\n");
+        std::abort();
+    }
+    if (!valid) { std::memset(dst, 0, 4); return; }
+    if (reinterpret_cast<uintptr_t>(src) % 4) {
+        std::fprintf(stderr, "cp.async source misaligned\n");
+        std::abort();
+    }
+    std::memcpy(dst, src, 4);
+}
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 

@@ -15,8 +15,10 @@ packages differ by up to ~1.3e-3 (the BatchNorm rounding below); measured,
 one weight of down1.block.conv.3 ends 1.27e-5 apart, every other one
 within 1e-5.
 
-pred, the relu'd affinities of the train-mode forward, is held at atol
-2e-3. Measured at these widths: Flax's train-mode BatchNorm takes the
+pred, the relu'd affinities of the train-mode forward, is held against
+the JAX step run in float64 (``jax_run_f64``) at atol 1e-3, and after a
+JAX state carried across at 2e-3 against the float32 JAX step. Measured
+at these widths: Flax's train-mode BatchNorm takes the
 batch variance as E[x^2] - E[x]^2, and its float32 rounding puts the JAX
 forward's embedding 2.0e-4 off a float64 run of the same weights, where
 the port's is 3.0e-5 off; pred differs between the packages by 2.3e-4 at
@@ -28,6 +30,15 @@ port's step in float64 agree on the losses at rtol 1e-7 and on pred at
 atol 1e-4, the JAX model's float32 interpolation weights being what is
 left between them (one parameter ends 2.1e-7 apart after rounding both
 to float32, by the same lr / eps sensitivity; held at 1e-6).
+
+Why float64 for pred over two steps: measured on an AMD EPYC host (torch
+2.13, jax 0.9), the float32 JAX step's pred is 1.47e-3 off its float64
+run at step 2, and the port's 5.1e-4 (8 intra-op threads) to 6.2e-4 (one
+thread, as under xdist: the CPU kernels split their sums by the thread
+count) off it, in opposite directions at one element, so the two float32
+runs parted by 1.98e-3 to 2.09e-3 and the old 2e-3 bar between them
+passed or failed with the thread count. Against the float64 JAX run the
+port stays within 6.3e-4 at any thread count.
 """
 
 import copy
@@ -66,6 +77,7 @@ FILTERS = (4, 6, 8, 12, 16)
 OFFSETS = multi_offset([1, 3, 5, 9, 27], 4)
 RTOL, ATOL = 1e-5, 1e-5
 PRED_ATOL = 2e-3
+PRED_F64_ATOL = 1e-3
 PARAM_ATOL = 5e-5
 
 
@@ -138,10 +150,10 @@ def _tensors(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _check_step(pred, metrics, jax_pred, jax_metrics):
+def _check_step(pred, metrics, jax_pred, jax_metrics, pred_atol=PRED_ATOL):
     for k, v in jax_metrics.items():
         np.testing.assert_allclose(float(metrics[k]), v, rtol=RTOL, err_msg=k)
-    np.testing.assert_allclose(pred.numpy(), jax_pred, atol=PRED_ATOL)
+    np.testing.assert_allclose(pred.numpy(), jax_pred, atol=pred_atol)
 
 
 def _check_state(model, jax_state):
@@ -155,13 +167,13 @@ def _check_state(model, jax_state):
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
-def test_train_step_matches_jax_over_two_steps(jax_run, fused):
+def test_train_step_matches_jax_over_two_steps(jax_run, jax_run_f64, fused):
     variables, batches, steps = jax_run
     state = _port_state(variables)
     step = TrainStep2D(OFFSETS, use_pallas=fused, fuse_loss=fused, device_ema=False)
-    for b, (jax_state, jax_pred, jax_metrics) in zip(batches, steps):
+    for b, (jax_state, _, jax_metrics), (_, jax_pred64, _) in zip(batches, steps, jax_run_f64):
         pred, metrics = step(state, _tensors(b))
-        _check_step(pred, metrics, jax_pred, jax_metrics)
+        _check_step(pred, metrics, jax_pred64, jax_metrics, pred_atol=PRED_F64_ATOL)
         _check_state(state.model, jax_state)
     assert state.step == 2
 

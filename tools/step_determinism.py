@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
 """Are the port's training steps bit-reproducible on the card, and what
-does the deterministic upsampling backward cost?
+does the deterministic backward of the 2D convs cost?
 
-    python3 tools/step_determinism.py [--steps 10] [--presets cvppp,bbbc039v1,ac3ac4]
-                                      [--dtypes float32,bfloat16]
+    python3 tools/step_determinism.py [--steps 8] [--presets cvppp,bbbc039v1,ac3ac4]
+                                      [--dtypes float32,bfloat16] [--steps-per-call 1,4]
 
-For each full-width preset and compute dtype, ``train()`` runs ``--steps``
-steps from the device-resident sampler over ``chip_smoke.py``'s synthetic
-data (no validation), from one seed, four times in turns: as the parent
-tree ran them ("parent": PyTorch's own backward of ``F.interpolate``, its
-atomic scatter, and the 3D step without cuDNN's deterministic algorithms),
-as shipped ("shipped": the gather kernel of ``csrc/upsample_bwd.cu``, and
-the 3D step under ``deterministic_convs``), shipped again, parent again.
-Each run prints its warm median ms/step (steps 2.., host clock around
-``torch.cuda.synchronize``) and the two runs of each form are compared:
-every logged loss and every parameter and buffer bit for bit, or the
-largest difference; where the shipped runs differ, one step twice from the
-same state names the first module output or parameter gradient that
-differs (``chip_smoke.first_difference``). Then two shipped runs with
-``torch.backends.cudnn.deterministic`` set for the whole step (its cost
-where the shipped step does not set it), and one run under
+(``--presets`` also takes cvppp_resnet50 and cvppp_resnet101, on cvppp's
+data.)
+
+For each full-width preset, compute dtype and ``train.steps_per_call``,
+``train()`` runs ``--steps`` steps from the device-resident sampler over
+``chip_smoke.py``'s synthetic data (no validation), from one seed, four
+times in turns: as the parent tree ran them ("parent": cuDNN's default
+backward of the 2D models' convs), as shipped ("shipped": CWg and CXg of
+``csrc/conv_grad.cu`` for every stride-1 1x1 and 3x3 float32 conv, cuDNN's
+deterministic algorithms for the ResNets' 7x7 and strided ones),
+shipped again, parent again. Each run prints its warm median ms/step
+(steps 2.., host clock around ``torch.cuda.synchronize``) and the two runs
+of each form are compared: every logged loss and every parameter and
+buffer bit for bit, or the largest difference; where the shipped runs
+differ, one step twice from the same state names the first module output
+or parameter gradient that differs (``chip_smoke.first_difference``).
+Then steady steps of each form by CUDA events, eager and as a CUDA graph
+(``GraphedStep``), in turns parent, shipped, shipped, parent (the sampler's
+draw and the EMA view included, as phase 26 times them), and the host's
+time to queue an eager step's forward and its backward beside their device
+time, in the same turns three times over (what the Python backward of the
+convs adds to a host-bound step). At
+``steps_per_call`` 1, two shipped runs with
+``torch.backends.cudnn.deterministic`` set for the whole step (what
+cuDNN's own deterministic algorithms cost), and one run under
 ``torch.use_deterministic_algorithms(True, warn_only=True)``, which names
 every operation on the path that PyTorch knows to be nondeterministic.
 Ends with the card's name and power limit. Exits 1 without a card.
@@ -48,15 +58,16 @@ def preset_data(preset: str):
     phases for ``preset``."""
     from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
 
-    if preset == "cvppp":
+    if preset.startswith("cvppp"):
         return pack_cvppp_arrays(smoke.leaf_pairs(4, 530, 500, smoke.SEED))
     if preset == "bbbc039v1":
         return smoke.bbbc_setup()[0]
     return smoke.train3d_data()[0][0]
 
 
-def run(preset: str, dtype: str, data, steps: int, label: str) -> dict:
-    """``steps`` steps of train(); {ms, losses, state}."""
+def run(preset: str, dtype: str, data, steps: int, label: str, spc: int = 1) -> dict:
+    """``steps`` steps of train() at ``train.steps_per_call=spc``; {ms,
+    losses, state}."""
     import torch
 
     from pixel_embedded_affinity_torch.config import load_config
@@ -66,7 +77,7 @@ def run(preset: str, dtype: str, data, steps: int, label: str) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_config(preset, {"model": {"dtype": dtype},
                                "train": {"if_valid": False, "display_freq": 1,
-                                         "save_freq": 10 ** 6},
+                                         "save_freq": 10 ** 6, "steps_per_call": spc},
                                "save_path": os.path.join(out, "models")})
     timing: dict = {}
     state, _ = train(cfg, max_iters=steps, data_override=(data, []), device="cuda",
@@ -75,8 +86,8 @@ def run(preset: str, dtype: str, data, steps: int, label: str) -> dict:
     with open(os.path.join(out, "log", "scalars.jsonl")) as f:
         losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
     ms = 1e3 * float(np.median(np.add(timing["data_s"][1:], timing["step_s"][1:])))
-    print(f"[{preset} {dtype}] {label}: {ms:.4f} ms/step (warm median of steps 2..{steps}), "
-          f"losses {losses}")
+    print(f"[{preset} {dtype} spc={spc}] {label}: {ms:.4f} ms/step (warm median of steps "
+          f"2..{steps}), losses {losses}")
     sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     return {"ms": ms, "losses": losses, "state": sd}
 
@@ -98,23 +109,103 @@ def compare(a: dict, b: dict) -> dict:
             "max_tensor_diff": param}
 
 
+_SHIPPED = None  # Conv2d's shipped forward, kept while the parent's is in place
+
+
 def as_parent(on: bool):
-    """Run the steps as the parent tree did (on) or as shipped (off): the
-    models' upsampling through PyTorch's own autograd of F.interpolate and
-    the 3D step without cuDNN's deterministic algorithms."""
-    import contextlib
+    """Run the steps as the parent tree did (on: every 2D conv's backward
+    by cuDNN's default algorithms, through autograd of ``F.conv2d``) or as
+    shipped (off: ``models/common.py``'s ``Conv2d``, whose float32 training
+    convs take CWg and CXg, or cuDNN's deterministic algorithms where CWg
+    and CXg do not serve them)."""
+    global _SHIPPED
+    from pixel_embedded_affinity_torch.models import common
 
-    from pixel_embedded_affinity_torch.device import deterministic_convs
-    from pixel_embedded_affinity_torch.ops import upsample_cuda as U
-    from pixel_embedded_affinity_torch.train import train_step
+    if _SHIPPED is None:
+        _SHIPPED = vars(common.Conv2d)["forward"]
+    common.Conv2d.forward = common._CastConv.forward if on else _SHIPPED
 
-    if on:
-        U.UpsampleAlignCorners.apply = U.upsample_fwd
-        train_step.deterministic_convs = contextlib.nullcontext
+
+def event_ms(preset: str, dtype: str, data, graphed: bool, steps: int = 20) -> float:
+    """ms a step by CUDA events over ``steps`` steady steps from a fresh
+    state (after two warm-up steps: with ``graphed``, the warm-up and the
+    capture), the sampler's draw and the EMA view included."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.train import init_state
+    from pixel_embedded_affinity_torch.train.graph_step import GraphedStep
+    from pixel_embedded_affinity_torch.train.loop import make_train_step, resident_sampler
+
+    cfg = load_config(preset, {"model": {"dtype": dtype}})
+    state = init_state(cfg, "cuda")
+    next_batch = resident_sampler(cfg, data, torch.device("cuda"))
+    step_fn = make_train_step(cfg)
+    if graphed:
+        runner = GraphedStep(step_fn, state, graph=True)
+
+        def one():
+            runner(next_batch(state.step))
     else:
-        if "apply" in vars(U.UpsampleAlignCorners):
-            del U.UpsampleAlignCorners.apply
-        train_step.deterministic_convs = deterministic_convs
+        def one():
+            step_fn(state, next_batch(state.step))
+    one()
+    one()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        one()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def host_ms(preset: str, dtype: str, data, steps: int = 20) -> dict:
+    """Medians over ``steps`` eager steps from a fresh state (after two
+    warm-up steps) of the host's time to return from the forward (the loss)
+    and from the backward (``loss.backward()``, and on a mesh its
+    all-reduce), the device synchronised before each step, beside each
+    part's device time by CUDA events. Where a part's host time is below
+    its device time, the host queued it without waiting for the device."""
+    import torch
+
+    from pixel_embedded_affinity_torch.config import load_config
+    from pixel_embedded_affinity_torch.device import float32_convs
+    from pixel_embedded_affinity_torch.train import init_state
+    from pixel_embedded_affinity_torch.train.loop import make_train_step, resident_sampler
+
+    cfg = load_config(preset, {"model": {"dtype": dtype}})
+    state = init_state(cfg, "cuda")
+    next_batch = resident_sampler(cfg, data, torch.device("cuda"))
+    step = make_train_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    got: dict = {k: [] for k in ("forward_host_ms", "backward_host_ms", "forward_device_ms",
+                                 "backward_device_ms")}
+    for i in range(steps + 2):
+        batch = next_batch(state.step)
+        if step.device_ema:
+            batch = step.ema_batch(batch, state.step)
+        step._train_mode(state.model)
+        torch.cuda.synchronize()
+        with float32_convs():
+            t0 = time.perf_counter()
+            ev[0].record()
+            loss, _, metrics = step.loss(state.model, batch)
+            ev[1].record()
+            t1 = time.perf_counter()
+            step._backward(state.model, loss, metrics)
+            ev[2].record()
+            t2 = time.perf_counter()
+        state.optimizer.step()
+        state.step += 1
+        torch.cuda.synchronize()
+        if i >= 2:
+            got["forward_host_ms"].append(1e3 * (t1 - t0))
+            got["backward_host_ms"].append(1e3 * (t2 - t1))
+            got["forward_device_ms"].append(ev[0].elapsed_time(ev[1]))
+            got["backward_device_ms"].append(ev[1].elapsed_time(ev[2]))
+    return {k: float(np.median(v)) for k, v in got.items()}
 
 
 def where_it_differs(preset: str, dtype: str, data) -> str | None:
@@ -142,41 +233,63 @@ def main() -> int:
         print("step_determinism: no CUDA device", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--presets", default="cvppp,bbbc039v1,ac3ac4")
     ap.add_argument("--dtypes", default="float32,bfloat16")
+    ap.add_argument("--steps-per-call", default="1,4")
     args = ap.parse_args()
-    from pixel_embedded_affinity_torch.ops.upsample_cuda import upsample_bwd
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
 
-    rows = []
+    forms = ("parent", "shipped", "shipped", "parent")
     for preset in args.presets.split(","):
         data = preset_data(preset)
         for dtype in args.dtypes.split(","):
-            runs = {}
-            for i, form in enumerate(("parent", "shipped", "shipped", "parent")):
+            for spc in map(int, args.steps_per_call.split(",")):
+                runs = {}
+                for i, form in enumerate(forms):
+                    as_parent(form == "parent")
+                    conv_wgrad.launches = conv_dgrad.launches = 0
+                    r = run(preset, dtype, data, args.steps, f"{form}, run {i + 1}", spc)
+                    r["launches"] = [conv_wgrad.launches, conv_dgrad.launches]
+                    runs.setdefault(form, []).append(r)
+                as_parent(False)
+                row = {"preset": preset, "dtype": dtype, "steps_per_call": spc,
+                       "parent_ms": [r["ms"] for r in runs["parent"]],
+                       "shipped_ms": [r["ms"] for r in runs["shipped"]],
+                       "shipped_cwg_cxg_launches": [r["launches"] for r in runs["shipped"]],
+                       "parent_cwg_cxg_launches": [r["launches"] for r in runs["parent"]],
+                       "parent_repeat": compare(*runs["parent"]),
+                       "shipped_repeat": compare(*runs["shipped"])}
+                if not row["shipped_repeat"]["bit_equal"]:
+                    row["shipped_first_difference"] = where_it_differs(preset, dtype, data)
+                print(json.dumps(row))
+            for graphed in (False, True):
+                ms = {}
+                for form in forms:
+                    as_parent(form == "parent")
+                    ms.setdefault(form, []).append(event_ms(preset, dtype, data, graphed))
+                as_parent(False)
+                p, s = np.mean(ms["parent"]), np.mean(ms["shipped"])
+                print(json.dumps({"preset": preset, "dtype": dtype,
+                                  "path": "graphed" if graphed else "eager",
+                                  "parent_event_ms": ms["parent"],
+                                  "shipped_event_ms": ms["shipped"],
+                                  "shipped_over_parent": s / p}))
+            host = {}
+            for form in forms * 3:
                 as_parent(form == "parent")
-                upsample_bwd.launches = 0
-                r = run(preset, dtype, data, args.steps, f"{form}, run {i + 1}")
-                r["launches"] = upsample_bwd.launches
-                runs.setdefault(form, []).append(r)
+                host.setdefault(form, []).append(host_ms(preset, dtype, data))
             as_parent(False)
+            print(json.dumps({"preset": preset, "dtype": dtype, "path": "eager, host",
+                              **{f"{form}_{k}": [h[k] for h in host[form]]
+                                 for form in ("parent", "shipped") for k in host[form][0]}}))
             torch.backends.cudnn.deterministic = True
             det = [run(preset, dtype, data, args.steps, "shipped + cudnn.deterministic")
                    for _ in range(2)]
             torch.backends.cudnn.deterministic = False
-            row = {"preset": preset, "dtype": dtype,
-                   "parent_ms": [r["ms"] for r in runs["parent"]],
-                   "shipped_ms": [r["ms"] for r in runs["shipped"]],
-                   "cudnn_deterministic_ms": [r["ms"] for r in det],
-                   "shipped_upsample_launches": [r["launches"] for r in runs["shipped"]],
-                   "parent_upsample_launches": [r["launches"] for r in runs["parent"]],
-                   "parent_repeat": compare(*runs["parent"]),
-                   "shipped_repeat": compare(*runs["shipped"]),
-                   "cudnn_deterministic_repeat": compare(*det)}
-            if not row["shipped_repeat"]["bit_equal"]:
-                row["shipped_first_difference"] = where_it_differs(preset, dtype, data)
-            print(json.dumps(row))
-            rows.append(row)
+            print(json.dumps({"preset": preset, "dtype": dtype,
+                              "cudnn_deterministic_ms": [r["ms"] for r in det],
+                              "cudnn_deterministic_repeat": compare(*det)}))
             # which operations PyTorch knows to be nondeterministic on this path
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")

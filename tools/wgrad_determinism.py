@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Which 2D convolutions' float32 weight gradients differ from run to run
-on the card, and what a deterministic form of each costs.
+"""Which 2D convolutions' float32 gradients differ from run to run on the
+card, and what a deterministic form of each costs.
 
     python3 tools/wgrad_determinism.py [--presets cvppp,bbbc039v1] [--repeats 5]
 
 For each full-width 2D preset, one training step (float32, TF32 off, B=2
-from the device-resident sampler over ``chip_smoke.py``'s synthetic data)
-records every ``Conv2d``'s input and output gradient. Then, for each conv,
-its weight gradient alone (``aten.convolution_backward``, the op autograd
-calls) is computed ``--repeats`` times with cuDNN's default algorithm
-choice and compared bit for bit (its input gradient too), and timed by CUDA events (median of 20,
-L2 not flushed) three ways: cuDNN's default algorithm, cuDNN under
-``torch.backends.cudnn.deterministic``, and for a 1x1 conv the product of
-``models/common.py``'s ``_Conv1x1``. One JSON line a conv, then a summary
-a preset: the convs whose default weight gradient varied, and the sum over
-them and over every conv of each form's ms. Ends with the card's name and
-power limit. Exits 1 without a card.
+from the device-resident sampler over ``chip_smoke.py``'s synthetic data;
+``chip_smoke.recorded_convs``) records every ``Conv2d``'s input and output
+gradient. Then, for each conv, its weight gradient alone
+(``aten.convolution_backward``, the op autograd runs for ``F.conv2d``) is
+computed ``--repeats`` times with cuDNN's default algorithm choice and
+compared bit for bit (its input gradient too), and timed by CUDA events
+(median of 20, L2 not flushed) three ways: cuDNN's default algorithm,
+cuDNN under ``torch.backends.cudnn.deterministic``, and CWg, the shipped
+kernel of ``csrc/conv_grad.cu`` (``ops/conv_grad_cuda.conv_wgrad``), whose
+repeats are compared bit for bit too; CXg, the input gradient's kernel,
+beside cuDNN's default input gradient. One JSON line a conv, then a
+summary a preset: the convs whose default gradients varied, and the sum
+over them and over every conv of each form's ms. Ends with the card's name
+and power limit. Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -49,58 +52,27 @@ def events_ms(fn, n: int = 20) -> float:
     return float(np.median(times))
 
 
-def recorded_step(preset: str, data):
-    """One step's (name, conv, input, output gradient) for every Conv2d."""
+def backward(conv, x, dy, mask):
     import torch
 
-    from pixel_embedded_affinity_torch.config import load_config
-    from pixel_embedded_affinity_torch.train import init_state
-    from pixel_embedded_affinity_torch.train.loop import make_train_step, resident_sampler
-
-    cfg = load_config(preset)
-    state = init_state(cfg, "cuda")
-    step = make_train_step(cfg)
-    batch = step.ema_batch(resident_sampler(cfg, data, torch.device("cuda"))(0), 0)
-    seen: dict = {}
-    hooks = []
-    for name, m in state.model.named_modules():
-        if isinstance(m, torch.nn.Conv2d):
-            def fwd(mod, inp, out, name=name):
-                if torch.is_grad_enabled():
-                    seen.setdefault(name, {"conv": mod})["x"] = inp[0].detach()
-
-            def bwd(mod, gin, gout, name=name):
-                seen[name]["dy"] = gout[0].detach()
-
-            hooks += [m.register_forward_hook(fwd), m.register_full_backward_hook(bwd)]
-    step.grads(state.model, batch)
-    for h in hooks:
-        h.remove()
-    return [(n, r["conv"], r["x"], r["dy"]) for n, r in seen.items() if "dy" in r]
+    return torch.ops.aten.convolution_backward(
+        dy, x, conv.weight, None, list(conv.stride), list(conv.padding), list(conv.dilation),
+        False, [0, 0], conv.groups, mask)
 
 
 def wgrad(conv, x, dy):
-    import torch
-
-    return torch.ops.aten.convolution_backward(
-        dy, x, conv.weight, None, list(conv.stride), list(conv.padding), list(conv.dilation),
-        False, [0, 0], conv.groups, [False, True, False])[1]
+    return backward(conv, x, dy, [False, True, False])[1]
 
 
 def dgrad(conv, x, dy):
+    return backward(conv, x, dy, [True, False, False])[0]
+
+
+def varies(fn, repeats: int) -> bool:
     import torch
 
-    return torch.ops.aten.convolution_backward(
-        dy, x, conv.weight, None, list(conv.stride), list(conv.padding), list(conv.dilation),
-        False, [0, 0], conv.groups, [True, False, False])[0]
-
-
-def product(conv, x, dy):
-    import torch
-
-    n, c_out, c_in = dy.shape[0], conv.weight.shape[0], conv.weight.shape[1]
-    dw = torch.matmul(dy.reshape(n, c_out, -1), x.reshape(n, c_in, -1).transpose(1, 2))
-    return dw.sum(0).view_as(conv.weight)
+    first = fn()
+    return any(not torch.equal(first, fn()) for _ in range(repeats - 1))
 
 
 def main() -> int:
@@ -113,37 +85,33 @@ def main() -> int:
     ap.add_argument("--presets", default="cvppp,bbbc039v1")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
     from tools.step_determinism import preset_data
 
     torch.backends.cudnn.allow_tf32 = False
     for preset in args.presets.split(","):
-        convs = recorded_step(preset, preset_data(preset))
+        convs = smoke.recorded_convs(preset, preset_data(preset))
         rows = []
-        for name, conv, x, dy in convs:
-            first = wgrad(conv, x, dy)
-            varied = any(not torch.equal(first, wgrad(conv, x, dy))
-                         for _ in range(args.repeats - 1))
-            default_ms = events_ms(lambda: wgrad(conv, x, dy))
-            dx = dgrad(conv, x, dy)
-            dx_varied = any(not torch.equal(dx, dgrad(conv, x, dy))
-                            for _ in range(args.repeats - 1))
-            torch.backends.cudnn.deterministic = True
-            try:
-                det = wgrad(conv, x, dy)
-                det_varied = any(not torch.equal(det, wgrad(conv, x, dy))
-                                 for _ in range(args.repeats - 1))
-                det_ms = events_ms(lambda: wgrad(conv, x, dy))
-            finally:
-                torch.backends.cudnn.deterministic = False
+        for name, conv, x, dy, need_x in convs:
+            wt = conv.weight.detach()
             row = {"preset": preset, "conv": name, "x": list(x.shape),
                    "weight": list(conv.weight.shape), "stride": list(conv.stride),
-                   "default_varied": varied, "deterministic_varied": det_varied,
-                   "dgrad_varied": dx_varied,
-                   "default_ms": default_ms, "deterministic_ms": det_ms}
-            if conv.kernel_size == (1, 1) and conv.stride == (1, 1):
-                row["product_ms"] = events_ms(lambda: product(conv, x, dy))
-                row["product_err"] = float((product(conv, x, dy) - first).abs().max()
-                                           / first.abs().max())
+                   "default_varied": varies(lambda: wgrad(conv, x, dy), args.repeats),
+                   "dgrad_varied": varies(lambda: dgrad(conv, x, dy), args.repeats),
+                   "default_ms": events_ms(lambda: wgrad(conv, x, dy)),
+                   "dgrad_ms": events_ms(lambda: dgrad(conv, x, dy))}
+            torch.backends.cudnn.deterministic = True
+            try:
+                row["deterministic_varied"] = varies(lambda: wgrad(conv, x, dy), args.repeats)
+                row["deterministic_ms"] = events_ms(lambda: wgrad(conv, x, dy))
+            finally:
+                torch.backends.cudnn.deterministic = False
+            if conv._kernel_grad:
+                row["cwg_varied"] = varies(lambda: conv_wgrad(x, dy, wt.shape), args.repeats)
+                row["cwg_ms"] = events_ms(lambda: conv_wgrad(x, dy, wt.shape))
+                if need_x:
+                    row["cxg_varied"] = varies(lambda: conv_dgrad(dy, wt), args.repeats)
+                    row["cxg_ms"] = events_ms(lambda: conv_dgrad(dy, wt))
             rows.append(row)
             print(json.dumps(row))
         bad = [r for r in rows if r["default_varied"]]
@@ -151,14 +119,16 @@ def main() -> int:
             "preset": preset, "convs": len(rows),
             "default_varied": [r["conv"] for r in bad],
             "dgrad_varied": [r["conv"] for r in rows if r["dgrad_varied"]],
+            "cwg_varied": [r["conv"] for r in rows if r.get("cwg_varied")],
+            "cxg_varied": [r["conv"] for r in rows if r.get("cxg_varied")],
             "default_ms_all": sum(r["default_ms"] for r in rows),
             "deterministic_ms_all": sum(r["deterministic_ms"] for r in rows),
+            "cwg_ms_all": sum(r.get("cwg_ms", 0.0) for r in rows),
             "default_ms_varied": sum(r["default_ms"] for r in bad),
             "deterministic_ms_varied": sum(r["deterministic_ms"] for r in bad),
-            "product_ms_1x1": sum(r.get("product_ms", 0.0) for r in rows),
-            "default_ms_1x1": sum(r["default_ms"] for r in rows if "product_ms" in r),
-            "deterministic_ms_1x1": sum(r["deterministic_ms"] for r in rows
-                                        if "product_ms" in r)}))
+            "cwg_ms_varied": sum(r.get("cwg_ms", 0.0) for r in bad),
+            "dgrad_ms_all": sum(r["dgrad_ms"] for r in rows if "cxg_ms" in r),
+            "cxg_ms_all": sum(r.get("cxg_ms", 0.0) for r in rows)}))
         del convs
         torch.cuda.empty_cache()
     print(smoke.card_line())
