@@ -6245,7 +6245,9 @@ SPC_RUNS = (("cvppp", "cvppp", {}, ("float32", "bfloat16")),
 # a counted wrapper of the training step -> a pattern of its CUDA kernel's
 # name in a profile: K2b and K3b by template argument; K2f and K3f are one
 # kernel, K3f each step's last launch of it (phase 6's rule); K4f and K6f
-# are one kernel that no step launches for both
+# are one kernel that no step launches for both; CWg and CXg launch one of
+# two kernels a call by shape (their helper launches, the split sum, dy's
+# and the weights' remainders, are not counted)
 SPC_KERNELS = {"wmse2d_fwd": r"\bwmse_fwd_kernel", "cross_wmse2d_fwd": r"\bwmse_fwd_kernel",
                "wmse2d_bwd": r"\bwmse_bwd_kernel<\w+, true",
                "cross_wmse2d_bwd": r"\bwmse_bwd_kernel<\w+, false",
@@ -6256,7 +6258,8 @@ SPC_KERNELS = {"wmse2d_fwd": r"\bwmse_fwd_kernel", "cross_wmse2d_fwd": r"\bwmse_
                "cross_affinity_bwd": r"\bcross_affinity_bwd_kernel",
                "fused_affinity_3d": r"\baffinity3d_fwd_kernel",
                "upsample_bwd": r"\bupsample_bwd_kernel",
-               "conv_wgrad": r"\bconv_wgrad_kernel", "conv_dgrad": r"\bconv_dgrad_kernel"}
+               "conv_wgrad": r"\b(conv_wgrad_kernel|wgrad_wgmma_kernel)",
+               "conv_dgrad": r"\b(conv_dgrad_kernel|dgrad_wgmma_kernel)"}
 
 
 def _spc_loss_d(a, b) -> float:
@@ -6724,6 +6727,14 @@ def conv_grads_per_step(preset: str, data) -> tuple:
     return len(convs), sum(c[4] for c in convs)
 
 
+def cg_wgmma(cin: int, cout: int, h: int, w: int, k: int) -> bool:
+    """Whether CWg takes its wgmma kernel at a shape (csrc/conv_grad.cu's
+    rule, asked of its build; CXg takes it wherever H W % 4 == 0)."""
+    from pixel_embedded_affinity_torch.ops.conv_grad_cuda import load
+
+    return bool(load().conv_wgrad_wgmma(cin, cout, h, w, k))
+
+
 def conv_grad_bound(b: int, cin: int, cout: int, h: int, w: int, k: int) -> tuple:
     """Least time in ms of one CWg or CXg call, and what bounds it: x, dy
     and the weights (or their gradients) each moved once over HBM, against
@@ -6760,8 +6771,13 @@ def phase_conv_grad(bbbc_arrays) -> dict:
     repeat theirs), by CUDA graph replay with L2 flushed: CWg, CXg, CXg's
     NHWC alternative (3x3: the permutes and K7), cuDNN's default and
     deterministic ``aten.convolution_backward`` and the plain float64
-    version. Returns each kernel's sums over a step of each preset (cvppp's
-    go on the ``kernels`` line) and the rows."""
+    version. Each row names the path each kernel took (wgmma or, for CWg's
+    small convs and shapes with H W % 4 != 0, mma.sync) and its share of
+    the bound; each preset's sums print the shares and the ratios to cuDNN's
+    default and deterministic backward. Then the mma.sync path at two
+    shapes with H W % 4 != 0, against float64 and on repeat. Returns each
+    kernel's sums over a step of each preset (cvppp's go on the ``kernels``
+    line) and the rows."""
     import torch
 
     from pixel_embedded_affinity_torch.data.device_data import pack_cvppp_arrays
@@ -6803,7 +6819,9 @@ def phase_conv_grad(bbbc_arrays) -> dict:
                 b, cin, h, w = x.shape
                 cout, k = wt.shape[0], wt.shape[-1]
                 row = {"preset": preset, "conv": name, "x": list(x.shape),
-                       "weight": list(wt.shape), "splits": wgrad_splits(b, cin, cout, h, w, k)}
+                       "weight": list(wt.shape), "splits": wgrad_splits(b, cin, cout, h, w, k),
+                       "w_path": "wgmma" if cg_wgmma(cin, cout, h, w, k) else "mma.sync",
+                       "x_path": "wgmma" if h * w % 4 == 0 else "mma.sync"}
                 shape = (tuple(x.shape), tuple(wt.shape), need_x)
                 known = times.get(shape)
                 if known:
@@ -6884,6 +6902,9 @@ def phase_conv_grad(bbbc_arrays) -> dict:
                 if not known:
                     times[shape] = {c: row[c] for c in time_cols if c in row}
                     times[shape]["times_of"] = f"{preset} {name}"
+                row["w_share_of_bound"] = row["w_bound"] / row["w_ms"]
+                if need_x:
+                    row["x_share_of_bound"] = row["x_bound"] / row["x_ms"]
                 print(f"[conv-grad] {json.dumps(row)}")
                 rows.append(row)
             del convs
@@ -6892,10 +6913,33 @@ def phase_conv_grad(bbbc_arrays) -> dict:
                        "dgrad_convs": n_x, "cudnn_backward_convs": others,
                        "cudnn_wgrad_varied": varied_w,
                        "cudnn_dgrad_varied": varied_x, **tot, **err,
-                       **{f"{key}_bound_by": max(v, key=v.get) for key, v in by.items()}}
+                       **{f"{key}_bound_by": max(v, key=v.get) for key, v in by.items()},
+                       "w_share_of_bound": tot["w_bound"] / tot["w_ms"],
+                       "x_share_of_bound": tot["x_bound"] / tot["x_ms"],
+                       "w_against_cudnn": tot["w_ms"] / tot["w_lib"],
+                       "w_against_cudnn_det": tot["w_ms"] / tot["w_lib_det"],
+                       "x_against_cudnn": tot["x_ms"] / tot["x_lib"],
+                       "x_against_cudnn_det": tot["x_ms"] / tot["x_lib_det"]}
             print(f"[conv-grad] {preset} step, ms summed over its convs (graph replay, L2 "
                   f"flushed): {json.dumps(summary)}; {card_line()}")
             sums[preset] = summary
+        # the mma.sync kernels at shapes whose H W % 4 != 0 (no main path has
+        # one; CXg takes them only there): against float64 and on repeat
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+        for b, cin, cout, h, w, k in ((2, 16, 40, 37, 41, 3), (2, 64, 2, 35, 35, 1)):
+            x = torch.randn(b, cin, h, w, device="cuda", generator=gen)
+            dy = torch.randn(b, cout, h, w, device="cuda", generator=gen)
+            wt = torch.randn(cout, cin, k, k, device="cuda", generator=gen)
+            dws = [conv_wgrad(x, dy, wt.shape) for _ in range(CG_REPEATS)]
+            dxs = [conv_dgrad(dy, wt) for _ in range(CG_REPEATS)]
+            errs = (rel_err64(dws[0], conv_wgrad_plain(x.double(), dy.double(), wt.shape)),
+                    rel_err64(dxs[0], conv_dgrad_plain(dy.double(), wt.double())))
+            same = all(torch.equal(dws[0], d) for d in dws) and all(
+                torch.equal(dxs[0], d) for d in dxs)
+            print(f"[conv-grad] mma.sync path {(b, cin, cout, h, w, k)}: CWg, CXg within "
+                  f"{errs[0]:.3e}, {errs[1]:.3e} of float64, bit-equal on repeat {same}")
+            check(max(errs) <= GRAD_RTOL and same,
+                  f"the mma.sync path at {(b, cin, cout, h, w, k)}: {errs}, repeat {same}")
     return {"sums": sums, "rows": rows}
 
 

@@ -1,8 +1,13 @@
-// Hopper's asynchronous instructions for conv_i8.cu (sm_90a): mbarriers,
-// TMA tensor loads (cp.async.bulk.tensor) and the warpgroup int8 product
-// (wgmma.mma_async m64nNk32 .s32.s8.s8) with its shared-memory descriptors;
-// and, on the host, cuTensorMapEncodeTiled reached through the runtime
-// (cudaGetDriverEntryPoint), since cuda_build links no -lcuda.
+// Hopper's asynchronous instructions for conv_i8.cu and conv_grad.cu
+// (sm_90a): mbarriers, TMA tensor loads (cp.async.bulk.tensor, 2-4-D), the
+// warpgroup int8 product (wgmma.mma_async m64nNk32 .s32.s8.s8, A and B
+// from shared memory) and tf32 product (m64nNk8 .f32.tf32.tf32, A from
+// registers, B from shared memory) with their shared-memory descriptors; and, on the host, int8 and float32
+// tensor maps by cuTensorMapEncodeTiled reached through the runtime
+// (cudaGetDriverEntryPoint), since cuda_build links no -lcuda. A tf32
+// operand's 32-bit containers enter as tf32 with their low 13 bits dropped
+// (tools/wgmma_tf32_probe.py on the H100); a TMA load's innermost
+// coordinate must be a multiple of 16 bytes (negative ones read zeros).
 //
 // Shared-memory operands of wgmma, K-major (PTX ISA, "Shared Memory Matrix
 // Layout", K-major with swizzle): a tile of R rows of S bytes (S = 32, 64
@@ -16,7 +21,8 @@
 // >> 4 (16-29; not read for a swizzled K-major operand whose k extent, 32
 // bytes, fits in a row), stride byte offset >> 4 (32-45: 8 S, from one
 // 8-row group to the next), layout (62-63: 1 = 128B, 2 = 64B, 3 = 32B).
-// One wgmma reads 32 bytes of k a row; the next k step starts 32 bytes on.
+// One wgmma reads 32 bytes of k a row (32 int8 or 8 tf32); the next k step
+// starts 32 bytes on.
 //
 // The accumulator of m64nNk32 (PTX ISA, "Matrix fragments for wgmma .m64nNk32"):
 // warp w of the warpgroup holds rows 16 w .. 16 w + 15; with g = lane / 4,
@@ -77,6 +83,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
            "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+           "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -154,6 +169,126 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a, uint64_t
         : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// keeps the compiler from moving accumulator accesses across the
+// asynchronous product (float accumulators)
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (+)= A (64 x 8) * B (N x 8)^T in tf32 with float32 accumulators;
+// scale_d 0 overwrites d. A from registers (a[0..3]: rows g and g + 8,
+// columns t and t + 4 of the warp's 16 rows, as mma.sync m16n8k8 .tf32
+// takes them); B from shared memory (desc b).
+// Each operand's 32-bit containers enter the tensor cores as tf32.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                              int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ---- end of the instructions
 
 // The descriptor of a K-major operand at `tile` (a multiple of 8 S bytes
@@ -166,7 +301,8 @@ __device__ __forceinline__ uint64_t smem_desc(const void* tile, int S) {
 
 inline CUtensorMapSwizzle swizzle_of(int S) {
     return S == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-         : S == 64  ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+         : S == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+         : S == 32  ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -192,18 +328,29 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A tiled map of int8 (bytes) over `rank` dimensions, innermost first;
-// strides[i] is the byte stride of dimension i + 1. Out-of-bounds elements
-// of a box read as 0. Returns false where the driver refuses it.
+// A tiled map of `rank` dimensions, innermost first, of int8 (esize 1)
+// or float32 (esize 4) elements; strides[i] is the byte stride of
+// dimension i + 1. Out-of-bounds elements of a box read as 0. Returns
+// false where cuTensorMapEncodeTiled refuses it.
+inline bool encode(CUtensorMap* map, const void* base, int esize, int rank, const uint64_t* dims,
+                   const uint64_t* strides, const uint32_t* box, int S) {
+    const EncodeTiled fn = encode_tiled();
+    if (!fn || (esize != 1 && esize != 4)) return false;
+    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+    return fn(map, esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+              rank, const_cast<void*>(base), dims, strides, box, ones,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(S), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 inline bool encode_i8(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                       const uint64_t* strides, const uint32_t* box, int S) {
-    const EncodeTiled fn = encode_tiled();
-    if (!fn) return false;
-    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), dims, strides, box,
-              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(S),
-              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-           CUDA_SUCCESS;
+    return encode(map, base, 1, rank, dims, strides, box, S);
+}
+
+inline bool encode_f32(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box, int S) {
+    return encode(map, base, 4, rank, dims, strides, box, S);
 }
 
 }  // namespace wg

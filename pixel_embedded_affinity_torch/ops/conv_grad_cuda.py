@@ -57,19 +57,48 @@ def conv_dgrad_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _backward(dy, x, w, [True, False, False])[0]
 
 
-def _lib() -> ctypes.CDLL:
+_I, _P = ctypes.c_int, ctypes.c_void_p
+_INTERFACE = {  # conv_grad.cu's C functions: (restype, argtypes)
+    "conv_wgrad_wgmma": (_I, [_I] * 5),
+    "conv_wgrad_splits": (_I, [_I] * 6),
+    "conv_wgrad_workspace": (ctypes.c_int64, [_I] * 7),
+    "conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    "conv_dgrad_workspace": (ctypes.c_int64, [_I] * 6),
+    "conv_dgrad": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+}
+
+
+def load(path: str | None = None) -> ctypes.CDLL:
+    """``conv_grad.cu``'s library with its C functions declared: the
+    package's build (built at first use), or another build of it at
+    ``path`` (a tool timing two builds), each function it has."""
     from .. import cuda_build
 
-    lib = cuda_build.load(SOURCE)
+    lib = cuda_build.load(SOURCE) if path is None else ctypes.CDLL(path)
     if lib.conv_wgrad.argtypes is None:
-        i = ctypes.c_int
-        lib.conv_wgrad_splits.restype = i
-        lib.conv_wgrad_splits.argtypes = [i] * 6
-        lib.conv_wgrad.restype = i
-        lib.conv_wgrad.argtypes = [ctypes.c_void_p] * 4 + [i] * 7 + [ctypes.c_void_p]
-        lib.conv_dgrad.restype = i
-        lib.conv_dgrad.argtypes = [ctypes.c_void_p] * 3 + [i] * 6 + [ctypes.c_void_p]
+        for name, (restype, argtypes) in _INTERFACE.items():
+            if hasattr(lib, name):
+                getattr(lib, name).restype = restype
+                getattr(lib, name).argtypes = argtypes
     return lib
+
+
+_OTHER = None  # another build in the package's place (use_library)
+
+
+def use_library(lib=None) -> None:
+    """Run the wrappers on ``lib``, another build of ``conv_grad.cu`` with
+    this C interface (from :func:`load`, or an object with its functions),
+    or on the package's own build again (None): a tool's A/B of two builds
+    through the same training step."""
+    global _OTHER
+    _OTHER = lib
+    for f in (wgrad_splits, wgrad_workspace, dgrad_workspace):
+        f.cache_clear()
+
+
+def _lib():
+    return _OTHER if _OTHER is not None else load()
 
 
 def _check(name: str, *tensors):
@@ -87,6 +116,27 @@ def wgrad_splits(b: int, cin: int, cout: int, h: int, w: int, k: int) -> int:
     """CWg's number of K splits for a shape (the kernel's own rule: shape
     only, never the card)."""
     return _lib().conv_wgrad_splits(b, cin, cout, h, w, k)
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_workspace(b: int, cin: int, cout: int, h: int, w: int, k: int) -> int:
+    """CWg's workspace in floats for a shape: its splits' partial tiles and,
+    on the wgmma path, dy's tf32 remainders."""
+    return _lib().conv_wgrad_workspace(b, cin, cout, h, w, k, wgrad_splits(b, cin, cout, h, w, k))
+
+
+@functools.lru_cache(maxsize=256)
+def dgrad_workspace(b: int, cin: int, cout: int, h: int, w: int, k: int) -> int:
+    """CXg's workspace in floats for a shape: the weights laid out as
+    [tap][ci][co] with their tf32 remainders (the wgmma path), or 0."""
+    return _lib().conv_dgrad_workspace(b, cin, cout, h, w, k)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (TMA's base address), copied
+    where it is not, so a shape always takes one path."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _on(device: torch.device, launch):
@@ -113,10 +163,11 @@ def conv_wgrad(x: torch.Tensor, dy: torch.Tensor, weight_shape) -> torch.Tensor:
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return conv_wgrad_plain(x, dy, weight_shape)
     _check("conv_wgrad", x, dy)
-    x, dy = x.contiguous(), dy.contiguous()
+    x, dy = _aligned(x), _aligned(dy)
     out = torch.empty(tuple(weight_shape), dtype=torch.float32, device=x.device)
     splits = wgrad_splits(b, cin, cout, h, w, k)
-    work = torch.empty(splits * out.numel(), dtype=torch.float32, device=x.device)
+    work = torch.empty(wgrad_workspace(b, cin, cout, h, w, k), dtype=torch.float32,
+                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _on(x.device, lambda: _lib().conv_wgrad(
         x.data_ptr(), dy.data_ptr(), out.data_ptr(), work.data_ptr(), b, cin, cout, h, w, k,
@@ -142,11 +193,14 @@ def conv_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv_dgrad_plain(dy, w)
     _check("conv_dgrad", dy, w)
     b, _, h, wd = dy.shape
-    dy, w = dy.contiguous(), w.contiguous()
+    dy, w = _aligned(dy), w.contiguous()
     out = torch.empty((b, cin, h, wd), dtype=torch.float32, device=dy.device)
+    work = torch.empty(max(dgrad_workspace(b, cin, cout, h, wd, k), 1), dtype=torch.float32,
+                       device=dy.device)
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     err = _on(dy.device, lambda: _lib().conv_dgrad(
-        dy.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, cout, h, wd, k, stream))
+        dy.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(), b, cin, cout, h, wd, k,
+        stream))
     if err != 0:
         raise RuntimeError(f"conv_dgrad launch failed: cudaError {err}")
     conv_dgrad.launches += 1

@@ -2,10 +2,13 @@
 // float64 reference on the same float32 inputs:
 //   conv_grad_harness wgrad B Cin Cout H W ks splits   (splits 0: the kernel's own count)
 //   conv_grad_harness dgrad B Cin Cout H W ks
+//   conv_grad_harness rule B Cin Cout H W ks         (the path CWg takes: no run)
 // Runs the case twice, the second time with the grid's blocks in reverse
-// order, and prints the first run's largest error relative to the largest
-// reference value and whether the two runs gave the same bits:
-//   rel_err E bit_equal 0|1 splits S
+// order and another SM count (the wgmma kernels' persistent grid: another
+// walk of the tiles), and prints the first run's largest error relative to the largest
+// reference value, whether the two runs gave the same bits, and the
+// kernel's path:
+//   rel_err E bit_equal 0|1 splits S path wgmma|mma.sync
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
@@ -16,11 +19,14 @@
 
 #include "emu.h"
 
+extern "C" int conv_wgrad_wgmma(int Cin, int Cout, int H, int W, int ks);
 extern "C" int conv_wgrad_splits(int B, int Cin, int Cout, int H, int W, int ks);
+extern "C" int64_t conv_wgrad_workspace(int B, int Cin, int Cout, int H, int W, int ks, int splits);
 extern "C" int conv_wgrad(const float* x, const float* dy, float* dw, float* work, int B, int Cin,
                           int Cout, int H, int W, int ks, int splits, void* stream);
-extern "C" int conv_dgrad(const float* dy, const float* w, float* dx, int B, int Cin, int Cout,
-                          int H, int W, int ks, void* stream);
+extern "C" int64_t conv_dgrad_workspace(int B, int Cin, int Cout, int H, int W, int ks);
+extern "C" int conv_dgrad(const float* dy, const float* w, float* dx, float* work, int B, int Cin,
+                          int Cout, int H, int W, int ks, void* stream);
 
 static std::vector<float> randn(size_t n, std::mt19937& rng) {
     std::normal_distribution<double> d(0, 1);
@@ -35,6 +41,12 @@ int main(int argc, char** argv) {
     const int B = std::atoi(argv[2]), Cin = std::atoi(argv[3]), Cout = std::atoi(argv[4]),
               H = std::atoi(argv[5]), W = std::atoi(argv[6]), ks = std::atoi(argv[7]);
     const int p = ks / 2, kk = ks * ks;
+    const bool wgmma = mode == "dgrad" ? (int64_t)H * W % 4 == 0
+                                       : conv_wgrad_wgmma(Cin, Cout, H, W, ks) != 0;
+    if (mode == "rule") {
+        std::printf("path %s\n", wgmma ? "wgmma" : "mma.sync");
+        return 0;
+    }
     std::mt19937 rng(11);
     const std::vector<float> x = randn((size_t)B * Cin * H * W, rng),
                              dy = randn((size_t)B * Cout * H * W, rng),
@@ -67,7 +79,9 @@ int main(int argc, char** argv) {
                     }
         for (int run = 0; run < 2; ++run) {
             emu_reverse_blocks = run == 1;
-            std::vector<float> work((size_t)splits * Cout * Cin * kk, std::nanf(""));
+            emu_sms = run == 1 ? 5 : 3;
+            std::vector<float> work(conv_wgrad_workspace(B, Cin, Cout, H, W, ks, splits),
+                                    std::nanf(""));
             got[run].assign(ref.size(), std::nanf(""));
             const int err = conv_wgrad(x.data(), dy.data(), got[run].data(), work.data(), B, Cin,
                                        Cout, H, W, ks, splits, nullptr);
@@ -89,9 +103,11 @@ int main(int argc, char** argv) {
                     }
         for (int run = 0; run < 2; ++run) {
             emu_reverse_blocks = run == 1;
+            emu_sms = run == 1 ? 5 : 3;
             got[run].assign(ref.size(), std::nanf(""));
-            const int err = conv_dgrad(dy.data(), w.data(), got[run].data(), B, Cin, Cout, H, W,
-                                       ks, nullptr);
+            std::vector<float> work(conv_dgrad_workspace(B, Cin, Cout, H, W, ks) + 4, std::nanf(""));
+            const int err = conv_dgrad(dy.data(), w.data(), got[run].data(), work.data(), B, Cin,
+                                       Cout, H, W, ks, nullptr);
             if (err) { std::printf("launch error %d\n", err); return 1; }
         }
     } else {
@@ -104,6 +120,7 @@ int main(int argc, char** argv) {
         e = std::isnan(d) ? INFINITY : std::max(e, d);
     }
     const bool same = std::memcmp(got[0].data(), got[1].data(), got[0].size() * sizeof(float)) == 0;
-    std::printf("rel_err %.3e bit_equal %d splits %d\n", e / top, (int)same, splits);
+    std::printf("rel_err %.3e bit_equal %d splits %d path %s\n", e / top, (int)same, splits,
+                wgmma ? "wgmma" : "mma.sync");
     return 0;
 }

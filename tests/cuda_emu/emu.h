@@ -66,6 +66,7 @@ inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return
 inline int2 make_int2(int x, int y) { return {x, y}; }
 
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline uint32_t emu_bits(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
@@ -89,12 +90,13 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
 // aligned to 1024 bytes, the period of the 128-byte swizzle, as the shared
 // window's offsets are on the card
 // ---- the driver's tensor maps (cuda.h), as the stand-in TMA of
-// hopper_emu.h reads them: int8 elements, element strides of 1, zero fill
+// hopper_emu.h reads them: int8 or float32 elements, element strides of 1,
+// zero fill
 typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 typedef int CUresult;
 enum { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
-enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0 };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7 };
 enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
 enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_32B,
                           CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_SWIZZLE_128B };
@@ -104,6 +106,7 @@ enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
 struct alignas(64) CUtensorMap {
     const unsigned char* base;
     int rank, swizzle;  // swizzle in bytes, 0 for none
+    int esize;          // bytes an element
     uint64_t dims[5], strides[5];  // strides[i]: bytes of dimension i + 1
     uint32_t box[5];
 };
@@ -114,12 +117,14 @@ inline CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType type, cuuin
                                  const cuuint32_t* box, const cuuint32_t* estrides,
                                  CUtensorMapInterleave il, CUtensorMapSwizzle sw,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill fill) {
-    if (type != CU_TENSOR_MAP_DATA_TYPE_UINT8 || il != CU_TENSOR_MAP_INTERLEAVE_NONE ||
+    if ((type != CU_TENSOR_MAP_DATA_TYPE_UINT8 && type != CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+        il != CU_TENSOR_MAP_INTERLEAVE_NONE ||
         fill != CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE || rank < 1 || rank > 5 ||
         reinterpret_cast<uintptr_t>(base) % 16)
         return CUDA_ERROR_INVALID_VALUE;
     const int span[4] = {0, 32, 64, 128};
-    *m = CUtensorMap{static_cast<const unsigned char*>(base), (int)rank, span[sw], {}, {}, {}};
+    const int esize = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 1;
+    *m = CUtensorMap{static_cast<const unsigned char*>(base), (int)rank, span[sw], esize, {}, {}, {}};
     for (cuuint32_t i = 0; i < rank; ++i) {
         if (dims[i] < 1 || dims[i] > (1ull << 32) || box[i] < 1 || box[i] > 256 ||
             estrides[i] != 1)
@@ -130,7 +135,8 @@ inline CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType type, cuuin
         m->box[i] = box[i];
         if (i > 0) m->strides[i - 1] = strides[i - 1];
     }
-    if (box[0] % 16 || (m->swizzle && (int)box[0] > m->swizzle)) return CUDA_ERROR_INVALID_VALUE;
+    const int inner = (int)box[0] * esize;
+    if (inner % 16 || (m->swizzle && inner > m->swizzle)) return CUDA_ERROR_INVALID_VALUE;
     return CUDA_SUCCESS;
 }
 
@@ -151,9 +157,17 @@ inline size_t emu_smem_bytes = kSmemMax;
 
 // ---- the block scheduler
 enum EmuWait { kRunning, kBlockBarrier, kWarpBarrier, kGroupBarrier, kMbarWait, kDone };
-// one wgmma.mma_async a thread has issued: its accumulator registers, the
-// descriptors, scale-d
-struct EmuWgmma { int* d; int n; uint64_t a, b; int scale_d; };
+// one wgmma.mma_async a thread has issued: its accumulator registers (int
+// for .s8, float for .tf32), the descriptors, scale-d; for .tf32, A's
+// registers at the issue
+struct EmuWgmma {
+    void* d;
+    int n;
+    uint64_t a, b;
+    int scale_d;
+    bool tf32 = false;
+    uint32_t ar[4] = {0, 0, 0, 0};
+};
 struct EmuThread {
     ucontext_t ctx;
     std::vector<char> stack;
@@ -179,6 +193,7 @@ inline void __syncwarp() { emu_warp_sync(); }
 // the .sync.aligned instructions of a warpgroup (four warps from a warp
 // index that is a multiple of 4): every one of its 128 threads at once
 inline void emu_group_sync() { emu_yield(kGroupBarrier); }
+
 
 // An mbarrier's 8 bytes as the stand-in keeps them: the pending arrivals
 // (bits 0-14), the expected arrival count (15-29), the current phase's

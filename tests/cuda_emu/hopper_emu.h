@@ -8,7 +8,10 @@
 //   then the arrival), try_wait.parity (the thread sleeps until the phase
 //   of that parity has completed); a phase completes when its arrivals are
 //   in and its transaction count is back to 0.
-// - cp.async.bulk.tensor (tile mode, int8): the box at the coordinates
+// - cp.async.bulk.tensor (tile mode, int8 or float32): the innermost
+//   coordinate a multiple of 16 bytes, negative or not (the H100 stops with
+//   an illegal instruction at -5 and 6 floats, tools/wgmma_tf32_probe.py);
+//   the box at the coordinates
 //   copied at once, elements outside the tensor read as 0, written densely
 //   (innermost dimension first) with the map's swizzle applied to the
 //   shared address (bits [4, 4 + b) ^= bits [7, 7 + b), b = log2(swizzle /
@@ -28,6 +31,12 @@
 //   swizzle), with the swizzle applied to the address as TMA applies it.
 //   Every thread's issued products are hashed, and the warpgroup's hashes
 //   must agree when it waits.
+// - wgmma .tf32 (m64nNk8, A from registers in the layout of mma.sync
+//   m16n8k8 .tf32, B from shared memory): each operand's float32 container
+//   enters as its tf32 with the low 13 bits dropped, as the H100 does
+//   (tools/wgmma_tf32_probe.py); a row's 8 products summed in float32 in
+//   k order and added to the accumulator. Register operands are taken at
+//   the issue (the card forbids changing them before the wait).
 
 inline uint32_t smem_u32(const void* p) {
     return (uint32_t)(static_cast<const unsigned char*>(p) - smem_raw);
@@ -81,20 +90,29 @@ inline uint32_t emu_swizzle(uint32_t addr, int span) {
 }
 
 inline void emu_tma(void* dst, const CUtensorMap* m, uint64_t* bar, const int* c) {
-    size_t bytes = 1;
-    for (int d = 0; d < m->rank; ++d) bytes *= m->box[d];
+    if (((int64_t)c[0] * m->esize) % 16) {  // the card faults (illegal instruction)
+        std::fprintf(stderr, "cp.async.bulk.tensor: innermost coordinate %d not on 16 bytes\n",
+                     c[0]);
+        std::abort();
+    }
+    size_t elems = 1;
+    for (int d = 0; d < m->rank; ++d) elems *= m->box[d];
+    const size_t bytes = elems * m->esize;
     const uint32_t base = smem_u32(dst);
     emu_shared(base, bytes, 128, "cp.async.bulk.tensor");
     uint32_t idx[5] = {0, 0, 0, 0, 0};
-    for (size_t off = 0; off < bytes; ++off) {
+    for (size_t e = 0; e < elems; ++e) {
         bool in = true;
         uint64_t src = 0;
         for (int d = 0; d < m->rank; ++d) {
             const int64_t g = (int64_t)c[d] + idx[d];
             in &= g >= 0 && g < (int64_t)m->dims[d];
-            src += (uint64_t)g * (d == 0 ? 1 : m->strides[d - 1]);
+            src += (uint64_t)g * (d == 0 ? m->esize : m->strides[d - 1]);
         }
-        smem_raw[emu_swizzle(base + (uint32_t)off, m->swizzle)] = in ? m->base[src] : 0;
+        for (int b = 0; b < m->esize; ++b) {
+            const uint32_t off = (uint32_t)(e * m->esize + b);
+            smem_raw[emu_swizzle(base + off, m->swizzle)] = in ? m->base[src + b] : 0;
+        }
         for (int d = 0; d < m->rank && ++idx[d] == m->box[d]; ++d) idx[d] = 0;
     }
     emu_shared(smem_u32(bar), 8, 8, "complete_tx");
@@ -106,6 +124,13 @@ inline void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0
                         int c3) {
     if (map->rank != 4) std::abort();
     const int c[4] = {c0, c1, c2, c3};
+    emu_tma(dst, map, bar, c);
+}
+
+inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                        int c2) {
+    if (map->rank != 3) std::abort();
+    const int c[3] = {c0, c1, c2};
     emu_tma(dst, map, bar, c);
 }
 
@@ -138,6 +163,8 @@ inline void wgmma_fence() { emu_group_sync(); }
 
 template <int R>
 inline void fence_acc(int (&)[R]) {}
+template <int R>
+inline void fence_acc(float (&)[R]) {}
 
 template <int N>
 inline void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
@@ -146,6 +173,17 @@ inline void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
     EmuThread& th = emu_threads[emu_cur];
     th.open.push_back({d, N, a, b, scale_d != 0});
     th.issued = (th.issued * 1000003u) ^ a ^ (b << 1) ^ ((uint64_t)N << 56) ^ (scale_d != 0);
+}
+
+template <int N>
+inline void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&ar)[4], uint64_t b, int scale_d) {
+    static_assert(N % 8 == 0 && N >= 8 && N <= 256, "no m64nNk8 .tf32 shape of this N");
+    EmuThread& th = emu_threads[emu_cur];
+    EmuWgmma op{d, N, 0, b, scale_d != 0};
+    op.tf32 = true;
+    for (int i = 0; i < 4; ++i) op.ar[i] = ar[i];
+    th.open.push_back(op);
+    th.issued = (th.issued * 1000003u) ^ (b << 1) ^ ((uint64_t)N << 56) ^ (scale_d != 0) ^ 4;
 }
 
 inline void wgmma_commit() {
@@ -160,6 +198,50 @@ inline void emu_desc_row(uint64_t desc, int r, const int8_t* (&piece)[2]) {
         piece[p] = (const int8_t*)emu_shared(emu_desc_addr(desc, r, 16 * p), 16, 16, "wgmma operand");
 }
 
+// the tensor cores' tf32 of a float32 container: its low 13 bits dropped
+inline float emu_wg_tf32(uint32_t u) { return __uint_as_float(u & 0xFFFFE000u); }
+
+// a .tf32 operand's row r, k 0..7 (32 bytes) from shared memory at desc
+inline void emu_desc_row_f32(uint64_t desc, int r, float (&v)[8]) {
+    for (int p = 0; p < 2; ++p) {
+        const unsigned char* q = emu_shared(emu_desc_addr(desc, r, 16 * p), 16, 16, "wgmma operand");
+        for (int i = 0; i < 4; ++i) {
+            uint32_t u;
+            std::memcpy(&u, q + 4 * i, 4);
+            v[4 * p + i] = emu_wg_tf32(u);
+        }
+    }
+}
+
+// D (64 x N) = A (64 x 8) B (N x 8)^T (+ D) in tf32: the thread's fragment.
+// A from registers: the warp's lanes' registers at their issue, a0 (g, t)
+// a1 (g + 8, t) a2 (g, t + 4) a3 (g + 8, t + 4).
+// The op is the thread's op `oi` of its group `gi`; the warp's other
+// lanes hold theirs at the same indices.
+inline void emu_wgmma_run_tf32(const EmuWgmma& op, size_t gi, size_t oi) {
+    const int lane = threadIdx.x & 31;
+    float a[2][8];
+    for (int h = 0; h < 2; ++h) {
+        const int r = lane / 4 + 8 * h;  // the row within the warp's 16
+        for (int k = 0; k < 8; ++k) {  // (r, k) is register h + 2 (k >= 4) of lane 4 (r % 8) + k % 4
+            const EmuThread& owner = emu_threads[(emu_cur & ~31) + 4 * (r % 8) + k % 4];
+            a[h][k] = emu_wg_tf32(owner.groups[gi][oi].ar[h + 2 * (k >= 4)]);
+        }
+    }
+    float* d = static_cast<float*>(op.d);
+    for (int j = 0; j < op.n / 8; ++j)
+        for (int c = 0; c < 2; ++c) {
+            float b[8];
+            emu_desc_row_f32(op.b, 8 * j + 2 * (lane % 4) + c, b);
+            for (int h = 0; h < 2; ++h) {
+                float sum = 0.f;
+                for (int k = 0; k < 8; ++k) sum += a[h][k] * b[k];
+                float& acc = d[4 * j + 2 * h + c];
+                acc = op.scale_d ? acc + sum : sum;
+            }
+        }
+}
+
 // D (64 x N) = A (64 x 32) B (N x 32)^T (+ D): the thread's fragment
 inline void emu_wgmma_run(const EmuWgmma& op) {
     const int l = threadIdx.x & 127, w = l >> 5, lane = l & 31;
@@ -172,7 +254,7 @@ inline void emu_wgmma_run(const EmuWgmma& op) {
             for (int h = 0; h < 2; ++h) {
                 int sum = 0;
                 for (int k = 0; k < 32; ++k) sum += (int)a[h][k / 16][k % 16] * (int)b[k / 16][k % 16];
-                int& d = op.d[4 * j + 2 * h + c];
+                int& d = static_cast<int*>(op.d)[4 * j + 2 * h + c];
                 d = op.scale_d ? d + sum : sum;
             }
         }
@@ -190,9 +272,18 @@ inline void wgmma_wait() {
         std::fprintf(stderr, "wgmma.wait_group with products not committed\n");
         std::abort();
     }
-    while ((int)th.groups.size() > N) {
-        for (const EmuWgmma& op : th.groups.front()) emu_wgmma_run(op);
-        th.groups.erase(th.groups.begin());
-    }
+    // every thread computes its fragments, reading the other lanes'
+    // register operands, before any thread drops its finished groups
+    const size_t done = th.groups.size() > (size_t)N ? th.groups.size() - N : 0;
+    for (size_t gi = 0; gi < done; ++gi)
+        for (size_t oi = 0; oi < th.groups[gi].size(); ++oi) {
+            const EmuWgmma& op = th.groups[gi][oi];
+            if (op.tf32)
+                emu_wgmma_run_tf32(op, gi, oi);
+            else
+                emu_wgmma_run(op);
+        }
+    emu_group_sync();
+    th.groups.erase(th.groups.begin(), th.groups.begin() + done);
     emu_group_sync();
 }

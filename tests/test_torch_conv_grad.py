@@ -16,12 +16,19 @@
 * The wrappers on CPU tensors run their plain versions, within 1e-6 of a
   float64 run.
 * The kernels' own source, compiled with g++ through ``tests/cuda_emu``
-  (``conv_grad_harness.cpp``: each CUDA thread a coroutine, mma.sync,
-  cvt.rna.tf32 and cp.async by the PTX ISA), against a float64 reference at
-  the card's 1e-5 gate: ragged channel tiles, a pixel tail in an image's
-  last 128-pixel chunk, widths that are and are not a multiple of 4 (16-
-  and 4-byte copies), several split counts for CWg; and two runs, the
-  second with the grid's blocks in reverse order, bit-equal.
+  (``conv_grad_harness.cpp``: each CUDA thread a coroutine; wgmma .tf32
+  with A from registers, TMA's float32 maps, mbarriers and named barriers
+  by ``hopper_emu.h``; mma.sync, cvt.rna.tf32 and cp.async by
+  ``mma_emu.h``), against a float64 reference at the card's 1e-5 gate. As
+  shipped: the mma.sync kernels at the image convs, the heads, ragged 11x13
+  and 5x7 shapes (H W % 4 != 0) and the small 64- to 96-channel cases, the
+  wgmma kernels at boxes of 64 channels, two N tiles and a one-tile M;
+  with CWg's rule cut to H W % 4 == 0 and Cout >= 32, the wgmma CWg at
+  boxes of 8, 16 and 32 channels, N tiles of 32 to 96, ragged M tiles and
+  W = 34 (chunks across rows, taps shifted below 0 and past H W); the CXg
+  cases on wgmma at N tiles of 8 to 128, Cout 2. Each case runs twice, the second time
+  with the grid's blocks in reverse order and another SM count (another
+  persistent walk), bit-equal. CWg's rule itself at the presets' shapes.
 
 ``tests/test_torch_conv_grad_cuda.py`` checks the kernels on a card.
 """
@@ -48,6 +55,7 @@ from pixel_embedded_affinity_torch.models.common import (
 from pixel_embedded_affinity_torch.ops.conv_grad_cuda import (
     conv_dgrad, conv_dgrad_plain, conv_wgrad, conv_wgrad_plain)
 
+from test_torch_conv_i8_emulation import HEADER, _emulated_wgmma_header
 from test_torch_kernel_emulation import EMU, RUNTIME, _emulated_header, _emulated_kernel
 
 GATE = 1e-5  # the card's float32 gate, of the largest gradient
@@ -165,17 +173,27 @@ def test_wrappers_run_their_plain_versions_on_the_cpu(k):
         conv_dgrad(tdy[:, :3], tw)
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+def _harness(out, rule_cut=False):
+    """conv_grad.cu and its headers through the emulator into ``out``; with
+    ``rule_cut``, CWg's shape rule cut to its TMA condition (H W % 4 == 0)
+    and its N tiles (Cout >= 32), so every such shape runs the wgmma
+    kernel."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    out = tmp_path_factory.mktemp("conv_grad_emu")
     with open(os.path.join(cuda_build.CSRC, "mma_tc.cuh")) as f:
         (out / "mma_tc.cuh").write_text(_emulated_header(f.read()).replace(*RUNTIME))
+    with open(os.path.join(cuda_build.CSRC, HEADER)) as f:
+        (out / HEADER).write_text(_emulated_wgmma_header(f.read()))
     with open(os.path.join(cuda_build.CSRC, "conv_grad.cu")) as f:
         text = f.read()
     assert RUNTIME[0] in text
+    if rule_cut:
+        rule = re.search(r"bool wgrad_wgmma_shape\(int Cin, int Cout, int H, int W, int ks\) \{\n"
+                         r".*?\n\}\n", text, re.S)
+        assert rule
+        text = text.replace(rule.group(0), "bool wgrad_wgmma_shape(int, int Cout, int H, int W, int) "
+                            "{\n    return wgmma_shape(H, W) && Cout >= 32;\n}\n")
     (out / "conv_grad.cpp").write_text(_emulated_kernel(text.replace(*RUNTIME)))
     exe = out / "harness"
     cmd = [gxx, "-std=c++20", "-O2", "-w", "-I", str(out), "-I", EMU, "-o", str(exe),
@@ -185,35 +203,96 @@ def harness(tmp_path_factory):
     return str(exe)
 
 
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    return _harness(tmp_path_factory.mktemp("conv_grad_emu"))
+
+
+@pytest.fixture(scope="module")
+def harness_wgmma(tmp_path_factory):
+    return _harness(tmp_path_factory.mktemp("conv_grad_emu_wgmma"), rule_cut=True)
+
+
 def _run(exe, *args):
     proc = subprocess.run([exe, *map(str, args)], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    m = re.search(r"rel_err (\S+) bit_equal (\d) splits (\d+)", proc.stdout)
-    return float(m.group(1)), m.group(2) == "1", int(m.group(3))
+    m = re.search(r"rel_err (\S+) bit_equal (\d) splits (\d+) path (\S+)", proc.stdout)
+    return float(m.group(1)), m.group(2) == "1", int(m.group(3)), m.group(4)
 
 
 @pytest.mark.parametrize("b,cin,cout,h,w,k,splits", [
-    (2, 3, 16, 9, 20, 3, 1),     # the RGB input conv: 3 of 8 channels live; a pixel tail
+    (2, 3, 16, 9, 20, 3, 1),     # mma.sync (Cout 16): the RGB input conv; a pixel tail
     (2, 3, 16, 9, 20, 3, 3),     # ... three splits of the 4 chunks
     (2, 1, 16, 16, 16, 3, 0),    # the BBBC input conv, the kernel's own split count
     (2, 16, 40, 11, 13, 3, 0),   # W % 4 != 0 (4-byte copies); 40 = 32 + 8 output channels
     (1, 12, 32, 8, 24, 3, 2),    # 12 = 8 + 4 input channels
     (2, 40, 2, 10, 28, 1, 5),    # a 1x1 head: 2 of 16 rows live, 40 = 32 + 8 channels
     (1, 96, 16, 12, 12, 1, 0),   # 1x1, three channel tiles
+    (1, 64, 128, 8, 16, 3, 2),   # wgmma: boxes of 64 channels, N = 128, a one-box last M tile
+    (2, 32, 96, 6, 10, 3, 0),    # mma.sync (too little work for wgmma): Cout 96
+    (1, 40, 64, 6, 14, 3, 0),    # mma.sync: 40 = 32 + 8 input channels, Cout 64
+    (1, 48, 70, 4, 8, 3, 0),     # mma.sync: Cout 70 = 2 x 32 + 6
+    (1, 256, 200, 4, 12, 1, 2),  # wgmma: 1x1, two N tiles of 128 (200 = 128 + 72)
+    (2, 32, 64, 6, 34, 3, 0),    # mma.sync: W = 34
+    (2, 16, 40, 5, 7, 1, 2),     # mma.sync (H W % 4 != 0), 1x1
+    (1, 128, 160, 4, 8, 1, 0),   # wgmma: 1x1, Cin k^2 = 128 (one M tile), two N tiles
 ])
 def test_wgrad_kernel_emulated(harness, b, cin, cout, h, w, k, splits):
-    err, same, used = _run(harness, "wgrad", b, cin, cout, h, w, k, splits)
+    err, same, used, _ = _run(harness, "wgrad", b, cin, cout, h, w, k, splits)
     assert err <= GATE and same
     assert used == splits or splits == 0
 
 
+@pytest.mark.parametrize("b,cin,cout,h,w,k,splits", [
+    (2, 32, 96, 6, 10, 3, 0),    # boxes of 32 channels, N = 96
+    (1, 40, 64, 6, 14, 3, 0),    # boxes of 8, 45 boxes in 3 M tiles, N = 64
+    (1, 48, 70, 4, 8, 3, 0),     # boxes of 16, Cout 70 in an N tile of 96
+    (2, 32, 64, 6, 34, 3, 0),    # W = 34: chunks across rows, taps below 0 and past H W
+    (1, 96, 32, 8, 16, 3, 2),    # N = 32 (96 -> 32, the one 32-channel conv on wgmma)
+    (2, 12, 32, 8, 20, 3, 0),    # N = 32, 12 input channels in boxes of 16
+])
+def test_wgrad_wgmma_kernel_emulated(harness_wgmma, b, cin, cout, h, w, k, splits):
+    """The wgmma CWg at shapes below the shipped rule's work thresholds
+    (the rule cut to H W % 4 == 0 and Cout >= 32), N tiles of 32 to 96."""
+    err, same, used, path = _run(harness_wgmma, "wgrad", b, cin, cout, h, w, k, splits)
+    assert path == "wgmma" and err <= GATE and same
+    assert used == splits or splits == 0
+
+
+@pytest.mark.parametrize("cin,cout,h,w,k,path", [
+    (3, 16, 544, 544, 3, "mma.sync"),     # the image conv
+    (32, 32, 544, 544, 3, "mma.sync"),
+    (96, 32, 544, 544, 3, "wgmma"),       # up4_emb: Cin k^2 H W >= 2^27
+    (96, 32, 256, 256, 3, "mma.sync"),
+    (64, 64, 136, 136, 3, "mma.sync"),    # Cin k^2 H W < 2^24
+    (64, 64, 272, 272, 3, "wgmma"),
+    (192, 64, 128, 128, 3, "wgmma"),
+    (256, 64, 136, 136, 1, "mma.sync"),
+    (64, 256, 136, 136, 1, "mma.sync"),   # Cin k^2 = 64
+    (128, 512, 68, 68, 1, "wgmma"),       # Cin k^2 = 128, Cout >= 128
+    (2560, 256, 68, 68, 3, "wgmma"),
+    (64, 16, 544, 544, 1, "mma.sync"),    # a head
+    (256, 256, 11, 13, 3, "mma.sync"),    # H W % 4 != 0: no TMA map
+])
+def test_wgrad_rule_emulated(harness, cin, cout, h, w, k, path):
+    """CWg's shape rule (``conv_wgrad_wgmma``) at the presets' shapes, as
+    ``conv_grad.cu``'s comment states it."""
+    args = [harness, "rule", *map(str, (2, cin, cout, h, w, k))]
+    proc = subprocess.run(args, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and proc.stdout.split() == ["path", path]
+
+
 @pytest.mark.parametrize("b,cin,cout,h,w,k", [
-    (2, 16, 16, 9, 20, 3),       # 16 input channels a block; a pixel tail
-    (2, 32, 37, 11, 13, 3),      # W % 4 != 0; 37 = 4 x 8 + 5 output channels
-    (1, 96, 32, 8, 24, 3),       # 96 = 64 + 32 input channels
+    (2, 16, 16, 9, 20, 3),       # N = 16; a pixel tail in the last 128-pixel tile
+    (2, 32, 37, 11, 13, 3),      # mma.sync (H W = 143); 37 = 4 x 8 + 5 output channels
+    (1, 96, 32, 8, 24, 3),       # N = 96
     (2, 64, 16, 10, 28, 1),      # 1x1: one K chunk of 32, 16 live
-    (2, 20, 70, 7, 9, 1),        # 1x1: H W = 63, 70 = 2 x 32 + 6 output channels
+    (2, 20, 70, 7, 9, 1),        # mma.sync, 1x1: H W = 63, 70 = 2 x 32 + 6 output channels
+    (1, 128, 64, 6, 22, 3),      # wgmma: N = 128, two 32-channel K chunks x 9 taps
+    (2, 200, 40, 4, 10, 1),      # wgmma: 1x1, two N tiles of 128, Cout 40 padded to 64
+    (1, 8, 16, 6, 34, 3),        # wgmma: N = 8, W = 34
+    (2, 32, 2, 6, 20, 3),        # wgmma: Cout 2 (30 zero K columns)
 ])
 def test_dgrad_kernel_emulated(harness, b, cin, cout, h, w, k):
-    err, same, _ = _run(harness, "dgrad", b, cin, cout, h, w, k)
+    err, same, _, _ = _run(harness, "dgrad", b, cin, cout, h, w, k)
     assert err <= GATE and same

@@ -42,7 +42,9 @@ def _rel(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,cin,cout,h,w,k", [
     (2, 3, 16, 37, 41, 3), (2, 16, 40, 34, 34, 3), (1, 96, 32, 68, 68, 3),
-    (2, 32, 2, 30, 50, 1), (2, 256, 16, 34, 34, 1)])
+    (2, 32, 2, 30, 50, 1), (2, 256, 16, 34, 34, 1), (2, 3, 16, 40, 44, 3),
+    (2, 192, 64, 68, 68, 3), (2, 64, 64, 136, 136, 3), (2, 512, 128, 34, 34, 3),
+    (2, 512, 2048, 34, 34, 1), (2, 2048, 512, 34, 34, 1), (1, 37, 70, 20, 28, 3)])
 def test_kernels_match_float64_and_repeat(b, cin, cout, h, w, k):
     _needs_a_card()
     g = torch.Generator(device="cuda").manual_seed(0)

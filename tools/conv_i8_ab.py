@@ -45,14 +45,14 @@ import chip_smoke as smoke  # noqa: E402  (the repo's root, for its inputs and t
 FLUSH = 64 << 20  # beyond the 50 MB L2
 
 
-def build(name: str, source: str) -> tuple[str, str]:
+def build(name: str, source: str, stem: str = "conv_i8") -> tuple[str, str]:
     """nvcc ``source`` (its own directory on the include path) -> (library,
-    ptxas log) under build/tools/."""
+    ptxas log) under build/tools/ as lib<stem>_<name>.so."""
     from pixel_embedded_affinity_torch import cuda_build
 
     out = os.path.join(REPO, "build", "tools")
     os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, f"libconv_i8_{name}.so")
+    so = os.path.join(out, f"lib{stem}_{name}.so")
     cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
            os.path.dirname(os.path.abspath(source)), "-o", so, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)

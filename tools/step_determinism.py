@@ -4,6 +4,7 @@ does the deterministic backward of the 2D convs cost?
 
     python3 tools/step_determinism.py [--steps 8] [--presets cvppp,bbbc039v1,ac3ac4]
                                       [--dtypes float32,bfloat16] [--steps-per-call 1,4]
+                                      [--before DIR] [--turns 1]
 
 (``--presets`` also takes cvppp_resnet50 and cvppp_resnet101, on cvppp's
 data.)
@@ -23,7 +24,12 @@ differ, one step twice from the same state names the first module output
 or parameter gradient that differs (``chip_smoke.first_difference``).
 Then steady steps of each form by CUDA events, eager and as a CUDA graph
 (``GraphedStep``), in turns parent, shipped, shipped, parent (the sampler's
-draw and the EMA view included, as phase 26 times them), and the host's
+draw and the EMA view included, as phase 26 times them; with ``--before
+DIR``, the ``conv_grad.cu`` in DIR, e.g. an earlier commit's
+``pixel_embedded_affinity_torch/csrc`` unpacked by ``git archive``, takes
+the shipped kernels' place in a third form, "before", timed in turns
+parent, before, shipped, shipped, before, parent; ``--turns N`` runs
+the turns N times over), and the host's
 time to queue an eager step's forward and its backward beside their device
 time, in the same turns three times over (what the Python backward of the
 convs adds to a host-bound step). At
@@ -32,7 +38,8 @@ convs adds to a host-bound step). At
 cuDNN's own deterministic algorithms cost), and one run under
 ``torch.use_deterministic_algorithms(True, warn_only=True)``, which names
 every operation on the path that PyTorch knows to be nondeterministic.
-Ends with the card's name and power limit. Exits 1 without a card.
+Ends with the
+card's name and power limit. Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -110,6 +117,17 @@ def compare(a: dict, b: dict) -> dict:
 
 
 _SHIPPED = None  # Conv2d's shipped forward, kept while the parent's is in place
+
+
+_BEFORE = None  # the --before build (conv_grad_ab.Lib)
+
+
+def use_before(on: bool):
+    """Put the --before build (on) or the package's (off) behind the
+    wrappers of ``ops/conv_grad_cuda.py``."""
+    from pixel_embedded_affinity_torch.ops import conv_grad_cuda as cg
+
+    cg.use_library(_BEFORE if on else None)
 
 
 def as_parent(on: bool):
@@ -237,7 +255,19 @@ def main() -> int:
     ap.add_argument("--presets", default="cvppp,bbbc039v1,ac3ac4")
     ap.add_argument("--dtypes", default="float32,bfloat16")
     ap.add_argument("--steps-per-call", default="1,4")
+    ap.add_argument("--before", help="a directory holding another conv_grad.cu build")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="times over to run the CUDA-event turns")
     args = ap.parse_args()
+    global _BEFORE
+    if args.before:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from conv_grad_ab import Lib
+        from conv_i8_ab import build
+
+        from pixel_embedded_affinity_torch.ops.conv_grad_cuda import SOURCE
+
+        _BEFORE = Lib(build("before", os.path.join(args.before, SOURCE), stem="conv_grad")[0])
     from pixel_embedded_affinity_torch.ops.conv_grad_cuda import conv_dgrad, conv_wgrad
 
     forms = ("parent", "shipped", "shipped", "parent")
@@ -263,18 +293,24 @@ def main() -> int:
                 if not row["shipped_repeat"]["bit_equal"]:
                     row["shipped_first_difference"] = where_it_differs(preset, dtype, data)
                 print(json.dumps(row))
+            turns = (("parent", "before", "shipped", "shipped", "before", "parent")
+                     if _BEFORE else forms) * args.turns
             for graphed in (False, True):
                 ms = {}
-                for form in forms:
+                for form in turns:
                     as_parent(form == "parent")
+                    use_before(form == "before")
                     ms.setdefault(form, []).append(event_ms(preset, dtype, data, graphed))
                 as_parent(False)
+                use_before(False)
                 p, s = np.mean(ms["parent"]), np.mean(ms["shipped"])
-                print(json.dumps({"preset": preset, "dtype": dtype,
-                                  "path": "graphed" if graphed else "eager",
-                                  "parent_event_ms": ms["parent"],
-                                  "shipped_event_ms": ms["shipped"],
-                                  "shipped_over_parent": s / p}))
+                row = {"preset": preset, "dtype": dtype, "path": "graphed" if graphed else "eager",
+                       "parent_event_ms": ms["parent"], "shipped_event_ms": ms["shipped"],
+                       "shipped_over_parent": s / p}
+                if _BEFORE:
+                    row.update(before_event_ms=ms["before"],
+                               shipped_over_before=s / np.mean(ms["before"]))
+                print(json.dumps(row))
             host = {}
             for form in forms * 3:
                 as_parent(form == "parent")
