@@ -163,8 +163,8 @@ Phases, each of which exits nonzero when it fails:
      bbbc039v1 and ac3ac4 presets trained 8 steps each in bfloat16 from the
      device-resident samplers (as phases 6, 10 and 11), with validation
      and a float32 checkpoint, every kernel's launches read around each
-     run and held to its count, one step's device time by group and idle
-     share, the bfloat16 kernels it ran, the 3D step's peak memory, and the
+     run and held to its count, one step's device time by group, the
+     bfloat16 kernels it ran, the 3D step's peak memory, and the
      first step's loss against float32's on the same weights and batch
      (2e-2); CVPPP serving in bfloat16 at B=1 and B=4 (ms/img; affinities
      within max 0.05 and mean 0.005 of float32's, the JAX package's bar)
@@ -859,9 +859,9 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
                      unit: str = "img", ours: tuple = (), split: tuple = (),
                      require: tuple = (), in_order: tuple = ()):
     """Device time of fn() by kernel (torch.profiler), per image (or per
-    ``unit``, ``images`` of them per call), and the device's idle share of
-    the host-clock wall time of the same calls; also the rows whose kernel
-    name holds one of ``ours``, and with ``split`` ((group, name parts),
+    ``unit``, ``images`` of them per call), beside the host-clock wall time
+    of the same calls; also the rows whose kernel name holds one of
+    ``ours``, and with ``split`` ((group, name parts),
     ...) the time by group: a kernel goes to the first group one of whose
     parts its lower-cased name holds, else to "other". Fails unless each
     kernel named in ``require`` has device time (the profiler can drop
@@ -897,9 +897,8 @@ def device_breakdown(fn, images: int, iters: int = 5, label: str | None = None,
         print(f"[profile] {label}: the profiler recorded no device time")
         return rows
     per_img_wall = wall_ms / iters / images
-    print(f"[profile] {label}: device busy {busy:.4f} ms/{unit} of "
-          f"{per_img_wall:.4f} ms/{unit} wall (idle share "
-          f"{max(0.0, 1 - busy / per_img_wall):.3f}), {sum(r[1] for r in rows) / images:.1f} "
+    print(f"[profile] {label}: device time {busy:.4f} ms/{unit} in "
+          f"{per_img_wall:.4f} ms/{unit} wall, {sum(r[1] for r in rows) / images:.1f} "
           f"kernels a {unit}; top kernels:")
     for ms, calls, name in rows[:12]:
         print(f"[profile]   {ms:.4f} ms/{unit}  {ms / busy:6.1%}  x{calls}  {name[:110]}")
@@ -3734,8 +3733,8 @@ def _train_bf16_one(preset: str, data, valid_batches: int = 0) -> dict:
     """train() on the full-width ``preset`` in bfloat16, TRAIN_STEPS steps
     from the device-resident sampler over ``data``'s arrays, validation and a
     checkpoint, every kernel's count set to 0 just before and read just
-    after and held to its count; one step's device time by group, its idle
-    share, the bf16 instantiations it ran (and 3D: its peak memory); the
+    after and held to its count; one step's device time by group, the
+    bf16 instantiations it ran (and 3D: its peak memory); the
     first step's loss against float32's on the same weights and batch.
     Returns the launches."""
     import torch

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .mesh import all_reduce_sum_, split_positions
 
 
@@ -98,36 +99,41 @@ class TiledInference3D:
             device=None) -> np.ndarray:
         """(D, H, W) volume -> (n_channels, D, H, W) float32 canvas, on
         ``device`` (the mesh's when there is one)."""
-        mesh = self.mesh
-        dev = mesh.device if mesh is not None else resolve_device(device)
-        pz, py, px = self.padding
-        cz, cy, cx = self.crop_size
-        vol = torch.as_tensor(np.asarray(volume, np.float32)).to(dev)
-        # np.pad(mode="reflect") semantics: mirror without the edge voxel
-        volp = F.pad(vol[None, None], (px, px, py, py, pz, pz), mode="reflect")[0, 0]
-        pshape = tuple(volp.shape)
-        positions = tile_grid(pshape, self.crop_size, self.stride)
-        weight = torch.from_numpy(self.weight).to(dev)
-        canvas = torch.zeros((n_channels,) + pshape, dtype=torch.float32, device=dev)
-        wmap = torch.zeros(pshape, dtype=torch.float32, device=dev)
-        bs = self.batch_size
-        for i0 in range(0, len(positions), bs):
-            chunk = positions[i0:i0 + bs]
-            chunk = chunk[split_positions(len(chunk), mesh)]
-            if not chunk:  # this rank's part of a ragged last batch
-                continue
-            tiles = torch.stack([volp[z:z + cz, y:y + cy, x:x + cx]
-                                 for z, y, x in chunk])[:, None]
-            affs = predict_fn(tiles)
-            for a, (z, y, x) in zip(affs, chunk):
-                canvas[:, z:z + cz, y:y + cy, x:x + cx] += a * weight
-                wmap[z:z + cz, y:y + cy, x:x + cx] += weight
-        inner = (slice(pz, pshape[0] - pz), slice(py, pshape[1] - py),
-                 slice(px, pshape[2] - px))
-        if mesh is not None and mesh.size > 1:
-            # the interior of canvas and weight map, summed over the ranks at once
-            both = all_reduce_sum_(mesh, torch.cat([canvas[(slice(None),) + inner],
-                                                    wmap[inner][None]]))
-            return (both[:-1] / both[-1].clamp_(min=1e-12)).cpu().numpy()
-        canvas /= wmap.clamp_(min=1e-12)
-        return canvas[(slice(None),) + inner].cpu().numpy()
+        with span("pea.tiled.run"):
+            mesh = self.mesh
+            dev = mesh.device if mesh is not None else resolve_device(device)
+            pz, py, px = self.padding
+            cz, cy, cx = self.crop_size
+            vol = torch.as_tensor(np.asarray(volume, np.float32)).to(dev)
+            # np.pad(mode="reflect") semantics: mirror without the edge voxel
+            volp = F.pad(vol[None, None], (px, px, py, py, pz, pz), mode="reflect")[0, 0]
+            pshape = tuple(volp.shape)
+            positions = tile_grid(pshape, self.crop_size, self.stride)
+            weight = torch.from_numpy(self.weight).to(dev)
+            canvas = torch.zeros((n_channels,) + pshape, dtype=torch.float32, device=dev)
+            wmap = torch.zeros(pshape, dtype=torch.float32, device=dev)
+            bs = self.batch_size
+            for i0 in range(0, len(positions), bs):
+                chunk = positions[i0:i0 + bs]
+                chunk = chunk[split_positions(len(chunk), mesh)]
+                if not chunk:  # this rank's part of a ragged last batch
+                    continue
+                with span("pea.tiled.cut"):
+                    tiles = torch.stack([volp[z:z + cz, y:y + cy, x:x + cx]
+                                         for z, y, x in chunk])[:, None]
+                with span("pea.tiled.predict"):
+                    affs = predict_fn(tiles)
+                with span("pea.tiled.stitch"):
+                    for a, (z, y, x) in zip(affs, chunk):
+                        canvas[:, z:z + cz, y:y + cy, x:x + cx] += a * weight
+                        wmap[z:z + cz, y:y + cy, x:x + cx] += weight
+            inner = (slice(pz, pshape[0] - pz), slice(py, pshape[1] - py),
+                     slice(px, pshape[2] - px))
+            with span("pea.tiled.fetch"):
+                if mesh is not None and mesh.size > 1:
+                    # the interior of canvas and weight map, summed over the ranks at once
+                    both = all_reduce_sum_(mesh, torch.cat([canvas[(slice(None),) + inner],
+                                                            wmap[inner][None]]))
+                    return (both[:-1] / both[-1].clamp_(min=1e-12)).cpu().numpy()
+                canvas /= wmap.clamp_(min=1e-12)
+                return canvas[(slice(None),) + inner].cpu().numpy()

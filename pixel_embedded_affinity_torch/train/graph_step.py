@@ -59,6 +59,7 @@ import torch
 
 from ..ops.launch_count import launch_counts
 from ..parallel.mesh import check_capturable, shard_batch
+from ..utils.profiling import span
 
 
 class GraphedStep:
@@ -121,25 +122,27 @@ class GraphedStep:
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, batch: dict):
-        if self.step.device_ema:
-            batch = self.step.ema_batch(batch, self.state.step)
-        opt = self.state.optimizer
-        opt.load_device_scalars()
-        if self.out is None:  # the run's first step
-            self.out = self._warm_up(batch)
+        with span("pea.step"):
+            if self.step.device_ema:
+                with span("pea.ema_view"):
+                    batch = self.step.ema_batch(batch, self.state.step)
+            opt = self.state.optimizer
+            opt.load_device_scalars()
+            if self.out is None:  # the run's first step
+                self.out = self._warm_up(batch)
+                self.state.step += 1
+                return self.out
+            if self.static is None:
+                self._capture(batch)
+            for k, v in self.static.items():
+                if torch.is_tensor(v):
+                    v.copy_(batch[k])
+            if self.cuda_graph is None:
+                self.out = self._body(self.static)
+            else:
+                self.cuda_graph.replay()
+                self.replays += 1
+                opt.advance_host_counts()
             self.state.step += 1
-            return self.out
-        if self.static is None:
-            self._capture(batch)
-        for k, v in self.static.items():
-            if torch.is_tensor(v):
-                v.copy_(batch[k])
-        if self.cuda_graph is None:
-            self.out = self._body(self.static)
-        else:
-            self.cuda_graph.replay()
-            self.replays += 1
-            opt.advance_host_counts()
-        self.state.step += 1
-        pred, metrics = self.out
-        return pred, {k: v.clone() for k, v in metrics.items()}
+            pred, metrics = self.out
+            return pred, {k: v.clone() for k, v in metrics.items()}

@@ -86,6 +86,7 @@ from ..ops.targets import gen_affs, seg_to_aff_3d_12ch, weight_binary_ratio
 from ..parallel.mesh import all_gather_batch, barrier, broadcast_module_
 from ..postproc import merge_func, remove_small_object, seg_mutex
 from ..utils.guards import LossWatchdog
+from ..utils.profiling import span
 from ..utils.show import val_show
 from .checkpoint import latest_checkpoint, load_checkpoint, restore, save_checkpoint
 from .graph_step import GraphedStep
@@ -221,7 +222,8 @@ def resident_sampler(cfg: Config, arrays, device):
                                           padding=d.padding_3d)
 
     def next_batch(step: int) -> dict:
-        return draw(dd.sampler_generator(cfg.train.random_seed, step))
+        with span("pea.sample"):
+            return draw(dd.sampler_generator(cfg.train.random_seed, step))
 
     return next_batch
 
@@ -486,8 +488,9 @@ def train(cfg: Config, max_iters: int | None = None, data_override=None,
         batches = device_prefetch(iter(provider.next, None), device=dev)
 
         def next_batch(step: int) -> dict:
-            batch = next(batches)
-            return batch if mesh is None else all_gather_batch(mesh, batch)
+            with span("pea.sample"):
+                batch = next(batches)
+                return batch if mesh is None else all_gather_batch(mesh, batch)
     logger = ScalarLogger(log_dir or os.path.join(save_path, "log")) if writer else None
     watchdog = LossWatchdog(save_dir=save_path)
     history: list = []

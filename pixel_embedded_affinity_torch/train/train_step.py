@@ -68,6 +68,7 @@ from ..ops.losses_extra import discriminative_loss
 from ..ops.offsets import SHIFTS_3D
 from ..ops.targets import build_targets_2d, build_targets_3d
 from ..parallel.mesh import all_reduce_mean_, shard_batch
+from ..utils.profiling import span
 
 
 @dataclass
@@ -122,12 +123,14 @@ class _DataParallel:
             all_reduce_mean_(self.mesh, grads + list(metrics.values()))
 
     def __call__(self, state: TrainState, batch: dict):
-        if self.device_ema:
-            batch = self.ema_batch(batch, state.step)
-        pred, metrics = self.grads(state.model, shard_batch(batch, self.mesh))
-        state.optimizer.step()
-        state.step += 1
-        return pred, metrics
+        with span("pea.step"):
+            if self.device_ema:
+                with span("pea.ema_view"):
+                    batch = self.ema_batch(batch, state.step)
+            pred, metrics = self.grads(state.model, shard_batch(batch, self.mesh))
+            state.optimizer.step()
+            state.step += 1
+            return pred, metrics
 
     def _train_mode(self, model):
         if self.mesh is not None:

@@ -73,6 +73,9 @@ NEVER = {
     "convert_unet_pni_deep": "train/convert_torch.py, as convert_resunet2d_deep",
     "convert_unet3d_mala_deep": "train/convert_torch.py, as convert_resunet2d_deep",
     "to_jax_variables": "train/convert_torch.py, as convert_resunet2d_deep",
+    "ThroughputMeter": "a host-clock rate with no synchronise, which times the enqueue; the "
+                       "port's rates come from the benchmark, and its layers are timed by "
+                       "the spans of utils/profiling.py (span)",
 }
 
 # JAX modules whose unmatched names need no port: Pallas modules whose
